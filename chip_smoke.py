@@ -8,17 +8,32 @@ standard library and oneprot_tpu_torch only. Phases, each announced with
 the elapsed seconds:
 
 1. device: card name, power limit, torch and CUDA versions;
-2. build: every CUDA kernel of the serving path, from the checkout's sources;
+2. build: every CUDA kernel of the serving and training paths, from the
+   checkout's sources, one nvcc call per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the hub's shapes, with its time, the plain version's, a library call's
-   where one computes the same function, and the card's lower bound;
+   the shapes its path gives it (the flash-MHA forward and backward at the
+   35M tower's and the hub's packed shapes), with its time, the plain
+   version's, a library call's where one computes the same function, and
+   the card's lower bound;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
    with its defaults (bf16, on the card); the launch counters, set to 0
    before each hub and read after it, show its kernels ran;
 5. parity: the same weights at 2 layers on the card (bf16, kernels) against
-   the CPU (f32, plain versions).
+   the CPU (f32, plain versions);
+6. training: bench.py's model at full width (frozen ESM2-650M hub with its
+   mlp head, trainable ESM2-35M struct-token tower, CLIP + 0.01 L1, clipped
+   Adam at SMOKE_LR), built by `create_sequence_encoder`,
+   `create_struct_token_encoder` and `OneProtModule`, takes 6
+   `train_step_packed` steps on one packed batch (16 rows of 1024 tokens,
+   16 slots), then 6
+   `train_step_packed_cached` steps on the hub's pooled features; the
+   counters, set to 0 before each path, show every attention ran through
+   the kernels (and no plain version ran), and the loss falls;
+7. training parity: the same weights at 2 hub + 2 tower layers, one packed
+   step on the card (bf16, kernels) against the CPU (f32, plain versions),
+   and cached == uncached on the card.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -36,14 +51,19 @@ import time
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.data import packing
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
 from oneprot_tpu_torch.models import esm2
 from oneprot_tpu_torch.models.encoders import (
     OneProtModel,
     SequenceEncoder,
+    StructTokenEncoder,
     create_sequence_encoder,
+    create_struct_token_encoder,
 )
 from oneprot_tpu_torch.serving import OneProtEmbedder
+from oneprot_tpu_torch.train.module import OneProtModule
+from oneprot_tpu_torch.train.optim import adam
 
 T0 = time.time()
 
@@ -56,8 +76,21 @@ FLASH_REL_TOL = 1.5e-2     # max |kernel - plain| / max |plain|, bf16
 SCALE_REL_TOL = 1e-5       # GELU->int8 row scales
 CODE_FLIP_SHARE = 1e-3     # GELU->int8 codes off by one, at most this share
 N_LAYERS = 33
+TOWER_LAYERS = 12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 BUCKETS = (256, 384, 512, 768, 1024)
+# the packed step of configs/experiment/train_packed.yaml: 16 rows of 1024
+# tokens (bench.py's 16384-token budget), 16 slots a row
+ROWS, ROW_LEN, SLOTS = 16, 1024, 16
+STEPS = 6
+PARITY_ROWS = 4
+# Adam's rate here: at bench.py's 1e-3 the loss of random weights on one
+# repeated batch rises above its start within a few steps, in the JAX
+# package's step as in the port's (tests/test_torch_train_steps.py holds the
+# two step for step at the tower's full width; scripts/profile_torch_train.py
+# shows it at full width on the card); at 1e-4 it falls step after step. The
+# rate changes no work done in a step.
+SMOKE_LR = 1e-4
 
 
 def phase(name: str) -> None:
@@ -90,14 +123,37 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
+             "flash_mha_bwd_dq": flash_mha.flash_mha_bwd_dq_cuda,
+             "flash_mha_bwd_dkv": flash_mha.flash_mha_bwd_dkv_cuda,
+             "gelu_quant": gelu_quant.gelu_quant_cuda}
+# the plain versions, counted by the wrappers `count_plain_calls` installs
+PLAINS = ((flash_mha, "mha_attention_plain"),
+          (flash_mha, "mha_attention_bwd_plain"),
+          (gelu_quant, "gelu_quant_reference"))
+PLAIN_CALLS = {name: 0 for _, name in PLAINS}
+
+
+def count_plain_calls() -> None:
+    """Count every call of a plain version from here on, so a run can show
+    that none stood in for a kernel on the card."""
+    for mod, name in PLAINS:
+        def counted(*args, _fn=getattr(mod, name), _name=name, **kw):
+            PLAIN_CALLS[_name] += 1
+            return _fn(*args, **kw)
+
+        setattr(mod, name, counted)
+
+
 def reset_launches() -> None:
-    flash_mha.flash_mha_cuda.launches = 0
-    gelu_quant.gelu_quant_cuda.launches = 0
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
+    for name in PLAIN_CALLS:
+        PLAIN_CALLS[name] = 0
 
 
 def read_launches() -> dict:
-    return {"flash_mha_fwd": flash_mha.flash_mha_cuda.launches,
-            "gelu_quant": gelu_quant.gelu_quant_cuda.launches}
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -105,7 +161,7 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_inputs(B, L, H, D, gen, segments=False):
+def attention_inputs(B, L, H, D, gen, segments=False, n_seg=4):
     dev = "cuda"
     q, k, v = (torch.randn(B, L, H * D, device=dev, generator=gen,
                            dtype=torch.float32).to(torch.bfloat16)
@@ -115,8 +171,8 @@ def attention_inputs(B, L, H, D, gen, segments=False):
     bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
     cos, sin = esm2.rotary_cos_sin(L, D, device=dev)
     seg = None
-    if segments:  # 4 contiguous proteins per row, padding as its own id
-        seg = (torch.arange(L, device=dev)[None, :] * 4 // L).repeat(B, 1)
+    if segments:  # n_seg contiguous proteins per row, padding as its own id
+        seg = (torch.arange(L, device=dev)[None, :] * n_seg // L).repeat(B, 1)
         seg = torch.where(valid, seg, -1).to(torch.int32)
     return q, k, v, bias, cos, sin, seg, valid
 
@@ -204,6 +260,355 @@ def check_gelu_quant(gen) -> dict:
             "library_ms": None, "shape": f"M={M} N={N} bf16"}
 
 
+def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
+    """The forward kernel's out and lse at a training shape against
+    mha_attention_plain on the same inputs; folds the errors into the
+    forward kernel's row."""
+    ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, H, **side)
+    torch.cuda.synchronize()
+    require(torch.isfinite(out.float()).all().item(), f"flash {what}: non-finite")
+    diff = (out.float() - ref.float()).abs().max().item()
+    rel = diff / max(ref.float().abs().max().item(), 1e-6)
+    lse_err = (lse - ref_lse).abs()[valid[:, None, :].expand_as(lse)].max().item()
+    print(f"  flash-MHA {what}: max rel err {rel:.3e}, max abs err {diff:.3e}, "
+          f"lse max abs err {lse_err:.3e} (real rows)", flush=True)
+    require(rel <= FLASH_REL_TOL, f"flash {what}: rel err {rel} > {FLASH_REL_TOL}")
+    require(lse_err <= 5e-2, f"flash {what}: lse err {lse_err}")
+    fwd_row["max_rel_err"] = max(fwd_row["max_rel_err"], rel)
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], diff)
+    fwd_row["lse_max_abs_err"] = max(fwd_row["lse_max_abs_err"], lse_err)
+
+
+def check_flash_bwd(gen, fwd_row: dict) -> list:
+    """dq and dk/dv kernels against the plain backward on the same q, k, v,
+    out, lse and upstream gradient (zero on padding rows, as a loss over
+    pooled segments gives it): at the 35M tower's packed shape (16 rows of
+    1024, 20 heads of 24, rotary, padding bias, 16 proteins a row), at the
+    hub's packed shape (heads of 64) and at L=512 with 4 proteins a row.
+    The forward kernel's out and lse at each of these shapes are first held
+    against the plain forward (`check_flash_packed`). Timed at the tower's
+    shape."""
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_abs = dict(worst)
+    H = 20
+    cases = [(ROWS, ROW_LEN, 24, SLOTS), (ROWS, ROW_LEN, 64, SLOTS),
+             (16, 512, 64, 4)]
+    for B, L, D, n_seg in cases:
+        q, k, v, bias, cos, sin, seg, valid = attention_inputs(
+            B, L, H, D, gen, segments=True, n_seg=n_seg)
+        side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
+        dout = (torch.randn(B, L, H * D, device="cuda", generator=gen)
+                * valid[..., None]).to(torch.bfloat16)
+        out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
+        check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row,
+                           f"B={B} L={L} H={H} D={D} {n_seg} segments a row")
+        delta = flash_mha.attention_delta(dout, out, H)
+        dq = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, dout, lse, delta, H, **side)
+        dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q, k, v, dout, lse, delta, H,
+                                                  **side)
+        ref = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, H, **side)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            require(torch.isfinite(got.float()).all().item(),
+                    f"flash bwd {name} L={L} D={D}: non-finite")
+            diff = (got.float() - want.float()).abs().max().item()
+            rel = diff / max(want.float().abs().max().item(), 1e-6)
+            require(rel <= FLASH_REL_TOL,
+                    f"flash bwd {name} L={L} D={D}: rel err {rel} > {FLASH_REL_TOL}")
+            worst[name] = max(worst[name], rel)
+            worst_abs[name] = max(worst_abs[name], diff)
+            errs.append(f"{name} {rel:.3e}")
+        print(f"  flash-MHA backward B={B} L={L} H={H} D={D} {n_seg} segments a "
+              f"row: max rel err " + ", ".join(errs), flush=True)
+        if (B, L, D) == cases[0][:3]:
+            timed = (q, k, v, bias, cos, sin, seg, dout, out, lse, delta)
+        del q, k, v, out, lse, ref, dq, dk, dv
+
+    q, k, v, bias, cos, sin, seg, dout, out, lse, delta = timed
+    B, L, D = cases[0][:3]
+    side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
+    dq_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dq_cuda(
+        q, k, v, dout, lse, delta, H, **side))
+    dkv_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dkv_cuda(
+        q, k, v, dout, lse, delta, H, **side))
+    plain = time_ms(lambda: flash_mha.mha_attention_bwd_plain(
+        q, k, v, out, lse, dout, H, **side), iters=3)
+    # library: SDPA forward + backward minus its forward, on pre-rotated
+    # [B, H, L, D] inputs with the dense additive mask (bias + segments)
+    heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
+    qr = flash_mha.apply_rotary(heads(q).float(), cos, sin).to(torch.bfloat16)
+    kr = flash_mha.apply_rotary(heads(k).float(), cos, sin).to(torch.bfloat16)
+    leaves = [x.detach().contiguous().requires_grad_() for x in (qr, kr, heads(v))]
+    mask = flash_mha.packed_segment_bias(seg, bias, mask_value=-1e30).to(
+        torch.bfloat16)
+    do_h = heads(dout).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
+    fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, do_h))
+    library = fwd_bwd - fwd
+    rows = []
+    per_pair = B * H * L * L * D  # one [L, L] x D product, per head, per row
+    qkvo = B * L * H * D * 2      # one bf16 [B, L, H*D] tensor, in bytes
+    side_bytes = 2 * B * H * L * 4 + 2 * B * L * 4 + 2 * L * D * 2
+    for name, ms, gemms, outs, line in (
+            ("flash_mha_bwd_dq", dq_ms, 3, 1, 512),
+            ("flash_mha_bwd_dkv", dkv_ms, 4, 2, 619)):
+        b_ms, b_by = bound_ms(4 * qkvo + side_bytes + outs * qkvo,
+                              2.0 * gemms * per_pair, BF16_FLOPS)
+        print(f"  {name} timed at B={B} L={L} H={H} D={D}: kernel {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": f"oneprot_tpu/kernels/flash_mha.py:{line}",
+            "max_abs_err": max(worst_abs[g] for g in
+                               (("dq",) if gemms == 3 else ("dk", "dv"))),
+            "max_rel_err": {g: worst[g] for g in
+                            (("dq",) if gemms == 3 else ("dk", "dv"))},
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library,
+            "shape": f"B={B} L={L} H={H} D={D} bf16, {SLOTS} segments a row",
+            "note": "plain_ms: mha_attention_bwd_plain (dq, dk, dv together); "
+                    "library_ms: scaled_dot_product_attention forward+backward "
+                    "minus its forward, one figure for both passes"})
+    print(f"  flash-MHA backward: plain {plain:.4f} ms, SDPA backward "
+          f"{library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd {fwd:.4f})", flush=True)
+    return rows
+
+
+def make_packed_batch(rng):
+    """ROWS rows of ROW_LEN tokens, SLOTS slots a row, as bench.py packs
+    them: log-normal lengths around 290 residues clipped to [30, 1024],
+    proteins added while they fit (a protein that does not is skipped; 20
+    misses in a row end the batch). Hub tokens 4..23 and struct tokens
+    20..52 between <cls> and <eos>, the same proteins in the same slots."""
+    lengths, misses = [], 0
+    while misses < 20:
+        n = int(np.clip(rng.lognormal(np.log(290.0), 0.65), 30, ROW_LEN))
+        if len(packing.pack_lengths(lengths + [n], ROW_LEN, SLOTS)) > ROWS:
+            misses += 1
+            continue
+        lengths.append(n)
+        misses = 0
+    seq_tok, st_tok = [], []
+    for n in lengths:
+        t = rng.randint(4, 24, size=n).astype(np.int32)
+        t2 = rng.randint(20, 53, size=n).astype(np.int32)
+        t[0] = t2[0] = 0
+        t[-1] = t2[-1] = 2
+        seq_tok.append(t)
+        st_tok.append(t2)
+    ids, seg, valid, rows = packing.pack_token_rows(seq_tok, ROW_LEN, SLOTS)
+    st_ids = np.full_like(ids, 1)
+    st_seg = np.full_like(seg, -1)
+    for r, members in enumerate(rows):
+        off = 0
+        for slot, idx in enumerate(members):
+            n = len(st_tok[idx])
+            st_ids[r, off:off + n] = st_tok[idx]
+            st_seg[r, off:off + n] = slot
+            off += n
+    require(ids.shape == (ROWS, ROW_LEN), f"packed batch {ids.shape}")
+    return {"seq": {"ids": ids, "segment_ids": seg},
+            "mod": {"ids": st_ids, "segment_ids": st_seg}, "valid": valid}
+
+
+def build_module(hub: SequenceEncoder, tower: StructTokenEncoder) -> OneProtModule:
+    """bench.py's module: CLIP + L1 regularizer, Adam after global norm
+    clipping at 1.0 (at SMOKE_LR)."""
+    return OneProtModule({"sequence": hub, "struct_token": tower},
+                         optimizer=adam(SMOKE_LR), loss_fn="CLIP",
+                         use_l1_regularization=True).init()
+
+
+def run_steps(module: OneProtModule, batch: dict, seq_pooled=None):
+    """STEPS train steps on one batch (packed, or cached with the hub's
+    pooled features); returns (losses, seconds per step)."""
+    losses, secs = [], []
+    for _ in range(STEPS):
+        t = time.time()
+        if seq_pooled is None:
+            loss, _ = module.train_step_packed("struct_token", batch["seq"],
+                                               batch["mod"], batch["valid"])
+        else:
+            loss, _ = module.train_step_packed_cached(
+                "struct_token", seq_pooled, batch["mod"], batch["valid"])
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.time() - t)
+    require(bool(np.isfinite(losses).all()), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return losses, secs
+
+
+def training(hub: SequenceEncoder, rng, launches: dict):
+    """The packed and the cached step at full width; fills `launches`.
+    Returns (numbers, (the hub's and the tower's first 2 layers as they were
+    before the first step, the tower's config), the batch)."""
+    tower = create_struct_token_encoder()
+    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(1))
+    module = build_module(hub, tower)
+    initial = (first_layers(hub.state_dict(), 2),
+               first_layers(tower.state_dict(), 2), tower.config)
+    batch = make_packed_batch(rng)
+    pairs = int(batch["valid"].sum())
+    fill = float((batch["seq"]["segment_ids"] >= 0).mean())
+    print(f"  packed batch: {ROWS} rows x {ROW_LEN} tokens, {pairs} proteins, "
+          f"{100 * fill:.1f}% of tokens real", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = {"pairs_per_step": pairs, "token_fill": fill}
+    per_step = {"packed step": {"flash_mha_fwd": N_LAYERS + TOWER_LAYERS,
+                                "flash_mha_bwd_dq": TOWER_LAYERS,
+                                "flash_mha_bwd_dkv": TOWER_LAYERS,
+                                "gelu_quant": 0},
+                "cached step": {"flash_mha_fwd": TOWER_LAYERS,
+                                "flash_mha_bwd_dq": TOWER_LAYERS,
+                                "flash_mha_bwd_dkv": TOWER_LAYERS,
+                                "gelu_quant": 0}}
+    seq_pooled = None
+    for path in ("packed step", "cached step"):
+        if path == "cached step":
+            seq_pooled = module.encode_packed_pooled(
+                "sequence", batch["seq"]["ids"], batch["seq"]["segment_ids"],
+                SLOTS)
+            torch.cuda.synchronize()
+        reset_launches()
+        losses, secs = run_steps(module, batch, seq_pooled)
+        launches[path] = read_launches()
+        want = {k: STEPS * n for k, n in per_step[path].items()}
+        require(launches[path] == want,
+                f"{path} launches {launches[path]}, want {want}")
+        require(not any(PLAIN_CALLS.values()),
+                f"{path}: plain versions ran on the card: {PLAIN_CALLS}")
+        med = float(np.median(secs))
+        print(f"  {path}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; step ms " + ", ".join(f"{x * 1e3:.1f}" for x in secs)
+              + f"; median {med * 1e3:.1f} ms = {pairs / med:.1f} pairs/s; "
+              f"launches {launches[path]}", flush=True)
+        key = path.split()[0]
+        result[key] = {"losses": losses, "step_ms": [x * 1e3 for x in secs],
+                       "median_step_ms": med * 1e3, "pairs_per_s": pairs / med}
+    result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory over both paths: {result['peak_gib']:.2f} GiB",
+          flush=True)
+    return result, initial, batch
+
+
+def first_layers(state: dict, n: int) -> dict:
+    """A transformer state cut to its first n layers, on the CPU."""
+    return {k: v.detach().cpu().clone() for k, v in state.items()
+            if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < n}
+
+
+def flat(tensors) -> torch.Tensor:
+    """One f64 vector on the CPU: cosines over ~4e7 elements need more than
+    f32 sums."""
+    return torch.cat([t.detach().cpu().double().reshape(-1) for t in tensors])
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def training_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg,
+                    batch: dict) -> dict:
+    """One packed step at 2 hub + 2 tower layers from the same weights and
+    PARITY_ROWS rows of the batch: card (bf16, kernels) vs CPU (f32, plain
+    versions); then cached == uncached on the card."""
+    small = {"seq": {k: v[:PARITY_ROWS] for k, v in batch["seq"].items()},
+             "mod": {k: v[:PARITY_ROWS] for k, v in batch["mod"].items()},
+             "valid": batch["valid"][:PARITY_ROWS]}
+    cfg_h = dataclasses.replace(hub_cfg, num_layers=2)
+    cfg_t = dataclasses.replace(tower_cfg, num_layers=2)
+    state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
+             **{"encoders.struct_token." + k: v for k, v in tower_state.items()}}
+
+    def module_on(device, dtype):
+        m = build_module(
+            SequenceEncoder(cfg_h, 1024, proj_type="mlp", device=device,
+                            dtype=dtype),
+            StructTokenEncoder(cfg_t, 1024, device=device, dtype=dtype))
+        m.model.load_state_dict(state)
+        return m
+
+    def heads_of(m):
+        return {name: flat(p for n, p in m.model.named_parameters()
+                           if n.startswith(f"encoders.{name}.head."))
+                for name in ("sequence", "struct_token")}
+
+    out = {}
+    runs = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        m = module_on(device, dtype)
+        before = heads_of(m)
+        loss, _ = m.train_step_packed("struct_token", small["seq"], small["mod"],
+                                      small["valid"])
+        after = heads_of(m)
+        runs[device] = {
+            "loss": loss.item(),
+            "grad": {n: p.grad for n, p in m.model.named_parameters()
+                     if p.grad is not None},
+            "update": {k: after[k] - before[k] for k in after}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    require(card["grad"].keys() == cpu["grad"].keys(), "gradient leaves differ")
+    out["loss_card"], out["loss_cpu"] = card["loss"], cpu["loss"]
+    out["loss_rel_diff"] = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    out["grad_cosine"] = cosine(flat(card["grad"].values()),
+                                flat(cpu["grad"].values()))
+    leaf_cos = {n: cosine(flat([card["grad"][n]]), flat([cpu["grad"][n]]))
+                for n in card["grad"]}
+    # the tower's attention projection weights, leaf by leaf: their
+    # gradients pass through the dq and dk/dv kernels, and the heads'
+    # larger leaves cannot hide them
+    qkv = {n: c for n, c in leaf_cos.items()
+           if n.startswith("encoders.struct_token.transformer.layers.")
+           and n.split(".")[-2] in ("q", "k", "v") and n.endswith(".weight")}
+    require(len(qkv) == 2 * 3, f"tower q/k/v gradient leaves: {sorted(qkv)}")
+    out["tower_qkv_grad_cosine"] = qkv
+    out["min_leaf_grad_cosine"] = min(leaf_cos.values())
+    out["head_update_cosine"] = {k: cosine(card["update"][k], cpu["update"][k])
+                                 for k in card["update"]}
+    print(f"  one packed step, card vs CPU: loss {card['loss']:.6f} vs "
+          f"{cpu['loss']:.6f} (rel diff {out['loss_rel_diff']:.2e}, gate "
+          f"<= 2e-2); clipped-gradient cosine {out['grad_cosine']:.5f} (gate "
+          f">= 0.99); tower q/k/v weight gradient cosine per leaf, least "
+          f"{min(qkv.values()):.5f} (gate >= 0.99); least over all "
+          f"{len(leaf_cos)} leaves {out['min_leaf_grad_cosine']:.5f} "
+          f"(reported); head update cosine {out['head_update_cosine']} (gate "
+          f">= 0.95)", flush=True)
+    require(out["loss_rel_diff"] <= 2e-2, f"loss parity {out['loss_rel_diff']}")
+    require(out["grad_cosine"] >= 0.99, f"gradient parity {out['grad_cosine']}")
+    require(min(qkv.values()) >= 0.99, f"tower q/k/v gradient parity {qkv}")
+    require(min(out["head_update_cosine"].values()) >= 0.95,
+            f"head update parity {out['head_update_cosine']}")
+
+    a, b = module_on("cuda", torch.bfloat16), module_on("cuda", torch.bfloat16)
+    p0 = flat(a.opt.params)
+    loss_a, _ = a.train_step_packed("struct_token", small["seq"], small["mod"],
+                                    small["valid"])
+    pooled = b.encode_packed_pooled("sequence", small["seq"]["ids"],
+                                    small["seq"]["segment_ids"], SLOTS)
+    loss_b, _ = b.train_step_packed_cached("struct_token", pooled, small["mod"],
+                                           small["valid"])
+    pa, pb = flat(a.opt.params), flat(b.opt.params)
+    out["cached_loss_rel_diff"] = abs(loss_a.item() - loss_b.item()) / abs(
+        loss_a.item())
+    out["cached_update_cosine"] = cosine(pa - p0, pb - p0)
+    out["cached_param_max_abs_diff"] = float((pa - pb).abs().max())
+    print(f"  cached vs uncached on the card: loss {loss_b.item():.6f} vs "
+          f"{loss_a.item():.6f} (rel diff {out['cached_loss_rel_diff']:.2e}, "
+          f"gate <= 1e-3); update cosine {out['cached_update_cosine']:.6f} "
+          f"(gate >= 0.99), updated parameters max abs diff "
+          f"{out['cached_param_max_abs_diff']:.2e}", flush=True)
+    require(out["cached_loss_rel_diff"] <= 1e-3,
+            f"cached loss {out['cached_loss_rel_diff']}")
+    require(out["cached_update_cosine"] >= 0.99,
+            f"cached update {out['cached_update_cosine']}")
+    return out
+
+
 def check_embeddings(feats: np.ndarray, n: int, what: str) -> None:
     require(feats.shape == (n, 1024), f"{what}: shape {feats.shape}")
     require(bool(np.isfinite(feats).all()), f"{what}: non-finite embeddings")
@@ -273,8 +678,10 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     phase("kernels against their plain versions")
+    count_plain_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_flash(gen), check_gelu_quant(gen)]
+    fwd_row = check_flash(gen)
+    rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen)]
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -289,7 +696,8 @@ def main() -> int:
     feats_bf16, secs_bf16 = serve(embedder, requests, "bf16 hub")
     launches["bf16 hub"] = read_launches()
     require(launches["bf16 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
-                                     "gelu_quant": 0},
+                                     "flash_mha_bwd_dq": 0,
+                                     "flash_mha_bwd_dkv": 0, "gelu_quant": 0},
             f"bf16 hub launches: {launches['bf16 hub']}")
     check_retrieval(embedder, feats_bf16, rng, "bf16 hub")
 
@@ -301,8 +709,12 @@ def main() -> int:
     feats_int8, secs_int8 = serve(embedder8, requests, "int8 hub")
     launches["int8 hub"] = read_launches()
     require(launches["int8 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
+                                     "flash_mha_bwd_dq": 0,
+                                     "flash_mha_bwd_dkv": 0,
                                      "gelu_quant": N_LAYERS * batches},
             f"int8 hub launches: {launches['int8 hub']}")
+    require(not any(PLAIN_CALLS.values()),
+            f"serving: plain versions ran on the card: {PLAIN_CALLS}")
     print(f"  launches on each serving path ({batches} batches each): "
           f"{launches}", flush=True)
     check_retrieval(embedder8, feats_int8, rng, "int8 hub")
@@ -334,6 +746,16 @@ def main() -> int:
               f"(gate >= {tol})", flush=True)
         require(parity[name] >= tol, f"{name} parity {parity[name]} < {tol}")
 
+    phase("training: ESM2-650M hub + ESM2-35M struct-token tower, packed "
+          "and cached steps")
+    train, (hub_state, tower_state, tower_cfg), batch = training(enc, rng,
+                                                                launches)
+
+    phase("training parity: 2 + 2 layers at full width, card (bf16, kernels) "
+          "vs CPU (f32, plain); cached vs uncached")
+    train_parity = training_parity(hub_state, tower_state, enc.config,
+                                   tower_cfg, batch)
+
     for row in rows:
         # each path's count read from its own run; `launches` is their sum
         row["launches_by_path"] = {path: counts[row["name"]]
@@ -349,6 +771,7 @@ def main() -> int:
                     "bf16_vs_int8_mean_cosine": cos_hubs,
                     "parity_mean_cosine": parity,
                     "peak_gib": peak_gb},
+        "training": {**train, "parity": train_parity},
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

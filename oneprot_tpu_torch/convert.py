@@ -9,7 +9,8 @@ numpy arrays converts here with no JAX installed. Mappings:
 - LayerNorm `scale` -> `weight`; `bias` stays `bias`;
 - the raw `embed_tokens` table [vocab, width] -> `embed_tokens.weight`;
 - `layer_{i}` -> `layers.{i}`, and a LoraDense's inner `dense` level is
-  dropped (q/k/v of the attention).
+  dropped (q/k/v of the attention);
+- `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token).
 
 Values are copied as float32 (int8 codes as int8); load the result with
 `module.load_state_dict(...)`, which casts to the module's dtype.
@@ -81,19 +82,25 @@ def head_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def sequence_encoder_state_dict(tree: Tree,
-                                prefix: str = "") -> Dict[str, torch.Tensor]:
-    """JAX `SequenceEncoder` params -> the port's `SequenceEncoder` state."""
+def encoder_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `SequenceEncoder` or `StructTokenEncoder` params (an `Esm2`
+    transformer, with the struct-token vocabulary's 21 extra embedding rows
+    where it has them, and an `EncoderHead`) -> the port's encoder state."""
     out = esm2_state_dict(tree["transformer"], prefix + "transformer.")
     out.update(head_state_dict(tree.get("head", {}), prefix + "head."))
     return out
 
 
 def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
-    """JAX `OneProtModel` params (sequence encoder only) -> the port's
+    """JAX `OneProtModel` params (the params of a `OneProtModule` state)
+    with `encoders_sequence` and/or `encoders_struct_token` -> the port's
     `OneProtModel` state."""
-    unported = set(tree) - {"encoders_sequence"}
+    ported = {"encoders_sequence", "encoders_struct_token"}
+    unported = set(tree) - ported
     if unported:
         raise NotImplementedError(f"{sorted(unported)} are not ported yet")
-    return sequence_encoder_state_dict(tree["encoders_sequence"],
-                                       "encoders.sequence.")
+    out = {}
+    for key in sorted(tree):
+        out.update(encoder_state_dict(
+            tree[key], "encoders." + key[len("encoders_"):] + "."))
+    return out

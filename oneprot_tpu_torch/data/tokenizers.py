@@ -1,7 +1,9 @@
-"""ESM2 tokenizer (counterpart of oneprot_tpu/data/tokenizers.py:EsmTokenizer).
+"""ESM2 tokenizers (counterpart of oneprot_tpu/data/tokenizers.py:
+`EsmTokenizer`, `esm2_tokenizer`, `struct_token_tokenizer`).
 
 Token ids are those of the published ESM2 alphabet (facebook/esm2_* vocab),
-so converted checkpoints see the same inputs as under the JAX package.
+so converted checkpoints see the same inputs as under the JAX package; the
+struct-token tokenizer appends the 21 SaProt 3Di tokens (ids 33..53).
 """
 
 from __future__ import annotations
@@ -15,6 +17,12 @@ ESM2_TOKENS: Tuple[str, ...] = (
     "L", "A", "G", "V", "S", "E", "R", "T", "I", "D", "P", "K", "Q", "N",
     "F", "Y", "M", "H", "W", "C", "X", "B", "U", "Z", "O", ".", "-",
     "<null_1>", "<mask>",
+)
+
+# SaProt 3Di structure tokens, appended after the ESM2 vocabulary
+STRUCT_3DI_TOKENS: Tuple[str, ...] = (
+    "p", "y", "n", "w", "r", "q", "h", "g", "d", "l",
+    "v", "t", "m", "f", "s", "a", "e", "i", "k", "c", "#",
 )
 
 
@@ -91,3 +99,8 @@ class EsmTokenizer:
 
 def esm2_tokenizer() -> EsmTokenizer:
     return EsmTokenizer()
+
+
+def struct_token_tokenizer() -> EsmTokenizer:
+    """ESM2 tokenizer + the 21 3Di tokens (ids 33..53)."""
+    return EsmTokenizer(extra_tokens=STRUCT_3DI_TOKENS)

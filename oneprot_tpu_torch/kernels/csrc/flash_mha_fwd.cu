@@ -27,19 +27,17 @@
 // are zero-filled in shared memory. Not done yet (later work): wgmma, TMA,
 // warp specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_mha_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 128;       // query rows per CTA, 16 per warp
 constexpr int BK = 64;        // keys per streamed tile
 constexpr int DP = 64;        // head width padded in shared memory
 constexpr int LDS = DP + 8;   // row pitch (bf16) of q/k/v tiles: conflict-free ldmatrix
 constexpr int NTHREADS = 256;
-constexpr float SEG_MASK = -1e30f;  // cross-segment logit, as the TPU kernel
 
 // shared memory layout, in bf16 elements (bias and segment ids as 32-bit
 // words): two stages; the q tile shares the second one, whose first copy
@@ -70,82 +68,6 @@ __device__ __forceinline__ Stage stage_at(__nv_bfloat16* smem, int s) {
   st.bias = reinterpret_cast<float*>(st.sin + TAB_ELEMS);
   st.seg = reinterpret_cast<int*>(st.bias + BK);
   return st;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared; with valid = false the destination is
-// zero-filled and the source is not read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 4 consecutive bf16 <-> f32
-__device__ __forceinline__ void unpack4(uint2 u, float (&x)[4]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  x[0] = __low2float(h[0]);
-  x[1] = __high2float(h[0]);
-  x[2] = __low2float(h[1]);
-  x[3] = __high2float(h[1]);
-}
-__device__ __forceinline__ uint2 pack4(const float (&x)[4]) {
-  return make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
-}
-
-// x_lo, x_hi: the same 4 columns of the two halves of a head;
-// (x_lo, x_hi) <- (x_lo*cos_lo - x_hi*sin_lo, x_hi*cos_hi + x_lo*sin_hi)
-__device__ __forceinline__ void rotate4(float (&lo)[4], float (&hi)[4], uint2 c_lo,
-                                        uint2 c_hi, uint2 s_lo, uint2 s_hi) {
-  float cl[4], ch[4], sl[4], sh[4];
-  unpack4(c_lo, cl);
-  unpack4(c_hi, ch);
-  unpack4(s_lo, sl);
-  unpack4(s_hi, sh);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float a = lo[e], b = hi[e];
-    lo[e] = a * cl[e] - b * sl[e];
-    hi[e] = b * ch[e] + a * sh[e];
-  }
 }
 
 struct Params {

@@ -1,16 +1,20 @@
-"""Flash multi-head attention forward in the [B, L, H*D] layout.
+"""Flash multi-head attention, forward and backward, in the [B, L, H*D] layout.
 
-Counterpart of oneprot_tpu/kernels/flash_mha.py:mha_attention. The wrapper
-`mha_attention` takes q, k, v as the QKV projections give them, optional
-additive key bias [B, 1, 1, L], rotary tables [L, D] and segment ids [B, L]
-(packed rows: attention is block-diagonal per segment), and returns
-(out [B, L, H*D], lse [B, H, L]) with lse the base-2 log-sum-exp of the
-scaled logits, which a backward pass needs.
+Counterpart of oneprot_tpu/kernels/flash_mha.py:mha_attention and its custom
+vjp. The wrapper `mha_attention` takes q, k, v as the QKV projections give
+them, optional additive key bias [B, 1, 1, L], rotary tables [L, D] and
+segment ids [B, L] (packed rows: attention is block-diagonal per segment),
+and returns (out [B, L, H*D], lse [B, H, L]) with lse the base-2
+log-sum-exp of the scaled logits. It is differentiable in q, k and v (no
+gradient flows to the bias, the tables or the segment ids).
 
-On a CUDA tensor it launches the hand-written kernel of
-`csrc/flash_mha_fwd.cu` (bf16, head dim even and at most 64, forward only)
-or raises; on a CPU tensor it runs `mha_attention_plain`, the same function
-in plain PyTorch with f32 logits and softmax.
+On CUDA tensors the forward launches the hand-written kernel of
+`csrc/flash_mha_fwd.cu` and the backward the dq kernel of
+`csrc/flash_mha_bwd_dq.cu` and the dk/dv kernel of
+`csrc/flash_mha_bwd_dkv.cu` (bf16, head dim a multiple of 8 and at most
+64), or they raise. On CPU tensors they run `mha_attention_plain` and
+`mha_attention_bwd_plain`, the same functions in plain PyTorch with f32
+logits and softmax.
 """
 
 from __future__ import annotations
@@ -44,6 +48,13 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """x [B, H, L, D]; cos, sin [L, D]."""
     return x * cos + rotate_half(x) * sin
+
+
+def apply_rotary_t(g: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor) -> torch.Tensor:
+    """The transpose (= inverse) rotation, R^T g = g cos - rotate_half(g) sin:
+    takes a gradient from the rotated frame back to the input's."""
+    return g * cos - rotate_half(g) * sin
 
 
 def _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin, segment_ids):
@@ -98,6 +109,107 @@ def mha_attention_plain(
     return out.transpose(1, 2).reshape(B, L, num_heads * D), lse
 
 
+def attention_delta(dout: torch.Tensor, out: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, f32 [B, H, L]: the backward's
+    softmax correction (outside any kernel, as in the JAX package)."""
+    B, L, hd = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(B, L, num_heads, hd // num_heads).sum(-1).transpose(
+        1, 2).contiguous()
+
+
+def mha_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
+    bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch (any device): f32
+    logits in base 2, P recomputed from the forward's base-2 lse (clamped
+    at 1, as the kernels do, so rows whose lse kept no digits stay finite),
+    dS = P (dP - delta); P and dS rounded to the input dtype where the
+    kernels feed them to a product. Returns (dq, dk, dv) in the input
+    dtype."""
+    B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
+                          segment_ids)
+
+    def heads(x):
+        return x.reshape(B, L, num_heads, D).transpose(1, 2).float()
+
+    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(dout)
+    if rope_cos is not None:
+        cos, sin = (t.to(q.dtype).float() for t in (rope_cos, rope_sin))
+        qh, kh = apply_rotary(qh, cos, sin), apply_rotary(kh, cos, sin)
+    if segment_ids is not None:
+        bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (LOG2E / math.sqrt(D))
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
+    dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+    ds = p * (dp - attention_delta(dout, out, num_heads)[..., None])
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) / math.sqrt(D)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) / math.sqrt(D)
+    if rope_cos is not None:
+        dq, dk = apply_rotary_t(dq, cos, sin), apply_rotary_t(dk, cos, sin)
+
+    def back(x):
+        return x.transpose(1, 2).reshape(B, L, num_heads * D).to(q.dtype)
+
+    return back(dq), back(dk), back(dv)
+
+
+def _kernel_args(tensors, num_heads, bias, rope_cos, rope_sin, segment_ids):
+    """Check what the CUDA kernels take and make their side inputs: the key
+    bias in log2 units (f32 [B, L]), bf16 rotary tables, int32 segment ids.
+    `tensors` are the [B, L, H*D] operands (q first), which must be
+    contiguous, 16-byte aligned bf16 on q's card with a head dim that is a
+    multiple of 8. Returns (B, L, D, bias_b, cos, sin, seg)."""
+    q, k, v = tensors[:3]
+    B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
+                          segment_ids)
+    if D % 8:
+        raise ValueError(f"head dim {D} unsupported by the kernel: must be a "
+                         "multiple of 8")
+    dev = q.device
+    for i, t in enumerate(tensors):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"operand {i} must be on the card of q, got "
+                             f"{t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"operand {i} must be bfloat16, got {t.dtype}")
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"operand {i} must be [B, L, H*D] like q")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"operand {i} must be contiguous and 16-byte "
+                             "aligned")
+    bias_b = (None if bias is None else
+              (bias.reshape(B, L).to(dev, torch.float32) * LOG2E).contiguous())
+    cos, sin = ((None, None) if rope_cos is None else
+                (t.to(dev, torch.bfloat16).contiguous()
+                 for t in (rope_cos, rope_sin)))
+    seg = (None if segment_ids is None else
+           segment_ids.to(dev, torch.int32).contiguous())
+    return B, L, D, bias_b, cos, sin, seg
+
+
+def _row_stats(t: torch.Tensor, B: int, H: int, L: int, dev) -> torch.Tensor:
+    """lse or delta as the kernels read it: contiguous f32 [B, H, L]."""
+    if tuple(t.shape) != (B, H, L) or t.device != dev:
+        raise ValueError(f"row statistics must be [B, H, L] on {dev}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.to(torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_mha_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     bias: Optional[torch.Tensor] = None,
@@ -105,45 +217,19 @@ def flash_mha_cuda(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel. Inputs: contiguous, 16-byte aligned bf16 q,
-    k, v on one card with a head dim that is a multiple of 8, none requiring
-    grad (the kernel is forward only)."""
-    B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
-                          segment_ids)
-    if D % 8:
-        raise ValueError(f"head dim {D} unsupported by the kernel: must be a "
-                         "multiple of 8")
+    """Launch the forward kernel. Returns (out, base-2 lse [B, H, L])."""
+    B, L, D, bias_b, cos, sin, seg = _kernel_args(
+        (q, k, v), num_heads, bias, rope_cos, rope_sin, segment_ids)
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be on the card of q, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-        if t.requires_grad:
-            raise RuntimeError("flash-MHA kernel is forward only: "
-                               f"{name} requires grad")
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    # f32 side inputs, made here so the kernel reads one layout
-    bias_b = (None if bias is None else
-              (bias.reshape(B, L).to(dev, torch.float32) * LOG2E).contiguous())
-    cos, sin = ((None, None) if rope_cos is None else
-                (t.to(dev, torch.bfloat16).contiguous() for t in (rope_cos, rope_sin)))
-    seg = (None if segment_ids is None else
-           segment_ids.to(dev, torch.int32).contiguous())
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     fn = _build.library("flash_mha_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias_b),
-                ptr(cos), ptr(sin), ptr(seg), out.data_ptr(), lse.data_ptr(),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
+                _ptr(cos), _ptr(sin), _ptr(seg), out.data_ptr(), lse.data_ptr(),
                 B, L, num_heads, D, LOG2E / math.sqrt(D), stream)
     _build.check(rc, "flash_mha_fwd")
     flash_mha_cuda.launches += 1
@@ -153,6 +239,111 @@ def flash_mha_cuda(
 flash_mha_cuda.launches = 0
 
 
+def flash_mha_bwd_dq_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, num_heads: int,
+    bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the dq kernel (lse from the forward, delta from
+    `attention_delta`). Returns dq, bf16 [B, L, H*D]."""
+    B, L, D, bias_b, cos, sin, seg = _kernel_args(
+        (q, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
+    dev = q.device
+    lse, delta = (_row_stats(t, B, num_heads, L, dev) for t in (lse, delta))
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    fn = _build.library("flash_mha_bwd_dq")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
+                _ptr(cos), _ptr(sin), _ptr(seg), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, L,
+                num_heads, D, LOG2E / math.sqrt(D), 1.0 / math.sqrt(D), stream)
+    _build.check(rc, "flash_mha_bwd_dq")
+    flash_mha_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_mha_bwd_dq_cuda.launches = 0
+
+
+def flash_mha_bwd_dkv_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, num_heads: int,
+    bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel. Returns (dk, dv), bf16 [B, L, H*D]."""
+    B, L, D, bias_b, cos, sin, seg = _kernel_args(
+        (q, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
+    dev = q.device
+    lse, delta = (_row_stats(t, B, num_heads, L, dev) for t in (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = _build.library("flash_mha_bwd_dkv")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
+                _ptr(cos), _ptr(sin), _ptr(seg), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, L, num_heads, D, LOG2E / math.sqrt(D), stream)
+    _build.check(rc, "flash_mha_bwd_dkv")
+    flash_mha_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_mha_bwd_dkv_cuda.launches = 0
+
+
+def flash_mha_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int, **side,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the card: delta, then the dq and dk/dv kernels.
+    Same arguments and result as `mha_attention_bwd_plain`."""
+    delta = attention_delta(dout, out, num_heads)
+    dq = flash_mha_bwd_dq_cuda(q, k, v, dout, lse, delta, num_heads, **side)
+    dk, dv = flash_mha_bwd_dkv_cuda(q, k, v, dout, lse, delta, num_heads,
+                                    **side)
+    return dq, dk, dv
+
+
+class _FlashMHA(torch.autograd.Function):
+    """mha_attention with the backward of the JAX package's custom vjp:
+    saves q, k, v, out and lse; CPU tensors take the plain versions, CUDA
+    tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, bias, rope_cos, rope_sin,
+                segment_ids):
+        fwd = mha_attention_plain if q.device.type == "cpu" else flash_mha_cuda
+        out, lse = fwd(q, k, v, num_heads, bias=bias, rope_cos=rope_cos,
+                       rope_sin=rope_sin, segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, bias, rope_cos, rope_sin,
+                              segment_ids)
+        ctx.num_heads = num_heads
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, bias, rope_cos, rope_sin, segment_ids = (
+            ctx.saved_tensors)
+        bwd = (mha_attention_bwd_plain if q.device.type == "cpu"
+               else flash_mha_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), ctx.num_heads,
+                         bias=bias, rope_cos=rope_cos, rope_sin=rope_sin,
+                         segment_ids=segment_ids)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def mha_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     bias: Optional[torch.Tensor] = None,
@@ -160,9 +351,8 @@ def mha_attention(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash MHA on [B, L, H*D] q, k, v with optional in-kernel rotary.
-    CPU tensors take the plain version; CUDA tensors the kernel, which
-    raises on what it does not take."""
-    fn = mha_attention_plain if q.device.type == "cpu" else flash_mha_cuda
-    return fn(q, k, v, num_heads, bias=bias, rope_cos=rope_cos,
-              rope_sin=rope_sin, segment_ids=segment_ids)
+    """Flash MHA on [B, L, H*D] q, k, v with optional in-kernel rotary,
+    differentiable in q, k, v. CPU tensors take the plain versions; CUDA
+    tensors the kernels, which raise on what they do not take."""
+    return _FlashMHA.apply(q, k, v, num_heads, bias, rope_cos, rope_sin,
+                           segment_ids)

@@ -1,23 +1,101 @@
-"""Sequence encoder and the hub model (counterpart of
-oneprot_tpu/models/encoders.py: `SequenceEncoder`, `create_sequence_encoder`,
-`OneProtModel`).
+"""Token encoders and the hub model (counterpart of
+oneprot_tpu/models/encoders.py: `SequenceEncoder`, `StructTokenEncoder`,
+their factories, `OneProtModel`).
 
-Only the sequence modality is ported so far; `OneProtModel` routes
-'sequence' and 'seqsim' to it and raises for the other modalities.
+Encoders compute in `dtype` (bf16 on the card). A frozen transformer stores
+its parameters in that dtype; a trainable one keeps float32 master
+parameters, and heads always do, as flax stores them. `OneProtModel` routes
+'sequence' and 'seqsim' to the sequence encoder and 'struct_token' to its
+encoder; the other modalities are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from oneprot_tpu_torch.models.esm2 import Esm2, Esm2Config, resolve_esm2_config
-from oneprot_tpu_torch.models.heads import EncoderHead
+from oneprot_tpu_torch.models.heads import EncoderHead, segment_pool
+
+STRUCT_EXTRA_TOKENS = 21  # +21 3Di rows of the struct-token vocabulary
+PORTED_MODALITIES = ("sequence", "struct_token")
 
 
-class SequenceEncoder(nn.Module):
+def _segment_packed_pooled(transformer: Esm2, pooling_type: str,
+                           input_ids: torch.Tensor, segment_ids: torch.Tensor,
+                           num_segments: int, frozen: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed forward of a token encoder: segment-masked transformer ->
+    per-segment pooling -> ([B*P, d_model], counts [B*P]). A frozen
+    transformer runs under no_grad: no graph is kept for it (the JAX
+    package's stop_gradient); the head after it still trains."""
+    mask = (input_ids != transformer.config.pad_token_id) & (segment_ids >= 0)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+        hidden = transformer(input_ids, segment_ids=segment_ids)
+    pooled, counts = segment_pool(hidden, mask, segment_ids, num_segments,
+                                  pooling_type=pooling_type)
+    B, P, H = pooled.shape
+    return pooled.reshape(B * P, H), counts.reshape(B * P)
+
+
+class _TokenEncoder(nn.Module):
+    """ESM2 transformer + head, with the unpacked and packed paths the
+    sequence and struct-token encoders share."""
+
+    def __init__(self, config: Esm2Config, output_dim: int, pooling_type: str,
+                 proj_type: Optional[str], use_logit_scale: bool,
+                 learnable_logit_scale: bool, frozen: bool,
+                 quant_int8: bool = False, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.config = config
+        self.frozen = frozen
+        self.pooling_type = pooling_type
+        self.transformer = Esm2(
+            config, quant_int8, device=device, dtype=dtype,
+            param_dtype=dtype if frozen else torch.float32)
+        self.head = EncoderHead(config.hidden_size, output_dim, proj_type,
+                                pooling_type, use_logit_scale,
+                                learnable_logit_scale, device=device,
+                                dtype=dtype)
+        if frozen:
+            self.transformer.requires_grad_(False)
+
+    def backbone_pooled(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Transformer -> pooling: the representation a frozen hub can cache."""
+        mask = input_ids != self.config.pad_token_id
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.frozen):
+            hidden = self.transformer(input_ids)
+        return self.head.pool(hidden, mask)
+
+    def head_from_pooled(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The trainable tail: projection + norm on a pooled representation."""
+        return self.head.project(pooled)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.head.project(self.backbone_pooled(input_ids))
+
+    def packed_pooled(self, input_ids: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed transformer -> per-segment pooled [B*P, d_model] + counts
+        [B*P] (count 0: an empty pack slot)."""
+        return _segment_packed_pooled(self.transformer, self.pooling_type,
+                                      input_ids, segment_ids, num_segments,
+                                      self.frozen)
+
+    def packed_features(self, input_ids: torch.Tensor,
+                        segment_ids: torch.Tensor, num_segments: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed forward: (features [B*P, output_dim], counts [B*P])."""
+        pooled, counts = self.packed_pooled(input_ids, segment_ids,
+                                            num_segments)
+        return self.head.project(pooled), counts
+
+
+class SequenceEncoder(_TokenEncoder):
     """ESM2 hub encoder (sequence + seqsim modalities)."""
 
     def __init__(self, config: Esm2Config, output_dim: int,
@@ -26,28 +104,31 @@ class SequenceEncoder(nn.Module):
                  learnable_logit_scale: bool = False, frozen: bool = True,
                  quant_int8: bool = False, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.config = config
-        kw = dict(device=device, dtype=dtype)
-        self.transformer = Esm2(config, quant_int8, **kw)
-        self.head = EncoderHead(config.hidden_size, output_dim, proj_type,
-                                pooling_type, use_logit_scale,
-                                learnable_logit_scale, **kw)
-        if frozen:
-            # a gradient barrier: no autograd graph is kept for the hub
-            self.transformer.requires_grad_(False)
+        super().__init__(config, output_dim, pooling_type, proj_type,
+                         use_logit_scale, learnable_logit_scale, frozen,
+                         quant_int8, device=device, dtype=dtype)
 
-    def backbone_pooled(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Transformer -> pooling: the representation a frozen hub can cache."""
-        mask = input_ids != self.config.pad_token_id
-        return self.head.pool(self.transformer(input_ids), mask)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.head.project(self.backbone_pooled(input_ids))
+class StructTokenEncoder(_TokenEncoder):
+    """A smaller ESM2 over SaProt 3Di structure tokens, trainable (the
+    config's vocabulary already holds the 21 extra rows)."""
+
+    def __init__(self, config: Esm2Config, output_dim: int,
+                 pooling_type: str = "mean", proj_type: Optional[str] = "linear",
+                 use_logit_scale: bool = True,
+                 learnable_logit_scale: bool = False, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(config, output_dim, pooling_type, proj_type,
+                         use_logit_scale, learnable_logit_scale, frozen=False,
+                         device=device, dtype=dtype)
 
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def _dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    return _DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
 def create_sequence_encoder(
@@ -74,14 +155,39 @@ def create_sequence_encoder(
         # round() has zero gradient: quantized products are only right
         # under the frozen tower's gradient barrier
         raise ValueError("quantize='int8' requires frozen=True")
-    if isinstance(dtype, str):
-        dtype = _DTYPES[dtype]
     return SequenceEncoder(
         resolve_esm2_config(model_name_or_path), output_dim=output_dim,
         pooling_type=pooling_type, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen,
-        quant_int8=quant_int8, device=device, dtype=dtype)
+        quant_int8=quant_int8, device=device, dtype=_dtype(dtype))
+
+
+def create_struct_token_encoder(
+    model_name_or_path: str = "facebook/esm2_t12_35M_UR50D",
+    output_dim: int = 1024,
+    pooling_type: str = "mean",
+    proj_type: Optional[str] = "linear",
+    use_logit_scale: bool = True,
+    learnable_logit_scale: bool = False,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+    device: Union[str, torch.device] = "cuda",
+) -> StructTokenEncoder:
+    """Build a StructTokenEncoder from the config keys of
+    configs/model/components/struct_token.yaml: the named ESM2 with 21
+    more embedding rows. Defaults to bf16 on the card, as
+    `create_sequence_encoder`."""
+    cfg = resolve_esm2_config(model_name_or_path)
+    cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size + STRUCT_EXTRA_TOKENS)
+    return StructTokenEncoder(
+        cfg, output_dim=output_dim, pooling_type=pooling_type,
+        proj_type=proj_type, use_logit_scale=use_logit_scale,
+        learnable_logit_scale=learnable_logit_scale, device=device,
+        dtype=_dtype(dtype))
+
+
+def _route(modality: str) -> str:
+    return "sequence" if modality in ("sequence", "seqsim") else modality
 
 
 class OneProtModel(nn.Module):
@@ -89,7 +195,7 @@ class OneProtModel(nn.Module):
 
     def __init__(self, encoders: Dict[str, nn.Module]):
         super().__init__()
-        unported = set(encoders) - {"sequence"}
+        unported = set(encoders) - set(PORTED_MODALITIES)
         if unported:
             raise NotImplementedError(
                 f"modalities {sorted(unported)} are not ported yet")
@@ -97,6 +203,25 @@ class OneProtModel(nn.Module):
 
     def forward(self, inputs: torch.Tensor,
                 modality: str = "sequence") -> torch.Tensor:
-        if modality in ("sequence", "seqsim"):
-            modality = "sequence"
-        return self.encoders[modality](inputs)
+        return self.encoders[_route(modality)](inputs)
+
+    def encode_packed(self, inputs: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int, modality: str = "sequence"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed forward of a token encoder: (features [B*P, d], counts)."""
+        return self.encoders[_route(modality)].packed_features(
+            inputs, segment_ids, num_segments)
+
+    def encode_packed_pooled(self, inputs: torch.Tensor,
+                             segment_ids: torch.Tensor, num_segments: int,
+                             modality: str = "sequence"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed frozen-cacheable representation: per-segment pooled
+        [B*P, d_model] + counts."""
+        return self.encoders[_route(modality)].packed_pooled(
+            inputs, segment_ids, num_segments)
+
+    def head_from_pooled(self, pooled: torch.Tensor,
+                         modality: str = "sequence") -> torch.Tensor:
+        """Trainable head on a cached pooled representation."""
+        return self.encoders[_route(modality)].head_from_pooled(pooled)

@@ -11,7 +11,13 @@ the fused GELU -> int8 kernel.
 
 Modules are built on the card in bf16 unless the caller names another
 device and dtype: the flash-MHA kernel takes bf16 only, so `Esm2` refuses
-another dtype on the card; the CPU takes any.
+another compute dtype on the card; the CPU takes any. `param_dtype` (default:
+the compute dtype) is the dtype the parameters are stored in: float32 for a
+trainable bf16 tower, as flax keeps them (see `layers`).
+
+With `segment_ids` (packed rows: several proteins per row, padding -1), the
+token-dropout rescale is taken per protein and attention is block-diagonal
+per segment.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from oneprot_tpu_torch.kernels.flash_mha import (  # noqa: F401  (re-exported)
     rotate_half,
 )
 from oneprot_tpu_torch.kernels.gelu_quant import fused_gelu_quant
+from oneprot_tpu_torch.models.layers import Dense, Embedding, LayerNorm
 
 MASK_RATIO_TRAIN = 0.15 * 0.8  # ESM2 pretraining mask rate (token dropout)
 INT8_LAYERS = ("q", "k", "v", "o", "fc1", "fc2")  # the Int8Dense modules
@@ -169,46 +176,52 @@ class Int8Dense(nn.Module):
         return y.reshape(*lead, self.out_features).to(self.dtype)
 
 
-def _dense(quant_int8: bool, n_in: int, n_out: int, device, dtype) -> nn.Module:
+def _dense(quant_int8: bool, n_in: int, n_out: int, **kw) -> nn.Module:
     if quant_int8:
-        return Int8Dense(n_in, n_out, device=device, dtype=dtype)
-    return nn.Linear(n_in, n_out, device=device, dtype=dtype)
+        return Int8Dense(n_in, n_out, device=kw["device"], dtype=kw["dtype"])
+    return Dense(n_in, n_out, **kw)
 
 
 class Esm2SelfAttention(nn.Module):
     def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         H = config.hidden_size
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.q, self.k, self.v, self.o = (
-            _dense(quant_int8, H, H, device, dtype) for _ in range(4))
+            _dense(quant_int8, H, H, **kw) for _ in range(4))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         # [B, L, H*D] straight into the kernel: rotary is applied inside it
         ctx, _ = mha_attention(self.q(x), self.k(x), self.v(x),
                                self.config.num_heads, bias=bias,
-                               rope_cos=cos, rope_sin=sin)
+                               rope_cos=cos, rope_sin=sin,
+                               segment_ids=segment_ids)
         return self.o(ctx)
 
 
 class Esm2Layer(nn.Module):
     def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         H, eps = config.hidden_size, config.layer_norm_eps
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.quant_int8 = quant_int8
-        self.attn_ln = nn.LayerNorm(H, eps=eps, **kw)
+        self.attn_ln = LayerNorm(H, eps=eps, **kw)
         self.attn = Esm2SelfAttention(config, quant_int8, **kw)
-        self.ffn_ln = nn.LayerNorm(H, eps=eps, **kw)
-        self.fc1 = _dense(quant_int8, H, config.intermediate_size, device, dtype)
-        self.fc2 = _dense(quant_int8, config.intermediate_size, H, device, dtype)
+        self.ffn_ln = LayerNorm(H, eps=eps, **kw)
+        self.fc1 = _dense(quant_int8, H, config.intermediate_size, **kw)
+        self.fc2 = _dense(quant_int8, config.intermediate_size, H, **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_ln(x), bias, cos, sin)
+                sin: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.attn_ln(x), bias, cos, sin, segment_ids)
         h = self.fc1(self.ffn_ln(x))
         if self.quant_int8:
             # fused gelu -> per-token int8 in one pass over [tokens, 4H]
@@ -220,37 +233,38 @@ class Esm2(nn.Module):
     """Returns last_hidden_state [B, L, H] (like HF EsmModel w/o pooler)."""
 
     def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"dtype {dtype} on the card: the flash-MHA "
                              "kernel takes bfloat16 only")
         self.config = config
-        kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
-                                         **kw)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      **kw)
         self.layers = nn.ModuleList(
             Esm2Layer(config, quant_int8, **kw)
             for _ in range(config.num_layers))
-        self.final_ln = nn.LayerNorm(config.hidden_size,
-                                     eps=config.layer_norm_eps, **kw)
+        self.final_ln = LayerNorm(config.hidden_size,
+                                  eps=config.layer_norm_eps, **kw)
 
     def forward(self, input_ids: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed rows (segment_ids) and their per-segment token-dropout "
-                "rescale are not ported yet")
         cfg = self.config
         attention_mask = input_ids != cfg.pad_token_id
         x = self.embed_tokens(input_ids)
         if cfg.token_dropout:
             is_mask = input_ids == cfg.mask_token_id
             x = x.masked_fill(is_mask[..., None], 0.0)
-            src_lengths = attention_mask.sum(-1).clamp_min(1)
-            ratio = is_mask.float().sum(-1) / src_lengths
-            scale = (1.0 - MASK_RATIO_TRAIN) / (1.0 - ratio)
-            x = x * scale[:, None, None].to(x.dtype)
+            if segment_ids is None:
+                src_lengths = attention_mask.sum(-1).clamp_min(1)
+                ratio = is_mask.float().sum(-1) / src_lengths
+                scale = ((1.0 - MASK_RATIO_TRAIN) / (1.0 - ratio))[:, None]
+            else:
+                scale = _segment_dropout_scale(attention_mask, is_mask,
+                                               segment_ids)
+            x = x * scale[..., None].to(x.dtype)
         # zero out pad embeddings (HF EsmEmbeddings tail behaviour)
         x = x * attention_mask[..., None].to(x.dtype)
         bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
@@ -258,8 +272,28 @@ class Esm2(nn.Module):
         cos, sin = rotary_cos_sin(L, cfg.hidden_size // cfg.num_heads,
                                   device=input_ids.device)
         for layer in self.layers:
-            x = layer(x, bias, cos, sin)
+            x = layer(x, bias, cos, sin, segment_ids)
         return self.final_ln(x)
+
+
+def _segment_dropout_scale(attention_mask: torch.Tensor, is_mask: torch.Tensor,
+                           segment_ids: torch.Tensor) -> torch.Tensor:
+    """[B, L] token-dropout scale of packed rows, per protein: each token
+    takes its segment's non-pad length (clamped at 1) and <mask> count,
+    summed exactly in f32 through a scatter into one slot per segment.
+    Padding (segment -1) belongs to no segment: length 1, no masks, so its
+    scale is 1 - 0.15 * 0.8, as in the JAX package."""
+    B, L = segment_ids.shape
+    seg = segment_ids.long()
+    slot = torch.where(seg >= 0, seg, L)  # slot L gathers the padding
+    sums = torch.zeros(2, B, L + 1, dtype=torch.float32,
+                       device=segment_ids.device)
+    sums[0].scatter_add_(1, slot, attention_mask.float())
+    sums[1].scatter_add_(1, slot, is_mask.float())
+    sums[:, :, L] = 0.0
+    per_token = sums.gather(2, slot[None].expand(2, B, L))
+    seg_len = per_token[0].clamp_min(1.0)
+    return (1.0 - MASK_RATIO_TRAIN) / (1.0 - per_token[1] / seg_len)
 
 
 def init_esm2_weights_(model: nn.Module, generator: torch.Generator) -> None:

@@ -54,6 +54,7 @@ def _attention_inputs(B, L, nh, d, card, seed, rotary, bias, segments):
     (2, 384, 4, 64, False, True, False),    # no rotary
     (2, 128, 4, 64, False, False, False),   # no bias, no rotary
     (2, 300, 20, 24, True, True, False),    # 35M tower head width
+    (2, 300, 20, 24, True, True, True),     # the 35M tower, packed rows
     (2, 130, 8, 32, True, True, True),      # 150M head width
     (2, 96, 8, 16, True, True, False),      # 8M head width
 ])
@@ -84,10 +85,54 @@ def test_flash_kernel_refuses(card):
         flash_mha.mha_attention(q, q, q, 8)
     with pytest.raises(TypeError):
         flash_mha.mha_attention(q.float(), q.float(), q.float(), 2)
-    x = torch.zeros(1, 16, 64, device=card, dtype=torch.bfloat16,
-                    requires_grad=True)
-    with pytest.raises(RuntimeError):  # forward only
-        flash_mha.mha_attention(x, x, x, 1)
+    x = torch.zeros(1, 16, 64, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 16, device=card)
+    with pytest.raises(ValueError):  # lse must be [B, H, L]
+        flash_mha.flash_mha_bwd_dq_cuda(x, x, x, x, lse[:, :, :8], lse, 1)
+    with pytest.raises(TypeError):  # the backward takes bf16 only
+        flash_mha.flash_mha_bwd_dkv_cuda(x, x, x, x.float(), lse, lse, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,nh,d,rotary,bias,segments", [
+    (2, 300, 20, 24, True, True, True),     # the 35M tower, packed rows
+    (2, 256, 4, 64, True, True, True),      # the hub's head width, packed
+    (2, 200, 4, 64, True, True, False),     # ragged edge: L % 64 != 0
+    (1, 37, 4, 32, True, False, False),     # shorter than one tile
+    (2, 130, 8, 32, False, True, True),     # no rotary
+    (2, 96, 8, 16, True, True, False),      # 8M head width
+    (2, 128, 4, 64, False, False, False),   # no bias, no rotary
+])
+def test_flash_backward_kernels_match_plain(card, B, L, nh, d, rotary, bias,
+                                            segments):
+    """Gradients through mha_attention on the card (forward, dq and dk/dv
+    kernels, one launch each) against the plain backward on the same
+    inputs, out and lse. The upstream gradient is zero on padding rows,
+    as a loss over pooled segments gives it."""
+    q, k, v, kw = _attention_inputs(B, L, nh, d, card, 2 * L + d, rotary,
+                                    bias, segments)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    rng = np.random.RandomState(L)
+    dout = torch.from_numpy(rng.randn(B, L, nh * d).astype(np.float32)).to(card)
+    if "bias" in kw:
+        dout = dout * (kw["bias"][:, 0, 0, :, None] == 0)
+    dout = dout.to(torch.bfloat16)
+    counts = (flash_mha.flash_mha_bwd_dq_cuda.launches,
+              flash_mha.flash_mha_bwd_dkv_cuda.launches)
+    out, lse = flash_mha.mha_attention(q, k, v, nh, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    ref = flash_mha.mha_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                            out.detach(), lse, dout, nh, **kw)
+    torch.cuda.synchronize()
+    assert (flash_mha.flash_mha_bwd_dq_cuda.launches,
+            flash_mha.flash_mha_bwd_dkv_cuda.launches) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    for name, got, want in zip("qkv", grads, ref):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got.float()).all(), f"d{name}: non-finite"
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= FLASH_REL_TOL, f"d{name}: max rel err {rel}"
 
 
 @pytest.mark.gpu

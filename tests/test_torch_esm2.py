@@ -243,11 +243,18 @@ def test_esm2_int8_layer_runs_the_gelu_quant_wrapper(tiny, monkeypatch):
 
 
 def test_esm2_packed_rows_not_ported_yet(tiny):
+    """Packed rows are ported now (tests/test_torch_train.py holds them
+    against JAX): a row packed as one segment, padding -1, encodes its
+    tokens (<mask> rescale included) as the unpacked forward does."""
     cfg, params, _ = tiny
     model = _port_esm2(cfg, params, False)
     ids = torch.from_numpy(_ids()).long()
-    with pytest.raises(NotImplementedError):
-        model(ids, segment_ids=torch.zeros_like(ids))
+    real = ids != cfg.pad_token_id
+    seg = torch.where(real, 0, -1)
+    with torch.no_grad():
+        packed, unpacked = model(ids, segment_ids=seg), model(ids)
+    np.testing.assert_allclose(packed[real].numpy(), unpacked[real].numpy(),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_random_init_is_seeded():
