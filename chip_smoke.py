@@ -12,9 +12,11 @@ the elapsed seconds:
    checkout's sources, one nvcc call per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it (the flash-MHA forward and backward at the
-   35M tower's and the hub's packed shapes), with its time, the plain
-   version's, a library call's where one computes the same function, and
-   the card's lower bound;
+   35M tower's and the hub's packed shapes, the tied-row attention at
+   embed_msas's depth 16 and the MSA data config's depth 50 at 1024
+   columns and off the tile grid), with its time, the plain version's, a
+   library call's where one computes the same function, and the card's
+   lower bound;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -22,7 +24,16 @@ the elapsed seconds:
    before each hub and read after it, show its kernels ran;
 5. parity: the same weights at 2 layers on the card (bf16, kernels) against
    the CPU (f32, plain versions);
-6. training: bench.py's model at full width (frozen ESM2-650M hub with its
+6. serving MSA-1b: the full-width esm_msa1b tower (12 x 768, random weights
+   from a seed) with its mlp head, built by `create_msa_encoder` with its
+   defaults, answers 3 requests of 4 synthetic .a3m MSAs (64 homologs
+   each, with gaps and insertions) through `embed_msas`'s defaults (depth
+   16, batch 4, up to 1024 columns) and one top-10 retrieval; every row
+   attention runs through the tied-row kernel;
+7. MSA parity: the same weights at 2 layers, card (bf16, kernel) against
+   CPU (f32, plain version), on the tower's output token by token and on
+   the embeddings;
+8. training: bench.py's model at full width (frozen ESM2-650M hub with its
    mlp head, trainable ESM2-35M struct-token tower, CLIP + 0.01 L1, clipped
    Adam at SMOKE_LR), built by `create_sequence_encoder`,
    `create_struct_token_encoder` and `OneProtModule`, takes 6
@@ -31,7 +42,7 @@ the elapsed seconds:
    `train_step_packed_cached` steps on the hub's pooled features; the
    counters, set to 0 before each path, show every attention ran through
    the kernels (and no plain version ran), and the loss falls;
-7. training parity: the same weights at 2 hub + 2 tower layers, one packed
+9. training parity: the same weights at 2 hub + 2 tower layers, one packed
    step on the card (bf16, kernels) against the CPU (f32, plain versions),
    and cached == uncached on the card.
 
@@ -46,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,11 +65,13 @@ import torch
 
 from oneprot_tpu_torch.data import packing
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
-from oneprot_tpu_torch.models import esm2
+from oneprot_tpu_torch.kernels import tied_row_attention as tra
+from oneprot_tpu_torch.models import esm2, msa_transformer
 from oneprot_tpu_torch.models.encoders import (
     OneProtModel,
     SequenceEncoder,
     StructTokenEncoder,
+    create_msa_encoder,
     create_sequence_encoder,
     create_struct_token_encoder,
 )
@@ -84,6 +98,13 @@ BUCKETS = (256, 384, 512, 768, 1024)
 ROWS, ROW_LEN, SLOTS = 16, 1024, 16
 STEPS = 6
 PARITY_ROWS = 4
+# MSA serving: 3 requests of 4 MSAs, 64 homologs of one query each, through
+# embed_msas's defaults (depth 16, batch 4, up to 1024 columns)
+MSA_REQUESTS, MSAS_PER_REQUEST, HOMOLOGS = 3, 4, 64
+MSA_LAYERS, MSA_DEPTH = 12, 16
+# MSA parity: the least cosine of any unpadded token of the 2-layer tower's
+# output, card (bf16) against CPU (f32)
+MSA_TOKEN_COS = 0.999
 # Adam's rate here: at bench.py's 1e-3 the loss of random weights on one
 # repeated batch rises above its start within a few steps, in the JAX
 # package's step as in the port's (tests/test_torch_train_steps.py holds the
@@ -126,11 +147,13 @@ def time_ms(fn, iters: int = 20) -> float:
 LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
              "flash_mha_bwd_dq": flash_mha.flash_mha_bwd_dq_cuda,
              "flash_mha_bwd_dkv": flash_mha.flash_mha_bwd_dkv_cuda,
-             "gelu_quant": gelu_quant.gelu_quant_cuda}
+             "gelu_quant": gelu_quant.gelu_quant_cuda,
+             "tied_row_attention": tra.tied_row_attention_cuda}
 # the plain versions, counted by the wrappers `count_plain_calls` installs
 PLAINS = ((flash_mha, "mha_attention_plain"),
           (flash_mha, "mha_attention_bwd_plain"),
-          (gelu_quant, "gelu_quant_reference"))
+          (gelu_quant, "gelu_quant_reference"),
+          (tra, "tied_row_attention_plain"))
 PLAIN_CALLS = {name: 0 for _, name in PLAINS}
 
 
@@ -258,6 +281,65 @@ def check_gelu_quant(gen) -> dict:
             "max_abs_err": deq_err, "max_code_diff": code_diff.max().item(),
             "ms": kernel, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": f"M={M} N={N} bf16"}
+
+
+def check_tied_row(gen) -> dict:
+    """The tied-row kernel against its plain version at embed_msas's shape
+    (B=4 R=16 L=1024 H=12), at the MSA data config's depth (R=50) and off
+    the tile grid (L=300, 3 heads, the last 17 columns masked); timed at
+    the first, beside scaled_dot_product_attention over the same function
+    (heads of R*64 in [B, H, L, R*64], with the scale and the column mask)."""
+    worst_rel, worst_abs = 0.0, 0.0
+    cases = [(4, MSA_DEPTH, 1024, 12, 0), (4, 50, 1024, 12, 0),
+             (4, MSA_DEPTH, 300, 3, 17)]
+    for B, R, L, H, tail in cases:
+        q, k, v = (torch.randn(B, R, L, H * 64, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        bias = torch.zeros(B, 1, 1, L, device="cuda")
+        bias[..., L - tail:] = -1e9
+        out = tra.tied_row_attention_cuda(q, k, v, H, col_bias=bias)
+        ref = tra.tied_row_attention_plain(q, k, v, H, col_bias=bias)
+        torch.cuda.synchronize()
+        require(torch.isfinite(out.float()).all().item(),
+                f"tied-row R={R} L={L}: non-finite")
+        diff = (out.float() - ref.float()).abs().max().item()
+        rel = diff / max(ref.float().abs().max().item(), 1e-6)
+        print(f"  tied-row B={B} R={R} L={L} H={H} D=64, {tail} masked "
+              f"columns: max rel err {rel:.3e}, max abs err {diff:.3e}",
+              flush=True)
+        require(rel <= FLASH_REL_TOL,
+                f"tied-row R={R} L={L}: rel err {rel} > {FLASH_REL_TOL}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
+        if (R, L) == cases[0][1:3]:
+            timed = (q, k, v, bias)
+        del q, k, v, out, ref
+
+    q, k, v, bias = timed
+    B, R, L, H = cases[0][:4]
+    scale = tra.tied_scale(64, R)
+    kernel = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, H,
+                                                         col_bias=bias))
+    plain = time_ms(lambda: tra.tied_row_attention_plain(q, k, v, H,
+                                                         col_bias=bias), iters=5)
+    tied = lambda x: x.view(B, R, L, H, 64).permute(0, 3, 2, 1, 4).reshape(
+        B, H, L, R * 64)
+    qt, kt, vt, mask = tied(q), tied(k), tied(v), bias.to(torch.bfloat16)
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale))
+    b_ms, b_by = bound_ms(4 * B * R * L * H * 64 * 2 + B * L * 4,
+                          4.0 * B * H * L * L * R * 64, BF16_FLOPS)
+    print(f"  tied-row timed at B={B} R={R} L={L} H={H}: kernel {kernel:.4f} "
+          f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return {"name": "tied_row_attention", "route": "cuda",
+            "source": "oneprot_tpu_torch/kernels/csrc/tied_row_attention.cu",
+            "replaces": "oneprot_tpu/kernels/tied_row_attention.py:56",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": kernel,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library,
+            "shape": f"B={B} R={R} L={L} H={H} D=64 bf16",
+            "note": "library_ms: scaled_dot_product_attention on [B, H, L, "
+                    "R*64] (heads of R*64), scale and column mask"}
 
 
 def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
@@ -462,11 +544,11 @@ def training(hub: SequenceEncoder, rng, launches: dict):
     per_step = {"packed step": {"flash_mha_fwd": N_LAYERS + TOWER_LAYERS,
                                 "flash_mha_bwd_dq": TOWER_LAYERS,
                                 "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0},
+                                "gelu_quant": 0, "tied_row_attention": 0},
                 "cached step": {"flash_mha_fwd": TOWER_LAYERS,
                                 "flash_mha_bwd_dq": TOWER_LAYERS,
                                 "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0}}
+                                "gelu_quant": 0, "tied_row_attention": 0}}
     seq_pooled = None
     for path in ("packed step", "cached step"):
         if path == "cached step":
@@ -647,6 +729,119 @@ def check_retrieval(embedder, feats: np.ndarray, rng, what: str) -> None:
           f"finds itself first", flush=True)
 
 
+def write_msas(root: str, rng, n: int, homologs: int = HOMOLOGS) -> list:
+    """n synthetic .a3m files: a query of log-normal length around 290
+    residues clipped to [20, 1022] (as sample_seqs) and `homologs` point
+    mutants of it, each with '-' gaps and lowercase insertions, so that
+    read_msa and greedy_select do real work."""
+    paths = []
+    for i, n_res in enumerate(np.clip(rng.lognormal(np.log(290.0), 0.75, n),
+                                      20, 1022).astype(int)):
+        query = rng.choice(list(AAS), n_res)
+        lines = [">query", "".join(query)]
+        for h in range(homologs):
+            row = query.copy()
+            mutate = rng.rand(n_res) < rng.uniform(0.05, 0.6)
+            row[mutate] = rng.choice(list(AAS), int(mutate.sum()))
+            row[rng.rand(n_res) < 0.1] = "-"
+            inserts = rng.rand(n_res) < 0.03
+            lines += [f">homolog_{h}", "".join(
+                ch + ("".join(rng.choice(list(AAS.lower()), rng.randint(1, 4)))
+                      if ins else "") for ch, ins in zip(row, inserts))]
+        paths.append(os.path.join(root, f"msa_{i:03d}.a3m"))
+        with open(paths[-1], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return paths
+
+
+def serve_msas(root: str, gen, rng, smi: str, launches: dict):
+    """The MSA-1b serving path at full width, on .a3m files it writes under
+    `root`; fills `launches`. Returns (numbers, the tower's state, the
+    requests' files)."""
+    paths = write_msas(root, rng, MSA_REQUESTS * MSAS_PER_REQUEST)
+    requests = [paths[i:i + MSAS_PER_REQUEST]
+                for i in range(0, len(paths), MSAS_PER_REQUEST)]
+    # the entry point's defaults: esm_msa1b, 1024 wide mlp head, bf16, card
+    enc = create_msa_encoder()
+    require(enc.config.num_layers == MSA_LAYERS
+            and enc.config.hidden_size == 768 and enc.config.num_heads == 12
+            and enc.config.intermediate_size == 3072,
+            f"MSA-1b widths: {enc.config}")
+    msa_transformer.init_msa_weights_(enc, gen)
+    embedder = OneProtEmbedder(OneProtModel({"msa": enc}))
+    reset_launches()
+    feats, secs = [], []
+    for req in requests:
+        t = time.time()
+        feats.append(embedder.embed_msas(req))  # depth 16, batch 4, 1024
+        secs.append(time.time() - t)
+    launches["MSA-1b serving"] = read_launches()
+    batches = sum(-(-len(r) // 4) for r in requests)
+    want = {name: 0 for name in LAUNCHERS}
+    want["tied_row_attention"] = MSA_LAYERS * batches
+    require(launches["MSA-1b serving"] == want,
+            f"MSA-1b launches {launches['MSA-1b serving']}, want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"MSA serving: plain versions ran on the card: {PLAIN_CALLS}")
+    feats = np.concatenate(feats)
+    n = len(paths)
+    require(feats.shape == (n, 1024), f"MSA-1b: shape {feats.shape}")
+    require(bool(np.isfinite(feats).all()), "MSA-1b: non-finite embeddings")
+    norms = np.linalg.norm(feats, axis=-1)
+    require(bool(np.all(np.abs(norms * 0.07 - 1.0) <= 1e-3)),
+            f"MSA-1b: norms {norms.min()}..{norms.max()}, want 1/0.07")
+    check_retrieval(embedder, feats, rng, "MSA-1b")
+    print(f"  MSA-1b: {n} MSAs (depth {MSA_DEPTH}, {HOMOLOGS} homologs each) "
+          f"in {sum(secs):.3f} s = {n / sum(secs):.2f} MSAs/s (requests: "
+          + ", ".join(f"{x * 1e3:.1f} ms" for x in secs)
+          + f"); launches {launches['MSA-1b serving']}; {smi}", flush=True)
+    result = {"msas": n, "requests": len(requests),
+              "msas_per_s": n / sum(secs),
+              "request_ms": [x * 1e3 for x in secs]}
+    return result, enc.state_dict(), requests
+
+
+def msa_parity(state: dict, paths: list) -> dict:
+    """The tower's first 2 layers and its head, card (bf16, kernel) against
+    CPU (f32, plain version), on the same MSAs through embed_msas: the
+    tower's [B, R, L, H] output token by token (min cosine over every
+    unpadded token of every row) and the embeddings (mean cosine)."""
+    state2 = first_layers(state, 2)
+    outs, towers = [], []
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        enc = create_msa_encoder(num_layers=2, device=device, dtype=dtype)
+        enc.load_state_dict(state2)
+        hook = enc.transformer.register_forward_hook(
+            lambda _, args, out: towers.append((args[0].cpu(),
+                                                out.float().cpu())))
+        outs.append(OneProtEmbedder(OneProtModel({"msa": enc})).embed_msas(paths))
+        hook.remove()
+    require(len(towers) == 2, f"MSA parity: {len(towers)} tower runs, want 2 "
+            f"(one batch on each device)")
+    (tok_card, card), (tok_cpu, cpu) = towers
+    require(torch.equal(tok_card, tok_cpu), "MSA parity: tokens differ")
+    keep = tok_cpu != msa_transformer.MsaTransformerConfig().pad_token_id
+    token_cos = torch.nn.functional.cosine_similarity(card[keep], cpu[keep],
+                                                      dim=-1)
+    rel = float((card[keep] - cpu[keep]).abs().max() / cpu[keep].abs().max())
+    result = {"tower_min_token_cosine": float(token_cos.min()),
+              "tower_mean_token_cosine": float(token_cos.mean()),
+              "tower_max_rel_err": rel, "tokens": int(keep.sum()),
+              "embedding_mean_cosine": mean_cosine(*outs)}
+    print(f"  MSA-1b at 2 layers, card vs CPU: tower output over "
+          f"{result['tokens']} tokens: min cosine "
+          f"{result['tower_min_token_cosine']:.6f} (gate >= "
+          f"{MSA_TOKEN_COS}), mean {result['tower_mean_token_cosine']:.6f}, "
+          f"max rel err {rel:.3e}; embeddings mean cosine "
+          f"{result['embedding_mean_cosine']:.6f} (gate >= 0.999)", flush=True)
+    require(result["tower_min_token_cosine"] >= MSA_TOKEN_COS,
+            f"MSA tower parity: a token's cosine "
+            f"{result['tower_min_token_cosine']} < {MSA_TOKEN_COS}")
+    require(result["embedding_mean_cosine"] >= 0.999,
+            f"MSA parity {result['embedding_mean_cosine']} < 0.999")
+    return result
+
+
 def mean_cosine(a: np.ndarray, b: np.ndarray) -> float:
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
@@ -681,7 +876,8 @@ def main() -> int:
     count_plain_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd_row = check_flash(gen)
-    rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen)]
+    rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen),
+            check_tied_row(gen)]
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -697,7 +893,8 @@ def main() -> int:
     launches["bf16 hub"] = read_launches()
     require(launches["bf16 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
                                      "flash_mha_bwd_dq": 0,
-                                     "flash_mha_bwd_dkv": 0, "gelu_quant": 0},
+                                     "flash_mha_bwd_dkv": 0, "gelu_quant": 0,
+                                     "tied_row_attention": 0},
             f"bf16 hub launches: {launches['bf16 hub']}")
     check_retrieval(embedder, feats_bf16, rng, "bf16 hub")
 
@@ -711,7 +908,8 @@ def main() -> int:
     require(launches["int8 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
                                      "flash_mha_bwd_dq": 0,
                                      "flash_mha_bwd_dkv": 0,
-                                     "gelu_quant": N_LAYERS * batches},
+                                     "gelu_quant": N_LAYERS * batches,
+                                     "tied_row_attention": 0},
             f"int8 hub launches: {launches['int8 hub']}")
     require(not any(PLAIN_CALLS.values()),
             f"serving: plain versions ran on the card: {PLAIN_CALLS}")
@@ -746,6 +944,20 @@ def main() -> int:
               f"(gate >= {tol})", flush=True)
         require(parity[name] >= tol, f"{name} parity {parity[name]} < {tol}")
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_msa_") as msa_dir:
+        phase("serving: MSA-1b (esm_msa1b, 12 x 768), depth 16, batch 4, up "
+              "to 1024 columns")
+        # its own numpy stream, so that the training batch below stays the
+        # one drawn from `rng` before this path was added
+        msa, msa_state, msa_requests = serve_msas(
+            msa_dir, torch.Generator(device="cuda").manual_seed(2),
+            np.random.RandomState(2), smi, launches)
+
+        phase("MSA parity: 2 layers at full width, card (bf16, kernel) vs CPU "
+              "(f32, plain)")
+        msa["parity"] = msa_parity(msa_state, msa_requests[0])
+    del msa_state
+
     phase("training: ESM2-650M hub + ESM2-35M struct-token tower, packed "
           "and cached steps")
     train, (hub_state, tower_state, tower_cfg), batch = training(enc, rng,
@@ -771,6 +983,7 @@ def main() -> int:
                     "bf16_vs_int8_mean_cosine": cos_hubs,
                     "parity_mean_cosine": parity,
                     "peak_gib": peak_gb},
+        "msa_serving": msa,
         "training": {**train, "parity": train_parity},
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,11 @@ numpy arrays converts here with no JAX installed. Mappings:
 - the raw `embed_tokens` table [vocab, width] -> `embed_tokens.weight`;
 - `layer_{i}` -> `layers.{i}`, and a LoraDense's inner `dense` level is
   dropped (q/k/v of the attention);
-- `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token).
+- the MSA Transformer's raw tables (`embed_tokens`, `embed_positions`,
+  `msa_position_embedding` [max_rows, 1, H]) keep their shapes, the token
+  table as `embed_tokens.weight`;
+- `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token,
+  msa).
 
 Values are copied as float32 (int8 codes as int8); load the result with
 `module.load_state_dict(...)`, which casts to the module's dtype.
@@ -91,16 +95,50 @@ def encoder_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def msa_transformer_state_dict(tree: Tree,
+                               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `MsaTransformer` params -> the port's `MsaTransformer` state."""
+    out = {prefix + "embed_tokens.weight": _t(tree["embed_tokens"]),
+           prefix + "embed_positions": _t(tree["embed_positions"]),
+           prefix + "msa_position_embedding": _t(tree["msa_position_embedding"])}
+    out.update(_layer_norm(tree["emb_ln_before"], prefix + "emb_ln_before."))
+    n_layers = sum(1 for key in tree if key.startswith("layer_"))
+    for i in range(n_layers):
+        lt, lp = tree[f"layer_{i}"], f"{prefix}layers.{i}."
+        for attn in ("row", "col"):
+            out.update(_layer_norm(lt[f"{attn}_ln"], f"{lp}{attn}_ln."))
+            for name in ("q", "k", "v", "o"):
+                out.update(_dense(lt[f"{attn}_attn"][name],
+                                  f"{lp}{attn}_attn.{name}."))
+        out.update(_layer_norm(lt["ffn_ln"], lp + "ffn_ln."))
+        out.update(_dense(lt["fc1"], lp + "fc1."))
+        out.update(_dense(lt["fc2"], lp + "fc2."))
+    out.update(_layer_norm(tree["emb_ln_after"], prefix + "emb_ln_after."))
+    return out
+
+
+def msa_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `MsaEncoder` params (an `MsaTransformer` and an `EncoderHead`)
+    -> the port's `MsaEncoder` state."""
+    out = msa_transformer_state_dict(tree["transformer"], prefix + "transformer.")
+    out.update(head_state_dict(tree.get("head", {}), prefix + "head."))
+    return out
+
+
+_ENCODERS = {"encoders_sequence": encoder_state_dict,
+             "encoders_struct_token": encoder_state_dict,
+             "encoders_msa": msa_state_dict}
+
+
 def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     """JAX `OneProtModel` params (the params of a `OneProtModule` state)
-    with `encoders_sequence` and/or `encoders_struct_token` -> the port's
-    `OneProtModel` state."""
-    ported = {"encoders_sequence", "encoders_struct_token"}
-    unported = set(tree) - ported
+    with any of `encoders_sequence`, `encoders_struct_token` and
+    `encoders_msa` -> the port's `OneProtModel` state."""
+    unported = set(tree) - set(_ENCODERS)
     if unported:
         raise NotImplementedError(f"{sorted(unported)} are not ported yet")
     out = {}
     for key in sorted(tree):
-        out.update(encoder_state_dict(
+        out.update(_ENCODERS[key](
             tree[key], "encoders." + key[len("encoders_"):] + "."))
     return out

@@ -1,5 +1,6 @@
-"""ESM2 tokenizers (counterpart of oneprot_tpu/data/tokenizers.py:
-`EsmTokenizer`, `esm2_tokenizer`, `struct_token_tokenizer`).
+"""ESM2 tokenizers and the MSA batch converter (counterpart of
+oneprot_tpu/data/tokenizers.py: `EsmTokenizer`, `esm2_tokenizer`,
+`struct_token_tokenizer`, `MsaBatchConverter`).
 
 Token ids are those of the published ESM2 alphabet (facebook/esm2_* vocab),
 so converted checkpoints see the same inputs as under the JAX package; the
@@ -104,3 +105,41 @@ def esm2_tokenizer() -> EsmTokenizer:
 def struct_token_tokenizer() -> EsmTokenizer:
     """ESM2 tokenizer + the 21 3Di tokens (ids 33..53)."""
     return EsmTokenizer(extra_tokens=STRUCT_3DI_TOKENS)
+
+
+class MsaBatchConverter:
+    """A batch of MSAs -> padded int32 tokens [B, R, C], in the MSA
+    Transformer's alphabet (the ESM2 table): <cls> before each row, no
+    <eos>, pad id 1, rows cut to `truncation_seq_length` residues.
+    `max_rows` keeps the first rows of each MSA; `pad_rows_to` and
+    `pad_cols_to` pad R and C up to at least those sizes."""
+
+    def __init__(self, truncation_seq_length: int = 1022):
+        self.tok = EsmTokenizer()
+        self.truncation_seq_length = truncation_seq_length
+        self.padding_idx = self.tok.pad_token_id
+
+    def encode_row(self, seq: str) -> List[int]:
+        seq = seq[:self.truncation_seq_length]
+        return [self.tok.cls_token_id] + [
+            self.tok.vocab.get(ch, self.tok.unk_token_id) for ch in seq]
+
+    def __call__(self, msas: Sequence[Sequence[Tuple[str, str]]],
+                 max_rows: Optional[int] = None,
+                 pad_rows_to: Optional[int] = None,
+                 pad_cols_to: Optional[int] = None) -> np.ndarray:
+        batch_rows = []
+        for msa in msas:
+            rows = [self.encode_row(seq) for _, seq in msa]
+            batch_rows.append(rows if max_rows is None else rows[:max_rows])
+        R = max(len(rows) for rows in batch_rows)
+        C = max(len(r) for rows in batch_rows for r in rows)
+        if pad_rows_to:
+            R = max(R, pad_rows_to)
+        if pad_cols_to:
+            C = max(C, pad_cols_to)
+        out = np.full((len(batch_rows), R, C), self.padding_idx, dtype=np.int32)
+        for b, rows in enumerate(batch_rows):
+            for r, ids in enumerate(rows):
+                out[b, r, :len(ids)] = ids
+        return out

@@ -1,8 +1,9 @@
-"""Plain attention: the oracle the flash-MHA kernel is held against.
+"""Plain attention, the oracle the flash-MHA kernel is held against, and
+the tied-row dispatch of the MSA tower.
 
 Counterpart of oneprot_tpu/kernels/attention.py (`packed_segment_bias`,
-`reference_attention`): [B, H, L, D] layout, softmax in f32.
-`flash_mha.mha_attention_plain` is built on these two.
+`reference_attention`, `fused_tied_row`): [B, H, L, D] layout, softmax in
+f32. `flash_mha.mha_attention_plain` is built on the first two.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import math
 from typing import Optional
 
 import torch
+
+from oneprot_tpu_torch.kernels import tied_row_attention as tra
 
 LOG2E = math.log2(math.e)
 
@@ -43,3 +46,30 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1) * LOG2E
     return out
+
+
+class _TiedRow(torch.autograd.Function):
+    """Forward only, as the JAX package's custom vjp: the MSA tower is
+    always frozen, and a gradient through this op is refused."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, col_bias, scale):
+        fwd = (tra.tied_row_attention_plain if q.device.type == "cpu"
+               else tra.tied_row_attention_cuda)
+        return fwd(q, k, v, num_heads, col_bias=col_bias, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            "tied-row attention is forward only: the MSA tower must stay "
+            "frozen (run it under torch.no_grad)")
+
+
+def fused_tied_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   num_heads: int, col_bias: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """MSA tied-row attention on the projections' [B, R, L, H*D] layout
+    (see `tied_row_attention`). CPU tensors take the plain version; CUDA
+    tensors the kernel, which raises on what it does not take (a head dim
+    other than 64). No gradient: backward raises NotImplementedError."""
+    return _TiedRow.apply(q, k, v, num_heads, col_bias, scale)

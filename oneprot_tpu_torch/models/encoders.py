@@ -1,12 +1,12 @@
-"""Token encoders and the hub model (counterpart of
+"""Encoders and the hub model (counterpart of
 oneprot_tpu/models/encoders.py: `SequenceEncoder`, `StructTokenEncoder`,
-their factories, `OneProtModel`).
+`MsaEncoder`, their factories, `OneProtModel`).
 
 Encoders compute in `dtype` (bf16 on the card). A frozen transformer stores
 its parameters in that dtype; a trainable one keeps float32 master
 parameters, and heads always do, as flax stores them. `OneProtModel` routes
-'sequence' and 'seqsim' to the sequence encoder and 'struct_token' to its
-encoder; the other modalities are not ported yet.
+'sequence' and 'seqsim' to the sequence encoder and 'struct_token' and
+'msa' to theirs; the other modalities are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,9 +19,13 @@ import torch.nn as nn
 
 from oneprot_tpu_torch.models.esm2 import Esm2, Esm2Config, resolve_esm2_config
 from oneprot_tpu_torch.models.heads import EncoderHead, segment_pool
+from oneprot_tpu_torch.models.msa_transformer import (
+    MsaTransformer,
+    MsaTransformerConfig,
+)
 
 STRUCT_EXTRA_TOKENS = 21  # +21 3Di rows of the struct-token vocabulary
-PORTED_MODALITIES = ("sequence", "struct_token")
+PORTED_MODALITIES = ("sequence", "struct_token", "msa")
 
 
 def _segment_packed_pooled(transformer: Esm2, pooling_type: str,
@@ -123,6 +127,36 @@ class StructTokenEncoder(_TokenEncoder):
                          device=device, dtype=dtype)
 
 
+class MsaEncoder(nn.Module):
+    """The frozen MSA Transformer + head. The tower's output is averaged
+    over every token of every row (in f32: ~10^4 summands) and the head
+    does not pool again. The tower runs without an autograd graph."""
+
+    def __init__(self, config: MsaTransformerConfig, output_dim: int,
+                 proj_type: Optional[str] = "mlp", use_logit_scale: bool = True,
+                 learnable_logit_scale: bool = False, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.config = config
+        self.frozen = True  # always frozen, as in the reference
+        self.transformer = MsaTransformer(config, device=device, dtype=dtype)
+        self.transformer.requires_grad_(False)
+        self.head = EncoderHead(
+            config.hidden_size, output_dim, proj_type, "identity",
+            use_logit_scale, learnable_logit_scale, device=device, dtype=dtype)
+
+    def backbone_pooled(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Tokens [B, R, L] -> the all-MSA mean [B, H] in the tower's dtype."""
+        with torch.no_grad():
+            reps = self.transformer(tokens)
+        m = (tokens != self.config.pad_token_id)[..., None].float()
+        total = (reps.float() * m).sum(dim=(1, 2))
+        return (total / m.sum(dim=(1, 2)).clamp_min(1.0)).to(reps.dtype)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.head.project(self.backbone_pooled(tokens))
+
+
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -182,6 +216,36 @@ def create_struct_token_encoder(
     return StructTokenEncoder(
         cfg, output_dim=output_dim, pooling_type=pooling_type,
         proj_type=proj_type, use_logit_scale=use_logit_scale,
+        learnable_logit_scale=learnable_logit_scale, device=device,
+        dtype=_dtype(dtype))
+
+
+def create_msa_encoder(
+    model_name_or_path: str = "esm_msa1b_t12_100M_UR50S",
+    output_dim: int = 1024,
+    proj_type: Optional[str] = "mlp",
+    use_logit_scale: bool = True,
+    learnable_logit_scale: bool = False,
+    num_layers: int = 12,
+    hidden_size: int = 768,
+    num_heads: int = 12,
+    intermediate_size: Optional[int] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+    device: Union[str, torch.device] = "cuda",
+) -> MsaEncoder:
+    """Build an MsaEncoder with the settings of
+    configs/model/components/msa.yaml: esm_msa1b at its published widths
+    (12 layers of 768, 12 heads of 64, FFN 4 x 768), identity pooling over
+    the all-MSA mean, mlp head, fixed logit scale 1/0.07, bf16 on the card.
+    Weights are PyTorch's default init: load a state_dict (see
+    `convert.msa_state_dict`) or call `msa_transformer.init_msa_weights_`."""
+    del model_name_or_path  # weights come through the checkpoint converter
+    cfg = MsaTransformerConfig(
+        num_layers=num_layers, hidden_size=hidden_size, num_heads=num_heads,
+        intermediate_size=intermediate_size or 4 * hidden_size)
+    return MsaEncoder(
+        cfg, output_dim=output_dim, proj_type=proj_type,
+        use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, device=device,
         dtype=_dtype(dtype))
 

@@ -136,9 +136,10 @@ class Int8Dense(nn.Module):
     """Dense with w8a8 int8 quantization, for frozen towers only.
 
     Holds `weight_q` int8 [out, in] and `weight_scale` f32 [out] (made from a
-    float weight by `quantize_esm2_int8_tree`) and an f32 bias, all as
-    buffers: nothing here trains. The forward quantizes activations per
-    token (symmetric abs-max), takes the int8 x int8 -> int32 product and
+    float weight by `quantize_esm2_int8_tree`) and an f32 bias (bf16 once
+    `OneProtModule.init` stores frozen leaves in bf16), all as buffers:
+    nothing here trains. The forward quantizes activations per token
+    (symmetric abs-max), takes the int8 x int8 -> int32 product and
     dequantizes as `y * s_x * s_w + bias` in f32.
     """
 

@@ -28,6 +28,7 @@ import torch
 
 from oneprot_tpu_torch.losses.clip import clip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
+from oneprot_tpu_torch.models.esm2 import Int8Dense
 from oneprot_tpu_torch.train import optim as optim_lib
 
 Pack = Mapping[str, Any]  # {"ids": [R, L], "segment_ids": [R, L]}
@@ -67,9 +68,11 @@ class OneProtModule:
     def init(self) -> "OneProtModule":
         """Mark the trainable parameters (`trainable_mask`), store frozen
         float parameters in bf16 when frozen_param_dtype says so (they
-        never meet the optimizer; int8 weights and scales are buffers and
-        keep their dtypes) and build the optimizer over the trainable ones.
-        The weights are the modules' own: load a state_dict first."""
+        never meet the optimizer), and build the optimizer over the
+        trainable ones. As in the JAX package, the int8 hub's biases go to
+        bf16 as well, while its int8 weights and f32 dequantization scales
+        keep their dtypes. The weights are the modules' own: load a
+        state_dict first."""
         self.mask = optim_lib.trainable_mask(self.encoders)
         trainable = []
         for name, p in self.model.named_parameters():
@@ -78,6 +81,10 @@ class OneProtModule:
                 trainable.append(p)
             elif self.frozen_param_dtype and p.is_floating_point():
                 p.data = p.data.to(torch.bfloat16)
+        if self.frozen_param_dtype:
+            for mod in self.model.modules():
+                if isinstance(mod, Int8Dense) and mod.bias is not None:
+                    mod.bias = mod.bias.to(torch.bfloat16)
         self.opt = optim_lib.build_optimizer(trainable, self.optimizer_fn,
                                              self.gradient_clip_val)
         self.step = 0

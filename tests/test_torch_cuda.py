@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
+from oneprot_tpu_torch.kernels import tied_row_attention as tra
+from oneprot_tpu_torch.kernels.attention import fused_tied_row
 from oneprot_tpu_torch.models import encoders, esm2
 from oneprot_tpu_torch.models.esm2 import int8_matmul, rotary_cos_sin
 from oneprot_tpu_torch.serving import OneProtEmbedder
@@ -185,3 +187,51 @@ def test_default_sequence_encoder_embeds_on_the_card(card):
     assert feats.shape == (2, enc.config.hidden_size)  # no projection
     assert np.isfinite(feats).all()
     np.testing.assert_allclose(np.linalg.norm(feats, axis=-1), 1.0, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# tied-row attention (the MSA tower's row attention)
+
+
+def _tied_inputs(B, R, L, nh, card, seed, masked_tail):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn(B, R, L, nh * 64, device=card, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(B, 1, 1, L, device=card)
+    bias[..., L - masked_tail:] = -1e9
+    return q, k, v, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,R,L,nh,masked_tail", [
+    (4, 16, 1024, 12, 0),    # embed_msas: depth 16, the widest bucket
+    (4, 50, 1024, 12, 0),    # the MSA data config's depth
+    (2, 16, 300, 3, 17),     # off the tile grid, odd heads, masked tail
+    (1, 1, 1, 1, 0),         # one row, one column
+    (2, 3, 64, 2, 5),        # the smallest bucket
+])
+def test_tied_row_kernel_matches_plain(card, B, R, L, nh, masked_tail):
+    q, k, v, bias = _tied_inputs(B, R, L, nh, card, L + R, masked_tail)
+    before = tra.tied_row_attention_cuda.launches
+    out = fused_tied_row(q, k, v, nh, col_bias=bias)
+    ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
+    torch.cuda.synchronize()
+    assert tra.tied_row_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL
+
+
+@pytest.mark.gpu
+def test_tied_row_kernel_refuses(card):
+    x = torch.zeros(1, 2, 16, 128, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim 32
+        fused_tied_row(x, x, x, 4)
+    with pytest.raises(TypeError):
+        fused_tied_row(x.float(), x.float(), x.float(), 2)
+    q = x.clone().requires_grad_()
+    out = fused_tied_row(q, x, x, 2)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()

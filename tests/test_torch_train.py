@@ -293,21 +293,24 @@ def _jax_module(frozen_hub=True):
     return module
 
 
-def _port_module(jax_module, frozen_param_dtype=None):
-    """The port's tiny module on the CPU in f32, carrying the JAX params."""
+def _port_module(jax_module, frozen_param_dtype=None, params=None):
+    """The port's tiny module on the CPU in f32, carrying the JAX params
+    (or `params`, a numpy tree of the same layout), int8 hub where the JAX
+    hub is."""
     jenc = jax_module.encoders
     cfg = lambda name: esm2.Esm2Config(**dataclasses.asdict(jenc[name].config))
     seq = encoders.SequenceEncoder(cfg("sequence"), 32, proj_type="mlp",
-                                   frozen=jenc["sequence"].frozen, device="cpu",
-                                   dtype=torch.float32)
+                                   frozen=jenc["sequence"].frozen,
+                                   quant_int8=jenc["sequence"].quant_int8,
+                                   device="cpu", dtype=torch.float32)
     st = encoders.StructTokenEncoder(cfg("struct_token"), 32, device="cpu",
                                      dtype=torch.float32)
     module = OneProtModule({"sequence": seq, "struct_token": st},
                            optimizer=optim.adam(1e-3),
                            use_l1_regularization=True,
                            frozen_param_dtype=frozen_param_dtype)
-    module.model.load_state_dict(
-        convert.oneprot_state_dict(_numpy_tree(jax_module.state.params)))
+    module.model.load_state_dict(convert.oneprot_state_dict(
+        params or _numpy_tree(jax_module.state.params)))
     return module.init()
 
 
@@ -420,6 +423,112 @@ def test_init_freezes_the_hub_and_stores_it_in_bf16():
         assert p.dtype == (torch.bfloat16 if frozen else torch.float32), name
     assert set(module.opt.params) == {p for p in module.model.parameters()
                                       if p.requires_grad}
+
+
+def test_int8_hub_packed_step_matches_jax():
+    """A frozen int8 hub (quantize: int8) with frozen leaves stored in bf16,
+    as the JAX init stores them: every frozen float leaf in bf16 but the
+    dequantization scales, so the Int8Dense biases too. The hub's biases
+    are random f32 values, loaded unrounded into the port (as a float
+    checkpoint would be) and into the JAX state in the dtype its init gave
+    the leaf. One packed step: the loss, every trainable leaf's clipped
+    gradient and every trainable parameter after the step at the f32 bar.
+    The update is held where |g| >= 1e-6: Adam's first step moves an
+    element by lr * g / (|g| + 1e-8), so for a gradient near 1e-8 an ulp
+    of difference upstream (an int8 code that flips at a .5 tie between
+    the two frameworks' LayerNorms) moves it by up to lr; the gradient of
+    that element is held all the same."""
+    from oneprot_tpu.models.encoders import create_sequence_encoder as jseq
+    from oneprot_tpu.models.encoders import create_struct_token_encoder as jst
+    from oneprot_tpu.train.module import OneProtModule as JaxModule
+    from oneprot_tpu.train.optim import adam as jadam
+    from tests.helpers.tiny_models import patch_tiny_esm2
+
+    patch_tiny_esm2()
+    name = "facebook/esm2_t6_8M_UR50D"
+    jm = JaxModule(
+        components={"sequence": jseq(name, output_dim=32, proj_type="mlp",
+                                     dtype="float32", quantize="int8"),
+                    "struct_token": jst(name, output_dim=32, dtype="float32")},
+        optimizer=lambda: jadam(1e-3), loss_fn="CLIP", mesh=None, seed=0,
+        frozen_param_dtype="bfloat16")
+    jm.use_l1_regularization = True
+    init_ids = np.full((2, 16), 1, np.int32)
+    init_ids[:, 0] = 0
+    jm.init({"struct_token": (init_ids, init_ids)})
+
+    rng = np.random.RandomState(9)
+    f32_tree = _numpy_tree(jm.state.params)
+    hub = f32_tree["encoders_sequence"]["transformer"]
+    jax_hub = jax.tree_util.tree_map(lambda x: x, jm.state.params[
+        "encoders_sequence"]["transformer"])
+    n_bias = 0
+    for i in range(2):
+        layer, jlayer = hub[f"layer_{i}"], jax_hub[f"layer_{i}"]
+        for sub, jsub in [(layer["attn"][n], jlayer["attn"][n])
+                          for n in ("q", "k", "v", "o")] + [
+                (layer[n], jlayer[n]) for n in ("fc1", "fc2")]:
+            sub = sub.get("dense", sub)
+            jsub = jsub.get("dense", jsub)
+            assert jsub["bias"].dtype == jnp.bfloat16  # the JAX rule
+            assert jsub["kernel_scale"].dtype == jnp.float32
+            b = (rng.randn(*sub["bias"].shape) * 0.5).astype(np.float32)
+            sub["bias"] = b
+            jsub["bias"] = jnp.asarray(b).astype(jsub["bias"].dtype)
+            n_bias += 1
+    params = dict(jm.state.params)
+    params["encoders_sequence"] = dict(params["encoders_sequence"],
+                                       transformer=jax_hub)
+    jm.state = jm.state.replace(params=params)
+    pm = _port_module(jm, frozen_param_dtype="bfloat16", params=f32_tree)
+
+    int8 = [m for m in pm.model.modules() if isinstance(m, esm2.Int8Dense)]
+    assert len(int8) == n_bias == 12
+    for m in int8:
+        assert m.bias.dtype == torch.bfloat16
+        assert m.weight_scale.dtype == torch.float32
+        assert m.weight_q.dtype == torch.int8
+
+    ids, seg, st_ids, st_seg, valid = _batch()
+    j = jnp.asarray
+    frozen = params["encoders_sequence"]
+
+    def loss_fn(trainable):
+        p = {"encoders_struct_token": trainable["tower"],
+             "encoders_sequence": dict(frozen, head=trainable["head"])}
+        seq_f, _ = jm.model.apply({"params": p}, j(ids), j(seg), SLOTS,
+                                  "sequence", method=JaxOneProtModel.encode_packed)
+        mod_f, _ = jm.model.apply({"params": p}, j(st_ids), j(st_seg), SLOTS,
+                                  "struct_token",
+                                  method=JaxOneProtModel.encode_packed)
+        return jm._packed_loss_value(mod_f, seq_f, j(valid.reshape(-1)))
+
+    jgrads = jax.jit(jax.grad(loss_fn))(
+        {"tower": params["encoders_struct_token"], "head": frozen["head"]})
+    jgrads, _ = optax.clip_by_global_norm(1.0).update(jgrads, None)
+    jgrads = _numpy_tree(jgrads)
+    jgrads = {**convert.encoder_state_dict(jgrads["tower"],
+                                           "encoders.struct_token."),
+              **convert.head_state_dict(jgrads["head"],
+                                        "encoders.sequence.head.")}
+    step = jax.jit(jm.train_step_packed_fn("struct_token", SLOTS))
+    jstate, jloss = step(jm.state, j(ids), j(seg), j(st_ids), j(st_seg),
+                         j(valid.reshape(-1)))
+    loss, _ = pm.train_step_packed(
+        "struct_token", {"ids": ids, "segment_ids": seg},
+        {"ids": st_ids, "segment_ids": st_seg}, valid)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=RTOL)
+    want = convert.oneprot_state_dict(_numpy_tree(jstate.params))
+    trainable = {n: p for n, p in pm.model.named_parameters() if p.requires_grad}
+    assert trainable.keys() == jgrads.keys()
+    for pname, p in trainable.items():
+        g = jgrads[pname].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), g, rtol=RTOL, atol=ATOL,
+                                   err_msg=pname)
+        held = np.abs(g) >= 1e-6
+        np.testing.assert_allclose(p.detach().numpy()[held],
+                                   want[pname].numpy()[held], rtol=RTOL,
+                                   atol=ATOL, err_msg=pname)
 
 
 def test_module_refuses_what_is_not_ported():
