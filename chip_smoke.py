@@ -14,9 +14,11 @@ the elapsed seconds:
    the shapes its path gives it (the flash-MHA forward and backward at the
    35M tower's and the hub's packed shapes, the tied-row attention at
    embed_msas's depth 16 and the MSA data config's depth 50 at 1024
-   columns and off the tile grid), with its time, the plain version's, a
-   library call's where one computes the same function, and the card's
-   lower bound;
+   columns and off the tile grid, the FlashAttention-2 forward at the
+   ESM2-15B width's B=32 H=40 L=1024 D=128, at D=64 and 256, at L=300 and
+   on heads of 24 padded by dot_product_attention), with its time, the
+   plain version's, a library call's where one computes the same function,
+   and the card's lower bound;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -24,16 +26,24 @@ the elapsed seconds:
    before each hub and read after it, show its kernels ran;
 5. parity: the same weights at 2 layers on the card (bf16, kernels) against
    the CPU (f32, plain versions);
-6. serving MSA-1b: the full-width esm_msa1b tower (12 x 768, random weights
+6. serving at the ESM2-15B width: `create_sequence_encoder` on the
+   committed HF config.json of esm2_t48_15B_UR50D (48 layers of 5120, 40
+   heads of 128, FFN 20480; random weights from a seed, bf16, 30 GB on
+   the card) with the mlp head answers 3 requests of 32 sequences (their
+   own numpy seed) and one top-10 retrieval; every attention runs through
+   the FlashAttention-2 kernel, none through flash-MHA; then the same
+   weights at 2 layers, card (bf16, kernel) against CPU (f32, plain), and
+   the hub is freed;
+7. serving MSA-1b: the full-width esm_msa1b tower (12 x 768, random weights
    from a seed) with its mlp head, built by `create_msa_encoder` with its
    defaults, answers 3 requests of 4 synthetic .a3m MSAs (64 homologs
    each, with gaps and insertions) through `embed_msas`'s defaults (depth
    16, batch 4, up to 1024 columns) and one top-10 retrieval; every row
    attention runs through the tied-row kernel;
-7. MSA parity: the same weights at 2 layers, card (bf16, kernel) against
+8. MSA parity: the same weights at 2 layers, card (bf16, kernel) against
    CPU (f32, plain version), on the tower's output token by token and on
    the embeddings;
-8. training: bench.py's model at full width (frozen ESM2-650M hub with its
+9. training: bench.py's model at full width (frozen ESM2-650M hub with its
    mlp head, trainable ESM2-35M struct-token tower, CLIP + 0.01 L1, clipped
    Adam at SMOKE_LR), built by `create_sequence_encoder`,
    `create_struct_token_encoder` and `OneProtModule`, takes 6
@@ -42,7 +52,7 @@ the elapsed seconds:
    `train_step_packed_cached` steps on the hub's pooled features; the
    counters, set to 0 before each path, show every attention ran through
    the kernels (and no plain version ran), and the loss falls;
-9. training parity: the same weights at 2 hub + 2 tower layers, one packed
+10. training parity: the same weights at 2 hub + 2 tower layers, one packed
    step on the card (bf16, kernels) against the CPU (f32, plain versions),
    and cached == uncached on the card.
 
@@ -65,6 +75,7 @@ import torch
 
 from oneprot_tpu_torch.data import packing
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
+from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
 from oneprot_tpu_torch.models import esm2, msa_transformer
 from oneprot_tpu_torch.models.encoders import (
@@ -90,6 +101,9 @@ FLASH_REL_TOL = 1.5e-2     # max |kernel - plain| / max |plain|, bf16
 SCALE_REL_TOL = 1e-5       # GELU->int8 row scales
 CODE_FLIP_SHARE = 1e-3     # GELU->int8 codes off by one, at most this share
 N_LAYERS = 33
+# ESM2 at its largest published size, widths from its HF config.json
+WIDE_HUB = esm2.HUB_CONFIG_DIR / "esm2_t48_15B_UR50D"
+WIDE_LAYERS = 48
 TOWER_LAYERS = 12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 BUCKETS = (256, 384, 512, 768, 1024)
@@ -148,12 +162,14 @@ LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
              "flash_mha_bwd_dq": flash_mha.flash_mha_bwd_dq_cuda,
              "flash_mha_bwd_dkv": flash_mha.flash_mha_bwd_dkv_cuda,
              "gelu_quant": gelu_quant.gelu_quant_cuda,
-             "tied_row_attention": tra.tied_row_attention_cuda}
+             "tied_row_attention": tra.tied_row_attention_cuda,
+             "flash_attention_fwd": fa.flash_attention_fwd_cuda}
 # the plain versions, counted by the wrappers `count_plain_calls` installs
 PLAINS = ((flash_mha, "mha_attention_plain"),
           (flash_mha, "mha_attention_bwd_plain"),
           (gelu_quant, "gelu_quant_reference"),
-          (tra, "tied_row_attention_plain"))
+          (tra, "tied_row_attention_plain"),
+          (fa, "flash_attention_plain"))
 PLAIN_CALLS = {name: 0 for _, name in PLAINS}
 
 
@@ -340,6 +356,91 @@ def check_tied_row(gen) -> dict:
             "shape": f"B={B} R={R} L={L} H={H} D=64 bf16",
             "note": "library_ms: scaled_dot_product_attention on [B, H, L, "
                     "R*64] (heads of R*64), scale and column mask"}
+
+
+def fa_inputs(B, H, L, D, gen):
+    """q, k, v [B, H, L, D] bf16 as the ESM2 layer hands them over (heads
+    viewed out of [B, L, H*D] projections), a key-padding bias [B, 1, 1, L]
+    (each row keeps a random prefix of at least L/2 keys) and the valid
+    positions [B, L]."""
+    q, k, v = (torch.randn(B, L, H * D, device="cuda", generator=gen)
+               .to(torch.bfloat16).view(B, L, H, D).transpose(1, 2)
+               for _ in range(3))
+    lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=gen)
+    valid = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    return q, k, v, ((1.0 - valid.float()) * -1e9)[:, None, None, :], valid
+
+
+def check_flash_attention(gen) -> dict:
+    """The FlashAttention-2 forward against flash_attention_plain: at the
+    ESM2-15B width's serving shape (a batch of 32 at bucket 1024, 40 heads
+    of 128), at heads of 64 and 256, at a ragged L = 300, and on heads of 24
+    through dot_product_attention's padding (the 35M tower's width), each
+    with a key-padding bias. The first three are timed beside
+    scaled_dot_product_attention on the same inputs and the bound."""
+    worst_rel, worst_abs, worst_lse = 0.0, 0.0, 0.0
+    timed = []
+    cases = [(32, 40, 1024, 128, True), (8, 16, 1024, 64, True),
+             (8, 16, 1024, 256, True), (4, 40, 300, 128, False),
+             (16, 20, 1024, 24, False)]
+    for B, H, L, D, time_it in cases:
+        q, k, v, bias, valid = fa_inputs(B, H, L, D, gen)
+        if D < fa.MIN_HEAD_DIM:  # padded to 64 on the way into the kernel
+            out, lse = fa.dot_product_attention(q, k, v, bias), None
+        else:
+            out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
+        ref, ref_lse_full = fa.flash_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        require(torch.isfinite(out.float()).all().item(),
+                f"flash-attention D={D} L={L}: non-finite")
+        diff = (out.float() - ref.float()).abs().max().item()
+        rel = diff / max(ref.float().abs().max().item(), 1e-6)
+        line = (f"  flash-attention B={B} H={H} L={L} D={D}"
+                f"{' (padded to 64 by dot_product_attention)' if lse is None else ''}"
+                f": max rel err {rel:.3e}, max abs err {diff:.3e}")
+        require(rel <= FLASH_REL_TOL,
+                f"flash-attention D={D} L={L}: rel err {rel} > {FLASH_REL_TOL}")
+        if lse is not None:
+            rows = valid[:, None, :].expand_as(lse)
+            lse_err = (lse - ref_lse_full).abs()[rows].max().item()
+            line += f", lse max abs err {lse_err:.3e} (real rows)"
+            require(lse_err <= 5e-2, f"flash-attention D={D} L={L}: lse err "
+                    f"{lse_err}")
+            worst_lse = max(worst_lse, lse_err)
+        print(line, flush=True)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
+        del out, ref, ref_lse_full, lse
+        if time_it:
+            kernel = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, bias))
+            plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias),
+                            iters=3)
+            mask = bias.to(torch.bfloat16)
+            library = time_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=mask))
+            # q, k, v read and out written in bf16, the bias and lse in f32
+            nbytes = 4 * B * H * L * D * 2 + B * L * 4 + B * H * L * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * B * H * L * L * D, BF16_FLOPS)
+            print(f"  flash-attention timed at B={B} H={H} L={L} D={D}: kernel "
+                  f"{kernel:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+            timed.append({"shape": f"B={B} H={H} L={L} D={D} bf16",
+                          "ms": kernel, "plain_ms": plain,
+                          "library_ms": library, "bound_ms": b_ms,
+                          "bound_by": b_by})
+        del q, k, v, bias
+        torch.cuda.empty_cache()
+    main = timed[0]
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "oneprot_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+            "replaces": "oneprot_tpu/kernels/flash_attention.py:79",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "lse_max_abs_err": worst_lse, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"], "timed": timed,
+            "note": "library_ms: scaled_dot_product_attention with the "
+                    "[B, 1, 1, L] bias as a bf16 mask"}
 
 
 def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
@@ -544,11 +645,13 @@ def training(hub: SequenceEncoder, rng, launches: dict):
     per_step = {"packed step": {"flash_mha_fwd": N_LAYERS + TOWER_LAYERS,
                                 "flash_mha_bwd_dq": TOWER_LAYERS,
                                 "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0, "tied_row_attention": 0},
+                                "gelu_quant": 0, "tied_row_attention": 0,
+                                "flash_attention_fwd": 0},
                 "cached step": {"flash_mha_fwd": TOWER_LAYERS,
                                 "flash_mha_bwd_dq": TOWER_LAYERS,
                                 "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0, "tied_row_attention": 0}}
+                                "gelu_quant": 0, "tied_row_attention": 0,
+                                "flash_attention_fwd": 0}}
     seq_pooled = None
     for path in ("packed step", "cached step"):
         if path == "cached step":
@@ -842,6 +945,70 @@ def msa_parity(state: dict, paths: list) -> dict:
     return result
 
 
+def serve_wide_hub(smi: str, launches: dict):
+    """The hub at the ESM2-15B width (random weights from a seed, bf16,
+    ~30 GB on the card) answers 3 requests of 32 sequences drawn from its
+    own numpy stream; fills `launches`. Returns (numbers, its first 2
+    layers' state on the CPU, its config); the caller frees the hub."""
+    # the entry point on the config directory: 1024 wide mlp head, bf16, card
+    enc = create_sequence_encoder(model_name_or_path=str(WIDE_HUB),
+                                  proj_type="mlp")
+    cfg = enc.config
+    require((cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+             cfg.intermediate_size) == (WIDE_LAYERS, 5120, 40, 20480),
+            f"ESM2-15B widths: {cfg}")
+    esm2.init_esm2_weights_(enc, torch.Generator(device="cuda").manual_seed(5))
+    n_params = sum(p.numel() for p in enc.parameters())
+    rng = np.random.RandomState(3)
+    requests = [sample_seqs(32, rng) for _ in range(3)]
+    embedder = OneProtEmbedder(OneProtModel({"sequence": enc}), buckets=BUCKETS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    feats, secs = serve(embedder, requests, "ESM2-15B-width hub")
+    launches["15B hub"] = read_launches()
+    batches = len(requests)  # 32 sequences a request, batch_size 32
+    want = {name: 0 for name in LAUNCHERS}
+    want["flash_attention_fwd"] = WIDE_LAYERS * batches
+    require(launches["15B hub"] == want,
+            f"15B hub launches {launches['15B hub']}, want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"15B hub: plain versions ran on the card: {PLAIN_CALLS}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_retrieval(embedder, feats, rng, "15B hub")
+    state2 = first_layers(enc.state_dict(), 2)
+    del embedder, enc
+    n = sum(len(r) for r in requests)
+    print(f"  15B hub: {n_params / 1e9:.3f} B parameters; launches "
+          f"{launches['15B hub']}; peak device memory {peak:.2f} GiB (both "
+          f"hubs' weights included); {smi}", flush=True)
+    result = {"sequences": n, "requests": len(requests),
+              "seq_per_s": n / sum(secs), "request_ms": [x * 1e3 for x in secs],
+              "params": n_params, "peak_gib": peak}
+    return result, state2, cfg
+
+
+def wide_hub_parity(state: dict, cfg) -> float:
+    """The 15B-width hub's first 2 layers and its head, card (bf16, kernel)
+    against CPU (f32, plain version), on PARITY_ROWS sequences through
+    embed_sequences: mean embedding cosine."""
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    seqs = sample_seqs(PARITY_ROWS, np.random.RandomState(4))
+    outs = []
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = SequenceEncoder(cfg2, 1024, proj_type="mlp", device=device,
+                                dtype=dtype)
+        model.load_state_dict(state)
+        outs.append(OneProtEmbedder(OneProtModel({"sequence": model}),
+                                    buckets=BUCKETS).embed_sequences(seqs))
+        del model
+    cos = mean_cosine(*outs)
+    print(f"  15B-width hub at 2 layers, card vs CPU, {PARITY_ROWS} sequences: "
+          f"mean cosine {cos:.6f} (gate >= 0.999)", flush=True)
+    require(cos >= 0.999, f"15B-width parity {cos} < 0.999")
+    return cos
+
+
 def mean_cosine(a: np.ndarray, b: np.ndarray) -> float:
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
@@ -877,7 +1044,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd_row = check_flash(gen)
     rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen),
-            check_tied_row(gen)]
+            check_tied_row(gen), check_flash_attention(gen)]
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -894,7 +1061,8 @@ def main() -> int:
     require(launches["bf16 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
                                      "flash_mha_bwd_dq": 0,
                                      "flash_mha_bwd_dkv": 0, "gelu_quant": 0,
-                                     "tied_row_attention": 0},
+                                     "tied_row_attention": 0,
+                                     "flash_attention_fwd": 0},
             f"bf16 hub launches: {launches['bf16 hub']}")
     check_retrieval(embedder, feats_bf16, rng, "bf16 hub")
 
@@ -909,7 +1077,8 @@ def main() -> int:
                                      "flash_mha_bwd_dq": 0,
                                      "flash_mha_bwd_dkv": 0,
                                      "gelu_quant": N_LAYERS * batches,
-                                     "tied_row_attention": 0},
+                                     "tied_row_attention": 0,
+                                     "flash_attention_fwd": 0},
             f"int8 hub launches: {launches['int8 hub']}")
     require(not any(PLAIN_CALLS.values()),
             f"serving: plain versions ran on the card: {PLAIN_CALLS}")
@@ -943,6 +1112,16 @@ def main() -> int:
         print(f"  {name} hub: card vs CPU mean cosine {parity[name]:.6f} "
               f"(gate >= {tol})", flush=True)
         require(parity[name] >= tol, f"{name} parity {parity[name]} < {tol}")
+
+    phase("serving: ESM2-15B width (48 x 5120, 40 heads of 128), bf16")
+    torch.cuda.empty_cache()
+    wide, wide_state, wide_cfg = serve_wide_hub(smi, launches)
+    torch.cuda.empty_cache()  # the hub's 30 GB go back before what follows
+
+    phase("15B-width parity: 2 layers at full width, card (bf16, kernel) vs "
+          "CPU (f32, plain)")
+    wide["parity_mean_cosine"] = wide_hub_parity(wide_state, wide_cfg)
+    del wide_state
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_msa_") as msa_dir:
         phase("serving: MSA-1b (esm_msa1b, 12 x 768), depth 16, batch 4, up "
@@ -983,6 +1162,7 @@ def main() -> int:
                     "bf16_vs_int8_mean_cosine": cos_hubs,
                     "parity_mean_cosine": parity,
                     "peak_gib": peak_gb},
+        "wide_hub_serving": wide,
         "msa_serving": msa,
         "training": {**train, "parity": train_parity},
         "wall_s": time.time() - T0}), flush=True)

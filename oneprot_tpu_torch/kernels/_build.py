@@ -37,6 +37,10 @@ SIGNATURES = {
     "flash_mha_bwd_dkv": ("oneprot_flash_mha_bwd_dkv",
                           [_VOID_P] * 12 + [_INT] * 4 + [ctypes.c_float,
                                                          _VOID_P]),
+    "flash_attention_fwd": ("oneprot_flash_attention_fwd",
+                            [_VOID_P] * 6 + [_INT] * 5
+                            + [ctypes.c_longlong] * 12
+                            + [ctypes.c_float, _VOID_P]),
     "gelu_quant": ("oneprot_gelu_quant",
                    [_VOID_P, _INT, _VOID_P, _VOID_P, ctypes.c_longlong, _INT,
                     _VOID_P]),

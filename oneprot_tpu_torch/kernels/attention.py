@@ -1,9 +1,13 @@
-"""Plain attention, the oracle the flash-MHA kernel is held against, and
+"""Plain attention, the oracle the flash kernels are held against, and
 the tied-row dispatch of the MSA tower.
 
 Counterpart of oneprot_tpu/kernels/attention.py (`packed_segment_bias`,
 `reference_attention`, `fused_tied_row`): [B, H, L, D] layout, softmax in
-f32. `flash_mha.mha_attention_plain` is built on the first two.
+f32. `flash_mha.mha_attention_plain` and
+`flash_attention.flash_attention_plain` are built on the first two. The
+JAX module's `dot_product_attention` and the head-dim rule of its
+`fused_mha` sit beside the kernels they dispatch to, in `flash_attention`
+and `flash_mha`.
 """
 
 from __future__ import annotations

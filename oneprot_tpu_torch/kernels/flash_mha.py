@@ -39,6 +39,15 @@ MAX_HEAD_DIM = 64
 SEG_MASK = -1e30
 
 
+def fused_mha_applies(head_dim: int) -> bool:
+    """Whether an ESM2 layer with heads of `head_dim` takes the fused
+    [B, L, H*D] path of `mha_attention`, as the JAX `fused_mha` does where
+    it does not return None: heads of at most MAX_HEAD_DIM and even (its
+    rotary pairs half with half). Wider heads go through
+    `flash_attention.dot_product_attention`."""
+    return head_dim <= MAX_HEAD_DIM and head_dim % 2 == 0
+
+
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([-x2, x1], dim=-1)

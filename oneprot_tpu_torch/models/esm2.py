@@ -3,34 +3,50 @@ oneprot_tpu/models/esm2.py).
 
 Numerics follow the JAX `Esm2`: rotary position embeddings on q and k
 (rotate_half), pre-LN blocks with a final LayerNorm, the ESM2 token-dropout
-rescale, exact-erf GELU, LayerNorm eps 1e-5. Attention runs through
-`kernels.flash_mha.mha_attention` (the CUDA kernel on the card, its plain
-version on the CPU). With `quant_int8`, every dense layer of the blocks is
-an `Int8Dense` (w8a8, frozen towers only) and the fc1 -> fc2 epilogue runs
-the fused GELU -> int8 kernel.
+rescale, exact-erf GELU, LayerNorm eps 1e-5. Attention takes one of the JAX
+layer's two paths, by head width:
+
+- heads of at most 64 (every preset up to ESM2-3B): the fused [B, L, H*D]
+  `kernels.flash_mha.mha_attention`, with rotary inside the kernel;
+- wider heads (ESM2-15B's 128, from a `config.json`): rotary in the compute
+  dtype with the tables cast to it, then `kernels.flash_attention.
+  dot_product_attention` over [B, H, L, D] (the FlashAttention-2 forward).
+
+Each runs its CUDA kernel on the card and its plain version on the CPU.
+With `quant_int8`, every dense layer of the blocks is an `Int8Dense` (w8a8,
+frozen towers only) and the fc1 -> fc2 epilogue runs the fused GELU -> int8
+kernel.
 
 Modules are built on the card in bf16 unless the caller names another
-device and dtype: the flash-MHA kernel takes bf16 only, so `Esm2` refuses
+device and dtype: the attention kernels take bf16 only, so `Esm2` refuses
 another compute dtype on the card; the CPU takes any. `param_dtype` (default:
 the compute dtype) is the dtype the parameters are stored in: float32 for a
 trainable bf16 tower, as flax keeps them (see `layers`).
 
 With `segment_ids` (packed rows: several proteins per row, padding -1), the
 token-dropout rescale is taken per protein and attention is block-diagonal
-per segment.
+per segment. Packed rows with heads wider than 64 run on the CPU only (the
+JAX layer's dense segment mask and plain attention); on the card
+`dot_product_attention` refuses the dense mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from oneprot_tpu_torch.kernels.attention import packed_segment_bias
+from oneprot_tpu_torch.kernels.flash_attention import dot_product_attention
 from oneprot_tpu_torch.kernels.flash_mha import (  # noqa: F401  (re-exported)
     apply_rotary,
+    fused_mha_applies,
     mha_attention,
     rotate_half,
 )
@@ -38,6 +54,9 @@ from oneprot_tpu_torch.kernels.gelu_quant import fused_gelu_quant
 from oneprot_tpu_torch.models.layers import Dense, Embedding, LayerNorm
 
 MASK_RATIO_TRAIN = 0.15 * 0.8  # ESM2 pretraining mask rate (token dropout)
+# HF config.json files of published ESM2 sizes with no preset name (widths
+# only, no weights): `resolve_esm2_config(HUB_CONFIG_DIR / name)`
+HUB_CONFIG_DIR = Path(__file__).resolve().parents[1] / "hub_configs"
 INT8_LAYERS = ("q", "k", "v", "o", "fc1", "fc2")  # the Int8Dense modules
 
 
@@ -72,13 +91,30 @@ ESM2_SIZES = {
 }
 
 
-def resolve_esm2_config(name: str) -> Esm2Config:
-    """Map HF-style names ('facebook/esm2_t33_650M_UR50D') to configs."""
-    key = name.rstrip("/").split("/")[-1]
+def resolve_esm2_config(name_or_path) -> Esm2Config:
+    """Map HF-style names ('facebook/esm2_t33_650M_UR50D') or a local HF
+    directory holding a config.json (its keys as HF's EsmConfig names them;
+    other keys are ignored) to a config."""
+    cfg_json = os.path.join(name_or_path, "config.json")
+    if os.path.isfile(cfg_json):
+        with open(cfg_json) as f:
+            hf = json.load(f)
+        return Esm2Config(
+            vocab_size=int(hf.get("vocab_size", 33)),
+            hidden_size=int(hf["hidden_size"]),
+            num_layers=int(hf["num_hidden_layers"]),
+            num_heads=int(hf["num_attention_heads"]),
+            intermediate_size=int(hf["intermediate_size"]),
+            pad_token_id=int(hf.get("pad_token_id", 1)),
+            mask_token_id=int(hf.get("mask_token_id", 32)),
+            token_dropout=bool(hf.get("token_dropout", True)),
+            layer_norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
+        )
+    key = str(name_or_path).rstrip("/").split("/")[-1]
     for prefix, cfg in ESM2_SIZES.items():
         if key.startswith(prefix):
             return cfg
-    raise ValueError(f"Unknown ESM2 model name: {name}")
+    raise ValueError(f"Unknown ESM2 model name: {name_or_path}")
 
 
 def rotary_cos_sin(length: int, dim: int, device=None,
@@ -197,12 +233,27 @@ class Esm2SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        # [B, L, H*D] straight into the kernel: rotary is applied inside it
-        ctx, _ = mha_attention(self.q(x), self.k(x), self.v(x),
-                               self.config.num_heads, bias=bias,
-                               rope_cos=cos, rope_sin=sin,
-                               segment_ids=segment_ids)
-        return self.o(ctx)
+        nh = self.config.num_heads
+        q2d, k2d, v2d = self.q(x), self.k(x), self.v(x)
+        B, L, hd = q2d.shape
+        D = hd // nh
+        if fused_mha_applies(D):
+            # [B, L, H*D] straight into the kernel: rotary is applied inside it
+            ctx, _ = mha_attention(q2d, k2d, v2d, nh, bias=bias, rope_cos=cos,
+                                   rope_sin=sin, segment_ids=segment_ids)
+            return self.o(ctx)
+
+        def heads(t):
+            return t.reshape(B, L, nh, D).transpose(1, 2)
+
+        # the JAX layer's reference path: rotary in the compute dtype
+        cos, sin = cos.to(q2d.dtype), sin.to(q2d.dtype)
+        q = apply_rotary(heads(q2d), cos, sin)
+        k = apply_rotary(heads(k2d), cos, sin)
+        if segment_ids is not None:  # a dense mask: the CPU's path only
+            bias = packed_segment_bias(segment_ids, bias)
+        ctx = dot_product_attention(q, k, heads(v2d), bias=bias)
+        return self.o(ctx.transpose(1, 2).reshape(B, L, hd))
 
 
 class Esm2Layer(nn.Module):
@@ -238,8 +289,8 @@ class Esm2(nn.Module):
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(f"dtype {dtype} on the card: the flash-MHA "
-                             "kernel takes bfloat16 only")
+            raise ValueError(f"dtype {dtype} on the card: the attention "
+                             "kernels take bfloat16 only")
         self.config = config
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
 from oneprot_tpu_torch.kernels.attention import fused_tied_row
+from oneprot_tpu_torch.kernels.flash_attention import dot_product_attention
 from oneprot_tpu_torch.models import encoders, esm2
 from oneprot_tpu_torch.models.esm2 import int8_matmul, rotary_cos_sin
 from oneprot_tpu_torch.serving import OneProtEmbedder
@@ -144,6 +146,7 @@ def test_flash_backward_kernels_match_plain(card, B, L, nh, d, rotary, bias,
     ((64, 5120), torch.float32),
     ((64, 100), torch.bfloat16),      # N % 8 != 0: scalar path
     ((16, 10240), torch.bfloat16),    # 3B hub width: two-pass path
+    ((64, 20480), torch.bfloat16),    # 15B hub width: two-pass path
 ])
 def test_gelu_quant_kernel_matches_plain(card, shape, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -235,3 +238,111 @@ def test_tied_row_kernel_refuses(card):
     out = fused_tied_row(q, x, x, 2)
     with pytest.raises(NotImplementedError):
         out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention-2 forward (heads of 64 to 256: the ESM2-15B width)
+
+
+def _fa_inputs(B, H, Lq, Lk, D, card, seed, layout):
+    """q [B, H, Lq, D], k, v [B, H, Lk, D] bf16 and a key-padding bias.
+    layout "heads": views of [B, L, H*D] projections, as the ESM2 layer
+    hands them over; "contiguous": [B, H, L, D] tensors."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def make(L):
+        x = torch.randn(B, L, H * D, device=card, generator=gen)
+        x = x.to(torch.bfloat16).view(B, L, H, D).transpose(1, 2)
+        return x if layout == "heads" else x.contiguous()
+
+    q, k, v = make(Lq), make(Lk), make(Lk)
+    lens = torch.randint(max(Lk // 2, 1), Lk + 1, (B,), device=card,
+                         generator=gen)
+    valid = torch.arange(Lk, device=card)[None, :] < lens[:, None]
+    bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
+    return q, k, v, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Lq,Lk,D,layout,biased", [
+    (2, 4, 256, 256, 128, "heads", True),       # the 15B head width
+    (2, 4, 300, 300, 128, "heads", True),       # ragged: L % 64 != 0
+    (2, 4, 1024, 1024, 64, "contiguous", True),
+    (2, 2, 1024, 1024, 256, "heads", True),
+    (1, 3, 37, 37, 256, "contiguous", False),   # shorter than one tile
+    (2, 3, 130, 77, 96, "contiguous", True),    # Lq != Lk; D between instances
+    (1, 1, 1, 1, 128, "heads", False),          # one query, one key
+])
+def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
+                                              biased):
+    q, k, v, bias = _fa_inputs(B, H, Lq, Lk, D, card, Lq + D, layout)
+    bias = bias if biased else None
+    before = fa.flash_attention_fwd_cuda.launches
+    out = fa.flash_attention(q, k, v, bias)
+    got, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_cuda.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out, got)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL
+    assert (lse - ref_lse).abs().max().item() <= 5e-2
+
+
+@pytest.mark.gpu
+def test_dot_product_attention_pads_small_heads_on_the_card(card):
+    """Heads of 24 (the 35M tower's width) reach the kernel zero-padded to
+    64, q pre-scaled by sqrt(64/24)."""
+    q, k, v, bias = _fa_inputs(2, 4, 200, 200, 24, card, 24, "heads")
+    before = fa.flash_attention_fwd_cuda.launches
+    out = dot_product_attention(q, k, v, bias)
+    ref = fa.flash_attention_plain(q, k, v, bias)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_cuda.launches == before + 1
+    assert out.shape == q.shape
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses(card):
+    x = torch.zeros(1, 2, 16, 128, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError):  # head dim 264
+        fa.flash_attention_fwd_cuda(*(torch.zeros(1, 2, 16, 264, device=card,
+                                                  dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError):  # dense bias: the card has no such path
+        dot_product_attention(x, x, x, torch.zeros(1, 1, 16, 16, device=card))
+    with pytest.raises(ValueError):  # no unit stride over the head dim
+        fa.flash_attention_fwd_cuda(x.transpose(2, 3), x.transpose(2, 3),
+                                    x.transpose(2, 3))
+    q = x.clone().requires_grad_()
+    out = fa.flash_attention(q, x, x)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+
+
+@pytest.mark.gpu
+def test_wide_head_esm2_on_the_card(card):
+    """An ESM2 with heads of 128 (2 layers of 256) embeds through the
+    FlashAttention-2 kernel, one launch a layer and no flash-MHA launch,
+    and refuses packed rows on the card."""
+    cfg = esm2.Esm2Config(hidden_size=256, num_layers=2, num_heads=2,
+                          intermediate_size=512)
+    enc = encoders.SequenceEncoder(cfg, 32, proj_type="mlp")
+    esm2.init_esm2_weights_(enc, torch.Generator(device=card).manual_seed(0))
+    counts = (fa.flash_attention_fwd_cuda.launches,
+              flash_mha.flash_mha_cuda.launches)
+    feats = OneProtEmbedder(encoders.OneProtModel({"sequence": enc})
+                            ).embed_sequences(["MKTAYIAKQR" * 7, "ACDEFG"])
+    assert (fa.flash_attention_fwd_cuda.launches,
+            flash_mha.flash_mha_cuda.launches) == (counts[0] + 2, counts[1])
+    assert feats.shape == (2, 32) and np.isfinite(feats).all()
+    ids = torch.ones(1, 8, dtype=torch.long, device=card)
+    with pytest.raises(ValueError):  # the dense segment mask has no kernel
+        enc.transformer(ids, segment_ids=torch.zeros_like(ids))
