@@ -12,13 +12,15 @@ the elapsed seconds:
    checkout's sources, one nvcc call per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it (the flash-MHA forward and backward at the
-   35M tower's and the hub's packed shapes, the tied-row attention at
-   embed_msas's depth 16 and the MSA data config's depth 50 at 1024
-   columns and off the tile grid, the FlashAttention-2 forward at the
-   ESM2-15B width's B=32 H=40 L=1024 D=128, at D=64 and 256, at L=300 and
-   on heads of 24 padded by dot_product_attention), with its time, the
-   plain version's, a library call's where one computes the same function,
-   and the card's lower bound;
+   35M tower's and the hub's packed shapes and at the tower's unpacked
+   shape, the tied-row attention at embed_msas's depth 16 and the MSA data
+   config's depth 50 at 1024 columns and off the tile grid, the
+   FlashAttention-2 forward at the ESM2-15B width's B=32 H=40 L=1024
+   D=128, at D=64 and 256, at L=300 and on heads of 24 padded by
+   dot_product_attention, its dq and dk/dv kernels at the LoRA step's
+   B=16 H=40 L=1024 D=128, at D=64 and 256 and at L=300), with its time,
+   the plain version's, a library call's where one computes the same
+   function, and the card's lower bound;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -54,7 +56,22 @@ the elapsed seconds:
    the kernels (and no plain version ran), and the loss falls;
 10. training parity: the same weights at 2 hub + 2 tower layers, one packed
    step on the card (bf16, kernels) against the CPU (f32, plain versions),
-   and cached == uncached on the card.
+   and cached == uncached on the card;
+11. LoRA training at the ESM2-15B width: `create_sequence_encoder` on the
+   committed config.json with LoRA (r 16, alpha 16, dropout 0.1 on q, k,
+   v), frozen bf16 weights and per-layer remat, the mlp head, the
+   trainable ESM2-35M struct-token tower, CLIP + 0.01 L1 and clipped Adam
+   at SMOKE_LR, takes 4 unpacked `train_step`s, each on a fresh batch of
+   16 pairs bucketed to at most 1024 tokens; the counters show the exact
+   launches per step (the FlashAttention-2 forward twice a hub layer,
+   forward and remat recompute; its dq and dk/dv kernels once a hub
+   layer; flash-MHA once a tower layer each way; no plain version), and a
+   fifth step is split into forward, backward and clip + Adam by CUDA
+   events;
+12. LoRA training parity: the same initial weights at 2 hub + 2 tower
+   layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
+   against the CPU (f32, plain versions); the second step starts both
+   from the CPU's weights after the first (see `lora_parity`).
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -65,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -126,6 +144,10 @@ MSA_TOKEN_COS = 0.999
 # shows it at full width on the card); at 1e-4 it falls step after step. The
 # rate changes no work done in a step.
 SMOKE_LR = 1e-4
+# the LoRA-15B step: 16 pairs a step, LoRA as configs/model/components/
+# sequence.yaml sets it (use_lora: r 16, alpha 16, dropout 0.1 on q/k/v)
+LORA_BATCH, LORA_STEPS = 16, 4
+LORA = dict(use_lora=True, lora_r=16, lora_alpha=16, lora_dropout=0.1)
 
 
 def phase(name: str) -> None:
@@ -163,13 +185,16 @@ LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
              "flash_mha_bwd_dkv": flash_mha.flash_mha_bwd_dkv_cuda,
              "gelu_quant": gelu_quant.gelu_quant_cuda,
              "tied_row_attention": tra.tied_row_attention_cuda,
-             "flash_attention_fwd": fa.flash_attention_fwd_cuda}
+             "flash_attention_fwd": fa.flash_attention_fwd_cuda,
+             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_cuda,
+             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_cuda}
 # the plain versions, counted by the wrappers `count_plain_calls` installs
 PLAINS = ((flash_mha, "mha_attention_plain"),
           (flash_mha, "mha_attention_bwd_plain"),
           (gelu_quant, "gelu_quant_reference"),
           (tra, "tied_row_attention_plain"),
-          (fa, "flash_attention_plain"))
+          (fa, "flash_attention_plain"),
+          (fa, "flash_attention_bwd_plain"))
 PLAIN_CALLS = {name: 0 for _, name in PLAINS}
 
 
@@ -193,6 +218,21 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
+
+
+def ptxas_report(log: str) -> list:
+    """(template arguments, registers and spills) of each kernel instance
+    in nvcc's -Xptxas=-v output, e.g. ("<128,64>", "Used 168 registers,
+    ...; 0 bytes spill stores, 0 bytes spill loads")."""
+    out, instance, spills = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            instance = "<" + ",".join(re.findall(r"Li(\d+)E", line)) + ">"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((instance, line.split(":", 1)[-1].strip() + "; " + spills))
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -443,6 +483,92 @@ def check_flash_attention(gen) -> dict:
                     "[B, 1, 1, L] bias as a bf16 mask"}
 
 
+def check_flash_attention_bwd(gen) -> list:
+    """The FlashAttention-2 dq and dk/dv kernels against
+    flash_attention_bwd_plain on the same q, k, v, out, lse and upstream
+    gradient (zero on padding rows, as the pooled loss gives it), q, k, v
+    and the gradient as views of [B, L, H*D] tensors: at the LoRA-15B
+    step's largest shape (a batch of 16 at bucket 1024, 40 heads of 128), at
+    heads of 64 and 256 and at a ragged L = 300, each with a key-padding
+    bias. Timed at the first, beside the plain version, scaled_dot_product_
+    attention's backward (forward + backward minus forward) and the bound."""
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_abs = dict(worst)
+    cases = [(LORA_BATCH, 40, 1024, 128), (8, 16, 1024, 64),
+             (8, 16, 1024, 256), (4, 40, 300, 128)]
+    for B, H, L, D in cases:
+        q, k, v, bias, valid = fa_inputs(B, H, L, D, gen)
+        dout = (torch.randn(B, L, H, D, device="cuda", generator=gen)
+                * valid[:, :, None, None]).to(torch.bfloat16).transpose(1, 2)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
+        delta = fa.attention_delta(dout, out)
+        dq = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, dout, lse, delta)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, bias, dout, lse, delta)
+        ref = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            require(torch.isfinite(got.float()).all().item(),
+                    f"flash-attention bwd {name} D={D} L={L}: non-finite")
+            diff = (got.float() - want.float()).abs().max().item()
+            rel = diff / max(want.float().abs().max().item(), 1e-6)
+            require(rel <= FLASH_REL_TOL, f"flash-attention bwd {name} D={D} "
+                    f"L={L}: rel err {rel} > {FLASH_REL_TOL}")
+            worst[name] = max(worst[name], rel)
+            worst_abs[name] = max(worst_abs[name], diff)
+            errs.append(f"{name} {rel:.3e}")
+        print(f"  flash-attention backward B={B} H={H} L={L} D={D}: max rel err "
+              + ", ".join(errs), flush=True)
+        del dq, dk, dv, ref
+        if (B, H, L, D) == cases[0]:
+            timed = (q, k, v, bias, dout, out, lse, delta)
+        del q, k, v, bias, dout, out, lse, delta
+        torch.cuda.empty_cache()
+
+    q, k, v, bias, dout, out, lse, delta = timed
+    B, H, L, D = cases[0]
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, bias, dout, lse, delta))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, bias, dout, lse, delta))
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, bias, out, lse, dout), iters=3)
+    leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
+    mask, do_c = bias.to(torch.bfloat16), dout.contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
+    fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, do_c))
+    library = fwd_bwd - fwd
+    per_pair = B * H * L * L * D  # one [L, L] x D product, per head
+    qkvo = B * H * L * D * 2      # one bf16 [B, H, L, D] tensor, in bytes
+    side_bytes = 2 * B * H * L * 4 + B * L * 4  # lse, delta, bias
+    rows = []
+    for name, ms, gemms, outs, line in (
+            ("flash_attention_bwd_dq", dq_ms, 3, 1, 163),
+            ("flash_attention_bwd_dkv", dkv_ms, 4, 2, 192)):
+        b_ms, b_by = bound_ms(4 * qkvo + side_bytes + outs * qkvo,
+                              2.0 * gemms * per_pair, BF16_FLOPS)
+        grads = ("dq",) if gemms == 3 else ("dk", "dv")
+        print(f"  {name} timed at B={B} H={H} L={L} D={D}: kernel {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": f"oneprot_tpu/kernels/flash_attention.py:{line}",
+            "max_abs_err": max(worst_abs[g] for g in grads),
+            "max_rel_err": {g: worst[g] for g in grads},
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "shape": f"B={B} H={H} L={L} D={D} bf16",
+            "note": "plain_ms: flash_attention_bwd_plain (dq, dk, dv "
+                    "together); library_ms: scaled_dot_product_attention "
+                    "forward+backward minus its forward with the [B, 1, 1, "
+                    "L] bias as a bf16 mask, one figure for both passes"})
+    print(f"  flash-attention backward: plain {plain:.4f} ms, SDPA backward "
+          f"{library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd {fwd:.4f})", flush=True)
+    return rows
+
+
 def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
     """The forward kernel's out and lse at a training shape against
     mha_attention_plain on the same inputs; folds the errors into the
@@ -467,24 +593,26 @@ def check_flash_bwd(gen, fwd_row: dict) -> list:
     out, lse and upstream gradient (zero on padding rows, as a loss over
     pooled segments gives it): at the 35M tower's packed shape (16 rows of
     1024, 20 heads of 24, rotary, padding bias, 16 proteins a row), at the
-    hub's packed shape (heads of 64) and at L=512 with 4 proteins a row.
-    The forward kernel's out and lse at each of these shapes are first held
-    against the plain forward (`check_flash_packed`). Timed at the tower's
-    shape."""
+    hub's packed shape (heads of 64), at L=512 with 4 proteins a row, and
+    at the tower's unpacked shape in the LoRA step (16 rows of 1024, key
+    padding bias, no segment ids). The forward kernel's out and lse at each
+    of these shapes are first held against the plain forward
+    (`check_flash_packed`). Timed at the tower's packed shape."""
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_abs = dict(worst)
     H = 20
     cases = [(ROWS, ROW_LEN, 24, SLOTS), (ROWS, ROW_LEN, 64, SLOTS),
-             (16, 512, 64, 4)]
+             (16, 512, 64, 4), (LORA_BATCH, ROW_LEN, 24, 0)]
     for B, L, D, n_seg in cases:
         q, k, v, bias, cos, sin, seg, valid = attention_inputs(
-            B, L, H, D, gen, segments=True, n_seg=n_seg)
+            B, L, H, D, gen, segments=n_seg > 0, n_seg=n_seg)
         side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
         dout = (torch.randn(B, L, H * D, device="cuda", generator=gen)
                 * valid[..., None]).to(torch.bfloat16)
         out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
+        layout = f"{n_seg} segments a row" if n_seg else "unpacked"
         check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row,
-                           f"B={B} L={L} H={H} D={D} {n_seg} segments a row")
+                           f"B={B} L={L} H={H} D={D} {layout}")
         delta = flash_mha.attention_delta(dout, out, H)
         dq = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, dout, lse, delta, H, **side)
         dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q, k, v, dout, lse, delta, H,
@@ -502,9 +630,9 @@ def check_flash_bwd(gen, fwd_row: dict) -> list:
             worst[name] = max(worst[name], rel)
             worst_abs[name] = max(worst_abs[name], diff)
             errs.append(f"{name} {rel:.3e}")
-        print(f"  flash-MHA backward B={B} L={L} H={H} D={D} {n_seg} segments a "
-              f"row: max rel err " + ", ".join(errs), flush=True)
-        if (B, L, D) == cases[0][:3]:
+        print(f"  flash-MHA backward B={B} L={L} H={H} D={D} {layout}: max rel "
+              f"err " + ", ".join(errs), flush=True)
+        if (B, L, D, n_seg) == cases[0]:
             timed = (q, k, v, bias, cos, sin, seg, dout, out, lse, delta)
         del q, k, v, out, lse, ref, dq, dk, dv
 
@@ -642,16 +770,12 @@ def training(hub: SequenceEncoder, rng, launches: dict):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     result = {"pairs_per_step": pairs, "token_fill": fill}
-    per_step = {"packed step": {"flash_mha_fwd": N_LAYERS + TOWER_LAYERS,
-                                "flash_mha_bwd_dq": TOWER_LAYERS,
-                                "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0, "tied_row_attention": 0,
-                                "flash_attention_fwd": 0},
-                "cached step": {"flash_mha_fwd": TOWER_LAYERS,
-                                "flash_mha_bwd_dq": TOWER_LAYERS,
-                                "flash_mha_bwd_dkv": TOWER_LAYERS,
-                                "gelu_quant": 0, "tied_row_attention": 0,
-                                "flash_attention_fwd": 0}}
+    tower_bwd = {**{name: 0 for name in LAUNCHERS},
+                 "flash_mha_bwd_dq": TOWER_LAYERS,
+                 "flash_mha_bwd_dkv": TOWER_LAYERS}
+    per_step = {"packed step": {**tower_bwd,
+                                "flash_mha_fwd": N_LAYERS + TOWER_LAYERS},
+                "cached step": {**tower_bwd, "flash_mha_fwd": TOWER_LAYERS}}
     seq_pooled = None
     for path in ("packed step", "cached step"):
         if path == "cached step":
@@ -791,6 +915,197 @@ def training_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg,
             f"cached loss {out['cached_loss_rel_diff']}")
     require(out["cached_update_cosine"] >= 0.99,
             f"cached update {out['cached_update_cosine']}")
+    return out
+
+
+def lora_batch(rng, n: int = LORA_BATCH, max_res: int = 1022):
+    """n (sequence, 3Di) pairs for the unpacked step: log-normal lengths
+    around 290 residues clipped to [30, max_res], hub tokens 4..23 and
+    struct tokens 20..52 between <cls> and <eos>, both sides padded to the
+    smallest of BUCKETS that fits the longest."""
+    lens = np.clip(rng.lognormal(np.log(290.0), 0.65, n), 30, max_res).astype(int)
+    L = min(b for b in BUCKETS if b >= lens.max() + 2)
+    ids, st_ids = np.full((n, L), 1, np.int32), np.full((n, L), 1, np.int32)
+    for i, m in enumerate(lens):
+        ids[i, 1:m + 1] = rng.randint(4, 24, size=m)
+        st_ids[i, 1:m + 1] = rng.randint(20, 53, size=m)
+        ids[i, [0, m + 1]] = st_ids[i, [0, m + 1]] = (0, 2)
+    return ids, st_ids
+
+
+def lora_module(hub_cfg, tower_cfg, device, dtype, lora_dropout,
+                remat) -> OneProtModule:
+    """The LoRA step's module on `device`: the hub with LoRA on q, k, v
+    (frozen weights, mlp head) and the struct-token tower, CLIP + L1,
+    clipped Adam at SMOKE_LR."""
+    hub = SequenceEncoder(
+        hub_cfg, 1024, proj_type="mlp", frozen=True,
+        lora=esm2.LoraConfig(LORA["lora_r"], float(LORA["lora_alpha"]),
+                             lora_dropout),
+        remat=remat, device=device, dtype=dtype)
+    tower = StructTokenEncoder(tower_cfg, 1024, device=device, dtype=dtype)
+    return build_module(hub, tower)
+
+
+def lora_step_split(module: OneProtModule, ids, st_ids) -> dict:
+    """One more train_step, taken apart and timed by CUDA events: forward
+    (both towers and the loss), backward (the remat recompute with it),
+    clip + Adam."""
+    seq_ids, mod_ids = (module._tensor(x, torch.long) for x in (ids, st_ids))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    module._begin_step()
+    seq_feats = module.model(seq_ids, "sequence")
+    loss = module._loss_value(module.model(mod_ids, "struct_token"), seq_feats)
+    ev[1].record()
+    module.opt.zero_grad()
+    loss.backward()
+    ev[2].record()
+    module.opt.step()
+    module.step += 1
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "clip_adam_ms": ev[2].elapsed_time(ev[3])}
+    split["step_ms"] = sum(split.values())
+    return split
+
+
+def train_lora_hub(smi: str, launches: dict):
+    """The LoRA-15B unpacked step at full width (random weights from a
+    seed); fills `launches`. Returns (numbers, (the hub's and the tower's
+    first 2 layers as they were before the first step, their configs))."""
+    # the entry points: the committed config dir, LoRA, frozen bf16, remat
+    hub = create_sequence_encoder(model_name_or_path=str(WIDE_HUB),
+                                  proj_type="mlp", frozen=True, remat=True,
+                                  **LORA)
+    cfg = hub.config
+    require((cfg.num_layers, cfg.hidden_size, cfg.num_heads) == (WIDE_LAYERS,
+                                                               5120, 40),
+            f"ESM2-15B widths: {cfg}")
+    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(6))
+    tower = create_struct_token_encoder()
+    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(7))
+    module = build_module(hub, tower)
+    initial = (first_layers(hub.state_dict(), 2),
+               first_layers(tower.state_dict(), 2), cfg, tower.config)
+    n_train = sum(p.numel() for p in module.opt.params)
+    n_hub_train = sum(p.numel() for n, p in hub.transformer.named_parameters()
+                      if p.requires_grad)
+    rng = np.random.RandomState(8)
+    batches = [lora_batch(rng) for _ in range(LORA_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for ids, st_ids in batches[:LORA_STEPS]:
+        t = time.time()
+        loss, _ = module.train_step("struct_token", ids, st_ids)
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.time() - t)
+    launches["LoRA-15B step"] = read_launches()
+    per_step = {**{name: 0 for name in LAUNCHERS},
+                "flash_attention_fwd": 2 * WIDE_LAYERS,  # forward + recompute
+                "flash_attention_bwd_dq": WIDE_LAYERS,
+                "flash_attention_bwd_dkv": WIDE_LAYERS,
+                "flash_mha_fwd": TOWER_LAYERS, "flash_mha_bwd_dq": TOWER_LAYERS,
+                "flash_mha_bwd_dkv": TOWER_LAYERS}
+    want = {k: LORA_STEPS * n for k, n in per_step.items()}
+    require(launches["LoRA-15B step"] == want,
+            f"LoRA-15B launches {launches['LoRA-15B step']}, want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"LoRA-15B: plain versions ran on the card: {PLAIN_CALLS}")
+    require(bool(np.isfinite(losses).all()), f"LoRA-15B losses {losses}")
+    require(all(torch.isfinite(p).all().item() for p in module.opt.params),
+            "LoRA-15B: non-finite parameters after the steps")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = lora_step_split(module, *batches[-1])
+    lens = [int((ids != 1).sum(1).max()) for ids, _ in batches]
+    pairs_s = [LORA_BATCH / x for x in secs]
+    print(f"  LoRA-15B: {n_train / 1e6:.2f} M trainable parameters "
+          f"({n_hub_train / 1e6:.2f} M in the hub's transformer); buckets "
+          + ", ".join(str(ids.shape[1]) for ids, _ in batches)
+          + f" (longest rows {lens}); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + ", ".join(f"{x * 1e3:.1f}" for x in secs) + "; pairs/s "
+          + ", ".join(f"{x:.2f}" for x in pairs_s)
+          + f"; peak device memory {peak:.2f} GiB; launches per step "
+          f"{per_step}; {smi}", flush=True)
+    print(f"  LoRA-15B step split (CUDA events, bucket {batches[-1][0].shape[1]}):"
+          f" forward {split['forward_ms']:.1f} ms, backward with recompute "
+          f"{split['backward_ms']:.1f} ms, clip + Adam "
+          f"{split['clip_adam_ms']:.1f} ms", flush=True)
+    result = {"losses": losses, "step_ms": [x * 1e3 for x in secs],
+              "pairs_per_s": pairs_s, "buckets": [ids.shape[1] for ids, _ in
+                                                  batches[:LORA_STEPS]],
+              "trainable_params": n_train, "hub_trainable_params": n_hub_train,
+              "peak_gib": peak, "launches_per_step": per_step,
+              "split": split}
+    return result, initial
+
+
+def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
+    """Two unpacked steps at 2 hub + 2 tower layers from the LoRA step's
+    initial weights (B = 0), LoRA dropout 0, on PARITY_ROWS pairs up to 254
+    residues: card (bf16, kernels, remat) vs CPU (f32, plain versions). On
+    step 1 B = 0 gives A no gradient: each layer's q, k, v lora_B gradients
+    are held. Step 2 starts both from the CPU's weights after step 1 (Adam's
+    first update is lr * sign(g) wherever |g| >> eps, so a gradient that
+    differs in its last digits flips some of B's entries; the copy keeps
+    that out of the comparison): each layer's lora_A gradients are held.
+    The hub's bias gradients (all biases of its transformer, as one vector)
+    are held at both steps."""
+    ids, st_ids = lora_batch(np.random.RandomState(9), PARITY_ROWS, 254)
+    cfg_h = dataclasses.replace(hub_cfg, num_layers=2)
+    cfg_t = dataclasses.replace(tower_cfg, num_layers=2)
+    state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
+             **{"encoders.struct_token." + k: v for k, v in tower_state.items()}}
+    mods = {"cuda": lora_module(cfg_h, cfg_t, "cuda", torch.bfloat16, 0.0, True),
+            "cpu": lora_module(cfg_h, cfg_t, "cpu", torch.float32, 0.0, False)}
+    for m in mods.values():
+        m.model.load_state_dict(state)
+    out = {"steps": []}
+    for step, factor in ((1, "lora_B"), (2, "lora_A")):
+        if step == 2:
+            with torch.no_grad():
+                for pc, pg in zip(mods["cpu"].opt.params, mods["cuda"].opt.params):
+                    pg.copy_(pc)
+        runs = {}
+        for device, m in mods.items():
+            loss, _ = m.train_step("struct_token", ids, st_ids)
+            runs[device] = {"loss": loss.item(), "grad": {
+                n: p.grad for n, p in m.model.named_parameters()
+                if p.grad is not None}}
+        card, cpu = runs["cuda"], runs["cpu"]
+        require(card["grad"].keys() == cpu["grad"].keys(), "gradient leaves differ")
+        hub = "encoders.sequence.transformer."
+        factors = {n: cosine(flat([card["grad"][n]]), flat([cpu["grad"][n]]))
+                   for n in card["grad"] if n.startswith(hub) and n.endswith(factor)}
+        require(len(factors) == 2 * 3, f"{factor} gradient leaves: {sorted(factors)}")
+        biases = [n for n in card["grad"] if n.startswith(hub) and n.endswith("bias")]
+        row = {"step": step, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+               "loss_rel_diff": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               f"{factor}_grad_cosine": factors,
+               "hub_bias_grad_cosine": cosine(
+                   flat(card["grad"][n] for n in biases),
+                   flat(cpu["grad"][n] for n in biases)),
+               "hub_bias_leaves": len(biases)}
+        print(f"  LoRA step {step}, card vs CPU: loss {card['loss']:.6f} vs "
+              f"{cpu['loss']:.6f} (rel diff {row['loss_rel_diff']:.2e}, gate <= "
+              f"2e-2); {factor} gradient cosine per layer and projection, least "
+              f"{min(factors.values()):.5f} (gate >= 0.99); the hub's "
+              f"{len(biases)} bias gradients as one vector: cosine "
+              f"{row['hub_bias_grad_cosine']:.5f} (gate >= 0.99)", flush=True)
+        require(row["loss_rel_diff"] <= 2e-2,
+                f"LoRA step {step} loss parity {row['loss_rel_diff']}")
+        require(min(factors.values()) >= 0.99,
+                f"LoRA step {step} {factor} gradient parity {factors}")
+        require(row["hub_bias_grad_cosine"] >= 0.99,
+                f"LoRA step {step} hub bias gradient parity "
+                f"{row['hub_bias_grad_cosine']}")
+        out["steps"].append(row)
     return out
 
 
@@ -1035,16 +1350,16 @@ def main() -> int:
     _build.build_all()
     print(f"  built in {time.time() - t:.1f} s into {_build.BUILD_DIR}", flush=True)
     for name in _build.SIGNATURES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for instance, line in ptxas_report(_build.build_log(name)):
+            print(f"  {name}{instance}: {line}", flush=True)
 
     phase("kernels against their plain versions")
     count_plain_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd_row = check_flash(gen)
     rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen),
-            check_tied_row(gen), check_flash_attention(gen)]
+            check_tied_row(gen), check_flash_attention(gen),
+            *check_flash_attention_bwd(gen)]
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -1058,11 +1373,8 @@ def main() -> int:
     reset_launches()
     feats_bf16, secs_bf16 = serve(embedder, requests, "bf16 hub")
     launches["bf16 hub"] = read_launches()
-    require(launches["bf16 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
-                                     "flash_mha_bwd_dq": 0,
-                                     "flash_mha_bwd_dkv": 0, "gelu_quant": 0,
-                                     "tied_row_attention": 0,
-                                     "flash_attention_fwd": 0},
+    none = {name: 0 for name in LAUNCHERS}
+    require(launches["bf16 hub"] == {**none, "flash_mha_fwd": N_LAYERS * batches},
             f"bf16 hub launches: {launches['bf16 hub']}")
     check_retrieval(embedder, feats_bf16, rng, "bf16 hub")
 
@@ -1073,12 +1385,8 @@ def main() -> int:
     reset_launches()
     feats_int8, secs_int8 = serve(embedder8, requests, "int8 hub")
     launches["int8 hub"] = read_launches()
-    require(launches["int8 hub"] == {"flash_mha_fwd": N_LAYERS * batches,
-                                     "flash_mha_bwd_dq": 0,
-                                     "flash_mha_bwd_dkv": 0,
-                                     "gelu_quant": N_LAYERS * batches,
-                                     "tied_row_attention": 0,
-                                     "flash_attention_fwd": 0},
+    require(launches["int8 hub"] == {**none, "flash_mha_fwd": N_LAYERS * batches,
+                                     "gelu_quant": N_LAYERS * batches},
             f"int8 hub launches: {launches['int8 hub']}")
     require(not any(PLAIN_CALLS.values()),
             f"serving: plain versions ran on the card: {PLAIN_CALLS}")
@@ -1146,6 +1454,18 @@ def main() -> int:
           "vs CPU (f32, plain); cached vs uncached")
     train_parity = training_parity(hub_state, tower_state, enc.config,
                                    tower_cfg, batch)
+    del embedder, enc, hub_state, tower_state
+    torch.cuda.empty_cache()
+
+    phase("training: LoRA-15B (48 x 5120 frozen bf16, LoRA r 16 on q/k/v, "
+          "remat) + ESM2-35M struct-token tower, unpacked steps")
+    lora, lora_initial = train_lora_hub(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("LoRA training parity: 2 + 2 layers at full width, two steps, card "
+          "(bf16, kernels) vs CPU (f32, plain)")
+    lora["parity"] = lora_parity(*lora_initial)
+    del lora_initial
 
     for row in rows:
         # each path's count read from its own run; `launches` is their sum
@@ -1165,6 +1485,7 @@ def main() -> int:
         "wide_hub_serving": wide,
         "msa_serving": msa,
         "training": {**train, "parity": train_parity},
+        "lora_training": lora,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

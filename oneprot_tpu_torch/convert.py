@@ -9,7 +9,8 @@ numpy arrays converts here with no JAX installed. Mappings:
 - LayerNorm `scale` -> `weight`; `bias` stays `bias`;
 - the raw `embed_tokens` table [vocab, width] -> `embed_tokens.weight`;
 - `layer_{i}` -> `layers.{i}`, and a LoraDense's inner `dense` level is
-  dropped (q/k/v of the attention);
+  dropped (q/k/v of the attention); its `lora_A` [in, r] and `lora_B`
+  [r, out] become `lora_A` [r, in] and `lora_B` [out, r];
 - the MSA Transformer's raw tables (`embed_tokens`, `embed_positions`,
   `msa_position_embedding` [max_rows, 1, H]) keep their shapes, the token
   table as `embed_tokens.weight`;
@@ -36,10 +37,12 @@ def _t(x, dtype=torch.float32) -> torch.Tensor:
 
 
 def _dense(tree: Tree, prefix: str) -> Dict[str, torch.Tensor]:
-    if "lora_A" in tree or "lora_B" in tree:
-        raise NotImplementedError("LoRA factors are not ported yet")
     if "dense" in tree:  # LoraDense wraps the Dense (or Int8Dense)
-        return _dense(tree["dense"], prefix)
+        out = _dense(tree["dense"], prefix)
+        if "lora_A" in tree:
+            out[prefix + "lora_A"] = _t(tree["lora_A"]).T.contiguous()
+            out[prefix + "lora_B"] = _t(tree["lora_B"]).T.contiguous()
+        return out
     out = {}
     if "kernel_q" in tree:
         out[prefix + "weight_q"] = _t(tree["kernel_q"], torch.int8).T.contiguous()

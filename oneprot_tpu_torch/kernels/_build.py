@@ -41,6 +41,14 @@ SIGNATURES = {
                             [_VOID_P] * 6 + [_INT] * 5
                             + [ctypes.c_longlong] * 12
                             + [ctypes.c_float, _VOID_P]),
+    "flash_attention_bwd_dq": ("oneprot_flash_attention_bwd_dq",
+                               [_VOID_P] * 8 + [_INT] * 5
+                               + [ctypes.c_longlong] * 15
+                               + [ctypes.c_float] * 2 + [_VOID_P]),
+    "flash_attention_bwd_dkv": ("oneprot_flash_attention_bwd_dkv",
+                                [_VOID_P] * 9 + [_INT] * 5
+                                + [ctypes.c_longlong] * 18
+                                + [ctypes.c_float, _VOID_P]),
     "gelu_quant": ("oneprot_gelu_quant",
                    [_VOID_P, _INT, _VOID_P, _VOID_P, ctypes.c_longlong, _INT,
                     _VOID_P]),

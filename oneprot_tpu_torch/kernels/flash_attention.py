@@ -1,13 +1,15 @@
-"""FlashAttention-2 forward over [B, H, L, D] with an additive key bias.
+"""FlashAttention-2 over [B, H, L, D] with an additive key bias, forward
+and backward.
 
 Counterpart of oneprot_tpu/kernels/flash_attention.py (`supports`, `_fwd`,
-`flash_attention`): the attention of a model whose heads are wider than the
-fused flash-MHA kernel takes (D in [64, 256], ESM2-15B's 128), reached
-through `dot_product_attention`. On CUDA tensors the forward
-launches the hand-written kernel of `csrc/flash_attention_fwd.cu` (bf16) or
-raises; on CPU tensors it runs `flash_attention_plain`. Forward only: the
-dq and dk/dv kernels of the JAX package (its `_bwd`) are not ported yet, so
-a gradient through `flash_attention` raises.
+`_bwd`, `flash_attention`): the attention of a model whose heads are wider
+than the fused flash-MHA kernel takes (D in [64, 256], ESM2-15B's 128),
+reached through `dot_product_attention`. On CUDA tensors the forward
+launches the hand-written kernel of `csrc/flash_attention_fwd.cu` and the
+backward those of `csrc/flash_attention_bwd_dq.cu` and
+`csrc/flash_attention_bwd_dkv.cu` (bf16), or raise; on CPU tensors they run
+`flash_attention_plain` and `flash_attention_bwd_plain`. As in the JAX
+package, the key bias gets no gradient.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from oneprot_tpu_torch.kernels import _build
-from oneprot_tpu_torch.kernels.attention import reference_attention
+from oneprot_tpu_torch.kernels.attention import LOG2E, reference_attention
 
 MIN_HEAD_DIM, MAX_HEAD_DIM = 64, 256
 
@@ -49,6 +51,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return reference_attention(q, k, v, bias, return_lse=True)
 
 
+def _q_scale(D: int) -> float:
+    """1/sqrt(D) rounded to bf16: the kernels multiply q by it, as the TPU
+    kernels do in the input dtype."""
+    return float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.bfloat16))
+
+
+def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dout * out) in f32, [B, H, Lq]: the backward's delta, outside
+    the kernels as in the JAX package's `_bwd`."""
+    return (dout.float() * out.float()).sum(-1)
+
+
 def _strides(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
     """(batch, head, row) element strides of a [B, H, L, D] operand, which
     the kernel reads with unit stride over D and 16-byte aligned rows."""
@@ -63,46 +77,63 @@ def _strides(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _kernel_args(q, k, v, bias, dout=None):
+    """The launchers' checks: shapes `supports` takes (and dout shaped as
+    q), bf16 operands on one card. Returns (bias as contiguous f32 [B, Lk]
+    or None, the operands' strides: q, k, v, then dout)."""
+    named = [("q", q), ("k", k), ("v", v)]
+    if dout is not None:
+        named.append(("dout", dout))
+    if not supports(q, k, v, bias) or (dout is not None
+                                       and tuple(dout.shape) != tuple(q.shape)):
+        raise ValueError(
+            f"flash_attention takes q [B, H, Lq, D], k, v [B, H, Lk, D] "
+            f"(dout as q) with D a multiple of 8 in [{MIN_HEAD_DIM}, "
+            f"{MAX_HEAD_DIM}] and bias [B, 1, 1, Lk] or None; got "
+            + ", ".join(f"{n} {tuple(t.shape)}" for n, t in named)
+            + f", bias {None if bias is None else tuple(bias.shape)}")
+    dev = q.device
+    for name, t in named:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be on the card of q, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+    strides = [s for name, t in named for s in _strides(t, name)]
+    bias_b = (None if bias is None else
+              bias.reshape(q.shape[0], -1).to(dev, torch.float32).contiguous())
+    return bias_b, strides
+
+
+def _empty_heads(x: torch.Tensor) -> torch.Tensor:
+    """An empty bf16 tensor of x's [B, H, L, D] shape laid out as [B, L, H,
+    D]: the order of the projections the heads were viewed out of, so an
+    output or a gradient folds back into [B, L, H*D] without a copy."""
+    B, H, L, D = x.shape
+    return torch.empty(B, L, H, D, dtype=torch.bfloat16,
+                       device=x.device).transpose(1, 2)
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor,
                              bias: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on bf16 CUDA tensors. Returns (out [B, H,
-    Lq, D] bf16, laid out as [B, Lq, H, D] so that the heads fold back into
-    [B, Lq, H*D] without a copy; base-2 lse [B, H, Lq] f32)."""
-    if not supports(q, k, v, bias):
-        raise ValueError(
-            f"flash_attention takes q [B, H, Lq, D], k, v [B, H, Lk, D] with D "
-            f"a multiple of 8 in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}] and bias "
-            f"[B, 1, 1, Lk] or None; got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}, "
-            f"{None if bias is None else tuple(bias.shape)}")
+    Lq, D] bf16, laid out as [B, Lq, H, D]; base-2 lse [B, H, Lq] f32)."""
+    bias_b, strides = _kernel_args(q, k, v, bias)
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be on the card of q, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-               for s in _strides(t, name)]
-    bias_b = (None if bias is None else
-              bias.reshape(B, Lk).to(dev, torch.float32).contiguous())
-    out = torch.empty(B, Lq, H, D, dtype=torch.bfloat16,
-                      device=dev).transpose(1, 2)
+    out = _empty_heads(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    strides += [out.stride(0), out.stride(1), out.stride(2)]
-    # q is multiplied by 1/sqrt(D) rounded to bf16, as the TPU kernel does
-    scale = float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.bfloat16))
+    strides += _strides(out, "out")
     fn = _build.library("flash_attention_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias_b is None else bias_b.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, H, Lq, Lk, D, *strides, scale, stream)
+                lse.data_ptr(), B, H, Lq, Lk, D, *strides, _q_scale(D), stream)
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd_cuda.launches += 1
     return out, lse
@@ -111,32 +142,153 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fwd_cuda.launches = 0
 
 
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: Optional[torch.Tensor],
+                              out: torch.Tensor, lse: torch.Tensor,
+                              dout: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernels' function in plain PyTorch (any device), with
+    the TPU kernels' numerics: q times 1/sqrt(D) in the input dtype; s =
+    (q k^T + bias) * log2(e) in f32; p = exp2(s - lse) from the forward's
+    base-2 lse; delta = rowsum(dout * out) in f32; dS = p (dout v^T -
+    delta), rounded to the input dtype; dq = (dS k) / sqrt(D) in f32, dk =
+    dS^T q_scaled, dv = p^T dout with p rounded to the input dtype. Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = q * torch.tensor(scale, dtype=dt, device=q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp2(s * LOG2E - lse.float()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    ds = (p * (dp - attention_delta(dout, out)[..., None])).to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), dout.float())
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _row_stats(q: torch.Tensor, lse: torch.Tensor,
+               delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lse and delta as the backward kernels read them: contiguous f32
+    [B, H, Lq] on q's card."""
+    stats = []
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != tuple(q.shape[:3]) or t.device != q.device:
+            raise ValueError(f"{name} must be [B, H, Lq] on {q.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        stats.append(t.to(torch.float32).contiguous())
+    return stats[0], stats[1]
+
+
+def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, bias: Optional[torch.Tensor],
+                                dout: torch.Tensor, lse: torch.Tensor,
+                                delta: torch.Tensor) -> torch.Tensor:
+    """Launch the dq kernel on bf16 CUDA tensors (lse from the forward,
+    delta = rowsum(dout * out) in f32). Returns dq [B, H, Lq, D] bf16, laid
+    out as [B, Lq, H, D]."""
+    bias_b, strides = _kernel_args(q, k, v, bias, dout)
+    lse, delta = _row_stats(q, lse, delta)
+    B, H, Lq, D = q.shape
+    dq = _empty_heads(q)
+    if dq.numel() == 0:
+        return dq
+    strides += _strides(dq, "dq")
+    fn = _build.library("flash_attention_bwd_dq")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias_b is None else bias_b.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq,
+                k.shape[2], D, *strides, _q_scale(D), 1.0 / math.sqrt(D),
+                stream)
+    _build.check(rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+
+
+def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, bias: Optional[torch.Tensor],
+                                 dout: torch.Tensor, lse: torch.Tensor,
+                                 delta: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel on bf16 CUDA tensors. Returns (dk, dv)
+    [B, H, Lk, D] bf16, laid out as [B, Lk, H, D]."""
+    bias_b, strides = _kernel_args(q, k, v, bias, dout)
+    lse, delta = _row_stats(q, lse, delta)
+    B, H, Lq, D = q.shape
+    dk, dv = _empty_heads(k), _empty_heads(v)
+    if dk.numel() == 0:
+        return dk, dv
+    strides += [*_strides(dk, "dk"), *_strides(dv, "dv")]
+    fn = _build.library("flash_attention_bwd_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias_b is None else bias_b.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, H, Lq, k.shape[2], D, *strides, _q_scale(D), stream)
+    _build.check(rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, bias, out, lse, dout):
+    """The backward on the card: delta, then the dq and dk/dv kernels. Same
+    arguments and result as `flash_attention_bwd_plain`."""
+    delta = attention_delta(dout, out)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, bias, dout, lse, delta)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, bias, dout, lse, delta)
+    return dq, dk, dv
+
+
+def _unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernels read it: unit stride over D and 16-byte aligned rows
+    (an upstream gradient may come in any layout)."""
+    ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+          and all(t.shape[d] == 1 or t.stride(d) % 8 == 0 for d in range(3)))
+    return t if ok else t.contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward of the JAX package's custom vjp. Its backward needs the
-    dq and dk/dv kernels (the TPU's `_bwd_dq_kernel` and `_bwd_dkv_kernel`),
-    which are not ported yet: a gradient through this op is refused."""
+    """The JAX package's custom vjp: the forward saves q, k, v, the bias,
+    out and the base-2 lse; CPU tensors take the plain versions, CUDA
+    tensors the kernels. The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
         fwd = (flash_attention_plain if q.device.type == "cpu"
                else flash_attention_fwd_cuda)
-        out, _ = fwd(q, k, v, bias)
+        out, lse = fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "flash_attention is forward only: its dq and dk/dv kernels (the "
-            "TPU's _bwd_dq_kernel and _bwd_dkv_kernel) are not ported yet; "
-            "run a hub with heads wider than 64 frozen, under torch.no_grad")
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+        else:
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, bias, out, lse,
+                                                  _unit_rows(dout))
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over [B, H, L, D] q, k, v with an optional [B, 1, 1, Lk]
-    additive key bias. CPU tensors take the plain version; CUDA tensors the
-    kernel, which raises on what it does not take. No gradient: backward
-    raises NotImplementedError."""
+    additive key bias, differentiable in q, k and v. CPU tensors take the
+    plain versions; CUDA tensors the kernels, which raise on what they do
+    not take."""
     return _FlashAttention.apply(q, k, v, bias)
 
 

@@ -4,9 +4,12 @@ oneprot_tpu/models/encoders.py: `SequenceEncoder`, `StructTokenEncoder`,
 
 Encoders compute in `dtype` (bf16 on the card). A frozen transformer stores
 its parameters in that dtype; a trainable one keeps float32 master
-parameters, and heads always do, as flax stores them. `OneProtModel` routes
-'sequence' and 'seqsim' to the sequence encoder and 'struct_token' and
-'msa' to theirs; the other modalities are not ported yet.
+parameters, and heads always do, as flax stores them. A frozen transformer
+with LoRA keeps its trainable leaves (the factors and the biases) in
+float32 too, and has no gradient barrier: the adapters train through it.
+`OneProtModel` routes 'sequence' and 'seqsim' to the sequence encoder and
+'struct_token' and 'msa' to theirs; the other modalities are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,7 +20,13 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
-from oneprot_tpu_torch.models.esm2 import Esm2, Esm2Config, resolve_esm2_config
+from oneprot_tpu_torch.models.esm2 import (
+    LORA_TRAINABLE_LEAVES,
+    Esm2,
+    Esm2Config,
+    LoraConfig,
+    resolve_esm2_config,
+)
 from oneprot_tpu_torch.models.heads import EncoderHead, segment_pool
 from oneprot_tpu_torch.models.msa_transformer import (
     MsaTransformer,
@@ -30,14 +39,15 @@ PORTED_MODALITIES = ("sequence", "struct_token", "msa")
 
 def _segment_packed_pooled(transformer: Esm2, pooling_type: str,
                            input_ids: torch.Tensor, segment_ids: torch.Tensor,
-                           num_segments: int, frozen: bool
+                           num_segments: int, stop_grad: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed forward of a token encoder: segment-masked transformer ->
-    per-segment pooling -> ([B*P, d_model], counts [B*P]). A frozen
-    transformer runs under no_grad: no graph is kept for it (the JAX
-    package's stop_gradient); the head after it still trains."""
+    per-segment pooling -> ([B*P, d_model], counts [B*P]). With
+    `stop_grad` (a frozen transformer without LoRA) it runs under no_grad:
+    no graph is kept for it (the JAX package's stop_gradient); the head
+    after it still trains."""
     mask = (input_ids != transformer.config.pad_token_id) & (segment_ids >= 0)
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_grad):
         hidden = transformer(input_ids, segment_ids=segment_ids)
     pooled, counts = segment_pool(hidden, mask, segment_ids, num_segments,
                                   pooling_type=pooling_type)
@@ -52,14 +62,16 @@ class _TokenEncoder(nn.Module):
     def __init__(self, config: Esm2Config, output_dim: int, pooling_type: str,
                  proj_type: Optional[str], use_logit_scale: bool,
                  learnable_logit_scale: bool, frozen: bool,
-                 quant_int8: bool = False, *, device="cuda",
+                 quant_int8: bool = False, lora: Optional[LoraConfig] = None,
+                 remat: bool = False, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.config = config
         self.frozen = frozen
+        self.lora_rank = 0 if lora is None else lora.rank
         self.pooling_type = pooling_type
         self.transformer = Esm2(
-            config, quant_int8, device=device, dtype=dtype,
+            config, quant_int8, lora, remat, device=device, dtype=dtype,
             param_dtype=dtype if frozen else torch.float32)
         self.head = EncoderHead(config.hidden_size, output_dim, proj_type,
                                 pooling_type, use_logit_scale,
@@ -67,11 +79,28 @@ class _TokenEncoder(nn.Module):
                                 dtype=dtype)
         if frozen:
             self.transformer.requires_grad_(False)
+            if lora is not None:
+                for name, p in self.transformer.named_parameters():
+                    if name.rsplit(".", 1)[-1] in LORA_TRAINABLE_LEAVES:
+                        p.data = p.data.float()
+                        p.requires_grad_(True)
+
+    @property
+    def _stop_grad(self) -> bool:
+        """A frozen transformer without adapters: the gradient barrier."""
+        return self.frozen and self.lora_rank == 0
+
+    @property
+    def backbone_is_cacheable(self) -> bool:
+        """True when backbone_pooled(ids) stays the same for all training:
+        a frozen transformer, no LoRA, parameter-free pooling."""
+        return self._stop_grad and self.pooling_type in ("mean", "cls")
 
     def backbone_pooled(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Transformer -> pooling: the representation a frozen hub can cache."""
         mask = input_ids != self.config.pad_token_id
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.frozen):
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self._stop_grad):
             hidden = self.transformer(input_ids)
         return self.head.pool(hidden, mask)
 
@@ -88,7 +117,7 @@ class _TokenEncoder(nn.Module):
         [B*P] (count 0: an empty pack slot)."""
         return _segment_packed_pooled(self.transformer, self.pooling_type,
                                       input_ids, segment_ids, num_segments,
-                                      self.frozen)
+                                      self._stop_grad)
 
     def packed_features(self, input_ids: torch.Tensor,
                         segment_ids: torch.Tensor, num_segments: int
@@ -106,11 +135,12 @@ class SequenceEncoder(_TokenEncoder):
                  pooling_type: str = "mean", proj_type: Optional[str] = None,
                  use_logit_scale: bool = False,
                  learnable_logit_scale: bool = False, frozen: bool = True,
-                 quant_int8: bool = False, *, device="cuda",
+                 quant_int8: bool = False, lora: Optional[LoraConfig] = None,
+                 remat: bool = False, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen,
-                         quant_int8, device=device, dtype=dtype)
+                         quant_int8, lora, remat, device=device, dtype=dtype)
 
 
 class StructTokenEncoder(_TokenEncoder):
@@ -172,29 +202,42 @@ def create_sequence_encoder(
     proj_type: Optional[str] = None,
     use_logit_scale: bool = False,
     learnable_logit_scale: bool = False,
+    use_lora: bool = False,
+    lora_r: int = 8,
+    lora_alpha: int = 16,
+    lora_dropout: float = 0.1,
+    lora_target_modules=None,
     frozen: bool = True,
     dtype: Union[str, torch.dtype] = "bfloat16",
+    remat: bool = False,
     quantize: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> SequenceEncoder:
     """Build a SequenceEncoder from the config keys of
     configs/model/components/sequence.yaml. `dtype` defaults to that
-    config's bfloat16, the one dtype the card's flash-MHA kernel takes
-    (float32 runs on the CPU). Weights are PyTorch's default init: load a
-    state_dict (see `convert`) or call `esm2.init_esm2_weights_`."""
+    config's bfloat16, the one dtype the card's attention kernels take
+    (float32 runs on the CPU). `use_lora` puts rank-`lora_r` adapters on
+    q, k and v (the only target set, as in the JAX package: the target
+    list is accepted and not read); `remat` checkpoints each layer. Weights
+    are PyTorch's default init: load a state_dict (see `convert`) or call
+    `esm2.init_esm2_weights_`."""
+    del lora_target_modules  # q/k/v is the only supported target set
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' is supported")
     quant_int8 = quantize == "int8"
-    if quant_int8 and not frozen:
+    if quant_int8 and (not frozen or use_lora):
         # round() has zero gradient: quantized products are only right
         # under the frozen tower's gradient barrier
-        raise ValueError("quantize='int8' requires frozen=True")
+        raise ValueError("quantize='int8' requires frozen=True, use_lora=False")
+    lora = (LoraConfig(lora_r, float(lora_alpha), lora_dropout) if use_lora
+            else None)
     return SequenceEncoder(
         resolve_esm2_config(model_name_or_path), output_dim=output_dim,
         pooling_type=pooling_type, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen,
-        quant_int8=quant_int8, device=device, dtype=_dtype(dtype))
+        quant_int8=quant_int8, lora=lora, remat=remat, device=device,
+        dtype=_dtype(dtype))
 
 
 def create_struct_token_encoder(

@@ -12,10 +12,14 @@ layer's two paths, by head width:
   dtype with the tables cast to it, then `kernels.flash_attention.
   dot_product_attention` over [B, H, L, D] (the FlashAttention-2 forward).
 
-Each runs its CUDA kernel on the card and its plain version on the CPU.
-With `quant_int8`, every dense layer of the blocks is an `Int8Dense` (w8a8,
-frozen towers only) and the fc1 -> fc2 epilogue runs the fused GELU -> int8
-kernel.
+Each runs its CUDA kernel on the card and its plain version on the CPU,
+forward and backward. With `quant_int8`, every dense layer of the blocks is
+an `Int8Dense` (w8a8, frozen towers only) and the fc1 -> fc2 epilogue runs
+the fused GELU -> int8 kernel. With `lora`, q, k and v are `LoraDense`
+layers (peft's adapters; not o, as in the JAX layer). With `remat`, each
+layer runs under `torch.utils.checkpoint` when autograd records: only its
+input is kept, and its forward runs again in the backward (the JAX
+package's `nn.remat(Esm2Layer)`).
 
 Modules are built on the card in bf16 unless the caller names another
 device and dtype: the attention kernels take bf16 only, so `Esm2` refuses
@@ -41,6 +45,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from oneprot_tpu_torch.kernels.attention import packed_segment_bias
 from oneprot_tpu_torch.kernels.flash_attention import dot_product_attention
@@ -58,6 +63,9 @@ MASK_RATIO_TRAIN = 0.15 * 0.8  # ESM2 pretraining mask rate (token dropout)
 # only, no weights): `resolve_esm2_config(HUB_CONFIG_DIR / name)`
 HUB_CONFIG_DIR = Path(__file__).resolve().parents[1] / "hub_configs"
 INT8_LAYERS = ("q", "k", "v", "o", "fc1", "fc2")  # the Int8Dense modules
+# parameter names that train in a frozen transformer with LoRA (peft's
+# bias="all"): the factors and every bias, LayerNorms' included
+LORA_TRAINABLE_LEAVES = ("lora_A", "lora_B", "bias")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,16 +227,89 @@ def _dense(quant_int8: bool, n_in: int, n_out: int, **kw) -> nn.Module:
     return Dense(n_in, n_out, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    """LoRA on q, k and v: rank r, y += (alpha / r) * dropout(x) A^T B^T."""
+    rank: int = 8
+    alpha: float = 16.0
+    dropout: float = 0.0
+
+
+class LoraDense(Dense):
+    """Dense with LoRA factors (counterpart of the JAX `LoraDense`, peft's
+    math): y = x W^T + b + (alpha / r) * dropout(x) A^T B^T, with `lora_A`
+    [r, in] drawn from U(+-sqrt(1/in)) (peft's kaiming_uniform(a=sqrt(5)))
+    and `lora_B` [out, r] at zero. Its `weight` and `bias` are the wrapped
+    Dense's (the JAX layer's inner `dense`); only a float Dense is wrapped,
+    as the JAX package refuses int8 with LoRA.
+
+    Dropout is on the LoRA branch's input only and only in training mode:
+    keep with probability 1 - p, kept values divided by 1 - p. Its mask
+    comes from a generator seeded at each call from (`dropout_seed`,
+    `stream`): the step's seed (`set_lora_dropout_seed`) and this layer's
+    own number. So a layer that runs again under activation checkpointing
+    draws the mask it drew the first time; a shared generator would have
+    moved on and made the gradients silently wrong."""
+
+    def __init__(self, in_features: int, out_features: int, lora: LoraConfig,
+                 stream: int, *, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, device=device,
+                         dtype=dtype, param_dtype=param_dtype)
+        pdt = param_dtype or dtype
+        self.lora_A = nn.Parameter(torch.empty(lora.rank, in_features,
+                                               device=device, dtype=pdt))
+        self.lora_B = nn.Parameter(torch.zeros(out_features, lora.rank,
+                                               device=device, dtype=pdt))
+        bound = in_features ** -0.5
+        nn.init.uniform_(self.lora_A, -bound, bound)
+        self.lora_scale = lora.alpha / lora.rank
+        self.lora_dropout = lora.dropout
+        self.stream = stream
+        self.dropout_seed = 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = super().forward(x)
+        xl = x.to(dt)
+        if self.training and self.lora_dropout > 0.0:
+            keep = 1.0 - self.lora_dropout
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed((self.dropout_seed * 65_537 + self.stream) % 2**63)
+            kept = torch.rand(xl.shape, generator=gen, device=x.device) < keep
+            xl = torch.where(kept, xl / keep, 0.0)
+        return y + self.lora_scale * (
+            (xl @ self.lora_A.to(dt).T) @ self.lora_B.to(dt).T)
+
+
+def set_lora_dropout_seed(model: nn.Module, seed: int) -> None:
+    """Seed every LoraDense's dropout for the next forward (and the
+    checkpointed recompute in its backward)."""
+    for mod in model.modules():
+        if isinstance(mod, LoraDense):
+            mod.dropout_seed = seed
+
+
 class Esm2SelfAttention(nn.Module):
-    def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
+    def __init__(self, config: Esm2Config, quant_int8: bool = False,
+                 lora: Optional[LoraConfig] = None, layer_index: int = 0, *,
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if quant_int8 and lora is not None:
+            raise ValueError("LoRA wraps a float Dense only, not Int8Dense")
         self.config = config
         H = config.hidden_size
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.q, self.k, self.v, self.o = (
-            _dense(quant_int8, H, H, **kw) for _ in range(4))
+        if lora is None:
+            self.q, self.k, self.v = (
+                _dense(quant_int8, H, H, **kw) for _ in range(3))
+        else:
+            self.q, self.k, self.v = (
+                LoraDense(H, H, lora, 3 * layer_index + i, **kw)
+                for i in range(3))
+        self.o = _dense(quant_int8, H, H, **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor,
@@ -257,7 +338,8 @@ class Esm2SelfAttention(nn.Module):
 
 
 class Esm2Layer(nn.Module):
-    def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
+    def __init__(self, config: Esm2Config, quant_int8: bool = False,
+                 lora: Optional[LoraConfig] = None, layer_index: int = 0, *,
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -265,7 +347,8 @@ class Esm2Layer(nn.Module):
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.quant_int8 = quant_int8
         self.attn_ln = LayerNorm(H, eps=eps, **kw)
-        self.attn = Esm2SelfAttention(config, quant_int8, **kw)
+        self.attn = Esm2SelfAttention(config, quant_int8, lora, layer_index,
+                                      **kw)
         self.ffn_ln = LayerNorm(H, eps=eps, **kw)
         self.fc1 = _dense(quant_int8, H, config.intermediate_size, **kw)
         self.fc2 = _dense(quant_int8, config.intermediate_size, H, **kw)
@@ -284,7 +367,8 @@ class Esm2Layer(nn.Module):
 class Esm2(nn.Module):
     """Returns last_hidden_state [B, L, H] (like HF EsmModel w/o pooler)."""
 
-    def __init__(self, config: Esm2Config, quant_int8: bool = False, *,
+    def __init__(self, config: Esm2Config, quant_int8: bool = False,
+                 lora: Optional[LoraConfig] = None, remat: bool = False, *,
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -292,12 +376,13 @@ class Esm2(nn.Module):
             raise ValueError(f"dtype {dtype} on the card: the attention "
                              "kernels take bfloat16 only")
         self.config = config
+        self.remat = remat
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       **kw)
         self.layers = nn.ModuleList(
-            Esm2Layer(config, quant_int8, **kw)
-            for _ in range(config.num_layers))
+            Esm2Layer(config, quant_int8, lora, i, **kw)
+            for i in range(config.num_layers))
         self.final_ln = LayerNorm(config.hidden_size,
                                   eps=config.layer_norm_eps, **kw)
 
@@ -323,8 +408,13 @@ class Esm2(nn.Module):
         L = input_ids.shape[1]
         cos, sin = rotary_cos_sin(L, cfg.hidden_size // cfg.num_heads,
                                   device=input_ids.device)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, bias, cos, sin, segment_ids)
+            if remat:
+                x = checkpoint(layer, x, bias, cos, sin, segment_ids,
+                               use_reentrant=False)
+            else:
+                x = layer(x, bias, cos, sin, segment_ids)
         return self.final_ln(x)
 
 
@@ -351,7 +441,8 @@ def _segment_dropout_scale(attention_mask: torch.Tensor, is_mask: torch.Tensor,
 def init_esm2_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`, made where the parameters live:
     Linear weights lecun-normal and biases zero, embeddings N(0, 0.02),
-    LayerNorms identity. Used where no checkpoint is available."""
+    LayerNorms identity, LoRA factors as LoraDense makes them (A uniform,
+    B zero). Used where no checkpoint is available."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
@@ -359,6 +450,10 @@ def init_esm2_weights_(model: nn.Module, generator: torch.Generator) -> None:
                                    generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+                if isinstance(mod, LoraDense):
+                    bound = mod.in_features ** -0.5
+                    mod.lora_A.uniform_(-bound, bound, generator=generator)
+                    mod.lora_B.zero_()
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
             elif isinstance(mod, nn.LayerNorm):

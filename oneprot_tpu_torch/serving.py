@@ -10,7 +10,8 @@ Counterpart of oneprot_tpu/serving.py for the sequence and MSA modalities:
 
 Batches are padded to length buckets (MSAs: columns to a bucket, rows to
 the MSA depth), so the model sees a few fixed shapes. The embedder runs
-where the model's weights live.
+where the model's weights live, in eval mode (no LoRA dropout), as the JAX
+embedder runs deterministic.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ Array = Union[np.ndarray, torch.Tensor]
 class OneProtEmbedder:
     def __init__(self, model: torch.nn.Module,
                  buckets: Sequence[int] = DEFAULT_BUCKETS):
-        self.model = model
+        self.model = model.eval()
         self.buckets = list(buckets)
         self.seq_tok = esm2_tokenizer()
         self.device = next(model.parameters()).device

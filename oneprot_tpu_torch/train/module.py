@@ -1,5 +1,5 @@
-"""OneProtModule: the packed training step (counterpart of
-oneprot_tpu/train/module.py for `train_step_packed` and
+"""OneProtModule: the training steps (counterpart of
+oneprot_tpu/train/module.py for `train_step`, `train_step_packed` and
 `train_step_packed_cached`, CLIP loss, one process).
 
     module = OneProtModule({"sequence": hub, "struct_token": tower},
@@ -12,12 +12,17 @@ One step is the JAX step's fwd + bwd + update: both towers run packed rows
 (several proteins per row, block-diagonal attention), pool per segment, and
 the CLIP loss (+ 0.01 * masked L1) runs over the per-protein features with
 empty pack slots masked; the gradients of the trainable parameters are
-clipped by their global norm and Adam steps. The frozen hub runs without
-an autograd graph. In the cached step the hub's pooled features come in
-as an input (from `encode_packed_pooled`) and only its head runs.
+clipped by their global norm and Adam steps. A frozen hub without LoRA
+runs without an autograd graph. In the cached step the hub's pooled
+features come in as an input (from `encode_packed_pooled`) and only its
+head runs; a hub that trains (LoRA) is not cacheable and is refused there.
+The unpacked step (`train_step`) takes [B, L] padded rows on both sides
+and the plain CLIP (+ 0.01 * mean L1). Every step runs the model in
+training mode with LoRA dropout seeded from (seed, step), the counterpart
+of the JAX step's fold_in(key(seed), step).
 
 Not ported here: SigLIP, sharding over several cards, the int8 canary,
-the unpacked and fully cached steps, schedulers.
+the fully cached step, schedulers.
 """
 
 from __future__ import annotations
@@ -26,9 +31,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from oneprot_tpu_torch.losses.clip import clip_loss_masked
+from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
-from oneprot_tpu_torch.models.esm2 import Int8Dense
+from oneprot_tpu_torch.models.esm2 import Int8Dense, set_lora_dropout_seed
 from oneprot_tpu_torch.train import optim as optim_lib
 
 Pack = Mapping[str, Any]  # {"ids": [R, L], "segment_ids": [R, L]}
@@ -43,6 +48,7 @@ class OneProtModule:
         use_l1_regularization: bool = False,
         gradient_clip_val: float = 1.0,
         mesh: Optional[Any] = None,
+        seed: int = 0,
         frozen_param_dtype: Optional[str] = "bfloat16",
     ):
         if loss_fn.upper() != "CLIP":
@@ -56,6 +62,7 @@ class OneProtModule:
         self.optimizer_fn = optimizer
         self.use_l1_regularization = use_l1_regularization
         self.gradient_clip_val = gradient_clip_val
+        self.seed = seed
         self.frozen_param_dtype = frozen_param_dtype
         self.step = 0
         self.opt: Optional[optim_lib.ClippedOptimizer] = None
@@ -94,6 +101,16 @@ class OneProtModule:
         """A numpy array or tensor on the model's device."""
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
+    def _loss_value(self, mod_feats: torch.Tensor,
+                    seq_feats: torch.Tensor) -> torch.Tensor:
+        """CLIP over the batch, + 0.01 * the mean L1 of both sides'
+        features."""
+        loss = clip_loss(mod_feats, seq_feats)
+        if self.use_l1_regularization:
+            loss = loss + 0.01 * (seq_feats.float().abs().mean()
+                                  + mod_feats.float().abs().mean())
+        return loss
+
     def _packed_loss_value(self, mod_feats: torch.Tensor,
                            seq_feats: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
@@ -108,6 +125,11 @@ class OneProtModule:
                 + (mod_feats.float().abs() * v).sum() / n)
         return loss
 
+    def _begin_step(self) -> None:
+        """Training mode, and this step's LoRA dropout seed."""
+        self.model.train()
+        set_lora_dropout_seed(self.model, self.seed * 1_000_003 + self.step)
+
     def _update(self, loss: torch.Tensor) -> Tuple[torch.Tensor, int]:
         self.opt.zero_grad()
         loss.backward()
@@ -115,12 +137,29 @@ class OneProtModule:
         self.step += 1
         return loss.detach(), self.step
 
+    def train_step(self, modality: str, seq_ids,
+                   mod_ids) -> Tuple[torch.Tensor, int]:
+        """One optimizer step over UNPACKED rows: seq_ids, mod_ids [B, L]
+        padded token ids (numpy or tensors), pair i in row i of each.
+        Returns (loss as a device scalar, step count)."""
+        self._begin_step()
+        seq_feats = self.model(self._tensor(seq_ids, torch.long), "sequence")
+        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        return self._update(self._loss_value(mod_feats, seq_feats))
+
+    def hub_is_cacheable(self) -> bool:
+        """Whether the hub's pooled features stay the same for all training
+        (frozen, no LoRA): only then may the cached step stand in for it."""
+        enc = self.encoders.get("sequence")
+        return bool(getattr(enc, "backbone_is_cacheable", False))
+
     def train_step_packed(self, modality: str, seq_pack: Pack, mod_pack: Pack,
                           valid) -> Tuple[torch.Tensor, int]:
         """One optimizer step over PACKED rows of both sides. seq_pack,
         mod_pack: {"ids": [R, L], "segment_ids": [R, L]} (numpy or
         tensors), the same proteins in the same slots; valid [R, P].
         Returns (loss as a device scalar, step count)."""
+        self._begin_step()
         valid = self._tensor(valid, torch.float32)
         P = valid.shape[1]
         seq_feats, _ = self.model.encode_packed(
@@ -138,7 +177,11 @@ class OneProtModule:
         """The packed step with the hub's pooled features cached:
         seq_pooled [R*P, d_model] slot-aligned (from
         `encode_packed_pooled`); only the hub's head and the modality tower
-        run."""
+        run. Refused for a hub that is not cacheable."""
+        if not self.hub_is_cacheable():
+            raise ValueError("the hub trains (LoRA) or is not frozen: its "
+                             "pooled features cannot be cached")
+        self._begin_step()
         valid = self._tensor(valid, torch.float32)
         P = valid.shape[1]
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),

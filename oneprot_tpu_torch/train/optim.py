@@ -15,6 +15,8 @@ from typing import Callable, Dict, Iterable, List, Optional
 import torch
 import torch.nn as nn
 
+from oneprot_tpu_torch.models.esm2 import LORA_TRAINABLE_LEAVES
+
 OptimizerFn = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 
 
@@ -70,12 +72,16 @@ def build_optimizer(params: Iterable[nn.Parameter],
 def trainable_mask(encoders: Dict[str, nn.Module]) -> Dict[str, bool]:
     """True = trainable, per parameter name of a model holding `encoders`
     as `encoders.<name>` (a `OneProtModel`). The JAX package's rule: the
-    `transformer` of a frozen encoder (no LoRA in the port yet) is frozen;
-    heads and unfrozen encoders train."""
+    `transformer` of a frozen encoder is frozen, but for its LoRA factors
+    and every bias when it has LoRA (peft's bias="all"); heads and unfrozen
+    encoders train."""
     mask = {}
     for name, enc in encoders.items():
         frozen = bool(getattr(enc, "frozen", False))
+        lora = int(getattr(enc, "lora_rank", 0)) > 0
         for pname, _ in enc.named_parameters():
-            mask[f"encoders.{name}.{pname}"] = not (
-                frozen and pname.split(".")[0] == "transformer")
+            in_transformer = pname.split(".")[0] == "transformer"
+            adapter = lora and pname.rsplit(".", 1)[-1] in LORA_TRAINABLE_LEAVES
+            mask[f"encoders.{name}.{pname}"] = (
+                not (frozen and in_transformer) or adapter)
     return mask

@@ -293,6 +293,60 @@ def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Lq,Lk,D,layout,biased", [
+    (2, 4, 256, 256, 128, "heads", True),       # the 15B head width
+    (2, 4, 300, 300, 128, "heads", True),       # ragged: L % 64 != 0
+    (2, 4, 1024, 1024, 64, "contiguous", True),
+    (2, 2, 512, 512, 256, "heads", True),       # dk/dv's split-D instance
+    (1, 3, 37, 37, 256, "contiguous", False),   # shorter than one tile
+    (2, 3, 130, 77, 96, "contiguous", True),    # Lq != Lk; D between instances
+    (1, 1, 1, 5, 128, "heads", False),          # one query (with one key, dq
+])                                              # and dk are 0)
+def test_flash_attention_backward_kernels_match_plain(card, B, H, Lq, Lk, D,
+                                                      layout, biased):
+    """Gradients through flash_attention on the card (the forward, dq and
+    dk/dv kernels, one launch each) against flash_attention_bwd_plain on
+    the same inputs, out and lse; dq, dk and dv come back in the [B, L, H,
+    D] order of the projections."""
+    q, k, v, bias = _fa_inputs(B, H, Lq, Lk, D, card, 3 * Lq + D, layout)
+    bias = bias if biased else None
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    gen = torch.Generator(device=card).manual_seed(Lk)
+    dout = torch.randn(B, Lq, H, D, device=card, generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    counts = (fa.flash_attention_bwd_dq_cuda.launches,
+              fa.flash_attention_bwd_dkv_cuda.launches)
+    out = fa.flash_attention(q, k, v, bias)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    _, lse = fa.flash_attention_fwd_cuda(q.detach(), k.detach(), v.detach(),
+                                         bias)
+    ref = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                       bias, out.detach(), lse, dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq_cuda.launches,
+            fa.flash_attention_bwd_dkv_cuda.launches) == (counts[0] + 1,
+                                                        counts[1] + 1)
+    for name, got, want in zip("qkv", grads, ref):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert got.transpose(1, 2).is_contiguous(), f"d{name} layout"
+        assert torch.isfinite(got.float()).all(), f"d{name}: non-finite"
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= FLASH_REL_TOL, f"d{name}: max rel err {rel}"
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_takes_any_upstream_layout(card):
+    """An upstream gradient the kernels cannot read as it is (out.sum()'s
+    is an expanded scalar, stride 0 over D) is made contiguous first."""
+    q, k, v, bias = _fa_inputs(2, 3, 100, 100, 128, card, 5, "heads")
+    q = q.detach().requires_grad_()
+    fa.flash_attention(q, k, v, bias).sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.gpu
 def test_dot_product_attention_pads_small_heads_on_the_card(card):
     """Heads of 24 (the 35M tower's width) reach the kernel zero-padded to
     64, q pre-scaled by sqrt(64/24)."""
@@ -321,10 +375,11 @@ def test_flash_attention_kernel_refuses(card):
     with pytest.raises(ValueError):  # no unit stride over the head dim
         fa.flash_attention_fwd_cuda(x.transpose(2, 3), x.transpose(2, 3),
                                     x.transpose(2, 3))
-    q = x.clone().requires_grad_()
-    out = fa.flash_attention(q, x, x)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    lse = torch.zeros(1, 2, 16, device=card)
+    with pytest.raises(ValueError):  # dout of another shape than q
+        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x[:, :, :8], lse, lse)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x.float(), lse, lse)
 
 
 @pytest.mark.gpu

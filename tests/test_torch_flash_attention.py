@@ -144,14 +144,6 @@ def test_supports_keeps_the_jax_head_rule(shape, bias, ok):
                             jnp.zeros(shape), jb) is ok
 
 
-def test_flash_attention_refuses_a_gradient():
-    q, k, v, bias = _t(*_qkv(1, 2, 32, 64, seed=7))
-    q.requires_grad_()
-    out = fa.flash_attention(q, k, v, bias)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        out.sum().backward()
-
-
 def test_cuda_launcher_refuses_cpu_tensors():
     x = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="card"):
