@@ -17,10 +17,12 @@ the elapsed seconds:
    config's depth 50 at 1024 columns and off the tile grid, the
    FlashAttention-2 forward at the ESM2-15B width's B=32 H=40 L=1024
    D=128, at D=64 and 256, at L=300 and on heads of 24 padded by
-   dot_product_attention, its dq and dk/dv kernels at the LoRA step's
-   B=16 H=40 L=1024 D=128, at D=64 and 256 and at L=300), with its time,
-   the plain version's, a library call's where one computes the same
-   function, and the card's lower bound;
+   dot_product_attention, its dq kernel (with the backward's prologue:
+   q_s and delta) and dk/dv kernel at the LoRA step's B=16 H=40 L=1024
+   D=128, at D=64 and 256 and at L=300), with its time, the plain
+   version's, a library call's where one computes the same function, and
+   the card's lower bound; the whole FA-2 backward on the card (dq, then
+   dk/dv) is timed beside scaled_dot_product_attention's backward;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -65,9 +67,10 @@ the elapsed seconds:
    16 pairs bucketed to at most 1024 tokens; the counters show the exact
    launches per step (the FlashAttention-2 forward twice a hub layer,
    forward and remat recompute; its dq and dk/dv kernels once a hub
-   layer; flash-MHA once a tower layer each way; no plain version), and a
+   layer; flash-MHA once a tower layer each way; no plain version), a
    fifth step is split into forward, backward and clip + Adam by CUDA
-   events;
+   events, and a sixth, on the same batch, is profiled (torch.profiler:
+   device time by kernel group);
 12. LoRA training parity: the same initial weights at 2 hub + 2 tower
    layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
    against the CPU (f32, plain versions); the second step starts both
@@ -194,7 +197,9 @@ PLAINS = ((flash_mha, "mha_attention_plain"),
           (gelu_quant, "gelu_quant_reference"),
           (tra, "tied_row_attention_plain"),
           (fa, "flash_attention_plain"),
-          (fa, "flash_attention_bwd_plain"))
+          (fa, "flash_attention_bwd_plain"),
+          (fa, "flash_attention_bwd_dq_plain"),
+          (fa, "flash_attention_bwd_dkv_plain"))
 PLAIN_CALLS = {name: 0 for _, name in PLAINS}
 
 
@@ -484,15 +489,19 @@ def check_flash_attention(gen) -> dict:
 
 
 def check_flash_attention_bwd(gen) -> list:
-    """The FlashAttention-2 dq and dk/dv kernels against
+    """The FlashAttention-2 dq kernel (#6, its prologue included: q_s and
+    delta) and dk/dv kernel (#7, on #6's q_s and delta) against
     flash_attention_bwd_plain on the same q, k, v, out, lse and upstream
     gradient (zero on padding rows, as the pooled loss gives it), q, k, v
-    and the gradient as views of [B, L, H*D] tensors: at the LoRA-15B
-    step's largest shape (a batch of 16 at bucket 1024, 40 heads of 128), at
-    heads of 64 and 256 and at a ragged L = 300, each with a key-padding
-    bias. Timed at the first, beside the plain version, scaled_dot_product_
-    attention's backward (forward + backward minus forward) and the bound."""
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    and the gradient as views of [B, L, H*D] tensors, and #6's q_s and delta
+    against flash_attention_bwd_dq_plain's: at the LoRA-15B step's largest
+    shape (a batch of 16 at bucket 1024, 40 heads of 128), at heads of 64
+    and 256 and at a ragged L = 300, each with a key-padding bias. Timed at
+    the first: each kernel beside its own plain version and the bound, and
+    the whole card backward (flash_attention_bwd_cuda: #6, then #7) beside
+    scaled_dot_product_attention's backward (forward + backward minus
+    forward) and the bound of the backward's five products."""
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "delta": 0.0}
     worst_abs = dict(worst)
     cases = [(LORA_BATCH, 40, 1024, 128), (8, 16, 1024, 64),
              (8, 16, 1024, 256), (4, 40, 300, 128)]
@@ -501,12 +510,23 @@ def check_flash_attention_bwd(gen) -> list:
         dout = (torch.randn(B, L, H, D, device="cuda", generator=gen)
                 * valid[:, :, None, None]).to(torch.bfloat16).transpose(1, 2)
         out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
-        delta = fa.attention_delta(dout, out)
-        dq = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, dout, lse, delta)
-        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, bias, dout, lse, delta)
+        dq, qs, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse,
+                                                       dout)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(qs, k, v, bias, dout, lse,
+                                                 delta)
         ref = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+        _, ref_qs, ref_delta = fa.flash_attention_bwd_dq_plain(
+            q, k, v, bias, out, lse, dout)
         torch.cuda.synchronize()
-        errs = []
+        require(torch.equal(qs, ref_qs), f"flash-attention bwd q_s D={D} "
+                f"L={L}: not q * bf16(1/sqrt(D))")
+        diff = (delta - ref_delta).abs().max().item()
+        rel = diff / max(ref_delta.abs().max().item(), 1e-6)
+        require(rel <= FLASH_REL_TOL, f"flash-attention bwd delta D={D} "
+                f"L={L}: rel err {rel} > {FLASH_REL_TOL}")
+        worst["delta"] = max(worst["delta"], rel)
+        worst_abs["delta"] = max(worst_abs["delta"], diff)
+        errs = [f"delta {rel:.3e}"]
         for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             require(torch.isfinite(got.float()).all().item(),
                     f"flash-attention bwd {name} D={D} L={L}: non-finite")
@@ -519,20 +539,24 @@ def check_flash_attention_bwd(gen) -> list:
             errs.append(f"{name} {rel:.3e}")
         print(f"  flash-attention backward B={B} H={H} L={L} D={D}: max rel err "
               + ", ".join(errs), flush=True)
-        del dq, dk, dv, ref
+        del dq, dk, dv, ref, ref_qs, ref_delta
         if (B, H, L, D) == cases[0]:
-            timed = (q, k, v, bias, dout, out, lse, delta)
-        del q, k, v, bias, dout, out, lse, delta
+            timed = (q, k, v, bias, dout, out, lse, qs, delta)
+        del q, k, v, bias, dout, out, lse, qs, delta
         torch.cuda.empty_cache()
 
-    q, k, v, bias, dout, out, lse, delta = timed
+    q, k, v, bias, dout, out, lse, qs, delta = timed
     B, H, L, D = cases[0]
     dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
-        q, k, v, bias, dout, lse, delta))
+        q, k, v, bias, out, lse, dout))
     dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
-        q, k, v, bias, dout, lse, delta))
-    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        qs, k, v, bias, dout, lse, delta))
+    whole_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, bias, out, lse, dout))
+    plain_dq = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
         q, k, v, bias, out, lse, dout), iters=3)
+    plain_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+        qs, k, v, bias, dout, lse, delta), iters=3)
     leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
     mask, do_c = bias.to(torch.bfloat16), dout.contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -542,16 +566,24 @@ def check_flash_attention_bwd(gen) -> list:
     library = fwd_bwd - fwd
     per_pair = B * H * L * L * D  # one [L, L] x D product, per head
     qkvo = B * H * L * D * 2      # one bf16 [B, H, L, D] tensor, in bytes
-    side_bytes = 2 * B * H * L * 4 + B * L * 4  # lse, delta, bias
+    row = B * H * L * 4           # one f32 [B, H, L] tensor (lse, delta)
+    bias_bytes = B * L * 4
+    # #6 reads q, k, v, out, dout, lse, bias and writes dq, q_s, delta; #7
+    # reads q_s, k, v, dout, lse, delta, bias and writes dk, dv; the whole
+    # backward reads what #6 reads and writes dq, dk, dv, and its least work
+    # is five products (q k^T, dO v^T, dS k, dS^T q, p^T dO)
+    whole_bound, whole_by = bound_ms(8 * qkvo + row + bias_bytes,
+                                     10.0 * per_pair, BF16_FLOPS)
     rows = []
-    for name, ms, gemms, outs, line in (
-            ("flash_attention_bwd_dq", dq_ms, 3, 1, 163),
-            ("flash_attention_bwd_dkv", dkv_ms, 4, 2, 192)):
-        b_ms, b_by = bound_ms(4 * qkvo + side_bytes + outs * qkvo,
-                              2.0 * gemms * per_pair, BF16_FLOPS)
-        grads = ("dq",) if gemms == 3 else ("dk", "dv")
+    for name, ms, plain, gemms, nbytes, line in (
+            ("flash_attention_bwd_dq", dq_ms, plain_dq, 3,
+             7 * qkvo + 2 * row + bias_bytes, 163),
+            ("flash_attention_bwd_dkv", dkv_ms, plain_dkv, 4,
+             6 * qkvo + 2 * row + bias_bytes, 192)):
+        b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * per_pair, BF16_FLOPS)
+        grads = ("dq", "delta") if gemms == 3 else ("dk", "dv")
         print(f"  {name} timed at B={B} H={H} L={L} D={D}: kernel {ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
@@ -560,12 +592,18 @@ def check_flash_attention_bwd(gen) -> list:
             "max_rel_err": {g: worst[g] for g in grads},
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library, "shape": f"B={B} H={H} L={L} D={D} bf16",
-            "note": "plain_ms: flash_attention_bwd_plain (dq, dk, dv "
-                    "together); library_ms: scaled_dot_product_attention "
+            "whole_backward_ms": whole_ms, "whole_backward_bound_ms": whole_bound,
+            "note": "plain_ms: this kernel's plain version (flash_attention_"
+                    "bwd_dq_plain with the prologue, or flash_attention_bwd_"
+                    "dkv_plain); library_ms: scaled_dot_product_attention "
                     "forward+backward minus its forward with the [B, 1, 1, "
-                    "L] bias as a bf16 mask, one figure for both passes"})
-    print(f"  flash-attention backward: plain {plain:.4f} ms, SDPA backward "
-          f"{library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd {fwd:.4f})", flush=True)
+                    "L] bias as a bf16 mask, one figure for the whole "
+                    "backward; whole_backward_ms: flash_attention_bwd_cuda "
+                    "(#6 with its prologue, then #7)"})
+    print(f"  flash-attention backward: whole card backward {whole_ms:.4f} ms "
+          f"(#6 + #7, prologue in #6; bound {whole_bound:.4f} ms, {whole_by}) "
+          f"against SDPA backward {library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd "
+          f"{fwd:.4f}): {whole_ms / library:.3f}x", flush=True)
     return rows
 
 
@@ -973,6 +1011,51 @@ def lora_step_split(module: OneProtModule, ids, st_ids) -> dict:
     return split
 
 
+# groups of the LoRA step's device time, by kernel name (first match wins)
+PROFILE_GROUPS = (("#6 FA-2 dq", ("flash_attention_bwd_dq",)),
+                  ("#7 FA-2 dk/dv", ("flash_attention_bwd_dkv",)),
+                  ("#5 FA-2 forward", ("flash_attention_fwd",)),
+                  ("#1-#3 flash-MHA (tower)", ("flash_mha",)),
+                  ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                             "splitk")),
+                  ("LoRA dropout draws", ("distribution", "philox",
+                                          "bernoulli")))
+
+
+def lora_step_profile(module: OneProtModule, ids, st_ids) -> dict:
+    """One more train_step under torch.profiler: device time by kernel,
+    summed into PROFILE_GROUPS and the rest, the step's wall time and the
+    device's busy share of it. Empty groups if the profiler saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        module.train_step("struct_token", ids, st_ids)[0].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["rest"] = 0.0
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.self_device_time_total <= 0:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
+        low = evt.key.lower()
+        group = next((name for name, keys in PROFILE_GROUPS
+                      if any(k in low for k in keys)), "rest")
+        groups[group] += ms
+    device_ms = sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "groups_ms": groups,
+            "top_kernels_ms": [[name[:120], ms] for name, ms in top]}
+
+
 def train_lora_hub(smi: str, launches: dict):
     """The LoRA-15B unpacked step at full width (random weights from a
     seed); fills `launches`. Returns (numbers, (the hub's and the tower's
@@ -1022,6 +1105,7 @@ def train_lora_hub(smi: str, launches: dict):
             "LoRA-15B: non-finite parameters after the steps")
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = lora_step_split(module, *batches[-1])
+    prof = lora_step_profile(module, *batches[-1])
     lens = [int((ids != 1).sum(1).max()) for ids, _ in batches]
     pairs_s = [LORA_BATCH / x for x in secs]
     print(f"  LoRA-15B: {n_train / 1e6:.2f} M trainable parameters "
@@ -1037,12 +1121,25 @@ def train_lora_hub(smi: str, launches: dict):
           f" forward {split['forward_ms']:.1f} ms, backward with recompute "
           f"{split['backward_ms']:.1f} ms, clip + Adam "
           f"{split['clip_adam_ms']:.1f} ms", flush=True)
+    if prof["device_ms"] > 0:
+        print(f"  LoRA-15B step profile (torch.profiler, bucket "
+              f"{batches[-1][0].shape[1]}): wall {prof['wall_ms']:.1f} ms, "
+              f"device {prof['device_ms']:.1f} ms (busy "
+              f"{100 * prof['busy_share']:.1f}%): " + ", ".join(
+                  f"{name} {ms:.1f} ms ({100 * ms / prof['device_ms']:.1f}%)"
+                  for name, ms in prof["groups_ms"].items()), flush=True)
+        print("  top kernels: " + "; ".join(
+            f"{name} {ms:.1f} ms" for name, ms in prof["top_kernels_ms"]),
+            flush=True)
+    else:
+        print("  LoRA-15B step profile: torch.profiler showed no device time; "
+              "the CUDA-event split above stands", flush=True)
     result = {"losses": losses, "step_ms": [x * 1e3 for x in secs],
               "pairs_per_s": pairs_s, "buckets": [ids.shape[1] for ids, _ in
                                                   batches[:LORA_STEPS]],
               "trainable_params": n_train, "hub_trainable_params": n_hub_train,
               "peak_gib": peak, "launches_per_step": per_step,
-              "split": split}
+              "split": split, "profile": prof}
     return result, initial
 
 

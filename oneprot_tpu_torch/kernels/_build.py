@@ -42,13 +42,12 @@ SIGNATURES = {
                             + [ctypes.c_longlong] * 12
                             + [ctypes.c_float, _VOID_P]),
     "flash_attention_bwd_dq": ("oneprot_flash_attention_bwd_dq",
-                               [_VOID_P] * 8 + [_INT] * 5
-                               + [ctypes.c_longlong] * 15
-                               + [ctypes.c_float] * 2 + [_VOID_P]),
+                               [_VOID_P] * 10 + [_INT] * 5
+                               + [ctypes.c_longlong] * 21
+                               + [ctypes.c_float] * 2 + [_INT, _VOID_P]),
     "flash_attention_bwd_dkv": ("oneprot_flash_attention_bwd_dkv",
                                 [_VOID_P] * 9 + [_INT] * 5
-                                + [ctypes.c_longlong] * 18
-                                + [ctypes.c_float, _VOID_P]),
+                                + [ctypes.c_longlong] * 18 + [_INT, _VOID_P]),
     "gelu_quant": ("oneprot_gelu_quant",
                    [_VOID_P, _INT, _VOID_P, _VOID_P, ctypes.c_longlong, _INT,
                     _VOID_P]),
@@ -128,7 +127,17 @@ def library(name: str):
     return fn
 
 
+# csrc/hopper.cuh's codes for a tensor map that could not be made
+ERR_NO_ENCODE, ERR_ENCODE = 9000, 10000
+
+
 def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch returned an error: a CUDA error code, or one of
+    hopper.cuh's tensor-map codes."""
+    if rc == ERR_NO_ENCODE:
+        raise RuntimeError(f"{what}: CUDA offers no cuTensorMapEncodeTiled")
+    if rc >= ERR_ENCODE:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a tensor map (CUresult "
+                           f"{rc - ERR_ENCODE})")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

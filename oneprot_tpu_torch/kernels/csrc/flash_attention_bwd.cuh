@@ -1,8 +1,10 @@
 // Device helpers shared by the two FlashAttention-2 backward passes
 // (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): their parameters,
-// the cp.async copies of row tiles into shared memory, the in-place
-// pre-scaling of a q tile, and the two fragment products every pass takes.
-// The mma/ldmatrix primitives and fragment layouts are flash_mha_common.cuh's.
+// the dq pass's prologue arithmetic (q pre-scaled once, delta), and, for
+// their mma.sync instances (heads wider than 128), the cp.async copies of
+// row tiles into shared memory and the two fragment products every pass
+// takes. The mma/ldmatrix primitives and fragment layouts are
+// flash_mha_common.cuh's; the wgmma, TMA and mbarrier ones hopper.cuh's.
 
 #pragma once
 
@@ -16,22 +18,81 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;  // four warps
 
 struct Params {
-  const __nv_bfloat16* q;     // [B, H, Lq, D] by the strides below
+  const __nv_bfloat16* q;     // [B, H, Lq, D] by the strides below: q in the dq
+                              // pass, q_s (written by the dq pass) in dk/dv
   const __nv_bfloat16* k;     // [B, H, Lk, D]
   const __nv_bfloat16* v;
   const __nv_bfloat16* dout;  // [B, H, Lq, D]
+  const __nv_bfloat16* out;   // [B, H, Lq, D], the forward's output (dq pass)
   const float* bias;          // [B, Lk] contiguous, natural-log units, or null
   const float* lse;           // [B, H, Lq] contiguous, base 2, from the forward
-  const float* delta;         // [B, H, Lq] contiguous, rowsum(dout * out)
+  float* delta;               // [B, H, Lq] contiguous, rowsum(dout * out): written
+                              // by the dq pass, read by dk/dv
+  __nv_bfloat16* qs;          // [B, H, Lq, D]: q_s = bf16(q * qscale), dq pass
   __nv_bfloat16* dq;          // [B, H, Lq, D]
   __nv_bfloat16* dk;          // [B, H, Lk, D]
   __nv_bfloat16* dv;
-  long long q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, do_sb, do_sh,
-      do_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl;
+  long long q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, do_sb, do_sh, do_sl, o_sb,
+      o_sh, o_sl, qs_sb, qs_sh, qs_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl, dv_sb, dv_sh,
+      dv_sl;
   int H, Lq, Lk, D;
   float qscale;  // bf16(1 / sqrt(D)), as f32: q's pre-scale
   float scale;   // 1 / sqrt(D) in f32: dq's final factor
 };
+
+// p = exp2((s + bias) * log2(e) - lse), the product rounded before the
+// subtraction as the plain version rounds it: fused into an fma, a key of a
+// row whose keys are all masked (s + bias = -1e9 exactly, lse a multiple of
+// 128 near -1.44e9) would get 2^(+-64) in place of the plain version's 1.
+__device__ __forceinline__ float bwd_prob(float s, float bias, float lse) {
+  return exp2f(__fmul_rn(s + bias, LOG2E) - lse);
+}
+
+// 8 bf16 times `mul` in f32, each rounded once to bf16: the TPU kernels'
+// q * bf16(1/sqrt(D)) in the input dtype.
+__device__ __forceinline__ uint4 scale8(uint4 x, float mul) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+    w[e] = pack_bf16(f.x * mul, f.y * mul);
+  }
+  return x;
+}
+
+// sum of the products of 8 bf16 pairs, in f32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 fx = __bfloat1622float2(x[e]), fy = __bfloat1622float2(y[e]);
+    s = fmaf(fx.x, fy.x, s);
+    s = fmaf(fx.y, fy.y, s);
+  }
+  return s;
+}
+
+// The dq pass's prologue for one 16-byte chunk of a query row: q_s (already
+// scaled, `qs8`) goes out to global memory, and the chunk's share of
+// delta = rowsum(dO * O) comes back (0 past Lq or D). `row` is the query,
+// `d0` the chunk's first column.
+__device__ __forceinline__ float prologue_chunk(const Params& p, int b, int h, int row, int d0,
+                                                uint4 qs8, uint4 do8) {
+  if (row >= p.Lq || d0 >= p.D) return 0.f;
+  *reinterpret_cast<uint4*>(p.qs + b * p.qs_sb + h * p.qs_sh + row * p.qs_sl + d0) = qs8;
+  return dot8(do8, *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh +
+                                                    row * p.o_sl + d0));
+}
+
+// Sum over the N lanes (a power of two up to 32, aligned) that share a row.
+template <int N>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = N / 2; m > 0; m /= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
 
 // Start the copies of rows [row0, row0 + NROWS) of one head (`src`, rows
 // `ld` elements apart, unit stride over D) into a [NROWS][LDS] tile, 16
@@ -57,24 +118,6 @@ __device__ __forceinline__ void copy_words(float* dst, const float* src, int row
     const int row = row0 + i;
     const bool ok = src != nullptr && row < L;
     cp_async4(dst + i, ok ? static_cast<const void*>(src + row) : any, ok);
-  }
-}
-
-// In place on a landed [NROWS][LDS] tile: times `mul` in f32, rounded once
-// to bf16 (the TPU kernels' q * bf16(1/sqrt(D)) in the input dtype).
-template <int DP, int LDS, int NROWS>
-__device__ __forceinline__ void scale_rows(__nv_bfloat16* x, float mul) {
-  for (int i = threadIdx.x; i < NROWS * (DP / 8); i += THREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    uint4* ptr = reinterpret_cast<uint4*>(x + r * LDS + c);
-    uint4 val = *ptr;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&val);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
-      w[e] = pack_bf16(f.x * mul, f.y * mul);
-    }
-    *ptr = val;
   }
 }
 

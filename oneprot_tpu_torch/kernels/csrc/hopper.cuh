@@ -1,0 +1,277 @@
+// Hopper (sm_90a) building blocks of the FlashAttention-2 backward kernels
+// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): mbarriers, TMA
+// tile loads through tensor maps, warpgroup matrix products (wgmma) on
+// 128-byte-swizzled shared memory, named barriers and the register
+// reallocation between warpgroups (setmaxnreg). On the host: the tensor
+// maps, encoded by cuTensorMapEncodeTiled, whose entry point the CUDA
+// runtime hands out, so a library links against the runtime alone (no
+// -lcuda).
+//
+// Tiles in shared memory are blocks of [rows][64] bf16, one block for each
+// 64 columns of the head, 128-byte rows, each block 1024-byte aligned and
+// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of
+// row r lands at chunk c ^ (r % 8) of that row. wgmma reads such a block
+//   K-major (the head dim is the reduction): rows 128 B apart, 8-row groups
+//     1024 B apart (SBO); a 16-column k-step starts 32 B further on;
+//   MN-major (the rows are the reduction, the head dim is N): 8-row groups
+//     1024 B apart (SBO), the next 64 columns one block further on (LBO); a
+//     16-row k-step starts 2048 B further on.
+//
+// Fragment layouts of wgmma m64nNk16 for a thread of warp w (of its
+// warpgroup) and lane l, g = l / 4, t = l % 4: accumulator d[4j + e] is
+// row 16w + g (e < 2) or 16w + g + 8 (e >= 2), column 8j + 2t + (e & 1);
+// a register A operand (64 x 16) holds a0 (row 16w + g, cols 2t, 2t+1), a1
+// (row + 8), a2 (cols + 8), a3 (row + 8, cols + 8). So columns 16kk..16kk+15
+// of an accumulator, packed to bf16 pairwise, are the A operand of k-step
+// kk of the next product: probabilities never leave registers.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// make the initialised barriers visible to every thread (and to TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// arrive, and expect `bytes` more from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// shared-memory writes of this thread, made visible to the async proxy
+// (wgmma and TMA read through it)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// the box of `map` at coordinates (c0, c1, c2, c3) -> dst; completes on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`
+// (lbo, sbo in bytes; see the head of this file).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x 64, f32) = A (64 x 16) B (16 x 64) + (scale_d ? D : 0); A and B
+// from shared memory, both K-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16) B (16 x 64); A from registers (the
+// accumulator layout packed to bf16), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16) B (16 x 128); A from registers (the
+// accumulator layout packed to bf16), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+// D (64 x 64 NH, f32) += A (64 x 16) B (16 x 64 NH): A from registers, B
+// from shared memory, MN-major; NH 64-column blocks (1 or 2).
+template <int NH>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32 * NH], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (NH == 1)
+    wgmma_rs_m64n64_tb(d, a, db, 1);
+  else
+    wgmma_rs_m64n128_tb(d, a, db, 1);
+}
+
+// Columns 16kk..16kk+15 of a 64 x 64 accumulator, packed to bf16 pairwise:
+// the register A operand of k-step kk of the next product.
+__device__ __forceinline__ void a_operand(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      a[kk][r] = *reinterpret_cast<uint32_t*>(&v);
+    }
+}
+
+// The first 1024-aligned address of dynamic shared memory at `raw` (what
+// 128-byte swizzled tiles need; allocate 1023 bytes more).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// ---- tensor maps (host) -----------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Errors of `rows_map`, beside cudaSuccess: no entry point for
+// cuTensorMapEncodeTiled, or it refused the map (ERR_ENCODE + its CUresult).
+constexpr int ERR_NO_ENCODE = 9000;
+constexpr int ERR_ENCODE = 10000;
+
+// The tensor map of a bf16 [B, H, L, D] operand at element strides (sb, sh,
+// sl) and unit stride over D, read as boxes of 64 columns x `box_rows` rows
+// of one (batch, head), 128-byte swizzled. Rows past L and columns past D
+// are zero-filled. A dimension of size 1 takes a stride of 8 elements (its
+// coordinate is always 0, and TMA wants multiples of 16 bytes).
+static int rows_map(CUtensorMap* map, const void* base, int D, int L, int H, int B,
+                    long long sl, long long sh, long long sb, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(L > 1 ? sl : 8) * 2,
+                                 (cuuint64_t)(H > 1 ? sh : 8) * 2,
+                                 (cuuint64_t)(B > 1 ? sb : 8) * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
+}
+
+}  // namespace hopper

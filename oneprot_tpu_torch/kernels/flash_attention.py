@@ -6,10 +6,12 @@ Counterpart of oneprot_tpu/kernels/flash_attention.py (`supports`, `_fwd`,
 than the fused flash-MHA kernel takes (D in [64, 256], ESM2-15B's 128),
 reached through `dot_product_attention`. On CUDA tensors the forward
 launches the hand-written kernel of `csrc/flash_attention_fwd.cu` and the
-backward those of `csrc/flash_attention_bwd_dq.cu` and
-`csrc/flash_attention_bwd_dkv.cu` (bf16), or raise; on CPU tensors they run
-`flash_attention_plain` and `flash_attention_bwd_plain`. As in the JAX
-package, the key bias gets no gradient.
+backward those of `csrc/flash_attention_bwd_dq.cu` (which also runs the
+backward's prologue: q_s = q * bf16(1/sqrt(D)) and delta = rowsum(dout *
+out)) and `csrc/flash_attention_bwd_dkv.cu` (which reads q_s and delta), in
+bf16, or raise; on CPU tensors they run `flash_attention_plain` and
+`flash_attention_bwd_plain`. As in the JAX package, the key bias gets no
+gradient.
 """
 
 from __future__ import annotations
@@ -58,8 +60,9 @@ def _q_scale(D: int) -> float:
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """rowsum(dout * out) in f32, [B, H, Lq]: the backward's delta, outside
-    the kernels as in the JAX package's `_bwd`."""
+    """rowsum(dout * out) in f32, [B, H, Lq]: the backward's delta (the JAX
+    package's `_bwd` takes it outside its kernels; on the card the dq
+    kernel's prologue computes it)."""
     return (dout.float() * out.float()).sum(-1)
 
 
@@ -77,20 +80,19 @@ def _strides(t: torch.Tensor, what: str) -> Tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _kernel_args(q, k, v, bias, dout=None):
-    """The launchers' checks: shapes `supports` takes (and dout shaped as
-    q), bf16 operands on one card. Returns (bias as contiguous f32 [B, Lk]
-    or None, the operands' strides: q, k, v, then dout)."""
-    named = [("q", q), ("k", k), ("v", v)]
-    if dout is not None:
-        named.append(("dout", dout))
-    if not supports(q, k, v, bias) or (dout is not None
-                                       and tuple(dout.shape) != tuple(q.shape)):
+def _kernel_args(q, k, v, bias, **rows):
+    """The launchers' checks: shapes `supports` takes (and each of `rows`,
+    e.g. out and dout, shaped as q), bf16 operands on one card. Returns
+    (bias as contiguous f32 [B, Lk] or None, the operands' strides: q, k,
+    v, then `rows` in their order)."""
+    named = [("q", q), ("k", k), ("v", v), *rows.items()]
+    if not supports(q, k, v, bias) or any(tuple(t.shape) != tuple(q.shape)
+                                          for t in rows.values()):
         raise ValueError(
             f"flash_attention takes q [B, H, Lq, D], k, v [B, H, Lk, D] "
-            f"(dout as q) with D a multiple of 8 in [{MIN_HEAD_DIM}, "
-            f"{MAX_HEAD_DIM}] and bias [B, 1, 1, Lk] or None; got "
-            + ", ".join(f"{n} {tuple(t.shape)}" for n, t in named)
+            f"({', '.join(rows) or 'nothing else'} as q) with D a multiple of "
+            f"8 in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}] and bias [B, 1, 1, Lk] or "
+            f"None; got " + ", ".join(f"{n} {tuple(t.shape)}" for n, t in named)
             + f", bias {None if bias is None else tuple(bias.shape)}")
     dev = q.device
     for name, t in named:
@@ -170,70 +172,115 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _row_stats(q: torch.Tensor, lse: torch.Tensor,
-               delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """lse and delta as the backward kernels read them: contiguous f32
+def flash_attention_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, bias: Optional[torch.Tensor],
+                                 out: torch.Tensor, lse: torch.Tensor,
+                                 dout: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The dq kernel's function in plain PyTorch (any device), its
+    prologue included: q_s = q * 1/sqrt(D) in q's dtype (the kernel's
+    bf16(1/sqrt(D)) for bf16) and delta = rowsum(dout * out) in f32, then
+    dq as `flash_attention_bwd_plain` has it. Returns (dq, q_s, delta), as
+    `flash_attention_bwd_dq_cuda` does."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    delta = attention_delta(dout, out)
+    ds = _bwd_probs(qs, k, v, bias, dout, lse, delta)[1]
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return dq.to(q.dtype), qs, delta
+
+
+def flash_attention_bwd_dkv_plain(qs: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  bias: Optional[torch.Tensor],
+                                  dout: torch.Tensor, lse: torch.Tensor,
+                                  delta: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in plain PyTorch (any device), on q_s
+    and delta as the dq kernel's prologue gives them. Returns (dk, dv)."""
+    p, ds = _bwd_probs(qs, k, v, bias, dout, lse, delta)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(qs.dtype).float(), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_probs(qs, k, v, bias, dout, lse, delta):
+    """p = exp2((q_s k^T + bias) * log2(e) - lse) and dS = p (dout v^T -
+    delta) rounded to q_s's dtype, both as f32 [B, H, Lq, Lk]."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp2(s * LOG2E - lse.float()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    return p, (p * (dp - delta[..., None])).to(qs.dtype).float()
+
+
+def _row_stat(q: torch.Tensor, t: torch.Tensor, name: str) -> torch.Tensor:
+    """lse or delta as the backward kernels read it: contiguous f32
     [B, H, Lq] on q's card."""
-    stats = []
-    for name, t in (("lse", lse), ("delta", delta)):
-        if tuple(t.shape) != tuple(q.shape[:3]) or t.device != q.device:
-            raise ValueError(f"{name} must be [B, H, Lq] on {q.device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-        stats.append(t.to(torch.float32).contiguous())
-    return stats[0], stats[1]
+    if tuple(t.shape) != tuple(q.shape[:3]) or t.device != q.device:
+        raise ValueError(f"{name} must be [B, H, Lq] on {q.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.to(torch.float32).contiguous()
 
 
 def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: Optional[torch.Tensor],
-                                dout: torch.Tensor, lse: torch.Tensor,
-                                delta: torch.Tensor) -> torch.Tensor:
-    """Launch the dq kernel on bf16 CUDA tensors (lse from the forward,
-    delta = rowsum(dout * out) in f32). Returns dq [B, H, Lq, D] bf16, laid
-    out as [B, Lq, H, D]."""
-    bias_b, strides = _kernel_args(q, k, v, bias, dout)
-    lse, delta = _row_stats(q, lse, delta)
+                                out: torch.Tensor, lse: torch.Tensor,
+                                dout: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Launch the dq kernel on bf16 CUDA tensors (out and lse from the
+    forward). Its prologue writes what the dk/dv kernel reads. Returns (dq,
+    q_s, delta): dq and q_s = q * bf16(1/sqrt(D)) [B, H, Lq, D] bf16, laid
+    out as [B, Lq, H, D]; delta = rowsum(dout * out) [B, H, Lq] f32."""
+    bias_b, strides = _kernel_args(q, k, v, bias, out=out, dout=dout)
+    lse = _row_stat(q, lse, "lse")
     B, H, Lq, D = q.shape
-    dq = _empty_heads(q)
+    dq, qs = _empty_heads(q), _empty_heads(q)
+    delta = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
-        return dq
-    strides += _strides(dq, "dq")
+        return dq, qs, delta
+    strides += [*_strides(dq, "dq"), *_strides(qs, "qs")]
     fn = _build.library("flash_attention_bwd_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if bias_b is None else bias_b.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Lq,
-                k.shape[2], D, *strides, _q_scale(D), 1.0 / math.sqrt(D),
-                stream)
+                None if bias_b is None else bias_b.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), qs.data_ptr(),
+                delta.data_ptr(), B, H, Lq, k.shape[2], D, *strides,
+                _q_scale(D), 1.0 / math.sqrt(D), q.device.index, stream)
     _build.check(rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    return dq, qs, delta
 
 
 flash_attention_bwd_dq_cuda.launches = 0
 
 
-def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
+def flash_attention_bwd_dkv_cuda(qs: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, bias: Optional[torch.Tensor],
                                  dout: torch.Tensor, lse: torch.Tensor,
                                  delta: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv kernel on bf16 CUDA tensors. Returns (dk, dv)
-    [B, H, Lk, D] bf16, laid out as [B, Lk, H, D]."""
-    bias_b, strides = _kernel_args(q, k, v, bias, dout)
-    lse, delta = _row_stats(q, lse, delta)
-    B, H, Lq, D = q.shape
+    """Launch the dk/dv kernel on bf16 CUDA tensors, with q_s and delta as
+    `flash_attention_bwd_dq_cuda` returns them. Returns (dk, dv) [B, H,
+    Lk, D] bf16, laid out as [B, Lk, H, D]."""
+    bias_b, strides = _kernel_args(qs, k, v, bias, dout=dout)
+    lse, delta = _row_stat(qs, lse, "lse"), _row_stat(qs, delta, "delta")
+    B, H, Lq, D = qs.shape
     dk, dv = _empty_heads(k), _empty_heads(v)
     if dk.numel() == 0:
         return dk, dv
     strides += [*_strides(dk, "dk"), *_strides(dv, "dv")]
     fn = _build.library("flash_attention_bwd_dkv")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
+        rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias_b is None else bias_b.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, H, Lq, k.shape[2], D, *strides, _q_scale(D), stream)
+                B, H, Lq, k.shape[2], D, *strides, qs.device.index, stream)
     _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
@@ -243,11 +290,11 @@ flash_attention_bwd_dkv_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, bias, out, lse, dout):
-    """The backward on the card: delta, then the dq and dk/dv kernels. Same
-    arguments and result as `flash_attention_bwd_plain`."""
-    delta = attention_delta(dout, out)
-    dq = flash_attention_bwd_dq_cuda(q, k, v, bias, dout, lse, delta)
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, bias, dout, lse, delta)
+    """The backward on the card: the dq kernel (prologue included), then
+    the dk/dv kernel on its q_s and delta. Same arguments and result as
+    `flash_attention_bwd_plain`."""
+    dq, qs, delta = flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse, dout)
+    dk, dv = flash_attention_bwd_dkv_cuda(qs, k, v, bias, dout, lse, delta)
     return dq, dk, dv
 
 

@@ -335,6 +335,62 @@ def test_flash_attention_backward_kernels_match_plain(card, B, H, Lq, Lk, D,
         assert rel <= FLASH_REL_TOL, f"d{name}: max rel err {rel}"
 
 
+def _check_backward_kernels(q, k, v, bias, dout):
+    """The dq kernel (prologue included) against flash_attention_bwd_dq_plain
+    (dq, q_s, delta), the dk/dv kernel on the dq kernel's q_s and delta
+    against flash_attention_bwd_dkv_plain, and both against
+    flash_attention_bwd_plain; everything finite."""
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
+    dq, qs, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse,
+                                                   dout)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(qs, k, v, bias, dout, lse, delta)
+    ref_dq, ref_qs, ref_delta = fa.flash_attention_bwd_dq_plain(
+        q, k, v, bias, out, lse, dout)
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_plain(qs, k, v, bias, dout,
+                                                      lse, delta)
+    whole = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(qs, ref_qs), "q_s"
+    assert qs.transpose(1, 2).is_contiguous(), "q_s layout"
+    assert torch.isfinite(delta).all(), "delta: non-finite"
+    assert (delta - ref_delta).abs().max().item() <= 1e-3 * max(
+        ref_delta.abs().max().item(), 1.0), "delta"
+    for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv), ("dq", dq, whole[0]),
+                            ("dk", dk, whole[1]), ("dv", dv, whole[2])):
+        assert torch.isfinite(got.float()).all(), f"{name}: non-finite"
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max().clamp_min(1e-6)).item()
+        assert rel <= FLASH_REL_TOL, f"{name}: max rel err {rel}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [256, 384, 512, 768])
+def test_flash_attention_backward_kernels_at_the_lora_buckets(card, L):
+    """#6 and #7 at the LoRA-15B step's other buckets (heads of 128, views
+    of [B, L, H*D] projections, a key-padding bias), each kernel against
+    its own plain version and the pair against the whole plain backward."""
+    q, k, v, bias = _fa_inputs(2, 4, L, L, 128, card, L, "heads")
+    gen = torch.Generator(device=card).manual_seed(L + 1)
+    dout = torch.randn(2, L, 4, 128, device=card, generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    _check_backward_kernels(q, k, v, bias, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,L", [(128, 300), (64, 256), (256, 200)])
+def test_flash_attention_backward_all_keys_masked(card, D, L):
+    """A batch element whose keys are all masked (bias -1e9 everywhere, lse
+    near -1.44e9) comes out finite and right: keys past Lk must not take
+    TMA's zero fill as their bias, or p = exp2(0 - lse) = inf there."""
+    q, k, v, bias = _fa_inputs(2, 3, L, L, D, card, D + L, "heads")
+    bias[0] = -1e9
+    gen = torch.Generator(device=card).manual_seed(D)
+    dout = torch.randn(2, L, 3, D, device=card, generator=gen).to(
+        torch.bfloat16).transpose(1, 2)
+    _check_backward_kernels(q, k, v, bias, dout)
+
+
 @pytest.mark.gpu
 def test_flash_attention_backward_takes_any_upstream_layout(card):
     """An upstream gradient the kernels cannot read as it is (out.sum()'s
@@ -377,9 +433,13 @@ def test_flash_attention_kernel_refuses(card):
                                     x.transpose(2, 3))
     lse = torch.zeros(1, 2, 16, device=card)
     with pytest.raises(ValueError):  # dout of another shape than q
-        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x[:, :, :8], lse, lse)
+        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x, lse, x[:, :, :8])
+    with pytest.raises(TypeError):  # out must be bf16 too
+        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x.float(), lse, x)
     with pytest.raises(TypeError):
         fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x.float(), lse, lse)
+    with pytest.raises(ValueError):  # delta of another shape than lse
+        fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x, lse, lse[:, :1])
 
 
 @pytest.mark.gpu

@@ -5,8 +5,10 @@ package, on the CPU in f32.
 the port's forward out and lse, against the vjp of the JAX Pallas
 `flash_attention` in interpret mode (its `_bwd_dq_kernel` and
 `_bwd_dkv_kernel`) and against the vjp of the JAX `reference_attention`;
-the autograd of `flash_attention` and `dot_product_attention` (its padded
-branch at D = 24 included) against JAX's.
+the two kernels' own plain versions (the dq one with the backward's
+prologue, the dk/dv one on its q_s and delta) against it; the autograd of
+`flash_attention` and `dot_product_attention` (its padded branch at D = 24
+included) against JAX's.
 """
 
 import jax
@@ -138,13 +140,48 @@ def test_dot_product_attention_gradients_match_jax(D, L):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,masked", [(64, False), (128, False), (128, True),
+                                      (256, False)])
+def test_plain_backward_from_the_prologue_equals_the_plain_backward(
+        D, masked, dtype):
+    """The two kernels' plain versions, the dk/dv one fed the q_s and delta
+    that the dq one's prologue defines (q_s = q * 1/sqrt(D) in q's dtype,
+    so bf16(1/sqrt(D)) for bf16, delta = rowsum(dout * out) in f32), give what
+    flash_attention_bwd_plain gives, bit for bit; `masked`: every key of
+    batch element 0 is masked, and the gradients stay finite."""
+    q, k, v, bias, dout = _inputs(2, 2, 96, D, seed=D + masked)
+    if masked:
+        bias[0] = -1e9
+    q, k, v, bias, dout = (torch.from_numpy(a).to(dtype)
+                           for a in (q, k, v, bias, dout))
+    bias = bias.float()
+    out, lse = fa.flash_attention_plain(q, k, v, bias)
+    dq, qs, delta = fa.flash_attention_bwd_dq_plain(q, k, v, bias, out, lse,
+                                                    dout)
+    assert qs.dtype == dtype and torch.equal(
+        qs, q * torch.tensor(D ** -0.5, dtype=dtype))
+    assert delta.dtype == torch.float32 and torch.equal(
+        delta, (dout.float() * out.float()).sum(-1))
+    dk, dv = fa.flash_attention_bwd_dkv_plain(qs, k, v, bias, dout, lse, delta)
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype, name
+        assert torch.isfinite(got.float()).all(), name
+        assert torch.equal(got, ref), name
+
+
 def test_backward_launchers_refuse_cpu_tensors():
     x = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match="card"):
-        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x, lse, lse)
+        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x, lse, x)
     with pytest.raises(ValueError, match="card"):
         fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x, lse, lse)
+    with pytest.raises(ValueError, match="card"):
+        fa.flash_attention_bwd_cuda(x, x, x, None, x, lse, x)
     with pytest.raises(ValueError):  # heads of 24 are the caller's to pad
         fa.flash_attention_bwd_dq_cuda(*(x[..., :24],) * 3, None, x[..., :24],
-                                       lse, lse)
+                                       lse, x[..., :24])
+    with pytest.raises(ValueError, match="out"):  # out of another shape
+        fa.flash_attention_bwd_dq_cuda(x, x, x, None, x[:, :, :8], lse, x)
