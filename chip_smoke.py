@@ -12,9 +12,14 @@ the elapsed seconds:
    checkout's sources, one nvcc call per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it (the flash-MHA forward and backward at the
-   35M tower's and the hub's packed shapes and at the tower's unpacked
-   shape, the tied-row attention at embed_msas's depth 16 and the MSA data
-   config's depth 50 at 1024 columns and off the tile grid, the
+   35M tower's and the hub's packed shapes, at the tower's unpacked shape
+   and on the struct-token segment ids of a real packed batch, the
+   backward's dq kernel with its prologue (q_r and delta) and its dk/dv
+   kernel each against its own plain version too, each case timed beside
+   SDPA's backward with the share of tiles the kernels visit and the bound
+   over the logit pairs the inputs need; the tied-row attention at
+   embed_msas's depth 16 and the MSA data config's depth 50 at 1024
+   columns and off the tile grid, the
    FlashAttention-2 forward at the ESM2-15B width's B=32 H=40 L=1024
    D=128, at D=64 and 256, at L=300 and on heads of 24 padded by
    dot_product_attention, its dq kernel (with the backward's prologue:
@@ -119,6 +124,9 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 FLASH_REL_TOL = 1.5e-2     # max |kernel - plain| / max |plain|, bf16
+# exp2 a second on the card's special-function units (the FA-3 paper's
+# figure for the H100 SXM: 3.9 TFLOP/s of exponentials)
+SFU_EXP2_S = 3.9e12
 SCALE_REL_TOL = 1e-5       # GELU->int8 row scales
 CODE_FLIP_SHARE = 1e-3     # GELU->int8 codes off by one, at most this share
 N_LAYERS = 33
@@ -131,6 +139,7 @@ BUCKETS = (256, 384, 512, 768, 1024)
 # the packed step of configs/experiment/train_packed.yaml: 16 rows of 1024
 # tokens (bench.py's 16384-token budget), 16 slots a row
 ROWS, ROW_LEN, SLOTS = 16, 1024, 16
+PACKED_SEG_SEED = 3  # the kernels phase's packed batch (segment ids only)
 STEPS = 6
 PARITY_ROWS = 4
 # MSA serving: 3 requests of 4 MSAs, 64 homologs of one query each, through
@@ -194,6 +203,8 @@ LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
 # the plain versions, counted by the wrappers `count_plain_calls` installs
 PLAINS = ((flash_mha, "mha_attention_plain"),
           (flash_mha, "mha_attention_bwd_plain"),
+          (flash_mha, "flash_mha_bwd_dq_plain"),
+          (flash_mha, "flash_mha_bwd_dkv_plain"),
           (gelu_quant, "gelu_quant_reference"),
           (tra, "tied_row_attention_plain"),
           (fa, "flash_attention_plain"),
@@ -626,105 +637,208 @@ def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
     fwd_row["lse_max_abs_err"] = max(fwd_row["lse_max_abs_err"], lse_err)
 
 
-def check_flash_bwd(gen, fwd_row: dict) -> list:
-    """dq and dk/dv kernels against the plain backward on the same q, k, v,
-    out, lse and upstream gradient (zero on padding rows, as a loss over
-    pooled segments gives it): at the 35M tower's packed shape (16 rows of
-    1024, 20 heads of 24, rotary, padding bias, 16 proteins a row), at the
-    hub's packed shape (heads of 64), at L=512 with 4 proteins a row, and
-    at the tower's unpacked shape in the LoRA step (16 rows of 1024, key
-    padding bias, no segment ids). The forward kernel's out and lse at each
-    of these shapes are first held against the plain forward
-    (`check_flash_packed`). Timed at the tower's packed shape."""
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    worst_abs = dict(worst)
-    H = 20
-    cases = [(ROWS, ROW_LEN, 24, SLOTS), (ROWS, ROW_LEN, 64, SLOTS),
-             (16, 512, 64, 4), (LORA_BATCH, ROW_LEN, 24, 0)]
-    for B, L, D, n_seg in cases:
-        q, k, v, bias, cos, sin, seg, valid = attention_inputs(
-            B, L, H, D, gen, segments=n_seg > 0, n_seg=n_seg)
-        side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
-        dout = (torch.randn(B, L, H * D, device="cuda", generator=gen)
-                * valid[..., None]).to(torch.bfloat16)
-        out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
-        layout = f"{n_seg} segments a row" if n_seg else "unpacked"
-        check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row,
-                           f"B={B} L={L} H={H} D={D} {layout}")
-        delta = flash_mha.attention_delta(dout, out, H)
-        dq = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, dout, lse, delta, H, **side)
-        dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q, k, v, dout, lse, delta, H,
-                                                  **side)
-        ref = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, H, **side)
-        torch.cuda.synchronize()
-        errs = []
-        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-            require(torch.isfinite(got.float()).all().item(),
-                    f"flash bwd {name} L={L} D={D}: non-finite")
-            diff = (got.float() - want.float()).abs().max().item()
-            rel = diff / max(want.float().abs().max().item(), 1e-6)
-            require(rel <= FLASH_REL_TOL,
-                    f"flash bwd {name} L={L} D={D}: rel err {rel} > {FLASH_REL_TOL}")
-            worst[name] = max(worst[name], rel)
-            worst_abs[name] = max(worst_abs[name], diff)
-            errs.append(f"{name} {rel:.3e}")
-        print(f"  flash-MHA backward B={B} L={L} H={H} D={D} {layout}: max rel "
-              f"err " + ", ".join(errs), flush=True)
-        if (B, L, D, n_seg) == cases[0]:
-            timed = (q, k, v, bias, cos, sin, seg, dout, out, lse, delta)
-        del q, k, v, out, lse, ref, dq, dk, dv
+def packed_struct_segments(seed: int = PACKED_SEG_SEED):
+    """Struct-token segment ids [ROWS, ROW_LEN] (-1 on padding) of a packed
+    batch as `make_packed_batch` draws it, from its own numpy seed."""
+    return make_packed_batch(np.random.RandomState(seed))["mod"]["segment_ids"]
 
-    q, k, v, bias, cos, sin, seg, dout, out, lse, delta = timed
-    B, L, D = cases[0][:3]
-    side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
-    dq_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dq_cuda(
-        q, k, v, dout, lse, delta, H, **side))
-    dkv_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dkv_cuda(
-        q, k, v, dout, lse, delta, H, **side))
-    plain = time_ms(lambda: flash_mha.mha_attention_bwd_plain(
-        q, k, v, out, lse, dout, H, **side), iters=3)
-    # library: SDPA forward + backward minus its forward, on pre-rotated
-    # [B, H, L, D] inputs with the dense additive mask (bias + segments)
+
+def sdpa_backward_ms(q, k, v, cos, sin, mask, dout, H):
+    """scaled_dot_product_attention's backward (forward + backward minus
+    forward) on pre-rotated [B, H, L, D] inputs with a dense bf16 mask:
+    (backward ms, forward + backward ms, forward ms)."""
+    B, L, hd = q.shape
+    D = hd // H
     heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
     qr = flash_mha.apply_rotary(heads(q).float(), cos, sin).to(torch.bfloat16)
     kr = flash_mha.apply_rotary(heads(k).float(), cos, sin).to(torch.bfloat16)
     leaves = [x.detach().contiguous().requires_grad_() for x in (qr, kr, heads(v))]
-    mask = flash_mha.packed_segment_bias(seg, bias, mask_value=-1e30).to(
-        torch.bfloat16)
     do_h = heads(dout).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
     fwd_bwd = time_ms(lambda: torch.autograd.grad(
         sdpa(*leaves, attn_mask=mask), leaves, do_h))
-    library = fwd_bwd - fwd
+    return fwd_bwd - fwd, fwd_bwd, fwd
+
+
+def needed_pairs(seg, B: int, L: int) -> int:
+    """(query, key) pairs of one head that the backward must compute: the
+    pairs of equal segment ids (same protein, or padding with padding), or
+    all L^2 without segment ids."""
+    if seg is None:
+        return B * L * L
+    s = seg.long()
+    return int(sum((row[:, None] == row[None, :]).sum().item() for row in s))
+
+
+def check_flash_bwd(gen, fwd_row: dict) -> list:
+    """The dq kernel (#2, its prologue included: q_r and delta) and the
+    dk/dv kernel (#3, on #2's q_r and delta) against the plain backward on
+    the same q, k, v, out, lse and upstream gradient (zero on padding rows,
+    as a loss over pooled segments gives it), and each against its own
+    plain version (flash_mha_bwd_dq_plain: q_r equal, delta;
+    flash_mha_bwd_dkv_plain on the kernel's q_r and delta): at the 35M
+    tower's packed shape (16 rows of 1024, 20 heads of 24, rotary, padding
+    bias, 16 proteins a row), at the hub's packed shape (heads of 64), at
+    L=512 with 4 proteins a row, at the tower's unpacked shape in the LoRA
+    step (16 rows of 1024, key padding bias, no segment ids), and on the
+    struct-token segment ids of a real packed batch (`make_packed_batch`).
+    The forward kernel's out and lse at each of these shapes are first held
+    against the plain forward (`check_flash_packed`). Each case is timed:
+    #2, #3 and the whole card backward (`flash_mha_bwd_cuda`) beside SDPA's
+    backward, with the share of 64 x 64 tiles the kernels visit and the
+    bound over the logit pairs these inputs need (same segment, or padding
+    with padding) beside the dense one, and the exp2 floor at the card's
+    special-function rate. The kernels' row carries the first case."""
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "delta": 0.0}
+    worst_abs = dict(worst)
+    H = 20
+    cases = [(ROWS, ROW_LEN, 24, SLOTS), (ROWS, ROW_LEN, 64, SLOTS),
+             (16, 512, 64, 4), (LORA_BATCH, ROW_LEN, 24, 0),
+             (ROWS, ROW_LEN, 24, "real")]
+    timings = []
+    for B, L, D, n_seg in cases:
+        q, k, v, bias, cos, sin, seg, valid = attention_inputs(
+            B, L, H, D, gen, segments=n_seg not in (0, "real"),
+            n_seg=n_seg if isinstance(n_seg, int) else 0)
+        if n_seg == "real":  # padding and segments of the real packing
+            seg = torch.from_numpy(packed_struct_segments()).cuda()
+            valid = seg >= 0
+            bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
+            layout = "real packed batch"
+        else:
+            layout = f"{n_seg} segments a row" if n_seg else "unpacked"
+        side = dict(bias=bias, rope_cos=cos, rope_sin=sin, segment_ids=seg)
+        dout = (torch.randn(B, L, H * D, device="cuda", generator=gen)
+                * valid[..., None]).to(torch.bfloat16)
+        out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
+        what = f"B={B} L={L} H={H} D={D} {layout}"
+        check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what)
+        dq, q_r, delta = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, out, lse, dout,
+                                                        H, **side)
+        dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse, delta, H,
+                                                  **side)
+        ref = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, H, **side)
+        own_dq, own_qr, own_delta = flash_mha.flash_mha_bwd_dq_plain(
+            q, k, v, out, lse, dout, H, **side)
+        own_dkv = flash_mha.flash_mha_bwd_dkv_plain(q_r, k, v, dout, lse, delta,
+                                                    H, **side)
+        torch.cuda.synchronize()
+        require(torch.equal(q_r, own_qr), f"flash bwd q_r {what}: not "
+                "bf16(rot(q) * q_pre)")
+        diff = (delta - own_delta).abs().max().item()
+        rel = diff / max(own_delta.abs().max().item(), 1e-6)
+        require(rel <= FLASH_REL_TOL, f"flash bwd delta {what}: rel err {rel}")
+        worst["delta"], worst_abs["delta"] = (max(worst["delta"], rel),
+                                              max(worst_abs["delta"], diff))
+        errs = [f"delta {rel:.3e}"]
+        for name, got, want, own in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                        (own_dq, *own_dkv)):
+            require(torch.isfinite(got.float()).all().item(),
+                    f"flash bwd {name} {what}: non-finite")
+            for r in (want, own):
+                diff = (got.float() - r.float()).abs().max().item()
+                rel = diff / max(r.float().abs().max().item(), 1e-6)
+                require(rel <= FLASH_REL_TOL,
+                        f"flash bwd {name} {what}: rel err {rel} > {FLASH_REL_TOL}")
+                worst[name] = max(worst[name], rel)
+                worst_abs[name] = max(worst_abs[name], diff)
+            errs.append(f"{name} {rel:.3e}")
+        print(f"  flash-MHA backward {what}: max rel err " + ", ".join(errs),
+              flush=True)
+        del ref, own_dq, own_qr, own_delta, own_dkv, dq, dk, dv
+        timings.append(time_flash_bwd(what, q, k, v, out, lse, dout, H, side,
+                                      q_r, delta))
+        del q, k, v, out, lse, dout, q_r, delta, side
+        torch.cuda.empty_cache()
+
+    t = timings[0]
     rows = []
-    per_pair = B * H * L * L * D  # one [L, L] x D product, per head, per row
-    qkvo = B * L * H * D * 2      # one bf16 [B, L, H*D] tensor, in bytes
-    side_bytes = 2 * B * H * L * 4 + 2 * B * L * 4 + 2 * L * D * 2
-    for name, ms, gemms, outs, line in (
-            ("flash_mha_bwd_dq", dq_ms, 3, 1, 512),
-            ("flash_mha_bwd_dkv", dkv_ms, 4, 2, 619)):
-        b_ms, b_by = bound_ms(4 * qkvo + side_bytes + outs * qkvo,
-                              2.0 * gemms * per_pair, BF16_FLOPS)
-        print(f"  {name} timed at B={B} L={L} H={H} D={D}: kernel {ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    for name, ms, gemms, line in (
+            ("flash_mha_bwd_dq", t["dq_ms"], 3, 512),
+            ("flash_mha_bwd_dkv", t["dkv_ms"], 4, 619)):
+        grads = ("dq", "delta") if gemms == 3 else ("dk", "dv")
+        part = name.split("_")[-1]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": f"oneprot_tpu/kernels/flash_mha.py:{line}",
-            "max_abs_err": max(worst_abs[g] for g in
-                               (("dq",) if gemms == 3 else ("dk", "dv"))),
-            "max_rel_err": {g: worst[g] for g in
-                            (("dq",) if gemms == 3 else ("dk", "dv"))},
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library,
-            "shape": f"B={B} L={L} H={H} D={D} bf16, {SLOTS} segments a row",
-            "note": "plain_ms: mha_attention_bwd_plain (dq, dk, dv together); "
-                    "library_ms: scaled_dot_product_attention forward+backward "
-                    "minus its forward, one figure for both passes"})
-    print(f"  flash-MHA backward: plain {plain:.4f} ms, SDPA backward "
-          f"{library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd {fwd:.4f})", flush=True)
+            "max_abs_err": max(worst_abs[g] for g in grads),
+            "max_rel_err": {g: worst[g] for g in grads},
+            "ms": ms, "plain_ms": t[f"{part}_plain_ms"],
+            "bound_ms": t[f"{part}_bound_ms"], "bound_by": t[f"{part}_bound_by"],
+            "dense_bound_ms": t[f"{part}_dense_bound_ms"],
+            "exp2_floor_ms": t["exp2_floor_ms"],
+            "library_ms": t["sdpa_backward_ms"],
+            "shape": f"B={ROWS} L={ROW_LEN} H={H} D=24 bf16, {SLOTS} segments a row",
+            "cases": timings,
+            "note": "bound_ms: operations over the logit pairs these inputs "
+                    "need (equal segment ids), dense_bound_ms over all L^2; "
+                    "plain_ms: this kernel's own plain version; library_ms: "
+                    "scaled_dot_product_attention forward+backward minus "
+                    "its forward with the dense mask, one figure for both "
+                    "passes; cases: every timed case, the whole card "
+                    "backward (flash_mha_bwd_cuda) beside SDPA's"})
     return rows
+
+
+def time_flash_bwd(what, q, k, v, out, lse, dout, H, side, q_r, delta) -> dict:
+    """#2, #3, the whole card backward and SDPA's backward on one case, with
+    the needed-work and dense bounds, the exp2 floor and the share of tiles
+    the kernels visit; prints one line and returns the numbers."""
+    B, L, hd = q.shape
+    D = hd // H
+    seg = side["segment_ids"]
+    dq_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dq_cuda(
+        q, k, v, out, lse, dout, H, **side))
+    dkv_ms = time_ms(lambda: flash_mha.flash_mha_bwd_dkv_cuda(
+        q_r, k, v, dout, lse, delta, H, **side))
+    whole_ms = time_ms(lambda: flash_mha.flash_mha_bwd_cuda(
+        q, k, v, out, lse, dout, H, **side))
+    dq_plain = time_ms(lambda: flash_mha.flash_mha_bwd_dq_plain(
+        q, k, v, out, lse, dout, H, **side), iters=3)
+    dkv_plain = time_ms(lambda: flash_mha.flash_mha_bwd_dkv_plain(
+        q_r, k, v, dout, lse, delta, H, **side), iters=3)
+    mask = side["bias"]
+    if seg is not None:
+        mask = flash_mha.packed_segment_bias(seg, mask, mask_value=-1e30)
+    sdpa_ms, sdpa_fwd_bwd, sdpa_fwd = sdpa_backward_ms(
+        q, k, v, side["rope_cos"], side["rope_sin"], mask.to(torch.bfloat16),
+        dout, H)
+    pairs = needed_pairs(seg, B, L) * H  # over every head
+    dense = B * L * L * H
+    tiles = 1.0 if seg is None else flash_mha.segment_tile_hits(seg).float().mean().item()
+    qkvo = B * L * H * D * 2  # one bf16 [B, L, H*D] tensor, in bytes
+    row = B * H * L * 4       # one f32 [B, H, L] tensor (lse, delta)
+    side_bytes = B * L * 4 * (2 if seg is not None else 1) + 2 * L * D * 2
+    # #2 reads q, k, v, out, dout, lse and writes dq, q_r, delta; #3 reads
+    # q_r, k, v, dout, lse, delta and writes dk, dv; the whole backward
+    # reads what #2 reads and writes dq, dk, dv, its least work five
+    # products (q k^T, dO v^T, dS k, dS^T q, p^T dO) and one exp2 a pair
+    res = {"case": what, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "whole_ms": whole_ms,
+           "dq_plain_ms": dq_plain, "dkv_plain_ms": dkv_plain,
+           "sdpa_backward_ms": sdpa_ms, "tiles_visited": tiles,
+           "pairs_needed": pairs / dense,
+           "exp2_floor_ms": pairs / SFU_EXP2_S * 1e3}
+    for name, gemms, nbytes in (("dq", 3, 7 * qkvo + 2 * row + side_bytes),
+                                ("dkv", 4, 6 * qkvo + 2 * row + side_bytes),
+                                ("whole", 5, 8 * qkvo + row + side_bytes)):
+        b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * pairs * D, BF16_FLOPS)
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = b_ms, b_by
+        res[f"{name}_dense_bound_ms"] = bound_ms(
+            nbytes, 2.0 * gemms * dense * D, BF16_FLOPS)[0]
+    print(f"  flash-MHA backward timed, {what}: #2 {dq_ms:.4f} ms (plain "
+          f"{dq_plain:.4f}), #3 {dkv_ms:.4f} ms (plain {dkv_plain:.4f}), whole "
+          f"{whole_ms:.4f} ms against SDPA backward {sdpa_ms:.4f} ms (fwd+bwd "
+          f"{sdpa_fwd_bwd:.4f} - fwd {sdpa_fwd:.4f}): {whole_ms / sdpa_ms:.3f}x; "
+          f"tiles visited {tiles:.3f}, pairs needed {pairs / dense:.3f}; bounds "
+          f"(needed / dense) #2 {res['dq_bound_ms']:.4f} / "
+          f"{res['dq_dense_bound_ms']:.4f} ms ({res['dq_bound_by']}), #3 "
+          f"{res['dkv_bound_ms']:.4f} / {res['dkv_dense_bound_ms']:.4f} ms "
+          f"({res['dkv_bound_by']}), whole {res['whole_bound_ms']:.4f} / "
+          f"{res['whole_dense_bound_ms']:.4f} ms ({res['whole_bound_by']}); "
+          f"exp2 floor {res['exp2_floor_ms']:.4f} ms a kernel", flush=True)
+    return res
 
 
 def make_packed_batch(rng):

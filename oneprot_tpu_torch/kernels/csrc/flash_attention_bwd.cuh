@@ -60,20 +60,6 @@ __device__ __forceinline__ uint4 scale8(uint4 x, float mul) {
   return x;
 }
 
-// sum of the products of 8 bf16 pairs, in f32
-__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 fx = __bfloat1622float2(x[e]), fy = __bfloat1622float2(y[e]);
-    s = fmaf(fx.x, fy.x, s);
-    s = fmaf(fx.y, fy.y, s);
-  }
-  return s;
-}
-
 // The dq pass's prologue for one 16-byte chunk of a query row: q_s (already
 // scaled, `qs8`) goes out to global memory, and the chunk's share of
 // delta = rowsum(dO * O) comes back (0 past Lq or D). `row` is the query,
@@ -84,14 +70,6 @@ __device__ __forceinline__ float prologue_chunk(const Params& p, int b, int h, i
   *reinterpret_cast<uint4*>(p.qs + b * p.qs_sb + h * p.qs_sh + row * p.qs_sl + d0) = qs8;
   return dot8(do8, *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh +
                                                     row * p.o_sl + d0));
-}
-
-// Sum over the N lanes (a power of two up to 32, aligned) that share a row.
-template <int N>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int m = N / 2; m > 0; m /= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
 }
 
 // Start the copies of rows [row0, row0 + NROWS) of one head (`src`, rows

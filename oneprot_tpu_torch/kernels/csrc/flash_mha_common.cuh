@@ -1,7 +1,8 @@
-// Device helpers shared by the flash-MHA kernels (forward, dq, dk/dv):
-// cp.async copies into shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 bf16 product with f32 accumulation, bf16 packing and
-// the rotary rotation of 4 columns of a head's two halves.
+// Device helpers shared by the mma.sync kernels (flash-MHA forward,
+// tied-row, FlashAttention-2) and the wgmma backward passes: cp.async
+// copies into shared memory, ldmatrix fragment loads, the mma.sync
+// m16n8k16 bf16 product with f32 accumulation, bf16 packing, dot8 and
+// row_sum, and the rotary rotation of 4 columns of a head's two halves.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g,
@@ -81,6 +82,28 @@ __device__ __forceinline__ uint2 pack4(const float (&x)[4]) {
   return make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
 }
 
+// sum of the products of 8 bf16 pairs, in f32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 fx = __bfloat1622float2(x[e]), fy = __bfloat1622float2(y[e]);
+    s = fmaf(fx.x, fy.x, s);
+    s = fmaf(fx.y, fy.y, s);
+  }
+  return s;
+}
+
+// Sum over the N lanes (a power of two up to 32, aligned) that share a row.
+template <int N>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = N / 2; m > 0; m /= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
 // x_lo, x_hi: the same 4 columns of the two halves of a head;
 // (x_lo, x_hi) <- (x_lo*cos_lo - x_hi*sin_lo, x_hi*cos_hi + x_lo*sin_hi)
 __device__ __forceinline__ void rotate4(float (&lo)[4], float (&hi)[4], uint2 c_lo,
@@ -99,123 +122,6 @@ __device__ __forceinline__ void rotate4(float (&lo)[4], float (&hi)[4], uint2 c_
 }
 
 
-// ---------------------------------------------------------------------------
-// Shared by the two backward passes (flash_mha_bwd_dq.cu, flash_mha_bwd_dkv.cu)
-
-constexpr int BWD_ROWS = 64;      // query (or key) rows per CTA, 16 per warp
-constexpr int BWD_TILE = 64;      // keys (or queries) per streamed tile
-constexpr int BWD_THREADS = 128;  // four warps
-constexpr float LN2 = 0.6931471805599453f;
-
-struct BwdParams {
-  const __nv_bfloat16* q;     // [B, L, H*D], as the forward read them
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;  // [B, L, H*D]
-  const float* bias;          // [B, L] log2 units, or null
-  const __nv_bfloat16* cos;   // [L, D] or null
-  const __nv_bfloat16* sin;
-  const int* seg;             // [B, L] or null
-  const float* lse;           // [B, H, L] base 2, from the forward
-  const float* delta;         // [B, H, L] rowsum(dout * out) per head
-  __nv_bfloat16* dq;          // [B, L, H*D]
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  int L, H, D;
-  float q_pre;                // log2(e) / sqrt(D), as the forward
-  float scale;                // 1 / sqrt(D)
-};
-
-// Start the copy of rows [row0, row0 + BWD_TILE) of one head of a
-// [B, L, H*D] tensor into a [BWD_TILE][LDS] tile, 16 bytes a copy; rows
-// past L and columns past D are zero-filled.
-template <int DP, int LDS>
-__device__ __forceinline__ void copy_head_rows(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                                size_t head_off, int row0, int L,
-                                                int HD, int D) {
-  for (int i = threadIdx.x; i < BWD_TILE * (DP / 8); i += BWD_THREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L && c < D;
-    cp_async16(dst + r * LDS + c, ok ? src + head_off + (size_t)row * HD + c : src, ok);
-  }
-}
-
-// The same for rows of the [L, D] rotary tables, into a [BWD_TILE][DP] tile.
-template <int DP>
-__device__ __forceinline__ void copy_table_rows(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src, int row0,
-                                                 int L, int D) {
-  for (int i = threadIdx.x; i < BWD_TILE * (DP / 8); i += BWD_THREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L && c < D;
-    cp_async16(dst + r * DP + c, ok ? src + (size_t)row * D + c : src, ok);
-  }
-}
-
-// 4-byte words [row0, row0 + BWD_TILE) of a per-row array; zero past L or
-// when the array is null (a copy that reads nothing still names a valid
-// address: `any`).
-__device__ __forceinline__ void copy_row_words(void* dst, const void* src, int row0,
-                                               int L, const void* any) {
-  if (threadIdx.x < BWD_TILE) {
-    const int row = row0 + threadIdx.x;
-    const bool ok = src != nullptr && row < L;
-    cp_async4(static_cast<uint32_t*>(dst) + threadIdx.x,
-              ok ? static_cast<const void*>(static_cast<const uint32_t*>(src) + row)
-                 : any,
-              ok);
-  }
-}
-
-// In place on a landed [BWD_TILE][LDS] tile: rotary (when the tables are
-// given) and then a multiply by `mul`, in f32, rounded once to bf16: the
-// forward's arithmetic for q (mul = q_pre) and for k (no multiply).
-template <int DP, int LDS>
-__device__ __forceinline__ void rotate_scale_tile(__nv_bfloat16* x,
-                                                  const __nv_bfloat16* cos,
-                                                  const __nv_bfloat16* sin, int D,
-                                                  bool rotary, bool scaled, float mul) {
-  const int half = D / 2;
-  if (rotary) {
-    for (int i = threadIdx.x; i < BWD_TILE * (half / 4); i += BWD_THREADS) {
-      const int r = i / (half / 4), c = (i % (half / 4)) * 4;
-      uint2* lo_p = reinterpret_cast<uint2*>(x + r * LDS + c);
-      uint2* hi_p = reinterpret_cast<uint2*>(x + r * LDS + c + half);
-      float lo[4], hi[4];
-      unpack4(*lo_p, lo);
-      unpack4(*hi_p, hi);
-      const __nv_bfloat16* cr = cos + r * DP;
-      const __nv_bfloat16* sr = sin + r * DP;
-      rotate4(lo, hi, *reinterpret_cast<const uint2*>(cr + c),
-              *reinterpret_cast<const uint2*>(cr + c + half),
-              *reinterpret_cast<const uint2*>(sr + c),
-              *reinterpret_cast<const uint2*>(sr + c + half));
-      if (scaled) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          lo[e] *= mul;
-          hi[e] *= mul;
-        }
-      }
-      *lo_p = pack4(lo);
-      *hi_p = pack4(hi);
-    }
-  } else if (scaled) {
-    for (int i = threadIdx.x; i < BWD_TILE * (D / 4); i += BWD_THREADS) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      uint2* p = reinterpret_cast<uint2*>(x + r * LDS + c);
-      float v[4];
-      unpack4(*p, v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] *= mul;
-      *p = pack4(v);
-    }
-  }
-}
-
 // A fragments of 16 rows x DP columns (the warp's rows of a [*][LDS] tile)
 template <int DP, int LDS>
 __device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4],
@@ -225,98 +131,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4],
   for (int ks = 0; ks < DP / 16; ++ks) {
     const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
     ldsm_x4(f[ks], tile + r * LDS + ks * 16 + 8 * (lane >> 4));
-  }
-}
-
-// c[j] += A (16 x DP, fragments a) . X^T for the 8-row blocks j of a
-// [BWD_TILE][LDS] tile X: the product over the head dim (q k^T, dO v^T)
-template <int DP, int LDS>
-__device__ __forceinline__ void mma_rows_t(float (&c)[BWD_TILE / 8][4],
-                                           const uint32_t (&a)[DP / 16][4],
-                                           const __nv_bfloat16* x, int lane) {
-#pragma unroll
-  for (int j = 0; j < BWD_TILE / 8; ++j) {
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-    for (int kp = 0; kp < DP / 32; ++kp) {
-      uint32_t b[4];  // b0, b1 of k-steps 2kp and 2kp+1
-      ldsm_x4(b, x + (j * 8 + (lane & 7)) * LDS + kp * 32 + 8 * (lane >> 3));
-      mma16816(c[j], a[2 * kp], b[0], b[1]);
-      mma16816(c[j], a[2 * kp + 1], b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x DP) += S (16 x BWD_TILE, C fragments s, rounded to bf16) . X
-// for a [BWD_TILE][LDS] tile X: the product over the streamed rows
-template <int DP, int LDS>
-__device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4],
-                                        const float (&s)[BWD_TILE / 8][4],
-                                        const __nv_bfloat16* x, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BWD_TILE / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int jp = 0; jp < DP / 16; ++jp) {
-      uint32_t b[4];  // b0, b1 of d-blocks 2jp and 2jp+1
-      const int row = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      ldsm_x4_trans(b, x + row * LDS + 8 * (2 * jp + (lane >> 4)));
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Write the warp's 16 x DP accumulator, times `mul`, into an f32 [*][DP]
-// tile of shared memory (rows row0..row0+15).
-template <int DP>
-__device__ __forceinline__ void acc_to_smem(float* g_s, const float (&acc)[DP / 8][4],
-                                            int row0, int lane, float mul) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    float* ra = g_s + (row0 + g) * DP + j * 8 + 2 * t;
-    float* rb = ra + 8 * DP;
-    ra[0] = acc[j][0] * mul;
-    ra[1] = acc[j][1] * mul;
-    rb[0] = acc[j][2] * mul;
-    rb[1] = acc[j][3] * mul;
-  }
-}
-
-// Rows [row0, row0 + BWD_ROWS) of a gradient taken in the rotated frame
-// (f32 [BWD_ROWS][DP] in shared memory) to the input frame,
-// R^T g = g cos - rotate_half(g) sin, as bf16 into one head of a
-// [B, L, H*D] tensor. Without tables, a plain copy.
-template <int DP>
-__device__ __forceinline__ void write_rotated_back(__nv_bfloat16* out, const float* g_s,
-                                                   const BwdParams& p, size_t head_off,
-                                                   int row0) {
-  const int D = p.D, half = p.D / 2, HD = p.H * p.D;
-  for (int i = threadIdx.x; i < BWD_ROWS * (D / 2); i += BWD_THREADS) {
-    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    const int row = row0 + r;
-    if (row >= p.L) continue;
-    float x[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = c + e;
-      const float gv = g_s[r * DP + col];
-      if (p.cos != nullptr) {
-        const float cs = __bfloat162float(p.cos[(size_t)row * D + col]);
-        const float sn = __bfloat162float(p.sin[(size_t)row * D + col]);
-        x[e] = col < half ? gv * cs + g_s[r * DP + col + half] * sn
-                          : gv * cs - g_s[r * DP + col - half] * sn;
-      } else {
-        x[e] = gv;
-      }
-    }
-    *reinterpret_cast<uint32_t*>(out + head_off + (size_t)row * HD + c) =
-        pack_bf16(x[0], x[1]);
   }
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the FlashAttention-2 backward kernels
-// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): mbarriers, TMA
-// tile loads through tensor maps, warpgroup matrix products (wgmma) on
-// 128-byte-swizzled shared memory, named barriers and the register
+// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and the flash-MHA
+// backward kernels (flash_mha_bwd.cuh): mbarriers, TMA tile loads through
+// tensor maps, warpgroup matrix products (wgmma) on 128- or 64-byte-swizzled
+// shared memory, named barriers and the register
 // reallocation between warpgroups (setmaxnreg). On the host: the tensor
 // maps, encoded by cuTensorMapEncodeTiled, whose entry point the CUDA
 // runtime hands out, so a library links against the runtime alone (no
@@ -24,6 +25,13 @@
 // (row + 8), a2 (cols + 8), a3 (row + 8, cols + 8). So columns 16kk..16kk+15
 // of an accumulator, packed to bf16 pairwise, are the A operand of k-step
 // kk of the next product: probabilities never leave registers.
+//
+// 64-byte rows (a 32-column head, flash_mha_bwd.cuh) are written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r lands at chunk c ^ ((r / 2) %
+// 4), the pattern repeating every 512 bytes. wgmma reads them with the
+// 64-byte layout type (desc_sw<64>): K-major, 8-row groups 512 B apart and a
+// 16-column k-step 32 B further on; MN-major, 8-row groups 512 B apart and a
+// 16-row k-step 1024 B further on.
 
 #pragma once
 
@@ -72,6 +80,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// whether the phase of parity `parity` has completed (waits a while first)
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// the global nanosecond timer
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
+  return t;
+}
+
 // shared-memory writes of this thread, made visible to the async proxy
 // (wgmma and TMA read through it)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -80,6 +108,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at barrier `id` without waiting (a producer telling consumers that
+// what it wrote before is ready)
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int R>
@@ -132,6 +166,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// Descriptor of an operand in RB-byte rows (RB = 128: desc_sw128; RB = 64:
+// 64-byte swizzle), lbo and sbo in bytes.
+template <int RB>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(RB == 64 || RB == 128, "64- or 128-byte rows");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(RB == 128 ? 1 : 2) << 62);
+}
+
 // D (64 x 64, f32) = A (64 x 16) B (16 x 64) + (scale_d ? D : 0); A and B
 // from shared memory, both K-major (descriptors da, db).
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
@@ -167,6 +212,21 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 16) B (16 x 32); A from registers (the
+// accumulator layout packed to bf16), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -253,23 +313,25 @@ constexpr int ERR_NO_ENCODE = 9000;
 constexpr int ERR_ENCODE = 10000;
 
 // The tensor map of a bf16 [B, H, L, D] operand at element strides (sb, sh,
-// sl) and unit stride over D, read as boxes of 64 columns x `box_rows` rows
-// of one (batch, head), 128-byte swizzled. Rows past L and columns past D
-// are zero-filled. A dimension of size 1 takes a stride of 8 elements (its
+// sl) and unit stride over D, read as boxes of `box_cols` columns x
+// `box_rows` rows of one (batch, head), swizzled by `swizzle` (box_cols 64
+// with 128 bytes, 32 with 64). Rows past L and columns past D are
+// zero-filled. A dimension of size 1 takes a stride of 8 elements (its
 // coordinate is always 0, and TMA wants multiples of 16 bytes).
 static int rows_map(CUtensorMap* map, const void* base, int D, int L, int H, int B,
-                    long long sl, long long sh, long long sb, int box_rows) {
+                    long long sl, long long sh, long long sb, int box_rows, int box_cols = 64,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(L > 1 ? sl : 8) * 2,
                                  (cuuint64_t)(H > 1 ? sh : 8) * 2,
                                  (cuuint64_t)(B > 1 ? sb : 8) * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
 }

@@ -9,12 +9,14 @@ log-sum-exp of the scaled logits. It is differentiable in q, k and v (no
 gradient flows to the bias, the tables or the segment ids).
 
 On CUDA tensors the forward launches the hand-written kernel of
-`csrc/flash_mha_fwd.cu` and the backward the dq kernel of
-`csrc/flash_mha_bwd_dq.cu` and the dk/dv kernel of
-`csrc/flash_mha_bwd_dkv.cu` (bf16, head dim a multiple of 8 and at most
-64), or they raise. On CPU tensors they run `mha_attention_plain` and
-`mha_attention_bwd_plain`, the same functions in plain PyTorch with f32
-logits and softmax.
+`csrc/flash_mha_fwd.cu`, and the backward the dq kernel of
+`csrc/flash_mha_bwd_dq.cu` (whose prologue writes q_r = rot(q) * q_pre and
+delta = rowsum(dO * O)) and then the dk/dv kernel of
+`csrc/flash_mha_bwd_dkv.cu` on them (bf16, head dim a multiple of 8 and at
+most 64), or they raise. The two backward kernels skip the tiles of a packed
+row that share no segment (`segment_tile_hits`). On CPU tensors they run
+`mha_attention_plain` and `mha_attention_bwd_plain`, the same functions in
+plain PyTorch with f32 logits and softmax.
 """
 
 from __future__ import annotations
@@ -121,11 +123,21 @@ def mha_attention_plain(
 def attention_delta(dout: torch.Tensor, out: torch.Tensor,
                     num_heads: int) -> torch.Tensor:
     """delta = rowsum(dO * O) per head, f32 [B, H, L]: the backward's
-    softmax correction (outside any kernel, as in the JAX package)."""
+    softmax correction (the plain versions'; on the card the dq kernel's
+    prologue computes it)."""
     B, L, hd = out.shape
     prod = dout.float() * out.float()
     return prod.reshape(B, L, num_heads, hd // num_heads).sum(-1).transpose(
         1, 2).contiguous()
+
+
+def bwd_scales(head_dim: int) -> Tuple[float, float, float]:
+    """(q_pre, dq_scale, dk_scale) of the backward. q_r = rot(q) * q_pre,
+    rounded to the input dtype as the forward rounds it, carries the
+    softmax scale and log2(e), so q_r rot(k)^T is the base-2 logit; dq =
+    R^T (dS rot(k)) * dq_scale; dk = R^T (dS^T q_r) * dk_scale, which takes
+    q_r's log2(e) back out (q_pre * dk_scale = dq_scale)."""
+    return LOG2E / math.sqrt(head_dim), 1.0 / math.sqrt(head_dim), 1.0 / LOG2E
 
 
 def mha_attention_bwd_plain(
@@ -136,41 +148,168 @@ def mha_attention_bwd_plain(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels' function in plain PyTorch (any device): f32
-    logits in base 2, P recomputed from the forward's base-2 lse (clamped
-    at 1, as the kernels do, so rows whose lse kept no digits stay finite),
-    dS = P (dP - delta); P and dS rounded to the input dtype where the
-    kernels feed them to a product. Returns (dq, dk, dv) in the input
-    dtype."""
+    """The backward kernels' function in plain PyTorch (any device):
+    q_r = rot(q) * q_pre and rot(k) rounded to the input dtype (rotary in
+    f32), s = q_r rot(k)^T + bias * log2(e) in f32, P recomputed from the
+    forward's base-2 lse (clamped at 1, as the kernels do, so rows whose lse
+    kept no digits stay finite), dS = P (dP - delta); P and dS rounded to
+    the input dtype where the kernels feed them to a product; the scales of
+    `bwd_scales`. Returns (dq, dk, dv) in the input dtype."""
     B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
+    dt = q.dtype
+    q_pre, dq_scale, dk_scale = bwd_scales(D)
 
     def heads(x):
         return x.reshape(B, L, num_heads, D).transpose(1, 2).float()
 
     qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(dout)
     if rope_cos is not None:
-        cos, sin = (t.to(q.dtype).float() for t in (rope_cos, rope_sin))
+        cos, sin = (t.to(dt).float() for t in (rope_cos, rope_sin))
         qh, kh = apply_rotary(qh, cos, sin), apply_rotary(kh, cos, sin)
+    qr, kr = (qh * q_pre).to(dt).float(), kh.to(dt).float()
     if segment_ids is not None:
         bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
-    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (LOG2E / math.sqrt(D))
+    s = torch.einsum("bhqd,bhkd->bhqk", qr, kr)
     if bias is not None:
         s = s + bias.float() * LOG2E
     p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
     dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
     ds = p * (dp - attention_delta(dout, out, num_heads)[..., None])
-    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    p, ds = p.to(dt).float(), ds.to(dt).float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) / math.sqrt(D)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) / math.sqrt(D)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * dq_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qr) * dk_scale
     if rope_cos is not None:
         dq, dk = apply_rotary_t(dq, cos, sin), apply_rotary_t(dk, cos, sin)
 
     def back(x):
-        return x.transpose(1, 2).reshape(B, L, num_heads * D).to(q.dtype)
+        return x.transpose(1, 2).reshape(B, L, num_heads * D).to(dt)
 
     return back(dq), back(dk), back(dv)
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, L, H*D] -> f32 [B, H, L, D]."""
+    B, L, hd = x.shape
+    return x.reshape(B, L, num_heads, hd // num_heads).transpose(1, 2).float()
+
+
+def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, L, D] -> [B, L, H*D] in `dtype`."""
+    B, H, L, D = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * D).to(dtype)
+
+
+def _tables(rope_cos, rope_sin, dtype):
+    """The rotary tables as the kernels read them: rounded to the inputs'
+    dtype, computed with in f32; (None, None) without rotary."""
+    if rope_cos is None:
+        return None, None
+    return rope_cos.to(dtype).float(), rope_sin.to(dtype).float()
+
+
+def _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias, cos, sin,
+               segment_ids):
+    """(rot(k) in the input dtype, p, dS rounded to the input dtype), each
+    f32 [B, H, L, *], from q_r [B, L, H*D] and the forward's lse."""
+    dt = qr.dtype
+    kr = _heads(k, num_heads)
+    if cos is not None:
+        kr = apply_rotary(kr, cos, sin)
+    kr = kr.to(dt).float()
+    if segment_ids is not None:
+        bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
+    s = torch.einsum("bhqd,bhkd->bhqk", _heads(qr, num_heads), kr)
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
+    dp = torch.einsum("bhqd,bhkd->bhqk", _heads(dout, num_heads),
+                      _heads(v, num_heads))
+    ds = p * (dp - delta[..., None])
+    return kr, p, ds.to(dt).float()
+
+
+def flash_mha_bwd_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
+    bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dq kernel's function in plain PyTorch (any device), its
+    prologue included: q_r = rot(q) * q_pre in q's dtype and delta =
+    rowsum(dO * O) in f32, then dq as `mha_attention_bwd_plain` has it.
+    Returns (dq, q_r [B, L, H*D], delta [B, H, L]), as
+    `flash_mha_bwd_dq_cuda` does."""
+    B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
+                          segment_ids)
+    q_pre, dq_scale, _ = bwd_scales(D)
+    cos, sin = _tables(rope_cos, rope_sin, q.dtype)
+    qh = _heads(q, num_heads)
+    if cos is not None:
+        qh = apply_rotary(qh, cos, sin)
+    qr = _merge_heads(qh * q_pre, q.dtype)
+    delta = attention_delta(dout, out, num_heads)
+    kr, _, ds = _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias, cos,
+                           sin, segment_ids)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * dq_scale
+    if cos is not None:
+        dq = apply_rotary_t(dq, cos, sin)
+    return _merge_heads(dq, q.dtype), qr, delta
+
+
+def flash_mha_bwd_dkv_plain(
+    q_r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, num_heads: int,
+    bias: Optional[torch.Tensor] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in plain PyTorch (any device), on q_r and
+    delta as the dq kernel's prologue gives them. Returns (dk, dv)."""
+    _, L, D = _check_args(q_r, k, v, num_heads, bias, rope_cos, rope_sin,
+                          segment_ids)
+    dk_scale = bwd_scales(D)[2]
+    cos, sin = _tables(rope_cos, rope_sin, q_r.dtype)
+    _, p, ds = _bwd_probs(q_r, k, v, dout, lse, delta, num_heads, bias, cos,
+                          sin, segment_ids)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q_r.dtype).float(),
+                      _heads(dout, num_heads))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q_r, num_heads)) * dk_scale
+    if cos is not None:
+        dk = apply_rotary_t(dk, cos, sin)
+    return _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype)
+
+
+SKIP_TILE = 64  # rows of a tile of the backward kernels' skip rule
+_I32 = torch.iinfo(torch.int32)
+
+
+def segment_tile_hits(segment_ids: torch.Tensor,
+                      tile: int = SKIP_TILE) -> torch.Tensor:
+    """The backward kernels' skip rule, bool [B, n, n] with n = ceil(L /
+    tile): tiles i and j of a row are visited together when both hold
+    padding (id -1) or when the ranges [min, max] of their other ids
+    intersect. Disjoint ranges share no id, so a pair of equal ids always
+    lies in a visited pair of tiles, whatever the order of the ids; with
+    contiguous packing the rule is also tight. Rows past L count as
+    neither (the int32 sentinels are the kernels')."""
+    seg = segment_ids.to(torch.int32)
+    B, L = seg.shape
+    n = -(-L // tile)
+    real = seg != -1
+    fill = lambda x, value: torch.cat(
+        [x, torch.full((B, n * tile - L), value, dtype=x.dtype,
+                       device=x.device)], 1).view(B, n, tile)
+    lo = fill(torch.where(real, seg, _I32.max), _I32.max).amin(-1)
+    hi = fill(torch.where(real, seg, _I32.min), _I32.min).amax(-1)
+    pad = fill(~real, False).any(-1)
+    return ((pad[:, :, None] & pad[:, None, :])
+            | ((lo[:, :, None] <= hi[:, None, :])
+               & (lo[:, None, :] <= hi[:, :, None])))
 
 
 def _kernel_args(tensors, num_heads, bias, rope_cos, rope_sin, segment_ids):
@@ -249,49 +388,55 @@ flash_mha_cuda.launches = 0
 
 
 def flash_mha_bwd_dq_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, num_heads: int,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
     bias: Optional[torch.Tensor] = None,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Launch the dq kernel (lse from the forward, delta from
-    `attention_delta`). Returns dq, bf16 [B, L, H*D]."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dq kernel on bf16 CUDA tensors (out and lse from the
+    forward). Its prologue writes what the dk/dv kernel reads. Returns (dq,
+    q_r, delta): dq and q_r = bf16(rot(q) * q_pre), bf16 [B, L, H*D];
+    delta = rowsum(dout * out), f32 [B, H, L]."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
-        (q, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
+        (q, k, v, out, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
     dev = q.device
-    lse, delta = (_row_stats(t, B, num_heads, L, dev) for t in (lse, delta))
-    dq = torch.empty_like(q)
+    lse = _row_stats(lse, B, num_heads, L, dev)
+    dq, q_r = torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if dq.numel() == 0:
-        return dq
+        return dq, q_r, delta
+    q_pre, dq_scale, _ = bwd_scales(D)
     fn = _build.library("flash_mha_bwd_dq")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
-                _ptr(cos), _ptr(sin), _ptr(seg), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, L,
-                num_heads, D, LOG2E / math.sqrt(D), 1.0 / math.sqrt(D), stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), _ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg),
+                lse.data_ptr(), dq.data_ptr(), q_r.data_ptr(), delta.data_ptr(),
+                B, L, num_heads, D, q_pre, dq_scale, dev.index, stream)
     _build.check(rc, "flash_mha_bwd_dq")
     flash_mha_bwd_dq_cuda.launches += 1
-    return dq
+    return dq, q_r, delta
 
 
 flash_mha_bwd_dq_cuda.launches = 0
 
 
 def flash_mha_bwd_dkv_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    q_r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, num_heads: int,
     bias: Optional[torch.Tensor] = None,
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv kernel. Returns (dk, dv), bf16 [B, L, H*D]."""
+    """Launch the dk/dv kernel on bf16 CUDA tensors, with q_r and delta as
+    `flash_mha_bwd_dq_cuda` returns them. Returns (dk, dv), bf16
+    [B, L, H*D]."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
-        (q, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
-    dev = q.device
+        (q_r, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
+    dev = q_r.device
     lse, delta = (_row_stats(t, B, num_heads, L, dev) for t in (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
@@ -299,10 +444,10 @@ def flash_mha_bwd_dkv_cuda(
     fn = _build.library("flash_mha_bwd_dkv")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
-                _ptr(cos), _ptr(sin), _ptr(seg), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, L, num_heads, D, LOG2E / math.sqrt(D), stream)
+        rc = fn(q_r.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L,
+                num_heads, D, bwd_scales(D)[2], dev.index, stream)
     _build.check(rc, "flash_mha_bwd_dkv")
     flash_mha_bwd_dkv_cuda.launches += 1
     return dk, dv
@@ -315,11 +460,12 @@ def flash_mha_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, dout: torch.Tensor, num_heads: int, **side,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward on the card: delta, then the dq and dk/dv kernels.
-    Same arguments and result as `mha_attention_bwd_plain`."""
-    delta = attention_delta(dout, out, num_heads)
-    dq = flash_mha_bwd_dq_cuda(q, k, v, dout, lse, delta, num_heads, **side)
-    dk, dv = flash_mha_bwd_dkv_cuda(q, k, v, dout, lse, delta, num_heads,
+    """The backward on the card: the dq kernel (prologue included), then the
+    dk/dv kernel on its q_r and delta. Same arguments and result as
+    `mha_attention_bwd_plain`."""
+    dq, q_r, delta = flash_mha_bwd_dq_cuda(q, k, v, out, lse, dout, num_heads,
+                                           **side)
+    dk, dv = flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse, delta, num_heads,
                                     **side)
     return dq, dk, dv
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from oneprot_tpu_torch.data import packing
 from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
@@ -92,7 +93,7 @@ def test_flash_kernel_refuses(card):
     x = torch.zeros(1, 16, 64, device=card, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 16, device=card)
     with pytest.raises(ValueError):  # lse must be [B, H, L]
-        flash_mha.flash_mha_bwd_dq_cuda(x, x, x, x, lse[:, :, :8], lse, 1)
+        flash_mha.flash_mha_bwd_dq_cuda(x, x, x, x, lse[:, :, :8], x, 1)
     with pytest.raises(TypeError):  # the backward takes bf16 only
         flash_mha.flash_mha_bwd_dkv_cuda(x, x, x, x.float(), lse, lse, 1)
 
@@ -106,6 +107,10 @@ def test_flash_kernel_refuses(card):
     (2, 130, 8, 32, False, True, True),     # no rotary
     (2, 96, 8, 16, True, True, False),      # 8M head width
     (2, 128, 4, 64, False, False, False),   # no bias, no rotary
+    (2, 300, 6, 8, True, True, True),       # D = 8, packed, L = 300
+    (2, 300, 4, 40, True, True, True),      # D = 40: the 64-column instance
+    (1, 3, 2, 24, True, True, False),       # three tokens
+    (1, 2100, 2, 24, True, True, True),     # 33 tiles: the skip list in chunks
 ])
 def test_flash_backward_kernels_match_plain(card, B, L, nh, d, rotary, bias,
                                             segments):
@@ -137,6 +142,69 @@ def test_flash_backward_kernels_match_plain(card, B, L, nh, d, rotary, bias,
         rel = ((got.float() - want.float()).abs().max()
                / want.float().abs().max()).item()
         assert rel <= FLASH_REL_TOL, f"d{name}: max rel err {rel}"
+
+
+def _ragged_packed_rows(card, L, nh, d, seed, shuffled):
+    """Rows from `packing.pack_token_rows` at length L: ragged proteins
+    (segment edges off the 64-grid), one row a single protein, a last tile
+    that mixes a protein and padding; `shuffled` permutes each row's ids
+    (padding included), so segments are no longer contiguous."""
+    rng = np.random.RandomState(seed)
+    lengths = [L - 20, 61, 90, 47, 130, 29, 75, L // 2 - 5, 52]
+    toks = [np.full(n, 5, np.int32) for n in lengths]
+    _, seg, _, rows = packing.pack_token_rows(toks, L, 4)
+    assert any(len(r) == 1 for r in rows) and (seg[:, -1] == -1).any()
+    if shuffled:
+        seg = np.stack([rng.permutation(r) for r in seg])
+    B = seg.shape[0]
+    q, k, v = (torch.from_numpy(rng.randn(B, L, nh * d).astype(np.float32))
+               .to(card, torch.bfloat16) for _ in range(3))
+    kw = {"bias": torch.from_numpy(np.where(seg >= 0, 0.0, -1e9).astype(
+              np.float32)[:, None, None, :]).to(card),
+          "segment_ids": torch.from_numpy(seg).to(card)}
+    kw["rope_cos"], kw["rope_sin"] = rotary_cos_sin(L, d, device=card)
+    dout = (torch.from_numpy(rng.randn(B, L, nh * d).astype(np.float32))
+            .to(card) * kw["bias"][:, 0, 0, :, None].eq(0)).to(torch.bfloat16)
+    return q, k, v, kw, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 24, 40, 64])
+@pytest.mark.parametrize("L,shuffled", [(300, False), (300, True),
+                                        (1024, False)])
+def test_flash_backward_kernels_on_ragged_packed_rows(card, d, L, shuffled):
+    """The dq kernel (dq, q_r, delta) against its plain version and the
+    dk/dv kernel against its own on the kernel's q_r and delta; the whole
+    card backward against the plain backward; one launch each."""
+    nh = 4
+    q, k, v, kw, dout = _ragged_packed_rows(card, L, nh, d, L + d, shuffled)
+    out, lse = flash_mha.flash_mha_cuda(q, k, v, nh, **kw)
+    counts = (flash_mha.flash_mha_bwd_dq_cuda.launches,
+              flash_mha.flash_mha_bwd_dkv_cuda.launches)
+    dq, q_r, delta = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, out, lse, dout,
+                                                    nh, **kw)
+    dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse, delta, nh,
+                                              **kw)
+    assert (flash_mha.flash_mha_bwd_dq_cuda.launches,
+            flash_mha.flash_mha_bwd_dkv_cuda.launches) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    ref_dq, ref_qr, ref_delta = flash_mha.flash_mha_bwd_dq_plain(
+        q, k, v, out, lse, dout, nh, **kw)
+    ref_dk, ref_dv = flash_mha.flash_mha_bwd_dkv_plain(q_r, k, v, dout, lse,
+                                                       delta, nh, **kw)
+    whole = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, nh,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q_r, ref_qr), "q_r is not bf16(rot(q) * q_pre)"
+    rel = ((delta - ref_delta).abs().max() / ref_delta.abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"delta: max rel err {rel}"
+    for name, got, want, plain in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      (ref_dq, ref_dk, ref_dv), whole):
+        assert torch.isfinite(got.float()).all(), f"{name}: non-finite"
+        for ref in (want, plain):
+            rel = ((got.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            assert rel <= FLASH_REL_TOL, f"{name}: max rel err {rel}"
 
 
 @pytest.mark.gpu
