@@ -17,7 +17,9 @@ the elapsed seconds:
    backward's dq kernel with its prologue (q_r and delta) and its dk/dv
    kernel each against its own plain version too, each case timed beside
    SDPA's backward with the share of tiles the kernels visit and the bound
-   over the logit pairs the inputs need; the tied-row attention at
+   over the logit pairs the inputs need, and the forward timed at each case
+   beside SDPA's forward with the share of its query-block x key-tile pairs
+   it visits and its needed-work and dense bounds; the tied-row attention at
    embed_msas's depth 16 and the MSA data config's depth 50 at 1024
    columns and off the tile grid, the
    FlashAttention-2 forward at the ESM2-15B width's B=32 H=40 L=1024
@@ -323,7 +325,10 @@ def check_flash(gen) -> dict:
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "lse_max_abs_err": worst_lse, "ms": kernel, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
-            "shape": f"B={B} L={L} H={H} D={D} bf16"}
+            "shape": f"B={B} L={L} H={H} D={D} bf16", "cases": [],
+            "note": "cases: the forward timed at each flash-MHA backward "
+                    "case (packed shapes: tiles visited, needed-work and "
+                    "dense bounds, SDPA's forward with the dense mask)"}
 
 
 def check_gelu_quant(gen) -> dict:
@@ -714,6 +719,7 @@ def check_flash_bwd(gen, fwd_row: dict) -> list:
         out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
         what = f"B={B} L={L} H={H} D={D} {layout}"
         check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what)
+        fwd_row["cases"].append(time_flash_fwd(what, q, k, v, H, side))
         dq, q_r, delta = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, out, lse, dout,
                                                         H, **side)
         dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse, delta, H,
@@ -780,6 +786,46 @@ def check_flash_bwd(gen, fwd_row: dict) -> list:
                     "passes; cases: every timed case, the whole card "
                     "backward (flash_mha_bwd_cuda) beside SDPA's"})
     return rows
+
+
+def time_flash_fwd(what, q, k, v, H, side) -> dict:
+    """#1 and SDPA's forward on one case (pre-rotated heads, the bias or
+    the dense segment mask as a bf16 mask), with the share of the kernel's
+    query-block x key-tile pairs it visits and the needed-work and dense
+    bounds; prints one line and returns the numbers."""
+    B, L, hd = q.shape
+    D = hd // H
+    seg = side["segment_ids"]
+    ms = time_ms(lambda: flash_mha.flash_mha_cuda(q, k, v, H, **side))
+    mask = side["bias"]
+    if seg is not None:
+        mask = flash_mha.packed_segment_bias(seg, mask, mask_value=-1e30)
+    heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
+    qr = flash_mha.apply_rotary(heads(q).float(), side["rope_cos"],
+                                side["rope_sin"]).to(torch.bfloat16)
+    kr = flash_mha.apply_rotary(heads(k).float(), side["rope_cos"],
+                                side["rope_sin"]).to(torch.bfloat16)
+    vh, m16 = heads(v).contiguous(), mask.to(torch.bfloat16)
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vh, attn_mask=m16))
+    del qr, kr, vh, m16
+    tiles = (1.0 if seg is None else flash_mha.segment_tile_hits(
+        seg, flash_mha.fwd_key_tile(D), flash_mha.FWD_Q_TILE).float().mean().item())
+    pairs = needed_pairs(seg, B, L) * H
+    dense = B * L * L * H
+    # q, k, v read and out written in bf16; lse out, bias and ids in f32 /
+    # int32, both rotary tables in bf16
+    nbytes = (4 * B * L * H * D * 2 + B * H * L * 4
+              + B * L * 4 * (2 if seg is not None else 1) + 2 * L * D * 2)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * D, BF16_FLOPS)
+    dense_ms = bound_ms(nbytes, 4.0 * dense * D, BF16_FLOPS)[0]
+    print(f"  flash-MHA forward timed, {what}: #1 {ms:.4f} ms against SDPA "
+          f"forward {sdpa:.4f} ms: {ms / sdpa:.3f}x; tiles visited {tiles:.3f}, "
+          f"pairs needed {pairs / dense:.3f}; bound (needed / dense) "
+          f"{b_ms:.4f} / {dense_ms:.4f} ms ({b_by})", flush=True)
+    return {"case": what, "ms": ms, "sdpa_forward_ms": sdpa,
+            "tiles_visited": tiles, "pairs_needed": pairs / dense,
+            "bound_ms": b_ms, "bound_by": b_by, "dense_bound_ms": dense_ms}
 
 
 def time_flash_bwd(what, q, k, v, out, lse, dout, H, side, q_r, delta) -> dict:

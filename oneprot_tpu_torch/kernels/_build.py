@@ -30,7 +30,8 @@ _INT = ctypes.c_int
 # C signature of each library's entry point: (symbol, argtypes)
 SIGNATURES = {
     "flash_mha_fwd": ("oneprot_flash_mha_fwd",
-                      [_VOID_P] * 9 + [_INT] * 4 + [ctypes.c_float, _VOID_P]),
+                      [_VOID_P] * 10 + [_INT] * 4 + [ctypes.c_float, _INT,
+                                                     _VOID_P]),
     "flash_mha_bwd_dq": ("oneprot_flash_mha_bwd_dq",
                          [_VOID_P] * 13 + [_INT] * 4 + [ctypes.c_float] * 2
                          + [_INT, _VOID_P]),
@@ -40,7 +41,7 @@ SIGNATURES = {
     "flash_attention_fwd": ("oneprot_flash_attention_fwd",
                             [_VOID_P] * 6 + [_INT] * 5
                             + [ctypes.c_longlong] * 12
-                            + [ctypes.c_float, _VOID_P]),
+                            + [ctypes.c_float, _INT, _VOID_P]),
     "flash_attention_bwd_dq": ("oneprot_flash_attention_bwd_dq",
                                [_VOID_P] * 10 + [_INT] * 5
                                + [ctypes.c_longlong] * 21

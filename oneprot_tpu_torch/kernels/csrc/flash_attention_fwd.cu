@@ -11,35 +11,41 @@
 // What bounds it on H100: at the ESM2-15B width (D = 128, L up to 1024) the
 // two products are 4*Lk*D flops per query row against 4*D*2 bytes of q/k/v/o
 // traffic per row, far above the card's ~295 flop/byte ridge, so the bound
-// is tensor-core operations. What stands between the kernel and it: K and
-// V come again from L2 for every query tile, and mma.sync (not wgmma) runs
-// the products.
+// is tensor-core operations, which only wgmma reaches; the exp2 of the
+// softmax (one per logit, on the special-function units) comes next.
 //
-// Design: not the TPU kernel's blocks (it holds a head's whole K and V in
-// VMEM). One CTA per (query tile, head, batch), 16 query rows per warp.
-// Key tiles of K, V and the bias stream through a two-stage cp.async ring
-// in shared memory, so the next tile's copy overlaps this tile's products.
-// Products are mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix
-// fragment loads (transposed for V); the online softmax runs in f32
-// registers, and the S accumulators are re-packed in registers as the A
-// operand of PV. Three compile-time head widths, 64, 128 and 256: a D in
-// between is zero-filled up to the next one in shared memory. At 256 the
-// 16 x 256 f32 output accumulator alone is 128 registers a thread, so that
-// instance takes 32-key tiles and reads q's fragments from shared memory at
-// each tile instead of holding them. Any Lq, Lk >= 1: queries and keys past
-// the ends are masked here. Each of q, k, v and out is read or written by
-// its own (batch, head, row) strides with unit stride over D, so heads
-// viewed out of a [B, L, H*D] projection need no copy. Not done yet (later
-// work): wgmma, TMA, warp specialisation.
+// Design for heads up to 128 wide (`wg`, sm_90a; the mainloop is
+// flash_fwd.cuh's): FA-3's forward shape. A CTA owns 128 query rows of one
+// (batch, head). Warp 0 is the producer (setmaxnreg gives its registers to
+// the others): it TMA-loads the CTA's q rows once and streams 128-key tiles
+// of K and V, with the tile's bias, through a four-stage mbarrier ring (4-D
+// tensor maps over the strided [B, L, H, D] views, 128-byte swizzle).
+// Warpgroups 1 and 2 each scale their 64 rows of q in place (then
+// fence.proxy.async, since wgmma reads through the async proxy) and run the
+// online softmax: S = Q K^T is an SS wgmma, P stays in registers as the A
+// operand of O += P V (V read MN-major), and each tile's S is issued right
+// behind the previous tile's P V. Masking is explicit, never by TMA's zero
+// fill: keys past Lk get bias -inf (p = 0), queries past Lq are not
+// stored. Heads narrower than 64 or between 64 and 128 are zero-filled by
+// TMA up to 64 or 128.
+//
+// Heads wider than 128 (`sm80`): the first, mma.sync version. At 256 the
+// 64 x 256 f32 output accumulator would take 128 registers a thread on top
+// of S, so it stays on mma.sync: one CTA of four warps per 64 query rows,
+// 16 rows a warp, 32-key tiles of K, V and the bias through a two-stage
+// cp.async ring, ldmatrix fragments (transposed for V), q's fragments read
+// from shared memory at each tile.
+//
+// Any Lq, Lk >= 1. Each of q, k, v and out is read or written by its own
+// (batch, head, row) strides with unit stride over D, so heads viewed out of
+// a [B, L, H*D] projection need no copy.
 
+#include "flash_fwd.cuh"
 #include "flash_mha_common.cuh"
 
 namespace {
 
-using namespace flash;
-
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float ROW_MAX0 = -1e30f;  // the TPU kernel's initial row max
 
 struct Params {
   const __nv_bfloat16* q;  // [B, H, Lq, D] by the strides below
@@ -54,57 +60,259 @@ struct Params {
   float scale;             // bf16(1 / sqrt(D)), as f32
 };
 
-// DP: head width in shared memory; BK: keys per streamed tile; NWARPS:
-// warps per CTA, 16 query rows each; QREG: hold q's fragments in registers
-template <int DP, int BK, int NWARPS, bool QREG>
-struct Cfg {
-  static constexpr int BQ = NWARPS * 16;
-  static constexpr int NT = NWARPS * 32;
-  static constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
-  static constexpr int Q_ELEMS = BQ * LDS;
-  static constexpr int KV_ELEMS = BK * LDS;
-  static constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 2 * BK;  // K, V, f32 bias
-  static constexpr size_t SMEM_BYTES = (size_t)(Q_ELEMS + 2 * STAGE_ELEMS) * 2;
+// ---------------------------------------------------------------------------
+// Hopper instance: wgmma + TMA, heads up to 128
+
+namespace wg {
+
+using namespace fwd;
+
+constexpr int STAGES = 4;  // the ring's depth: a tile's loads have three tiles' time
+
+struct alignas(64) Args {
+  CUtensorMap q;     // boxes of 64 columns x BQ rows
+  CUtensorMap k, v;  // boxes of 64 columns x BK rows
+  Params p;
 };
+
+// Shared memory, in bytes from a 1024-aligned base. BK: keys a tile.
+template <int DP, int BK>
+struct Smem {
+  using Hd = Head<DP>;
+  static constexpr int Q = 0;
+  static constexpr int STAGE = Q + Hd::bytes(BQ);  // [STAGES] x (K, V)
+  static constexpr int KV = Hd::bytes(BK);
+  static constexpr int STAGE_BYTES = 2 * KV;
+  static constexpr int BIAS = STAGE + STAGES * STAGE_BYTES;  // f32 [STAGES][BK]
+  static constexpr int BARS = BIAS + STAGES * BK * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
+// Warp 0: q once, then K, V and the bias tile by tile.
+template <int DP, int BK>
+__device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int h, int b) {
+  using S = Smem<DP, BK>;
+  using Hd = Head<DP>;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* kv_full = bars + 1;
+  uint64_t* kv_empty = bars + 1 + STAGES;
+  float* bias_s = reinterpret_cast<float*>(sm + S::BIAS);
+  const int lane = threadIdx.x % 32;
+  const int Lk = a.p.Lk;
+  const float* bias = a.p.bias == nullptr ? nullptr : a.p.bias + (size_t)b * Lk;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(bars, Hd::bytes(BQ));
+#pragma unroll
+    for (int c = 0; c < Hd::NB; ++c)
+      tma_load_4d(sm + S::Q + c * BQ * Hd::RB, &a.q, bars, 64 * c, q0, h, b);
+  }
+  const int n_tiles = (Lk + BK - 1) / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % STAGES;
+    const int k0 = kt * BK;
+    mbar_wait_or_trap(&kv_empty[s], ((kt / STAGES) & 1) ^ 1);
+    // keys past Lk: bias -inf, so p = 0 there
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int key = k0 + lane + 32 * e;
+      bias_s[s * BK + lane + 32 * e] =
+          key < Lk ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
+    }
+    if (lane == 0) {
+      uint8_t* st = sm + S::STAGE + s * S::STAGE_BYTES;
+      mbar_arrive_expect_tx(&kv_full[s], S::STAGE_BYTES);
+#pragma unroll
+      for (int c = 0; c < Hd::NB; ++c) {
+        tma_load_4d(st + c * BK * Hd::RB, &a.k, &kv_full[s], 64 * c, k0, h, b);
+        tma_load_4d(st + S::KV + c * BK * Hd::RB, &a.v, &kv_full[s], 64 * c, k0, h, b);
+      }
+    } else {
+      mbar_arrive(&kv_full[s]);
+    }
+  }
+}
+
+// Consumer warpgroup c (0 or 1): q * bf16(1/sqrt(D)) in place on its 64
+// rows, the online softmax over every key tile, then out and lse.
+template <int DP, int BK>
+__device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int q0, int h,
+                                         int b) {
+  using S = Smem<DP, BK>;
+  using Hd = Head<DP>;
+  const Params& p = a.p;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  const int tid = threadIdx.x - 128 * (c + 1);
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+
+  mbar_wait_or_trap(bars, 0);  // q landed
+  {
+    // each row's 8 NB chunks of 16 bytes go to as many neighbouring threads
+    constexpr int CH = 8 * Hd::NB;
+    constexpr int RPP = 128 / CH;
+    const int cc = tid % CH;
+    const uint32_t scale2 = flash::pack_bf16(p.scale, p.scale);  // q * scale, rounded once
+#pragma unroll
+    for (int i = 0; i < 64 / RPP; ++i) {
+      const int r = 64 * c + tid / CH + RPP * i;
+      uint4* qp = reinterpret_cast<uint4*>(sm + S::Q + (cc / 8) * BQ * Hd::RB + r * 128 +
+                                           (((cc % 8) ^ (r % 8)) << 4));
+      uint4 x = *qp;
+      x.x = bf2_mul(x.x, scale2);
+      x.y = bf2_mul(x.y, scale2);
+      x.z = bf2_mul(x.z, scale2);
+      x.w = bf2_mul(x.w, scale2);
+      *qp = x;
+    }
+  }
+  fence_proxy_async();  // the scaled q, written here, is read by wgmma
+  named_bar_sync(1 + c, 128);
+
+  const float* bias_s = reinterpret_cast<const float*>(sm + S::BIAS);
+  Ring ring;
+  ring.k_addr = smem_u32(sm + S::STAGE);
+  ring.stage_bytes = S::STAGE_BYTES;
+  ring.v_off = S::KV;
+  ring.ready = bars + 1;
+  ring.empty = bars + 1 + STAGES;
+  float o[DP / 2], m[2], l[2];
+  attend<DP, BK, STAGES>(
+      o, m, l, smem_u32(sm + S::Q + c * 64 * Hd::RB), ring, (p.Lk + BK - 1) / BK,
+      [&](float (&sc)[BK / 2], int s) {
+        // (s + bias) * log2 e, the product rounded (no fused multiply-add
+        // with the softmax's subtraction: on a row whose keys are all
+        // masked the logits sit near -1.44e9, where an unrounded product
+        // would weigh keys by 2^(+-64)); keys past Lk at -inf by their bias
+        const float* bs = bias_s + s * BK;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+          sc[4 * j + 0] = __fmul_rn(sc[4 * j + 0] + bb.x, LOG2E);
+          sc[4 * j + 1] = __fmul_rn(sc[4 * j + 1] + bb.y, LOG2E);
+          sc[4 * j + 2] = __fmul_rn(sc[4 * j + 2] + bb.x, LOG2E);
+          sc[4 * j + 3] = __fmul_rn(sc[4 * j + 3] + bb.y, LOG2E);
+        }
+      });
+
+  float inv[2], lse[2];
+  finish(m, l, inv, lse);
+  const int row_a = q0 + 64 * c + 16 * warp + lane / 4;
+  __nv_bfloat16* oh = p.out + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= p.D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_a + 8 * hh;
+      if (row < p.Lq)
+        *reinterpret_cast<uint32_t*>(oh + row * p.o_sl + col) =
+            flash::pack_bf16(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
+    }
+  }
+  if (t == 0) {
+    float* lse_row = p.lse + ((size_t)b * p.H + h) * p.Lq;
+    if (row_a < p.Lq) lse_row[row_a] = lse[0];
+    if (row_a + 8 < p.Lq) lse_row[row_a + 8] = lse[1];
+  }
+}
+
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_fwd_wgmma(const __grid_constant__ Args a) {
+  using S = Smem<DP, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);  // q_full: the producer's expect_tx, then TMA's bytes
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 1 + s, 32);                  // kv_full: the producer warp
+      mbar_init(bars + 1 + STAGES + s, CONSUMERS);  // kv_empty: every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) producer<DP, BK>(a, sm, q0, h, b);
+  } else {
+    setmaxnreg_inc<240>();
+    consumer<DP, BK>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
+  }
+}
+
+template <int DP, int BK>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  using S = Smem<DP, BK>;
+  Args a;
+  a.p = p;
+  int rc = rows_map(&a.q, p.q, p.D, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, BQ);
+  if (rc == 0) rc = rows_map(&a.k, p.k, p.D, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, BK);
+  if (rc == 0) rc = rows_map(&a.v, p.v, p.D, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, BK);
+  if (rc != 0) return rc;
+  auto kernel = flash_attention_fwd_wgmma<DP, BK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, B);
+  kernel<<<grid, THREADS, S::BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// mma.sync instance: heads wider than 128
+
+namespace sm80 {
+
+using namespace flash;
+
+constexpr float ROW_MAX0 = -1e30f;
+constexpr int DP = 256;     // head width in shared memory
+constexpr int BK = 32;      // keys per streamed tile
+constexpr int NWARPS = 4;   // 16 query rows each
+constexpr int BQ = NWARPS * 16;
+constexpr int NT = NWARPS * 32;
+constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
+constexpr int Q_ELEMS = BQ * LDS;
+constexpr int KV_ELEMS = BK * LDS;
+constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 2 * BK;  // K, V, f32 bias
+constexpr size_t SMEM_BYTES = (size_t)(Q_ELEMS + 2 * STAGE_ELEMS) * 2;
 
 // Start the copies of key tile kt into stage `st`: K and V rows in 16-byte
 // chunks, the bias in 4-byte words; keys past Lk and columns past D are
 // zero-filled.
-template <typename C, int DP, int BK>
 __device__ __forceinline__ void issue_tile(const Params& p, __nv_bfloat16* st,
-                                           const __nv_bfloat16* kh,
-                                           const __nv_bfloat16* vh,
+                                           const __nv_bfloat16* kh, const __nv_bfloat16* vh,
                                            const float* bias, int kt) {
   const int k0 = kt * BK;
   __nv_bfloat16* ks = st;
-  __nv_bfloat16* vs = st + C::KV_ELEMS;
-  float* bs = reinterpret_cast<float*>(st + 2 * C::KV_ELEMS);
-  for (int i = threadIdx.x; i < BK * (DP / 8); i += C::NT) {
+  __nv_bfloat16* vs = st + KV_ELEMS;
+  float* bs = reinterpret_cast<float*>(st + 2 * KV_ELEMS);
+  for (int i = threadIdx.x; i < BK * (DP / 8); i += NT) {
     const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int key = k0 + r;
     const bool ok = key < p.Lk && c < p.D;
-    cp_async16(ks + r * C::LDS + c, ok ? kh + key * p.k_sl + c : kh, ok);
-    cp_async16(vs + r * C::LDS + c, ok ? vh + key * p.v_sl + c : vh, ok);
+    cp_async16(ks + r * LDS + c, ok ? kh + key * p.k_sl + c : kh, ok);
+    cp_async16(vs + r * LDS + c, ok ? vh + key * p.v_sl + c : vh, ok);
   }
   if (threadIdx.x < BK) {
     // a copy that reads nothing still names a valid address (here kh)
     const int key = k0 + threadIdx.x;
     const bool ok = bias != nullptr && key < p.Lk;
     cp_async4(bs + threadIdx.x,
-              ok ? static_cast<const void*>(bias + key) : static_cast<const void*>(kh),
-              ok);
+              ok ? static_cast<const void*>(bias + key) : static_cast<const void*>(kh), ok);
   }
 }
 
-template <int DP, int BK, int NWARPS, bool QREG>
-__global__ void __launch_bounds__(NWARPS * 32, 2)
-flash_attention_fwd_kernel(const Params p) {
-  using C = Cfg<DP, BK, NWARPS, QREG>;
+__global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p) {
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* Qs = smem;
-  __nv_bfloat16* stages = smem + C::Q_ELEMS;
+  __nv_bfloat16* stages = smem + Q_ELEMS;
 
-  const int q0 = blockIdx.x * C::BQ;
+  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const __nv_bfloat16* qh = p.q + b * p.q_sb + h * p.q_sh;
@@ -119,11 +327,11 @@ flash_attention_fwd_kernel(const Params p) {
   const int row_b = row_a + 8;
   const int n_tiles = (p.Lk + BK - 1) / BK;
 
-  issue_tile<C, DP, BK>(p, stages, kh, vh, bias, 0);
+  issue_tile(p, stages, kh, vh, bias, 0);
   cp_async_commit();
 
   // q tile: times bf16(1/sqrt(D)) in f32, rounded once to bf16
-  for (int i = threadIdx.x; i < C::BQ * (DP / 8); i += C::NT) {
+  for (int i = threadIdx.x; i < BQ * (DP / 8); i += NT) {
     const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int row = q0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -137,19 +345,14 @@ flash_attention_fwd_kernel(const Params p) {
         o[e] = pack_bf16(f.x * p.scale, f.y * p.scale);
       }
     }
-    *reinterpret_cast<uint4*>(Qs + r * C::LDS + c) = val;
+    *reinterpret_cast<uint4*>(Qs + r * LDS + c) = val;
   }
   __syncthreads();
 
   // a0..a3 of k-step ks: rows 0-7 / 8-15 of the warp's 16, columns 0-7 /
   // 8-15 of the k-step
   const __nv_bfloat16* q_frag_base =
-      Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * C::LDS + 8 * (lane >> 4);
-  uint32_t qf[QREG ? DP / 16 : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) ldsm_x4(qf[ks], q_frag_base + ks * 16);
-  }
+      Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4);
 
   float acc[DP / 8][4];
 #pragma unroll
@@ -157,13 +360,12 @@ flash_attention_fwd_kernel(const Params p) {
   float m_a = ROW_MAX0, m_b = ROW_MAX0, l_a = 0.f, l_b = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const __nv_bfloat16* ks = stages + (kt & 1) * C::STAGE_ELEMS;
-    const __nv_bfloat16* vs = ks + C::KV_ELEMS;
-    const float* bs = reinterpret_cast<const float*>(ks + 2 * C::KV_ELEMS);
+    const __nv_bfloat16* ks = stages + (kt & 1) * STAGE_ELEMS;
+    const __nv_bfloat16* vs = ks + KV_ELEMS;
+    const float* bs = reinterpret_cast<const float*>(ks + 2 * KV_ELEMS);
     __syncthreads();  // every warp is done with the stage the next copy overwrites
     if (kt + 1 < n_tiles) {
-      issue_tile<C, DP, BK>(p, stages + ((kt + 1) & 1) * C::STAGE_ELEMS, kh, vh, bias,
-                            kt + 1);
+      issue_tile(p, stages + ((kt + 1) & 1) * STAGE_ELEMS, kh, vh, bias, kt + 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -179,20 +381,12 @@ flash_attention_fwd_kernel(const Params p) {
 #pragma unroll
     for (int kp = 0; kp < DP / 32; ++kp) {
       uint32_t qa[4], qb[4];  // A fragments of k-steps 2kp and 2kp+1
-      if constexpr (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          qa[e] = qf[2 * kp][e];
-          qb[e] = qf[2 * kp + 1][e];
-        }
-      } else {
-        ldsm_x4(qa, q_frag_base + 2 * kp * 16);
-        ldsm_x4(qb, q_frag_base + (2 * kp + 1) * 16);
-      }
+      ldsm_x4(qa, q_frag_base + 2 * kp * 16);
+      ldsm_x4(qb, q_frag_base + (2 * kp + 1) * 16);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         uint32_t kf[4];  // b0, b1 of k-steps 2kp and 2kp+1
-        ldsm_x4(kf, ks + (j * 8 + (lane & 7)) * C::LDS + kp * 32 + 8 * (lane >> 3));
+        ldsm_x4(kf, ks + (j * 8 + (lane & 7)) * LDS + kp * 32 + 8 * (lane >> 3));
         mma16816(s[j], qa, kf[0], kf[1]);
         mma16816(s[j], qb, kf[2], kf[3]);
       }
@@ -255,7 +449,7 @@ flash_attention_fwd_kernel(const Params p) {
       for (int jp = 0; jp < DP / 16; ++jp) {
         uint32_t vf[4];  // b0, b1 of d-blocks 2jp and 2jp+1
         const int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        ldsm_x4_trans(vf, vs + key * C::LDS + 8 * (2 * jp + (lane >> 4)));
+        ldsm_x4_trans(vf, vs + key * LDS + 8 * (2 * jp + (lane >> 4)));
         mma16816(acc[2 * jp], pf, vf[0], vf[1]);
         mma16816(acc[2 * jp + 1], pf, vf[2], vf[3]);
       }
@@ -290,18 +484,17 @@ flash_attention_fwd_kernel(const Params p) {
   }
 }
 
-template <int DP, int BK, int NWARPS, bool QREG>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<DP, BK, NWARPS, QREG>;
-  auto kernel = flash_attention_fwd_kernel<DP, BK, NWARPS, QREG>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::SMEM_BYTES));
+      flash_attention_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Lq + C::BQ - 1) / C::BQ, p.H, B);
-  kernel<<<grid, C::NT, C::SMEM_BYTES, stream>>>(p);
+  const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, B);
+  flash_attention_fwd_mma<<<grid, NT, SMEM_BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace sm80
 
 }  // namespace
 
@@ -309,13 +502,19 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // head, row; unit stride over D); bias: f32 [B, Lk] contiguous or null;
 // lse: f32 [B, H, Lq] contiguous. scale = bf16(1/sqrt(D)) as f32. The
 // caller checks D % 8 == 0, 64 <= D <= 256, strides that are multiples of 8
-// and 16-byte aligned pointers. Returns cudaGetLastError() after the launch.
+// and 16-byte aligned pointers. Returns cudaGetLastError() after the launch,
+// or hopper::ERR_* if a tensor map could not be made. `device`: the card's
+// index.
 extern "C" int oneprot_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     void* lse, int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sh,
     long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,
     long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,
-    float scale, void* stream) {
+    float scale, int device, void* stream) {
+  // cuTensorMapEncodeTiled needs the card's context current on this thread
+  // (autograd runs a remat recompute on a thread of its own)
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -341,7 +540,7 @@ extern "C" int oneprot_flash_attention_fwd(
   p.D = D;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch<64, 64, 8, true>(p, B, s);
-  if (D <= 128) return launch<128, 64, 4, true>(p, B, s);
-  return launch<256, 32, 4, false>(p, B, s);
+  if (D <= 64) return wg::launch<64, 128>(p, B, s);
+  if (D <= 128) return wg::launch<128, 64>(p, B, s);
+  return sm80::launch(p, B, s);
 }

@@ -2,7 +2,9 @@
 // flash_mha_bwd_dkv.cu): their parameters and shared-memory tiles, the skip
 // rule's list of tiles that share a segment, the rotary rotation of a landed
 // tile in place, and the epilogues that take a gradient from the rotated
-// frame back to the input's.
+// frame back to the input's. The flash-MHA forward (flash_mha_fwd.cu) takes
+// the skip rule's tile ranges and the rotation from here too, so all three
+// round rot(q), rot(k) and q_r alike.
 //
 // Both passes are warp-specialised sm_90a kernels of 160 threads: warpgroup
 // 0 (threads 0-127) computes 64 rows with wgmma, warp 4 (threads 128-159)
@@ -41,7 +43,7 @@ struct Params {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   int L, H, D;
-  float q_pre;         // log2(e) / sqrt(D), the forward's pre-scale of q
+  float q_pre;         // bf16(log2(e) / sqrt(D)), the forward's pre-scale of q
   float dq_scale;      // 1 / sqrt(D)
   float dk_scale;      // 1 / log2(e): q_r's log2(e) back out
   bool rotary;         // cos / sin tables given
@@ -71,22 +73,6 @@ template <int DP>
 int tile_map(CUtensorMap* map, const void* base, int D, int L, int H, int B) {
   const long long hd = (long long)H * D;
   return rows_map(map, base, D, L, H, B, hd, D, L * hd, TILE, DP, Tile<DP>::SWIZZLE);
-}
-
-// mbar_wait that traps after 10 s: a phase that never completes (a TMA that
-// delivers fewer bytes than expected) ends the launch with an error instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (uint32_t n = 1; !mbar_try_wait(bar, parity); ++n) {
-    if (n % 1024 == 0) {
-      const uint64_t now = global_ns();
-      if (start == 0)
-        start = now;
-      else if (now - start > 10000000000ull)
-        __trap();
-    }
-  }
 }
 
 // ---- the skip rule ----------------------------------------------------------
@@ -153,16 +139,35 @@ __device__ __forceinline__ int build_list(const int* seg, int L, int own, int n_
 
 // ---- rotary -------------------------------------------------------------------
 
+// The same 4 columns of a head's two halves, lo and hi (4 bf16 each), to
+// rot: (lo, hi) <- (lo cos_lo - hi sin_lo, hi cos_hi + lo sin_hi) in bf16
+// arithmetic, x cos, rotate_half(x) sin and their sum each rounded once, as
+// `_apply_rot` computes on bf16 arrays (on the low half rotate_half(x) sin
+// is -(hi sin_lo): rounding to nearest is symmetric about 0).
+__device__ __forceinline__ void rot4(uint2& lo, uint2& hi, uint2 cl, uint2 ch, uint2 sl,
+                                     uint2 sh) {
+  const uint2 a = lo, b = hi;
+  lo.x = bf2_sub(bf2_mul(a.x, cl.x), bf2_mul(b.x, sl.x));
+  lo.y = bf2_sub(bf2_mul(a.y, cl.y), bf2_mul(b.y, sl.y));
+  hi.x = bf2_add(bf2_mul(b.x, ch.x), bf2_mul(a.x, sh.x));
+  hi.y = bf2_add(bf2_mul(b.y, ch.y), bf2_mul(a.y, sh.y));
+}
+
 // In place on the TILE rows of a landed tile `x`, by the consumer
-// warpgroup: x <- bf16(rot(x) * mul) with the tables' rows in tiles `cs`,
-// `sn` of the same layout, or x <- bf16(x * mul) without them; in f32 with
-// every product and sum rounded as the plain version rounds it (no fused
-// multiply-add), so q_r matches it bit for bit. Column i pairs with i + D/2;
-// a 4-column group never straddles a 16-byte chunk (D is a multiple of 8).
-// Columns past D stay as they are.
+// warpgroup (thread `tid`): x <- rot(x) * mul with the tables' rows in tiles `cs`,
+// `sn` of the same layout, or x <- x * mul without them (`scaled`: times
+// `mul2`, two bf16 copies of mul; else no product). Every product and sum is
+// rounded to bf16, as the TPU kernels' bf16 arithmetic rounds it
+// (`_apply_rot`, then `q * jnp.asarray(scale * log2e, bf16)`) and as
+// `flash_mha.rotated_qk` does: x cos, rotate_half(x) sin, their sum and the
+// product with q_pre, each once. So q_r and rot(k) match the plain version
+// bit for bit. Column i pairs with i + D/2; a 4-column group never
+// straddles a 16-byte chunk (D is a multiple of 8). Columns past D stay as
+// they are.
 template <int DP>
 __device__ __forceinline__ void rotate_rows(uint8_t* x, const uint8_t* cs, const uint8_t* sn,
-                                            int D, bool rotary, bool scaled, float mul, int tid) {
+                                            int D, bool rotary, bool scaled, uint32_t mul2,
+                                            int tid) {
   using T = Tile<DP>;
   const int half = D / 2;
   if (rotary) {
@@ -170,39 +175,35 @@ __device__ __forceinline__ void rotate_rows(uint8_t* x, const uint8_t* cs, const
     for (int i = tid; i < TILE * groups; i += CONSUMERS) {
       const int r = i / groups, col = (i % groups) * 4;
       const int lo_off = T::off(r, col), hi_off = T::off(r, col + half);
-      float lo[4], hi[4], cl[4], ch[4], sl[4], sh[4];
-      unpack4(*reinterpret_cast<const uint2*>(x + lo_off), lo);
-      unpack4(*reinterpret_cast<const uint2*>(x + hi_off), hi);
-      unpack4(*reinterpret_cast<const uint2*>(cs + lo_off), cl);
-      unpack4(*reinterpret_cast<const uint2*>(cs + hi_off), ch);
-      unpack4(*reinterpret_cast<const uint2*>(sn + lo_off), sl);
-      unpack4(*reinterpret_cast<const uint2*>(sn + hi_off), sh);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = lo[e], b = hi[e];
-        lo[e] = __fsub_rn(__fmul_rn(a, cl[e]), __fmul_rn(b, sl[e]));
-        hi[e] = __fadd_rn(__fmul_rn(b, ch[e]), __fmul_rn(a, sh[e]));
-        if (scaled) {
-          lo[e] = __fmul_rn(lo[e], mul);
-          hi[e] = __fmul_rn(hi[e], mul);
-        }
+      uint2 nlo = *reinterpret_cast<const uint2*>(x + lo_off);
+      uint2 nhi = *reinterpret_cast<const uint2*>(x + hi_off);
+      rot4(nlo, nhi, *reinterpret_cast<const uint2*>(cs + lo_off),
+           *reinterpret_cast<const uint2*>(cs + hi_off), *reinterpret_cast<const uint2*>(sn + lo_off),
+           *reinterpret_cast<const uint2*>(sn + hi_off));
+      if (scaled) {
+        nlo.x = bf2_mul(nlo.x, mul2);
+        nlo.y = bf2_mul(nlo.y, mul2);
+        nhi.x = bf2_mul(nhi.x, mul2);
+        nhi.y = bf2_mul(nhi.y, mul2);
       }
-      *reinterpret_cast<uint2*>(x + lo_off) = pack4(lo);
-      *reinterpret_cast<uint2*>(x + hi_off) = pack4(hi);
+      *reinterpret_cast<uint2*>(x + lo_off) = nlo;
+      *reinterpret_cast<uint2*>(x + hi_off) = nhi;
     }
   } else if (scaled) {
     const int groups = D / 4;
     for (int i = tid; i < TILE * groups; i += CONSUMERS) {
       const int r = i / groups, col = (i % groups) * 4;
       uint2* p = reinterpret_cast<uint2*>(x + T::off(r, col));
-      float v[4];
-      unpack4(*p, v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(v[e], mul);
-      *p = pack4(v);
+      uint2 v = *p;
+      v.x = bf2_mul(v.x, mul2);
+      v.y = bf2_mul(v.y, mul2);
+      *p = v;
     }
   }
 }
+
+// q_pre (a bf16 value, passed as f32) in both halves of a bf16x2 word
+__device__ __forceinline__ uint32_t bf2_splat(float x) { return pack_bf16(x, x); }
 
 // ---- epilogues ------------------------------------------------------------------
 

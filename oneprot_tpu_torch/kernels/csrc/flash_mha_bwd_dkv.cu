@@ -5,9 +5,10 @@
 // key and query row, s = q_r rot(k)^T + bias (log2 units; -1e30 across
 // segments) and p = exp2(min(s - lse, 0)) from the forward's base-2 lse;
 // dv = bf16(p)^T dO; dS = p (dO v^T - delta), rounded to bf16, and dk =
-// R^T (dS^T q_r) / log2(e), since q_r = bf16(rot(q) * log2(e) / sqrt(D))
-// already carries the softmax scale. q_r and delta = rowsum(dO * O) come in
-// as the dq pass's prologue wrote them (flash_mha_bwd_dq.cu), so this pass
+// R^T (dS^T q_r) / log2(e), since q_r = rot(q) * bf16(log2(e) / sqrt(D))
+// already carries the softmax scale (rot(k) and q_r in bf16 arithmetic,
+// each product and sum rounded: rotate_rows). q_r and delta = rowsum(dO *
+// O) come in as the dq pass's prologue wrote them (flash_mha_bwd_dq.cu), so this pass
 // launches after it and rotates nothing that it streams.
 //
 // What bounds it on H100: four products of 2 * D flops per (key, query)
@@ -143,10 +144,10 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int k0, int
     seg_b = p.seg[(size_t)b * p.L + min(key_b, p.L - 1)];
   }
 
-  // the prologue: K_rot = bf16(rot(k)) in place, for wgmma to read
+  // the prologue: K_rot = rot(k) in bf16 arithmetic, in place, for wgmma to read
   mbar_wait_or_trap(bars, 0);
   if (p.rotary) {
-    rotate_rows<DP>(sm + S::K, sm + S::CK, sm + S::SK, p.D, true, false, 1.f, tid);
+    rotate_rows<DP>(sm + S::K, sm + S::CK, sm + S::SK, p.D, true, false, 0u, tid);
     fence_proxy_async();
     named_bar_sync(BAR_CONSUMERS, CONSUMERS);
   }

@@ -3,8 +3,9 @@
 //
 // Replaces: oneprot_tpu/kernels/flash_mha.py:_bwd_dq_kernel (launched by
 // _bwd, behind the custom vjp of mha_attention). Same function: for each
-// query row, q_r = bf16(rot(q) * log2(e) / sqrt(D)) as the forward rounds
-// it, s = q_r rot(k)^T + bias (log2 units; -1e30 across segments) and p =
+// query row, q_r = rot(q) * bf16(log2(e) / sqrt(D)) in bf16 arithmetic,
+// each product and sum rounded (rotate_rows), as the forward rounds it; s
+// = q_r rot(k)^T + bias (log2 units; -1e30 across segments) and p =
 // exp2(min(s - lse, 0)) from the forward's base-2 lse (the clamp keeps the
 // padding rows of packed batches finite), dS = p (dO v^T - delta), rounded
 // to bf16 as the operand of dS rot(k), and dq = R^T (dS rot(k)) / sqrt(D).
@@ -141,7 +142,8 @@ __device__ __forceinline__ void prologue(const Params& p, uint8_t* sm, int tid, 
                                          int b) {
   using S = Smem<DP>;
   using T = Tile<DP>;
-  rotate_rows<DP>(sm + S::Q, sm + S::CQ, sm + S::SQ, p.D, p.rotary, true, p.q_pre, tid);
+  rotate_rows<DP>(sm + S::Q, sm + S::CQ, sm + S::SQ, p.D, p.rotary, true, bf2_splat(p.q_pre),
+                  tid);
   fence_proxy_async();  // q_r, written here, is read by wgmma
 
   constexpr int CH = DP / 8;           // chunks of a row
@@ -217,7 +219,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int q0, int
     mbar_wait_or_trap(&kv_full[s], (it / STAGES) & 1);
     uint8_t* st = sm + S::STAGE + s * S::STAGE_BYTES;
     if (p.rotary) {
-      rotate_rows<DP>(st, st + 2 * S::T, st + 3 * S::T, p.D, true, false, 1.f, tid);
+      rotate_rows<DP>(st, st + 2 * S::T, st + 3 * S::T, p.D, true, false, 0u, tid);
       fence_proxy_async();  // the rotated K, written here, is read by wgmma
       named_bar_sync(BAR_CONSUMERS, CONSUMERS);
     }
@@ -347,7 +349,7 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 // q, k, v, out, dout, dq, qr: contiguous bf16 [B, L, H*D]; bias: f32 [B, L]
 // in log2 units or null; cos, sin: bf16 [L, D] or both null; seg: int32
 // [B, L] or null; lse (base 2): f32 [B, H, L]; delta: f32 [B, H, L],
-// written. q_pre = log2(e) / sqrt(D), dq_scale = 1 / sqrt(D). The caller
+// written. q_pre = bf16(log2(e) / sqrt(D)), dq_scale = 1 / sqrt(D). The caller
 // checks D % 8 == 0, D <= 64 and 16-byte aligned pointers. Returns
 // cudaGetLastError() after the launch, or hopper::ERR_* if a tensor map could
 // not be made. `device`: the card's index.

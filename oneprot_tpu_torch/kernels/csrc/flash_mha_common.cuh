@@ -1,8 +1,8 @@
-// Device helpers shared by the mma.sync kernels (flash-MHA forward,
-// tied-row, FlashAttention-2) and the wgmma backward passes: cp.async
-// copies into shared memory, ldmatrix fragment loads, the mma.sync
+// Device helpers shared by the mma.sync kernels (tied-row, the
+// FlashAttention-2 instances for heads of 256) and the wgmma kernels:
+// cp.async copies into shared memory, ldmatrix fragment loads, the mma.sync
 // m16n8k16 bf16 product with f32 accumulation, bf16 packing, dot8 and
-// row_sum, and the rotary rotation of 4 columns of a head's two halves.
+// row_sum.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g,
@@ -70,18 +70,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 4 consecutive bf16 <-> f32
-__device__ __forceinline__ void unpack4(uint2 u, float (&x)[4]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  x[0] = __low2float(h[0]);
-  x[1] = __high2float(h[0]);
-  x[2] = __low2float(h[1]);
-  x[3] = __high2float(h[1]);
-}
-__device__ __forceinline__ uint2 pack4(const float (&x)[4]) {
-  return make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
-}
-
 // sum of the products of 8 bf16 pairs, in f32
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -103,24 +91,6 @@ __device__ __forceinline__ float row_sum(float x) {
   for (int m = N / 2; m > 0; m /= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
 }
-
-// x_lo, x_hi: the same 4 columns of the two halves of a head;
-// (x_lo, x_hi) <- (x_lo*cos_lo - x_hi*sin_lo, x_hi*cos_hi + x_lo*sin_hi)
-__device__ __forceinline__ void rotate4(float (&lo)[4], float (&hi)[4], uint2 c_lo,
-                                        uint2 c_hi, uint2 s_lo, uint2 s_hi) {
-  float cl[4], ch[4], sl[4], sh[4];
-  unpack4(c_lo, cl);
-  unpack4(c_hi, ch);
-  unpack4(s_lo, sl);
-  unpack4(s_hi, sh);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float a = lo[e], b = hi[e];
-    lo[e] = a * cl[e] - b * sl[e];
-    hi[e] = b * ch[e] + a * sh[e];
-  }
-}
-
 
 // A fragments of 16 rows x DP columns (the warp's rows of a [*][LDS] tile)
 template <int DP, int LDS>

@@ -2,362 +2,416 @@
 //
 // Replaces: oneprot_tpu/kernels/flash_mha.py:_fwd_kernel (launched by _fwd,
 // behind mha_attention). Same function: rotary applied to q and k inside the
-// kernel from [L, D] tables, softmax in base 2 with scale*log2(e) folded into
-// q and an additive key bias already in log2 units, a block-diagonal mask
-// built from segment ids, and the base-2 log-sum-exp written beside the
-// output for the backward pass.
+// kernel from [L, D] tables, q_r = rot(q) * bf16(log2(e) / sqrt(D)) and
+// rot(k) in bf16 arithmetic (each product and sum rounded, as the TPU
+// kernel's bf16 arithmetic rounds it: mha_bwd::rot4, so q_r equals the dq
+// kernel's bit for bit), softmax in base 2 with an additive key bias
+// already in log2 units, a block-diagonal mask built from segment ids
+// (-1e30 across segments), the row max started at -1e30 and the row sum
+// clamped at 1e-30 (a row whose keys are all masked stays finite), and the
+// base-2 log-sum-exp written beside the output for the backward pass.
 //
 // What bounds it on H100: at the hub's shapes (D = 64, L = 256..1024) the
 // two products QK^T and PV are 4*L*D flops per query row against 4*D*2
 // bytes of q/o traffic, far above the card's ~295 flop/byte ridge, so the
-// bound is tensor-core operations. What stands in the way of it is moving
-// K/V tiles into shared memory and rotating K there, once per query tile.
+// bound is tensor-core operations; the exp2 of the softmax (one per logit)
+// comes next, then the rotation of q and k (bf16x2 arithmetic, once per
+// row).
+// On packed rows the work is in the (query, key) pairs that share a
+// segment, so the kernel visits only the key tiles that hold such pairs.
 //
-// Design: one CTA of eight warps per (query tile of 128 rows, head, batch).
-// Each warp owns 16 query rows. 64-key tiles of K, V and the rotary tables
-// stream through a two-stage cp.async ring in shared memory, so the next
-// tile's copy overlaps this tile's products; K is rotated in place in f32
-// once it lands. Products are mma.sync m16n8k16 (bf16 in, f32 accumulate)
-// with ldmatrix fragment loads (transposed for V), the online softmax is in
-// f32 registers, and the S accumulator fragments are re-packed in registers
-// as the A operand of the PV product, so probabilities never touch shared
-// memory. Heads are read straight from the [B, L, H*D] rows by stride (no
-// transposes in device memory). Keys and queries past L are masked here
-// (no padding of L to a tile multiple is needed), and head dims below 64
-// are zero-filled in shared memory. Not done yet (later work): wgmma, TMA,
-// warp specialisation.
+// Design (sm_90a; the mainloop is flash_fwd.cuh's). Two launches. With
+// rotary, `rotate_k` first writes rot(k) once per (batch, head) into a
+// scratch [B, L, H*D] tensor: rotating each landed K tile in shared memory
+// instead, as the TPU kernel does, repeats the rotation once per query tile
+// (8 times at L = 1024), and the first version of this kernel, which did
+// that with three warps, spent its time there (PERF.md, PR 11). Then one CTA
+// per 128 query rows of one (batch, head). Warp 0 TMA-loads the CTA's q rows
+// and their rotary rows once, builds the list of key tiles that share a
+// segment with the CTA's block (the skip rule of the backward kernels: min /
+// max of the ids other than -1 and a padding flag per tile; without
+// segment ids, every tile), and streams those tiles of rot(k) and V through
+// a three-stage mbarrier ring, with each key's bias and segment id by plain
+// loads. Warpgroups 1 and 2 each rotate and scale their 64 rows of q in
+// place (then fence.proxy.async) and run the online softmax: S = q_r K^T is
+// an SS wgmma, P stays in registers as the A operand of O += P V. Heads up
+// to 32 wide take 64-byte rows with the 64-byte swizzle and 64-key tiles
+// (DP = 32: the 35M tower's D = 24 pads to 32, not 64), wider ones up to 64
+// take 128-byte rows and 128-key tiles. Keys past L get bias -inf (TMA's
+// zero fill is no mask); queries past L are not stored. Any L >= 1.
 
-#include "flash_mha_common.cuh"
+#include <limits.h>
+
+#include <type_traits>
+
+#include "flash_fwd.cuh"
+#include "flash_mha_bwd.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace fwd;
 
-constexpr int BQ = 128;       // query rows per CTA, 16 per warp
-constexpr int BK = 64;        // keys per streamed tile
-constexpr int DP = 64;        // head width padded in shared memory
-constexpr int LDS = DP + 8;   // row pitch (bf16) of q/k/v tiles: conflict-free ldmatrix
-constexpr int NTHREADS = 256;
-
-// shared memory layout, in bf16 elements (bias and segment ids as 32-bit
-// words): two stages; the q tile shares the second one, whose first copy
-// starts only after every warp holds its q fragments in registers
-constexpr int Q_ELEMS = BQ * LDS;
-constexpr int KV_ELEMS = BK * LDS;
-constexpr int TAB_ELEMS = BK * DP;
-constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 2 * TAB_ELEMS + 2 * BK * 2;  // + bias, seg
-static_assert(Q_ELEMS <= STAGE_ELEMS, "q tile must fit in a stage");
-constexpr size_t SMEM_BYTES = (size_t)(2 * STAGE_ELEMS) * 2;
-
-struct Stage {
-  __nv_bfloat16* k;
-  __nv_bfloat16* v;
-  __nv_bfloat16* cos;
-  __nv_bfloat16* sin;
-  float* bias;
-  int* seg;
-};
-
-__device__ __forceinline__ Stage stage_at(__nv_bfloat16* smem, int s) {
-  __nv_bfloat16* base = smem + s * STAGE_ELEMS;
-  Stage st;
-  st.k = base;
-  st.v = st.k + KV_ELEMS;
-  st.cos = st.v + KV_ELEMS;
-  st.sin = st.cos + TAB_ELEMS;
-  st.bias = reinterpret_cast<float*>(st.sin + TAB_ELEMS);
-  st.seg = reinterpret_cast<int*>(st.bias + BK);
-  return st;
-}
+constexpr int STAGES = 3;
+constexpr int BAR_LIST = 1;   // named barrier: the tile list is ready (warp 0 and
+constexpr int LISTENERS = 32 + CONSUMERS;  // the consumers)
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const float* bias;          // [B, L] log2 units, or null
-  const __nv_bfloat16* cos;   // [L, D] or null
-  const __nv_bfloat16* sin;
-  const int* seg;             // [B, L] or null
-  __nv_bfloat16* out;         // [B, L, H*D]
-  float* lse;                 // [B, H, L] base 2
+  const float* bias;   // [B, L] key bias in log2 units, or null
+  const int* seg;      // [B, L] segment ids (-1 on padding), or null
+  __nv_bfloat16* out;  // [B, L, H*D]
+  float* lse;          // [B, H, L] base 2
   int L, H, D;
-  float q_pre;                // log2(e) / sqrt(D)
+  float q_pre;         // bf16(log2(e) / sqrt(D))
+  bool rotary;         // cos / sin tables given
 };
 
-// Start the copies of key tile kt into stage st: K, V and the rotary tables
-// in 16-byte chunks, bias and segment ids in 4-byte words; rows past L and
-// columns past D are zero-filled.
-__device__ __forceinline__ void issue_tile(const Params& p, const Stage& st, int b,
-                                           size_t head_off, int kt) {
-  const int k0 = kt * BK;
-  const int HD = p.H * p.D;
-  for (int i = threadIdx.x; i < BK * (DP / 8); i += NTHREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int key = k0 + r;
-    const bool ok = key < p.L && c < p.D;
-    const size_t off = ok ? head_off + (size_t)key * HD + c : 0;
-    cp_async16(st.k + r * LDS + c, p.k + off, ok);
-    cp_async16(st.v + r * LDS + c, p.v + off, ok);
-    if (p.cos != nullptr) {
-      const size_t toff = ok ? (size_t)key * p.D + c : 0;
-      cp_async16(st.cos + r * DP + c, p.cos + toff, ok);
-      cp_async16(st.sin + r * DP + c, p.sin + toff, ok);
+struct alignas(64) Args {
+  CUtensorMap q, k, v, cos, sin;  // k: rot(k) with rotary
+  Params p;
+};
+
+// Shared memory, in bytes from a 1024-aligned base. BK: keys a tile.
+template <int DP, int BK>
+struct Smem {
+  using Hd = Head<DP>;
+  static constexpr int TQ = Hd::bytes(BQ);
+  static constexpr int TK = Hd::bytes(BK);
+  static constexpr int Q = 0;        // q, then q_r
+  static constexpr int CQ = Q + TQ;  // the query rows' rotary tables
+  static constexpr int SQ = CQ + TQ;
+  static constexpr int STAGE = SQ + TQ;  // [STAGES] x (K, V)
+  static constexpr int STAGE_BYTES = 2 * TK;
+  static constexpr int BIAS = STAGE + STAGES * STAGE_BYTES;  // f32 [STAGES][BK]
+  static constexpr int SEG = BIAS + STAGES * BK * 4;          // int [STAGES][BK]
+  static constexpr int BARS = SEG + STAGES * BK * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
+  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES);  // the list's length
+  static constexpr int LIST = COUNT + 16;                     // int [n_tiles]
+  static int bytes(int n_tiles) { return LIST + 4 * n_tiles + 1024; }  // + alignment slack
+};
+
+// ---- rot(k), once ----------------------------------------------------------------
+
+constexpr int ROTATE_THREADS = 256;
+
+// rot(k) of every (row, head) into k_rot, both [B, L, H*D]; a thread takes
+// the same W columns (4, or 8 when D / 2 is a multiple of 8: 16-byte
+// accesses) of a head's two halves (mha_bwd::rot4, bf16 arithmetic as the
+// consumers rotate q).
+template <int W>
+__global__ void __launch_bounds__(ROTATE_THREADS)
+    rotate_k(const __nv_bfloat16* k, const __nv_bfloat16* cos, const __nv_bfloat16* sin,
+             __nv_bfloat16* k_rot, long long n, int L, int H, int D) {
+  using V = typename std::conditional<W == 8, uint4, uint2>::type;
+  const long long i = (long long)blockIdx.x * ROTATE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int half = D / 2, groups = half / W;
+  const int g = static_cast<int>(i % groups);
+  const long long rh = i / groups;  // (b * L + l) * H + h
+  const int l = static_cast<int>((rh / H) % L);
+  const long long lo = rh * D + W * g;  // [B, L, H*D] is [B * L * H, D]
+  const int t = l * D + W * g;
+  auto at = [](const __nv_bfloat16* p) { return *reinterpret_cast<const V*>(p); };
+  V x_lo = at(k + lo), x_hi = at(k + lo + half);
+  const V cl = at(cos + t), ch = at(cos + t + half), sl = at(sin + t), sh = at(sin + t + half);
+  uint2* xl = reinterpret_cast<uint2*>(&x_lo);
+  uint2* xh = reinterpret_cast<uint2*>(&x_hi);
+#pragma unroll
+  for (int u = 0; u < W / 4; ++u)
+    mha_bwd::rot4(xl[u], xh[u], reinterpret_cast<const uint2*>(&cl)[u],
+                  reinterpret_cast<const uint2*>(&ch)[u], reinterpret_cast<const uint2*>(&sl)[u],
+                  reinterpret_cast<const uint2*>(&sh)[u]);
+  *reinterpret_cast<V*>(k_rot + lo) = x_lo;
+  *reinterpret_cast<V*>(k_rot + lo + half) = x_hi;
+}
+
+// ---- the skip rule -----------------------------------------------------------
+
+// The ids of rows [r0, r0 + ROWS) of a packed row, ROWS / 32 a lane (rows
+// r0 + lane + 32u): the least and greatest other than -1, and whether one
+// is -1. Rows past L count as neither.
+template <int ROWS>
+__device__ __forceinline__ mha_bwd::Range span(const int (&ids)[ROWS / 32], int r0, int L,
+                                               int lane) {
+  int lo = INT_MAX, hi = INT_MIN;
+  bool pad = false;
+#pragma unroll
+  for (int u = 0; u < ROWS / 32; ++u) {
+    if (r0 + lane + 32 * u >= L) continue;
+    if (ids[u] == -1) {
+      pad = true;
+    } else {
+      lo = min(lo, ids[u]);
+      hi = max(hi, ids[u]);
     }
   }
-  if (threadIdx.x < BK) {
-    // a copy that reads nothing still names a valid address (here p.k)
-    const int key = k0 + threadIdx.x;
-    const size_t off = key < p.L ? (size_t)b * p.L + key : 0;
-    const bool has_bias = key < p.L && p.bias != nullptr;
-    const bool has_seg = key < p.L && p.seg != nullptr;
-    cp_async4(st.bias + threadIdx.x,
-              has_bias ? static_cast<const void*>(p.bias + off) : p.k, has_bias);
-    cp_async4(st.seg + threadIdx.x,
-              has_seg ? static_cast<const void*>(p.seg + off) : p.k, has_seg);
+  mha_bwd::Range t;
+  t.lo = __reduce_min_sync(0xffffffffu, lo);
+  t.hi = __reduce_max_sync(0xffffffffu, hi);
+  t.pad = __any_sync(0xffffffffu, pad);
+  return t;
+}
+
+// Warp 0 writes into `list` the key tiles (BK rows) of row `seg` (its L ids,
+// or null: every tile) that meet the query block of BQ rows at q0
+// (mha_bwd::tiles_meet: both hold padding, or their id ranges intersect;
+// flash_mha.segment_tile_hits), in order, and returns their count (the same
+// in every lane). The ids of 256 / BK tiles are loaded at once.
+template <int BK>
+__device__ __forceinline__ int build_list(const int* seg, int L, int q0, int n_tiles, int* list,
+                                          int lane) {
+  if (seg == nullptr) {
+    for (int j = lane; j < n_tiles; j += 32) list[j] = j;
+    __syncwarp();
+    return n_tiles;
+  }
+  auto id_at = [&](int r) { return r < L ? seg[r] : 0; };
+  int own[BQ / 32];
+#pragma unroll
+  for (int u = 0; u < BQ / 32; ++u) own[u] = id_at(q0 + lane + 32 * u);
+  const mha_bwd::Range mine = span<BQ>(own, q0, L, lane);
+  constexpr int U = 256 / BK;
+  int count = 0;
+  for (int j0 = 0; j0 < n_tiles; j0 += U) {
+    int ids[U][BK / 32];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < BK / 32; ++e) ids[u][e] = id_at((j0 + u) * BK + lane + 32 * e);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u;
+      if (j < n_tiles && mha_bwd::tiles_meet(mine, span<BK>(ids[u], j * BK, L, lane))) {
+        if (lane == 0) list[count] = j;
+        ++count;
+      }
+    }
+  }
+  __syncwarp();
+  return count;
+}
+
+// ---- warpgroup 0 ---------------------------------------------------------------
+
+// Warp 0: q and its rotary rows once, the tile list, then K (rot(k) with
+// rotary), V, the bias and the segment ids tile by tile.
+template <int DP, int BK>
+__device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int h, int b) {
+  using S = Smem<DP, BK>;
+  const Params& p = a.p;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* kv_full = bars + 1;
+  uint64_t* kv_empty = bars + 1 + STAGES;
+  const int lane = threadIdx.x % 32;
+  const int L = p.L;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(bars, (p.rotary ? 3 : 1) * S::TQ);
+    tma_load_4d(sm + S::Q, &a.q, bars, 0, q0, h, b);
+    if (p.rotary) {
+      tma_load_4d(sm + S::CQ, &a.cos, bars, 0, q0, 0, 0);
+      tma_load_4d(sm + S::SQ, &a.sin, bars, 0, q0, 0, 0);
+    }
+  }
+  const int n_tiles = (L + BK - 1) / BK;
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * L;
+  const int count = build_list<BK>(seg, L, q0, n_tiles, list, lane);
+  if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
+  named_bar_arrive(BAR_LIST, LISTENERS);
+
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + (size_t)b * L;
+  float* bias_s = reinterpret_cast<float*>(sm + S::BIAS);
+  int* seg_s = reinterpret_cast<int*>(sm + S::SEG);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    const int k0 = list[it] * BK;
+    mbar_wait_or_trap(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
+    // keys past L: bias -inf, so p = 0 there
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int i = lane + 32 * e, key = k0 + i;
+      bias_s[s * BK + i] = key < L ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
+      seg_s[s * BK + i] = seg == nullptr ? 0 : seg[min(key, L - 1)];
+    }
+    if (lane == 0) {
+      uint8_t* st = sm + S::STAGE + s * S::STAGE_BYTES;
+      mbar_arrive_expect_tx(&kv_full[s], S::STAGE_BYTES);
+      tma_load_4d(st, &a.k, &kv_full[s], 0, k0, h, b);
+      tma_load_4d(st + S::TK, &a.v, &kv_full[s], 0, k0, h, b);
+    } else {
+      mbar_arrive(&kv_full[s]);
+    }
   }
 }
 
-// two CTAs per SM (at most 128 registers a thread), so one CTA's
-// barriers overlap the other's products
-__global__ void __launch_bounds__(NTHREADS, 2)
-flash_mha_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* Qs = smem + STAGE_ELEMS;
+// ---- the consumers -------------------------------------------------------------
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int L = p.L, D = p.D, half = p.D / 2;
-  const int HD = p.H * D;
-  const size_t head_off = (size_t)b * L * HD + (size_t)h * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
-  const int row_b = row_a + 8;
-  const int n_tiles = (L + BK - 1) / BK;
+// Consumer warpgroup c (0 or 1): q_r in place on its 64 rows, the online
+// softmax over the listed key tiles, then out and lse.
+template <int DP, int BK>
+__device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int q0, int h,
+                                         int b) {
+  using S = Smem<DP, BK>;
+  using Hd = Head<DP>;
+  const Params& p = a.p;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  const int tid = threadIdx.x - 128 * (c + 1);
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int rows = c * 64 * Hd::RB;  // this warpgroup's rows of a query tile
 
-  issue_tile(p, stage_at(smem, 0), b, head_off, 0);
-  cp_async_commit();
+  mbar_wait_or_trap(bars, 0);  // q and the query rows' tables landed
+  // 64 rows by 128 threads, as a backward CTA's consumers rotate q
+  mha_bwd::rotate_rows<DP>(sm + S::Q + rows, sm + S::CQ + rows, sm + S::SQ + rows, p.D,
+                           p.rotary, true, mha_bwd::bf2_splat(p.q_pre), tid);
+  fence_proxy_async();  // q_r, written here, is read by wgmma
+  named_bar_sync(2 + c, 128);
 
-  // q tile: rotary in f32, times scale*log2(e), to bf16 in shared memory
-  for (int i = threadIdx.x; i < BQ * (DP / 4); i += NTHREADS) {
-    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
-    const int row = q0 + r;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < L && c < D) {
-      const __nv_bfloat16* qr = p.q + head_off + (size_t)row * HD;
-      unpack4(*reinterpret_cast<const uint2*>(qr + c), x);
-      if (p.cos != nullptr) {
-        const bool low = c < half;
-        const int pc = low ? c + half : c - half;
-        float o[4];
-        unpack4(*reinterpret_cast<const uint2*>(qr + pc), o);
-        const size_t tr = (size_t)row * D;
-        const uint2 cs = *reinterpret_cast<const uint2*>(p.cos + tr + c);
-        const uint2 sn = *reinterpret_cast<const uint2*>(p.sin + tr + c);
-        if (low) {
-          rotate4(x, o, cs, cs, sn, sn);  // o's outputs are dropped
-        } else {
-          rotate4(o, x, cs, cs, sn, sn);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] *= p.q_pre;
-    }
-    *reinterpret_cast<uint2*>(Qs + r * LDS + c) = pack4(x);
+  const int row_a = q0 + 64 * c + 16 * warp + lane / 4;  // this thread's rows
+  const bool segmented = p.seg != nullptr;
+  int seg_r[2] = {0, 0};
+  if (segmented) {
+    seg_r[0] = p.seg[(size_t)b * p.L + min(row_a, p.L - 1)];
+    seg_r[1] = p.seg[(size_t)b * p.L + min(row_a + 8, p.L - 1)];
   }
-  int segq_a = 0, segq_b = 0;
-  if (p.seg != nullptr) {
-    segq_a = p.seg[(size_t)b * L + min(row_a, L - 1)];
-    segq_b = p.seg[(size_t)b * L + min(row_b, L - 1)];
-  }
-  __syncthreads();
+  const float* bias_s = reinterpret_cast<const float*>(sm + S::BIAS);
+  const int* seg_s = reinterpret_cast<const int*>(sm + S::SEG);
 
-  uint32_t qf[DP / 16][4];
+  named_bar_sync(BAR_LIST, LISTENERS);
+  const int count = *reinterpret_cast<const int*>(sm + S::COUNT);
+  Ring ring;
+  ring.k_addr = smem_u32(sm + S::STAGE);
+  ring.stage_bytes = S::STAGE_BYTES;
+  ring.v_off = S::TK;
+  ring.ready = bars + 1;
+  ring.empty = bars + 1 + STAGES;
+  float o[DP / 2], m[2], l[2];
+  attend<DP, BK, STAGES>(o, m, l, smem_u32(sm + S::Q + rows), ring, count,
+                 [&](float (&sc)[BK / 2], int s) {
+                   // s + bias (+ -1e30 across segments); keys past L at -inf
+                   const float* bs = bias_s + s * BK;
+                   const int* ss = seg_s + s * BK;
 #pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    // a0..a3: rows 0-7 / 8-15 of the warp's 16, columns 0-7 / 8-15 of the k-step
-    const int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-    ldsm_x4(qf[ks], Qs + r * LDS + ks * 16 + 8 * (lane >> 4));
-  }
+                   for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+                     for (int e = 0; e < 4; ++e) {
+                       const int kc = 8 * j + 2 * t + (e & 1);
+                       float add = bs[kc];
+                       if (segmented) add += ss[kc] == seg_r[e >> 1] ? 0.f : flash::SEG_MASK;
+                       sc[4 * j + e] += add;
+                     }
+                 });
 
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const Stage st = stage_at(smem, kt & 1);
-    __syncthreads();  // every warp is done with the stage the next copy overwrites
-    if (kt + 1 < n_tiles) {
-      issue_tile(p, stage_at(smem, (kt + 1) & 1), b, head_off, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kt has landed for every thread
-    if (p.cos != nullptr) {
-      for (int i = threadIdx.x; i < BK * (half / 4); i += NTHREADS) {
-        const int r = i / (half / 4), c = (i % (half / 4)) * 4;
-        uint2* lo_p = reinterpret_cast<uint2*>(st.k + r * LDS + c);
-        uint2* hi_p = reinterpret_cast<uint2*>(st.k + r * LDS + c + half);
-        float lo[4], hi[4];
-        unpack4(*lo_p, lo);
-        unpack4(*hi_p, hi);
-        const __nv_bfloat16* cr = st.cos + r * DP;
-        const __nv_bfloat16* sr = st.sin + r * DP;
-        rotate4(lo, hi, *reinterpret_cast<const uint2*>(cr + c),
-                *reinterpret_cast<const uint2*>(cr + c + half),
-                *reinterpret_cast<const uint2*>(sr + c),
-                *reinterpret_cast<const uint2*>(sr + c + half));
-        *lo_p = pack4(lo);
-        *hi_p = pack4(hi);
-      }
-      __syncthreads();
-    }
-    const int k0 = kt * BK;
-
-    // S = (q * scale * log2 e) K^T for this warp's 16 rows and 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kp = 0; kp < DP / 32; ++kp) {
-        uint32_t kf[4];  // b0, b1 of k-steps 2kp and 2kp+1
-        ldsm_x4(kf, st.k + (j * 8 + (lane & 7)) * LDS + kp * 32 + 8 * (lane >> 3));
-        mma16816(s[j], qf[2 * kp], kf[0], kf[1]);
-        mma16816(s[j], qf[2 * kp + 1], kf[2], kf[3]);
-      }
-    }
-
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = j * 8 + 2 * t + e;
-        float add_a = -INFINITY, add_b = -INFINITY;
-        if (k0 + kc < L) {
-          add_a = add_b = st.bias[kc];
-          if (p.seg != nullptr) {
-            const int sk = st.seg[kc];
-            add_a += sk == segq_a ? 0.f : SEG_MASK;
-            add_b += sk == segq_b ? 0.f : SEG_MASK;
-          }
-        }
-        s[j][e] += add_a;
-        s[j][2 + e] += add_b;
-        mx_a = fmaxf(mx_a, s[j][e]);
-        mx_b = fmaxf(mx_b, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    // a row with every logit at -inf so far keeps a finite reference point
-    const float ref_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float ref_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float corr_a = exp2f(m_a - ref_a), corr_b = exp2f(m_b - ref_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - ref_a);
-      s[j][1] = exp2f(s[j][1] - ref_a);
-      s[j][2] = exp2f(s[j][2] - ref_b);
-      s[j][3] = exp2f(s[j][3] - ref_b);
-      sum_a += s[j][0] + s[j][1];
-      sum_b += s[j][2] + s[j][3];
-    }
-    l_a = l_a * corr_a + sum_a;  // partial: the quad sums once at the end
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      acc[j][0] *= corr_a;
-      acc[j][1] *= corr_a;
-      acc[j][2] *= corr_b;
-      acc[j][3] *= corr_b;
-    }
-
-    // O += P V: the S fragments of key blocks 2kk, 2kk+1 are the A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jp = 0; jp < DP / 16; ++jp) {
-        uint32_t vf[4];  // b0, b1 of d-blocks 2jp and 2jp+1
-        const int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        ldsm_x4_trans(vf, st.v + key * LDS + 8 * (2 * jp + (lane >> 4)));
-        mma16816(acc[2 * jp], pf, vf[0], vf[1]);
-        mma16816(acc[2 * jp + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  l_a = fmaxf(l_a, 1e-30f);
-  l_b = fmaxf(l_b, 1e-30f);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+  float inv[2], lse[2];
+  finish(m, l, inv, lse);
+  const long long hd = (long long)p.H * p.D;
+  __nv_bfloat16* oh = p.out + (size_t)b * p.L * hd + (size_t)h * p.D;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (col < D) {
-      if (row_a < L)
-        *reinterpret_cast<uint32_t*>(p.out + head_off + (size_t)row_a * HD + col) =
-            pack_bf16(acc[j][0] * inv_a, acc[j][1] * inv_a);
-      if (row_b < L)
-        *reinterpret_cast<uint32_t*>(p.out + head_off + (size_t)row_b * HD + col) =
-            pack_bf16(acc[j][2] * inv_b, acc[j][3] * inv_b);
+    const int col = 8 * j + 2 * t;
+    if (col >= p.D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_a + 8 * hh;
+      if (row < p.L)
+        *reinterpret_cast<uint32_t*>(oh + row * hd + col) =
+            flash::pack_bf16(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
     }
   }
   if (t == 0) {
-    float* lse_row = p.lse + ((size_t)b * p.H + h) * L;
-    if (row_a < L) lse_row[row_a] = m_a + log2f(l_a);
-    if (row_b < L) lse_row[row_b] = m_b + log2f(l_b);
+    float* lse_row = p.lse + ((size_t)b * p.H + h) * p.L;
+    if (row_a < p.L) lse_row[row_a] = lse[0];
+    if (row_a + 8 < p.L) lse_row[row_a + 8] = lse[1];
   }
+}
+
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_mha_fwd_wgmma(const __grid_constant__ Args a) {
+  using S = Smem<DP, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);  // q_full: the producer's expect_tx, then TMA's bytes
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 1 + s, 32);                  // kv_full: warp 0
+      mbar_init(bars + 1 + STAGES + s, CONSUMERS);  // kv_empty: every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) producer<DP, BK>(a, sm, q0, h, b);
+  } else {
+    setmaxnreg_inc<232>();
+    consumer<DP, BK>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
+  }
+}
+
+// The tensor map of a [B, L, H*D] projection (or, with H = B = 1 and row
+// stride D, of an [L, D] rotary table), in tiles of `rows` rows x DP columns.
+template <int DP>
+int head_map(CUtensorMap* map, const void* base, int D, int L, int H, int B, int rows) {
+  const long long hd = (long long)H * D;
+  return rows_map(map, base, D, L, H, B, hd, D, L * hd, rows, Head<DP>::BOX_COLS,
+                  Head<DP>::SWIZZLE);
+}
+
+template <int DP, int BK>
+int launch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+           __nv_bfloat16* k_rot, const Params& p, int B, cudaStream_t stream) {
+  if (p.rotary) {
+    const bool wide = (p.D / 2) % 8 == 0;
+    const long long n = (long long)B * p.L * p.H * (p.D / (wide ? 16 : 8));
+    const unsigned blocks = (unsigned)((n + ROTATE_THREADS - 1) / ROTATE_THREADS);
+    auto kern = wide ? rotate_k<8> : rotate_k<4>;
+    kern<<<blocks, ROTATE_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(cos),
+        static_cast<const __nv_bfloat16*>(sin), k_rot, n, p.L, p.H, p.D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k = k_rot;
+  }
+  Args a;
+  a.p = p;
+  int rc = head_map<DP>(&a.q, q, p.D, p.L, p.H, B, BQ);
+  if (rc == 0) rc = head_map<DP>(&a.k, k, p.D, p.L, p.H, B, BK);
+  if (rc == 0) rc = head_map<DP>(&a.v, v, p.D, p.L, p.H, B, BK);
+  if (rc == 0 && p.rotary) rc = head_map<DP>(&a.cos, cos, p.D, p.L, 1, 1, BQ);
+  if (rc == 0 && p.rotary) rc = head_map<DP>(&a.sin, sin, p.D, p.L, 1, 1, BQ);
+  if (rc != 0) return rc;
+  const int n_tiles = (p.L + BK - 1) / BK;
+  const int smem = Smem<DP, BK>::bytes(n_tiles);
+  auto kernel = flash_mha_fwd_wgmma<DP, BK>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.L + BQ - 1) / BQ, p.H, B);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous bf16 [B, L, H*D]; lse: f32 [B, H, L].
-// bias: f32 [B, L] in log2 units or null; cos, sin: bf16 [L, D] or both
-// null; seg: int32 [B, L] or null. q_pre = log2(e) / sqrt(D). The caller
-// checks D % 8 == 0, D <= 64 and 16-byte aligned pointers. Returns
-// cudaGetLastError() after the launch.
+// q, k, v, out: contiguous bf16 [B, L, H*D]; lse: f32 [B, H, L]. bias: f32
+// [B, L] in log2 units or null; cos, sin: bf16 [L, D] or both null; seg:
+// int32 [B, L] or null; k_rot: scratch bf16 [B, L, H*D] for rot(k) (read
+// only with the tables). q_pre = bf16(log2(e) / sqrt(D)). The caller checks
+// D % 8 == 0, D <= 64 and 16-byte aligned pointers. Returns cudaGetLastError()
+// after the launch, or hopper::ERR_* if a tensor map could not be made.
+// `device`: the card's index.
 extern "C" int oneprot_flash_mha_fwd(const void* q, const void* k, const void* v,
-                                     const void* bias, const void* cos,
-                                     const void* sin, const void* seg, void* out,
-                                     void* lse, int B, int L, int H, int D,
-                                     float q_pre, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+                                     const void* bias, const void* cos, const void* sin,
+                                     const void* seg, void* out, void* lse, void* k_rot, int B,
+                                     int L, int H, int D, float q_pre, int device,
+                                     void* stream) {
+  // cuTensorMapEncodeTiled needs the card's context current on this thread
+  // (autograd runs a remat recompute on a thread of its own)
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  Params p = {};
   p.bias = static_cast<const float*>(bias);
-  p.cos = static_cast<const __nv_bfloat16*>(cos);
-  p.sin = static_cast<const __nv_bfloat16*>(sin);
   p.seg = static_cast<const int*>(seg);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
@@ -365,7 +419,9 @@ extern "C" int oneprot_flash_mha_fwd(const void* q, const void* k, const void* v
   p.H = H;
   p.D = D;
   p.q_pre = q_pre;
-  const dim3 grid((L + BQ - 1) / BQ, H, B);
-  flash_mha_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.rotary = cos != nullptr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  return D <= 32 ? launch<32, 64>(q, k, v, cos, sin, kr, p, B, s)
+                 : launch<64, 128>(q, k, v, cos, sin, kr, p, B, s);
 }

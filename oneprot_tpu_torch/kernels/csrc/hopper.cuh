@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the FlashAttention-2 backward kernels
-// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and the flash-MHA
-// backward kernels (flash_mha_bwd.cuh): mbarriers, TMA tile loads through
+// Hopper (sm_90a) building blocks of the attention kernels (the
+// FlashAttention-2 forward and backward, flash_attention_*.cu; the flash-MHA
+// forward and backward, flash_mha_*.cu): mbarriers, TMA tile loads through
 // tensor maps, warpgroup matrix products (wgmma) on 128- or 64-byte-swizzled
 // shared memory, named barriers and the register
-// reallocation between warpgroups (setmaxnreg). On the host: the tensor
+// reallocation between warpgroups (setmaxnreg), and bf16x2 arithmetic
+// rounded op by op. On the host: the tensor
 // maps, encoded by cuTensorMapEncodeTiled, whose entry point the CUDA
 // runtime hands out, so a library links against the runtime alone (no
 // -lcuda).
@@ -100,6 +101,22 @@ __device__ __forceinline__ uint64_t global_ns() {
   return t;
 }
 
+// mbar_wait that traps after 10 s: a phase that never completes (a TMA that
+// delivers fewer bytes than expected) ends the launch with an error instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (uint32_t n = 1; !mbar_try_wait(bar, parity); ++n) {
+    if (n % 1024 == 0) {
+      const uint64_t now = global_ns();
+      if (start == 0)
+        start = now;
+      else if (now - start > 10000000000ull)
+        __trap();
+    }
+  }
+}
+
 // shared-memory writes of this thread, made visible to the async proxy
 // (wgmma and TMA read through it)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -158,6 +175,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for register A operands
+template <int KS>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 // Descriptor of a 128-byte-swizzled operand at shared address `addr`
 // (lbo, sbo in bytes; see the head of this file).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -193,6 +219,33 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) = A (64 x 16) B (16 x 128) + (scale_d ? D : 0); A and B
+// from shared memory, both K-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -269,16 +322,47 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32 * NH], const uint32_t 
     wgmma_rs_m64n128_tb(d, a, db, 1);
 }
 
-// Columns 16kk..16kk+15 of a 64 x 64 accumulator, packed to bf16 pairwise:
-// the register A operand of k-step kk of the next product.
-__device__ __forceinline__ void a_operand(uint32_t (&a)[4][4], const float (&x)[32]) {
+// Columns 16kk..16kk+15 of a 64 x 16KS accumulator, packed to bf16
+// pairwise: the register A operand of k-step kk of the next product.
+template <int KS>
+__device__ __forceinline__ void a_operand(uint32_t (&a)[KS][4], const float (&x)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       __nv_bfloat162 v = __floats2bfloat162_rn(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
       a[kk][r] = *reinterpret_cast<uint32_t*>(&v);
     }
+}
+
+// 2^x on the special-function unit, one instruction (MUFU.EX2): exp2f adds a
+// scaling that keeps results below 2^-126 as subnormals; here they flush to
+// 0, which no softmax weight in bf16 notices
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- bf16x2 arithmetic ------------------------------------------------------
+
+// Two bf16 lanes at once, each result rounded once to bf16 (to nearest
+// even) and never contracted into a fused multiply-add: the arithmetic of
+// bf16 arrays in JAX and PyTorch, op by op.
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // The first 1024-aligned address of dynamic shared memory at `raw` (what

@@ -135,7 +135,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias_b is None else bias_b.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, H, Lq, Lk, D, *strides, _q_scale(D), stream)
+                lse.data_ptr(), B, H, Lq, Lk, D, *strides, _q_scale(D),
+                dev.index, stream)
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd_cuda.launches += 1
     return out, lse

@@ -30,7 +30,6 @@ from oneprot_tpu_torch.kernels import _build
 from oneprot_tpu_torch.kernels.attention import (
     LOG2E,
     packed_segment_bias,
-    reference_attention,
 )
 
 MAX_HEAD_DIM = 64
@@ -99,25 +98,22 @@ def mha_attention_plain(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch (any device), on
-    `attention.reference_attention`: rotary in f32, f32 logits and softmax,
-    rotary tables and probabilities cast to the input dtype as the kernel
-    does. Returns (out, base-2 lse)."""
+    """The kernel's function in plain PyTorch (any device), with the TPU
+    kernel's numerics: q_r = rot(q) * q_pre and rot(k) in the input dtype
+    (`rotated_qk`), base-2 logits s = q_r rot(k)^T + bias * log2(e) in f32
+    (-1e30 across segments), p = exp2(s - max) rounded to the input dtype
+    before P V, the row sum clamped at 1e-30. Returns (out, base-2 lse)."""
     B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
-
-    def heads(x):
-        return x.reshape(B, L, num_heads, D).transpose(1, 2)
-
-    qh, kh = heads(q).float(), heads(k).float()
-    if rope_cos is not None:
-        # tables in the inputs' dtype, as the kernel reads them
-        cos, sin = (t.to(q.dtype).float() for t in (rope_cos, rope_sin))
-        qh, kh = apply_rotary(qh, cos, sin), apply_rotary(kh, cos, sin)
-    if segment_ids is not None:
-        bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
-    out, lse = reference_attention(qh, kh, heads(v), bias, return_lse=True)
-    return out.transpose(1, 2).reshape(B, L, num_heads * D), lse
+    dt = q.dtype
+    qr, kr = rotated_qk(q, k, num_heads, rope_cos, rope_sin)
+    s = _logits2(qr, kr, bias, segment_ids)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(dt).float(),
+                       _heads(v, num_heads)) / l
+    return _merge_heads(out, dt), (m + torch.log2(l))[..., 0]
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor,
@@ -131,13 +127,58 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor,
         1, 2).contiguous()
 
 
-def bwd_scales(head_dim: int) -> Tuple[float, float, float]:
-    """(q_pre, dq_scale, dk_scale) of the backward. q_r = rot(q) * q_pre,
-    rounded to the input dtype as the forward rounds it, carries the
-    softmax scale and log2(e), so q_r rot(k)^T is the base-2 logit; dq =
-    R^T (dS rot(k)) * dq_scale; dk = R^T (dS^T q_r) * dk_scale, which takes
-    q_r's log2(e) back out (q_pre * dk_scale = dq_scale)."""
-    return LOG2E / math.sqrt(head_dim), 1.0 / math.sqrt(head_dim), 1.0 / LOG2E
+def bwd_scales(head_dim: int, dtype: torch.dtype = torch.float32
+               ) -> Tuple[float, float, float]:
+    """(q_pre, dq_scale, dk_scale) of the kernels. q_r = rot(q) * q_pre,
+    in the input dtype as the TPU kernels compute it, carries the softmax
+    scale and log2(e), so q_r rot(k)^T is the base-2 logit; dq = R^T (dS
+    rot(k)) * dq_scale; dk = R^T (dS^T q_r) * dk_scale, which takes q_r's
+    log2(e) back out. q_pre is log2(e) / sqrt(D) rounded to `dtype`, as
+    `jnp.asarray(scale * log2e, in_dtype)` rounds it; dq_scale and dk_scale
+    stay f32, as the JAX kernels keep them. So q_pre * dk_scale = dq_scale
+    in f32 and only approximately in bf16 (bf16(c) / c is 1.0018 at D = 64),
+    as in the JAX package."""
+    q_pre = LOG2E / math.sqrt(head_dim)
+    if dtype != torch.float32:
+        q_pre = float(torch.tensor(q_pre, dtype=dtype))
+    return q_pre, 1.0 / math.sqrt(head_dim), 1.0 / LOG2E
+
+
+def rotated_qk(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+               rope_cos: Optional[torch.Tensor] = None,
+               rope_sin: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_r, rot(k)), [B, H, L, D] in the inputs' dtype: q_r = rot(q) *
+    q_pre. As the TPU kernels compute them (`_apply_rot` on tables in the
+    input dtype, then `q * jnp.asarray(scale * log2e, in_dtype)`), every
+    product and sum is rounded to the input dtype: x * cos, rotate_half(x)
+    * sin, their sum and the product with q_pre (in bf16, four roundings,
+    not one). The forward kernel's q tile and the dq kernel's q_r."""
+    dt = q.dtype
+    q_pre = bwd_scales(q.shape[-1] // num_heads, dt)[0]
+    q_pre = torch.tensor(q_pre, dtype=dt, device=q.device)
+    return (_rotated(q, num_heads, rope_cos, rope_sin) * q_pre,
+            _rotated(k, num_heads, rope_cos, rope_sin))
+
+
+def _rotated(x, num_heads, rope_cos, rope_sin):
+    """rot(x) [B, H, L, D] of x [B, L, H*D], each op rounded to x's dtype."""
+    B, L, hd = x.shape
+    xh = x.reshape(B, L, num_heads, hd // num_heads).transpose(1, 2)
+    if rope_cos is None:
+        return xh
+    return apply_rotary(xh, rope_cos.to(x.dtype), rope_sin.to(x.dtype))
+
+
+def _logits2(qr, kr, bias, segment_ids):
+    """Base-2 logits in f32 [B, H, L, L]: q_r rot(k)^T plus the key bias in
+    log2 units and -1e30 across segments."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qr.float(), kr.float())
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    if segment_ids is not None:
+        s = s + packed_segment_bias(segment_ids, mask_value=SEG_MASK)
+    return s
 
 
 def mha_attention_bwd_plain(
@@ -149,30 +190,20 @@ def mha_attention_bwd_plain(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch (any device):
-    q_r = rot(q) * q_pre and rot(k) rounded to the input dtype (rotary in
-    f32), s = q_r rot(k)^T + bias * log2(e) in f32, P recomputed from the
-    forward's base-2 lse (clamped at 1, as the kernels do, so rows whose lse
-    kept no digits stay finite), dS = P (dP - delta); P and dS rounded to
-    the input dtype where the kernels feed them to a product; the scales of
+    q_r = rot(q) * q_pre and rot(k) as `rotated_qk` rounds them, s = q_r
+    rot(k)^T + bias * log2(e) in f32, P recomputed from the forward's
+    base-2 lse (clamped at 1, as the kernels do, so rows whose lse kept no
+    digits stay finite), dS = P (dP - delta); P and dS rounded to the input
+    dtype where the kernels feed them to a product; the scales of
     `bwd_scales`. Returns (dq, dk, dv) in the input dtype."""
     B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
     dt = q.dtype
-    q_pre, dq_scale, dk_scale = bwd_scales(D)
-
-    def heads(x):
-        return x.reshape(B, L, num_heads, D).transpose(1, 2).float()
-
-    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(dout)
-    if rope_cos is not None:
-        cos, sin = (t.to(dt).float() for t in (rope_cos, rope_sin))
-        qh, kh = apply_rotary(qh, cos, sin), apply_rotary(kh, cos, sin)
-    qr, kr = (qh * q_pre).to(dt).float(), kh.to(dt).float()
-    if segment_ids is not None:
-        bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
-    s = torch.einsum("bhqd,bhkd->bhqk", qr, kr)
-    if bias is not None:
-        s = s + bias.float() * LOG2E
+    _, dq_scale, dk_scale = bwd_scales(D, dt)
+    qr, kr = (x.float() for x in rotated_qk(q, k, num_heads, rope_cos,
+                                             rope_sin))
+    vh, doh = _heads(v, num_heads), _heads(dout, num_heads)
+    s = _logits2(qr, kr, bias, segment_ids)
     p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
     dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
     ds = p * (dp - attention_delta(dout, out, num_heads)[..., None])
@@ -181,12 +212,9 @@ def mha_attention_bwd_plain(
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * dq_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qr) * dk_scale
     if rope_cos is not None:
+        cos, sin = _tables(rope_cos, rope_sin, dt)
         dq, dk = apply_rotary_t(dq, cos, sin), apply_rotary_t(dk, cos, sin)
-
-    def back(x):
-        return x.transpose(1, 2).reshape(B, L, num_heads * D).to(dt)
-
-    return back(dq), back(dk), back(dv)
+    return _merge_heads(dq, dt), _merge_heads(dk, dt), _merge_heads(dv, dt)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -202,27 +230,21 @@ def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _tables(rope_cos, rope_sin, dtype):
-    """The rotary tables as the kernels read them: rounded to the inputs'
-    dtype, computed with in f32; (None, None) without rotary."""
+    """The rotary tables as the kernels take a gradient back through them:
+    rounded to the inputs' dtype, computed with in f32; (None, None)
+    without rotary."""
     if rope_cos is None:
         return None, None
     return rope_cos.to(dtype).float(), rope_sin.to(dtype).float()
 
 
-def _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias, cos, sin,
-               segment_ids):
+def _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias, rope_cos,
+               rope_sin, segment_ids):
     """(rot(k) in the input dtype, p, dS rounded to the input dtype), each
     f32 [B, H, L, *], from q_r [B, L, H*D] and the forward's lse."""
     dt = qr.dtype
-    kr = _heads(k, num_heads)
-    if cos is not None:
-        kr = apply_rotary(kr, cos, sin)
-    kr = kr.to(dt).float()
-    if segment_ids is not None:
-        bias = packed_segment_bias(segment_ids, bias, mask_value=SEG_MASK)
-    s = torch.einsum("bhqd,bhkd->bhqk", _heads(qr, num_heads), kr)
-    if bias is not None:
-        s = s + bias.float() * LOG2E
+    kr = _rotated(k, num_heads, rope_cos, rope_sin).float()
+    s = _logits2(_heads(qr, num_heads), kr, bias, segment_ids)
     p = torch.exp2(torch.clamp_max(s - lse[..., None], 0.0))
     dp = torch.einsum("bhqd,bhkd->bhqk", _heads(dout, num_heads),
                       _heads(v, num_heads))
@@ -239,24 +261,21 @@ def flash_mha_bwd_dq_plain(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dq kernel's function in plain PyTorch (any device), its
-    prologue included: q_r = rot(q) * q_pre in q's dtype and delta =
-    rowsum(dO * O) in f32, then dq as `mha_attention_bwd_plain` has it.
-    Returns (dq, q_r [B, L, H*D], delta [B, H, L]), as
-    `flash_mha_bwd_dq_cuda` does."""
+    prologue included: q_r = rot(q) * q_pre as `rotated_qk` rounds it (the
+    forward's q tile) and delta = rowsum(dO * O) in f32, then dq as
+    `mha_attention_bwd_plain` has it. Returns (dq, q_r [B, L, H*D], delta
+    [B, H, L]), as `flash_mha_bwd_dq_cuda` does."""
     B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
-    q_pre, dq_scale, _ = bwd_scales(D)
-    cos, sin = _tables(rope_cos, rope_sin, q.dtype)
-    qh = _heads(q, num_heads)
-    if cos is not None:
-        qh = apply_rotary(qh, cos, sin)
-    qr = _merge_heads(qh * q_pre, q.dtype)
+    dq_scale = bwd_scales(D, q.dtype)[1]
+    qr = _merge_heads(rotated_qk(q, k, num_heads, rope_cos, rope_sin)[0],
+                      q.dtype)
     delta = attention_delta(dout, out, num_heads)
-    kr, _, ds = _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias, cos,
-                           sin, segment_ids)
+    kr, _, ds = _bwd_probs(qr, k, v, dout, lse, delta, num_heads, bias,
+                           rope_cos, rope_sin, segment_ids)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * dq_scale
-    if cos is not None:
-        dq = apply_rotary_t(dq, cos, sin)
+    if rope_cos is not None:
+        dq = apply_rotary_t(dq, *_tables(rope_cos, rope_sin, q.dtype))
     return _merge_heads(dq, q.dtype), qr, delta
 
 
@@ -272,44 +291,57 @@ def flash_mha_bwd_dkv_plain(
     delta as the dq kernel's prologue gives them. Returns (dk, dv)."""
     _, L, D = _check_args(q_r, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
-    dk_scale = bwd_scales(D)[2]
-    cos, sin = _tables(rope_cos, rope_sin, q_r.dtype)
-    _, p, ds = _bwd_probs(q_r, k, v, dout, lse, delta, num_heads, bias, cos,
-                          sin, segment_ids)
+    dk_scale = bwd_scales(D, q_r.dtype)[2]
+    _, p, ds = _bwd_probs(q_r, k, v, dout, lse, delta, num_heads, bias,
+                          rope_cos, rope_sin, segment_ids)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q_r.dtype).float(),
                       _heads(dout, num_heads))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q_r, num_heads)) * dk_scale
-    if cos is not None:
-        dk = apply_rotary_t(dk, cos, sin)
+    if rope_cos is not None:
+        dk = apply_rotary_t(dk, *_tables(rope_cos, rope_sin, q_r.dtype))
     return _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype)
 
 
 SKIP_TILE = 64  # rows of a tile of the backward kernels' skip rule
+FWD_Q_TILE = 128  # query rows of a CTA of the forward kernel
 _I32 = torch.iinfo(torch.int32)
 
 
-def segment_tile_hits(segment_ids: torch.Tensor,
-                      tile: int = SKIP_TILE) -> torch.Tensor:
-    """The backward kernels' skip rule, bool [B, n, n] with n = ceil(L /
-    tile): tiles i and j of a row are visited together when both hold
-    padding (id -1) or when the ranges [min, max] of their other ids
-    intersect. Disjoint ranges share no id, so a pair of equal ids always
-    lies in a visited pair of tiles, whatever the order of the ids; with
+def fwd_key_tile(head_dim: int) -> int:
+    """Keys of a tile of the forward kernel: 64 for heads up to 32 wide
+    (the 35M tower's packed rows skip finer), 128 up to 64."""
+    return 64 if head_dim <= 32 else 128
+
+
+def segment_tile_hits(segment_ids: torch.Tensor, tile: int = SKIP_TILE,
+                      q_tile: Optional[int] = None) -> torch.Tensor:
+    """The kernels' skip rule, bool [B, m, n] with m = ceil(L / q_tile)
+    query blocks and n = ceil(L / tile) key tiles (q_tile defaults to tile,
+    the backward's square tiles; the forward takes FWD_Q_TILE and
+    `fwd_key_tile`): a block and a tile of a row are visited together when
+    both hold padding (id -1) or when the ranges [min, max] of their other
+    ids intersect. Disjoint ranges share no id, so a pair of equal ids
+    always lies in a visited pair, whatever the order of the ids; with
     contiguous packing the rule is also tight. Rows past L count as
     neither (the int32 sentinels are the kernels')."""
     seg = segment_ids.to(torch.int32)
     B, L = seg.shape
-    n = -(-L // tile)
     real = seg != -1
-    fill = lambda x, value: torch.cat(
-        [x, torch.full((B, n * tile - L), value, dtype=x.dtype,
-                       device=x.device)], 1).view(B, n, tile)
-    lo = fill(torch.where(real, seg, _I32.max), _I32.max).amin(-1)
-    hi = fill(torch.where(real, seg, _I32.min), _I32.min).amax(-1)
-    pad = fill(~real, False).any(-1)
-    return ((pad[:, :, None] & pad[:, None, :])
-            | ((lo[:, :, None] <= hi[:, None, :])
-               & (lo[:, None, :] <= hi[:, :, None])))
+
+    def spans(rows):
+        n = -(-L // rows)
+        fill = lambda x, value: torch.cat(
+            [x, torch.full((B, n * rows - L), value, dtype=x.dtype,
+                           device=x.device)], 1).view(B, n, rows)
+        return (fill(torch.where(real, seg, _I32.max), _I32.max).amin(-1),
+                fill(torch.where(real, seg, _I32.min), _I32.min).amax(-1),
+                fill(~real, False).any(-1))
+
+    lo_k, hi_k, pad_k = spans(tile)
+    lo_q, hi_q, pad_q = spans(tile if q_tile is None else q_tile)
+    return ((pad_q[:, :, None] & pad_k[:, None, :])
+            | ((lo_q[:, :, None] <= hi_k[:, None, :])
+               & (lo_k[:, None, :] <= hi_q[:, :, None])))
 
 
 def _kernel_args(tensors, num_heads, bias, rope_cos, rope_sin, segment_ids):
@@ -365,7 +397,8 @@ def flash_mha_cuda(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel. Returns (out, base-2 lse [B, H, L])."""
+    """Launch the forward kernel (with rotary, after its pass that writes
+    rot(k) once). Returns (out, base-2 lse [B, H, L])."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
         (q, k, v), num_heads, bias, rope_cos, rope_sin, segment_ids)
     dev = q.device
@@ -373,12 +406,15 @@ def flash_mha_cuda(
     lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
+    # rot(k), written once per (batch, head) by the kernel's first launch
+    k_rot = None if cos is None else torch.empty_like(k)
     fn = _build.library("flash_mha_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
                 _ptr(cos), _ptr(sin), _ptr(seg), out.data_ptr(), lse.data_ptr(),
-                B, L, num_heads, D, LOG2E / math.sqrt(D), stream)
+                _ptr(k_rot), B, L, num_heads, D,
+                bwd_scales(D, torch.bfloat16)[0], dev.index, stream)
     _build.check(rc, "flash_mha_fwd")
     flash_mha_cuda.launches += 1
     return out, lse
@@ -407,7 +443,7 @@ def flash_mha_bwd_dq_cuda(
     delta = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if dq.numel() == 0:
         return dq, q_r, delta
-    q_pre, dq_scale, _ = bwd_scales(D)
+    q_pre, dq_scale, _ = bwd_scales(D, torch.bfloat16)
     fn = _build.library("flash_mha_bwd_dq")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -312,6 +312,79 @@ def test_tied_row_kernel_refuses(card):
 # FlashAttention-2 forward (heads of 64 to 256: the ESM2-15B width)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 24, 40, 64])
+@pytest.mark.parametrize("L,shuffled", [(300, False), (300, True),
+                                        (1024, False)])
+def test_flash_forward_kernel_on_ragged_packed_rows(card, d, L, shuffled):
+    """The forward kernel (its key tiles skipped by the segment rule) against
+    mha_attention_plain on rows from `pack_token_rows`: ragged proteins off
+    the tile grid, shuffled ids (segments no longer contiguous), heads of
+    8-64 (D = 8 and 24 on the 32-column instance, 40 and 64 on the
+    64-column one); lse on real rows (a padding row's keep no digits)."""
+    nh = 4
+    q, k, v, kw, _ = _ragged_packed_rows(card, L, nh, d, 7 * L + d, shuffled)
+    before = flash_mha.flash_mha_cuda.launches
+    out, lse = flash_mha.flash_mha_cuda(q, k, v, nh, **kw)
+    ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, nh, **kw)
+    torch.cuda.synchronize()
+    assert flash_mha.flash_mha_cuda.launches == before + 1
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"out: max rel err {rel}"
+    rows = (kw["segment_ids"] >= 0)[:, None, :].expand_as(lse)
+    assert (lse - ref_lse).abs()[rows].max().item() <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,segments", [(24, True), (64, True), (64, False)])
+def test_flash_forward_lse_feeds_the_backward_unchanged(card, d, segments):
+    """Through _FlashMHA the backward kernels get the forward kernel's lse
+    as it is: the lse mha_attention returns equals flash_mha_cuda's, and the
+    gradients autograd gives equal flash_mha_bwd_cuda's on that lse, bit
+    for bit."""
+    q, k, v, kw = _attention_inputs(2, 300, 4, d, card, d, True, True,
+                                    segments)
+    rng = np.random.RandomState(d)
+    dout = (torch.from_numpy(rng.randn(2, 300, 4 * d).astype(np.float32))
+            .to(card) * (kw["bias"][:, 0, 0, :, None] == 0)).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = flash_mha.mha_attention(*leaves, 4, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    out2, lse2 = flash_mha.flash_mha_cuda(q, k, v, 4, **kw)
+    want = flash_mha.flash_mha_bwd_cuda(q, k, v, out2, lse2, dout, 4, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for name, got, ref in zip("qkv", grads, want):
+        assert torch.equal(got, ref), f"d{name}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [24, 64])
+def test_flash_backward_kernels_at_one_token(card, d):
+    """L = 1: one key, so p = 1, out = v and dS = p (dO v - delta) = 0; dq
+    and dk are 0 up to the rounding of two f32 dot products of one row
+    (an absolute bound: their reference is 0), dv = dO (the relative
+    bar)."""
+    q, k, v, kw = _attention_inputs(3, 1, 4, d, card, 11 + d, True, True,
+                                    False)
+    dout = torch.from_numpy(np.random.RandomState(d).randn(3, 1, 4 * d)
+                            .astype(np.float32)).to(card, torch.bfloat16)
+    out, lse = flash_mha.flash_mha_cuda(q, k, v, 4, **kw)
+    dq, dk, dv = flash_mha.flash_mha_bwd_cuda(q, k, v, out, lse, dout, 4, **kw)
+    ref = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, 4, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v)
+    scale = dout.float().abs().max().item() * v.float().abs().max().item()
+    for name, got in (("dq", dq), ("dk", dk)):
+        assert torch.isfinite(got.float()).all(), f"{name}: non-finite"
+        assert got.float().abs().max().item() <= 1e-3 * scale, name
+    rel = ((dv.float() - ref[2].float()).abs().max()
+           / ref[2].float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"dv: max rel err {rel}"
+
+
 def _fa_inputs(B, H, Lq, Lk, D, card, seed, layout):
     """q [B, H, Lq, D], k, v [B, H, Lk, D] bf16 and a key-padding bias.
     layout "heads": views of [B, L, H*D] projections, as the ESM2 layer
@@ -340,6 +413,11 @@ def _fa_inputs(B, H, Lq, Lk, D, card, seed, layout):
     (1, 3, 37, 37, 256, "contiguous", False),   # shorter than one tile
     (2, 3, 130, 77, 96, "contiguous", True),    # Lq != Lk; D between instances
     (1, 1, 1, 1, 128, "heads", False),          # one query, one key
+    (2, 4, 200, 333, 64, "heads", True),        # Lq < Lk, off the key tiles
+    (2, 4, 333, 129, 128, "heads", True),       # Lq > Lk, one key past a tile
+    (2, 2, 70, 300, 256, "heads", True),        # Lq != Lk at 256
+    (2, 3, 1, 1, 64, "contiguous", True),       # L = 1 at 64
+    (1, 2, 1, 1, 256, "heads", True),           # L = 1 at 256
 ])
 def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
                                               biased):
@@ -358,6 +436,26 @@ def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
            / ref.float().abs().max()).item()
     assert rel <= FLASH_REL_TOL
     assert (lse - ref_lse).abs().max().item() <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,L", [(64, 300), (128, 1024), (256, 200)])
+def test_flash_attention_forward_all_keys_masked(card, D, L):
+    """A batch element whose keys are all masked (bias -1e9 everywhere):
+    the row max starts at -1e30 and the logits sit near -1.44e9, so every
+    key weighs the same and out is the mean of v, finite, as in the plain
+    version; lse near -1.44e9."""
+    q, k, v, bias = _fa_inputs(2, 3, L, L, D, card, D + 2 * L, "heads")
+    bias[0] = -1e9
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"out: max rel err {rel}"
+    assert (lse[1] - ref_lse[1]).abs().max().item() <= 5e-2
+    assert (lse[0] / ref_lse[0] - 1).abs().max().item() <= 1e-6
 
 
 @pytest.mark.gpu

@@ -61,7 +61,9 @@ def _split(q, k, v, out, lse, g, nh, side):
 def test_split_plain_backward_equals_plain_backward(nh, d, rotary, segments, L,
                                                     dtype):
     """Bit for bit, in f32 and in bf16; q_r is rot(q) * q_pre in the input
-    dtype and delta rowsum(dO * O)."""
+    dtype, op by op as the JAX kernels compute it (x cos, rotate_half(x)
+    sin, their sum and the product with q_pre rounded to the dtype in turn,
+    q_pre = log2(e) / sqrt(D) rounded to it), and delta rowsum(dO * O)."""
     q, k, v, bias, cos, sin, seg, g = _case(2, L, nh, d, rotary, segments, L)
     side = _side(bias, cos, sin, seg, dtype)
     q, k, v, g = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
@@ -70,13 +72,14 @@ def test_split_plain_backward_equals_plain_backward(nh, d, rotary, segments, L,
     got, q_r, delta = _split(q, k, v, out, lse, g, nh, side)
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == dtype and torch.equal(a, b), f"d{name}"
-    qh = q.float().reshape(2, L, nh, d).transpose(1, 2)
+    qh = q.reshape(2, L, nh, d).transpose(1, 2)
     if rotary:
-        qh = flash_mha.apply_rotary(qh, side["rope_cos"].float(),
-                                    side["rope_sin"].float())
-    q_pre = flash_mha.bwd_scales(d)[0]
-    assert torch.equal(q_r, (qh * q_pre).to(dtype).transpose(1, 2)
-                       .reshape(2, L, nh * d))
+        c, s = side["rope_cos"].to(dtype), side["rope_sin"].to(dtype)
+        half = d // 2
+        x1, x2 = qh[..., :half], qh[..., half:]
+        qh = qh * c + torch.cat([-x2, x1], -1) * s
+    q_pre = torch.tensor(flash_mha.bwd_scales(d, dtype)[0], dtype=dtype)
+    assert torch.equal(q_r, (qh * q_pre).transpose(1, 2).reshape(2, L, nh * d))
     assert torch.equal(delta, flash_mha.attention_delta(g, out, nh))
 
 

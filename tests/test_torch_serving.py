@@ -178,7 +178,8 @@ PORT_FILES = sorted((ROOT / "oneprot_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serving.py",
     ROOT / "scripts" / "profile_torch_train.py",
     ROOT / "scripts" / "time_fa_backward.py",
-    ROOT / "scripts" / "time_mha_backward.py"]
+    ROOT / "scripts" / "time_mha_backward.py",
+    ROOT / "scripts" / "time_attention_forward.py"]
 
 
 def _imported_roots(path):
