@@ -20,8 +20,9 @@ the elapsed seconds:
    over the logit pairs the inputs need, and the forward timed at each case
    beside SDPA's forward with the share of its query-block x key-tile pairs
    it visits and its needed-work and dense bounds; the tied-row attention at
-   embed_msas's depth 16 and the MSA data config's depth 50 at 1024
-   columns and off the tile grid, the
+   embed_msas's depth 16 and the MSA data config's depth 50 at 1024 and 512
+   columns, off the tile grid and on a batch padded to its bucket; the
+   GELU->int8 kernel at the 650M hub's fc1 width and the 15B width's; the
    FlashAttention-2 forward at the ESM2-15B width's B=32 H=40 L=1024
    D=128, at D=64 and 256, at L=300 and on heads of 24 padded by
    dot_product_attention, its dq kernel (with the backward's prologue:
@@ -43,8 +44,9 @@ the elapsed seconds:
    the card) with the mlp head answers 3 requests of 32 sequences (their
    own numpy seed) and one top-10 retrieval; every attention runs through
    the FlashAttention-2 kernel, none through flash-MHA; then the same
-   weights at 2 layers, card (bf16, kernel) against CPU (f32, plain), and
-   the hub is freed;
+   weights at 2 layers, card (bf16, kernels) against CPU (f32, plain), as
+   they are and quantized to the int8 hub (its 20480-wide fc1 rows through
+   the GELU->int8 kernel), and the hub is freed;
 7. serving MSA-1b: the full-width esm_msa1b tower (12 x 768, random weights
    from a seed) with its mlp head, built by `create_msa_encoder` with its
    defaults, answers 3 requests of 4 synthetic .a3m MSAs (64 homologs
@@ -241,11 +243,14 @@ def read_launches() -> dict:
 def ptxas_report(log: str) -> list:
     """(template arguments, registers and spills) of each kernel instance
     in nvcc's -Xptxas=-v output, e.g. ("<128,64>", "Used 168 registers,
-    ...; 0 bytes spill stores, 0 bytes spill loads")."""
+    ...; 0 bytes spill stores, 0 bytes spill loads"), and ("note", line)
+    for each of ptxas's C75xx performance notes (wgmma serialised, ...)."""
     out, instance, spills = [], "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             instance = "<" + ",".join(re.findall(r"Li(\d+)E", line)) + ">"
+        elif re.search(r"\(C75\d\d\)", line):
+            out.append(("note", line.strip()))
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
@@ -332,89 +337,123 @@ def check_flash(gen) -> dict:
 
 
 def check_gelu_quant(gen) -> dict:
-    M, N = 32 * 512, 5120
-    y = (torch.randn(M, N, device="cuda", generator=gen) * 2.0).to(torch.bfloat16)
-    q, s = gelu_quant.fused_gelu_quant(y)
-    q_ref, s_ref = gelu_quant.gelu_quant_reference(y)
-    torch.cuda.synchronize()
-    code_diff = (q.int() - q_ref.int()).abs()
-    flips = code_diff.ne(0).float().mean().item()
-    scale_rel = ((s - s_ref).abs() / s_ref).max().item()
-    deq_err = (q.float() * s - q_ref.float() * s_ref).abs().max().item()
-    print(f"  gelu->int8 M={M} N={N}: max code diff {code_diff.max().item()}, "
-          f"share off by one {flips:.2e}, scale max rel err {scale_rel:.2e}, "
-          f"dequantized max abs err {deq_err:.3e}", flush=True)
-    require(code_diff.max().item() <= 1, "gelu->int8: codes differ by > 1")
-    require(flips <= CODE_FLIP_SHARE, f"gelu->int8: {flips} of codes flipped")
-    require(scale_rel <= SCALE_REL_TOL, f"gelu->int8: scale rel err {scale_rel}")
-    kernel = time_ms(lambda: gelu_quant.fused_gelu_quant(y))
-    plain = time_ms(lambda: gelu_quant.gelu_quant_reference(y), iters=5)
-    b_ms, b_by = bound_ms(M * N * 2 + M * N + M * 4, 10.0 * M * N, F32_FLOPS)
-    print(f"  gelu->int8 timed: kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    """The GELU->int8 kernel against its plain version at the 650M hub's
+    int8 MLP shape (a batch of 32 x 512 tokens, fc1 width 5120) and at the
+    ESM2-15B width's (20480: rows read once); each timed beside the plain
+    version and its byte bound. The first is the row, the second a case."""
+    cases = []
+    for M, N in ((32 * 512, 5120), (32 * 512, 20480)):
+        y = (torch.randn(M, N, device="cuda", generator=gen) * 2.0).to(torch.bfloat16)
+        q, s = gelu_quant.fused_gelu_quant(y)
+        q_ref, s_ref = gelu_quant.gelu_quant_reference(y)
+        torch.cuda.synchronize()
+        code_diff = (q.int() - q_ref.int()).abs()
+        max_diff = code_diff.max().item()
+        flips = code_diff.ne(0).float().mean().item()
+        scale_rel = ((s - s_ref).abs() / s_ref).max().item()
+        deq_err = (q.float() * s - q_ref.float() * s_ref).abs().max().item()
+        print(f"  gelu->int8 M={M} N={N}: max code diff {max_diff}, "
+              f"share off by one {flips:.2e}, scale max rel err {scale_rel:.2e}, "
+              f"dequantized max abs err {deq_err:.3e}", flush=True)
+        require(max_diff <= 1, f"gelu->int8 N={N}: codes differ by > 1")
+        require(flips <= CODE_FLIP_SHARE, f"gelu->int8 N={N}: {flips} of codes flipped")
+        require(scale_rel <= SCALE_REL_TOL, f"gelu->int8 N={N}: scale rel err {scale_rel}")
+        del q, s, q_ref, s_ref, code_diff
+        kernel = time_ms(lambda: gelu_quant.fused_gelu_quant(y))
+        plain = time_ms(lambda: gelu_quant.gelu_quant_reference(y), iters=5)
+        b_ms, b_by = bound_ms(M * N * 2 + M * N + M * 4, 10.0 * M * N, F32_FLOPS)
+        print(f"  gelu->int8 timed at M={M} N={N}: kernel {kernel:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        cases.append({"shape": f"M={M} N={N} bf16", "max_abs_err": deq_err,
+                      "max_code_diff": max_diff,
+                      "code_flip_share": flips, "ms": kernel, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by})
+        del y
+        torch.cuda.empty_cache()
+    row, wide = cases
     return {"name": "gelu_quant", "route": "cuda",
             "source": "oneprot_tpu_torch/kernels/csrc/gelu_quant.cu",
             "replaces": "oneprot_tpu/kernels/gelu_quant.py:60",
-            "max_abs_err": deq_err, "max_code_diff": code_diff.max().item(),
-            "ms": kernel, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": f"M={M} N={N} bf16"}
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_code_diff": max(c["max_code_diff"] for c in cases),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
+            "cases": [wide]}
 
 
 def check_tied_row(gen) -> dict:
     """The tied-row kernel against its plain version at embed_msas's shape
-    (B=4 R=16 L=1024 H=12), at the MSA data config's depth (R=50) and off
-    the tile grid (L=300, 3 heads, the last 17 columns masked); timed at
-    the first, beside scaled_dot_product_attention over the same function
-    (heads of R*64 in [B, H, L, R*64], with the scale and the column mask)."""
-    worst_rel, worst_abs = 0.0, 0.0
-    cases = [(4, MSA_DEPTH, 1024, 12, 0), (4, 50, 1024, 12, 0),
-             (4, MSA_DEPTH, 300, 3, 17)]
-    for B, R, L, H, tail in cases:
-        q, k, v = (torch.randn(B, R, L, H * 64, device="cuda", generator=gen)
+    (B=4 R=16 L=1024 H=12) and at the MSA data config's depth (R=50), at
+    the buckets 1024 and 512, off the tile grid (L=300, 3 heads, the last
+    17 columns masked) and on a batch padded as embed_msas pads one (four
+    MSAs of 1000, 302, 517 and 190 columns in the bucket 1024: the kernel
+    skips the key tiles of padding). All but L=300 are timed beside
+    scaled_dot_product_attention over the same function (heads of R*64 in
+    [B, H, L, R*64], with the scale and the column mask) and the bound (on
+    the padded batch, over the keys that carry weight). The first case is
+    the row, the others its cases."""
+    worst_rel, worst_abs, cases = 0.0, 0.0, []
+    padded = (1000, 302, 517, 190)
+    for B, R, L, nh, valid in ((4, MSA_DEPTH, 1024, 12, None), (4, 50, 1024, 12, None),
+                               (4, MSA_DEPTH, 512, 12, None), (4, 50, 512, 12, None),
+                               (4, MSA_DEPTH, 300, 3, (283,) * 4),
+                               (4, MSA_DEPTH, 1024, 12, padded)):
+        q, k, v = (torch.randn(B, R, L, nh * 64, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
+        lens = valid or (L,) * B
         bias = torch.zeros(B, 1, 1, L, device="cuda")
-        bias[..., L - tail:] = -1e9
-        out = tra.tied_row_attention_cuda(q, k, v, H, col_bias=bias)
-        ref = tra.tied_row_attention_plain(q, k, v, H, col_bias=bias)
+        for b, n in enumerate(lens):
+            bias[b, ..., n:] = -1e9
+        out = tra.tied_row_attention_cuda(q, k, v, nh, col_bias=bias)
+        ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
         torch.cuda.synchronize()
         require(torch.isfinite(out.float()).all().item(),
                 f"tied-row R={R} L={L}: non-finite")
         diff = (out.float() - ref.float()).abs().max().item()
         rel = diff / max(ref.float().abs().max().item(), 1e-6)
-        print(f"  tied-row B={B} R={R} L={L} H={H} D=64, {tail} masked "
-              f"columns: max rel err {rel:.3e}, max abs err {diff:.3e}",
+        shape = (f"B={B} R={R} L={L} H={nh} D=64 bf16"
+                 + (f", columns {'/'.join(map(str, lens))}" if valid else ""))
+        print(f"  tied-row {shape}: max rel err {rel:.3e}, max abs err {diff:.3e}",
               flush=True)
         require(rel <= FLASH_REL_TOL,
-                f"tied-row R={R} L={L}: rel err {rel} > {FLASH_REL_TOL}")
+                f"tied-row {shape}: rel err {rel} > {FLASH_REL_TOL}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
-        if (R, L) == cases[0][1:3]:
-            timed = (q, k, v, bias)
-        del q, k, v, out, ref
-
-    q, k, v, bias = timed
-    B, R, L, H = cases[0][:4]
-    scale = tra.tied_scale(64, R)
-    kernel = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, H,
-                                                         col_bias=bias))
-    plain = time_ms(lambda: tra.tied_row_attention_plain(q, k, v, H,
-                                                         col_bias=bias), iters=5)
-    tied = lambda x: x.view(B, R, L, H, 64).permute(0, 3, 2, 1, 4).reshape(
-        B, H, L, R * 64)
-    qt, kt, vt, mask = tied(q), tied(k), tied(v), bias.to(torch.bfloat16)
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, scale=scale))
-    b_ms, b_by = bound_ms(4 * B * R * L * H * 64 * 2 + B * L * 4,
-                          4.0 * B * H * L * L * R * 64, BF16_FLOPS)
-    print(f"  tied-row timed at B={B} R={R} L={L} H={H}: kernel {kernel:.4f} "
-          f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del out, ref
+        if L == 300:
+            continue
+        scale = tra.tied_scale(64, R)
+        kernel = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, nh,
+                                                             col_bias=bias))
+        plain = time_ms(lambda: tra.tied_row_attention_plain(
+            q, k, v, nh, col_bias=bias), iters=3)
+        tied = lambda x: x.view(B, R, L, nh, 64).permute(0, 3, 2, 1, 4).reshape(
+            B, nh, L, R * 64)
+        qt, kt, vt, mask = tied(q), tied(k), tied(v), bias.to(torch.bfloat16)
+        library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale))
+        del qt, kt, vt
+        # the keys that carry weight: every query column reads them
+        keys = sum(lens)
+        row_bytes = R * nh * 64 * 2
+        b_ms, b_by = bound_ms(2 * B * L * row_bytes + 2 * keys * row_bytes + B * L * 4,
+                              4.0 * nh * L * keys * R * 64, BF16_FLOPS)
+        tiles = sum(-(-n // 128) for n in lens) / (B * -(-L // 128))
+        print(f"  tied-row timed at {shape}: kernel {kernel:.4f} ms, plain "
+              f"{plain:.4f} ms, SDPA {library:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), key tiles visited {tiles:.1%}", flush=True)
+        cases.append({"shape": shape, "ms": kernel, "plain_ms": plain,
+                      "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
+                      "key_tiles_visited": tiles})
+        del q, k, v
+        torch.cuda.empty_cache()
+    row = cases[0]
     return {"name": "tied_row_attention", "route": "cuda",
             "source": "oneprot_tpu_torch/kernels/csrc/tied_row_attention.cu",
             "replaces": "oneprot_tpu/kernels/tied_row_attention.py:56",
-            "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": kernel,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library,
-            "shape": f"B={B} R={R} L={L} H={H} D=64 bf16",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "cases": cases[1:],
             "note": "library_ms: scaled_dot_product_attention on [B, H, L, "
                     "R*64] (heads of R*64), scale and column mask"}
 
@@ -1560,25 +1599,31 @@ def serve_wide_hub(smi: str, launches: dict):
     return result, state2, cfg
 
 
-def wide_hub_parity(state: dict, cfg) -> float:
-    """The 15B-width hub's first 2 layers and its head, card (bf16, kernel)
-    against CPU (f32, plain version), on PARITY_ROWS sequences through
-    embed_sequences: mean embedding cosine."""
+def wide_hub_parity(state: dict, cfg) -> dict:
+    """The 15B-width hub's first 2 layers and its head, card (bf16, kernels)
+    against CPU (f32, plain versions), on PARITY_ROWS sequences through
+    embed_sequences, as it is and through `quantize_esm2_int8_tree` (the
+    int8 hub: its fc1 rows, 20480 wide, go through the GELU->int8 kernel):
+    mean embedding cosine of each."""
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     seqs = sample_seqs(PARITY_ROWS, np.random.RandomState(4))
-    outs = []
-    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        model = SequenceEncoder(cfg2, 1024, proj_type="mlp", device=device,
-                                dtype=dtype)
-        model.load_state_dict(state)
-        outs.append(OneProtEmbedder(OneProtModel({"sequence": model}),
-                                    buckets=BUCKETS).embed_sequences(seqs))
-        del model
-    cos = mean_cosine(*outs)
-    print(f"  15B-width hub at 2 layers, card vs CPU, {PARITY_ROWS} sequences: "
-          f"mean cosine {cos:.6f} (gate >= 0.999)", flush=True)
-    require(cos >= 0.999, f"15B-width parity {cos} < 0.999")
-    return cos
+    parity = {}
+    for name, quant, tol in (("bf16", False, 0.999), ("int8", True, 0.99)):
+        weights = esm2.quantize_esm2_int8_tree(state) if quant else state
+        outs = []
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            model = SequenceEncoder(cfg2, 1024, proj_type="mlp", quant_int8=quant,
+                                    device=device, dtype=dtype)
+            model.load_state_dict(weights)
+            outs.append(OneProtEmbedder(OneProtModel({"sequence": model}),
+                                        buckets=BUCKETS).embed_sequences(seqs))
+            del model
+        parity[name] = mean_cosine(*outs)
+        print(f"  15B-width {name} hub at 2 layers, card vs CPU, {PARITY_ROWS} "
+              f"sequences: mean cosine {parity[name]:.6f} (gate >= {tol})",
+              flush=True)
+        require(parity[name] >= tol, f"15B-width {name} parity {parity[name]} < {tol}")
+    return parity
 
 
 def mean_cosine(a: np.ndarray, b: np.ndarray) -> float:
@@ -1683,8 +1728,8 @@ def main() -> int:
     wide, wide_state, wide_cfg = serve_wide_hub(smi, launches)
     torch.cuda.empty_cache()  # the hub's 30 GB go back before what follows
 
-    phase("15B-width parity: 2 layers at full width, card (bf16, kernel) vs "
-          "CPU (f32, plain)")
+    phase("15B-width parity: 2 layers at full width, bf16 and int8, card "
+          "(bf16, kernels) vs CPU (f32, plain)")
     wide["parity_mean_cosine"] = wide_hub_parity(wide_state, wide_cfg)
     del wide_state
 

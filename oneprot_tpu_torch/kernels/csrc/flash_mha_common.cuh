@@ -1,5 +1,5 @@
-// Device helpers shared by the mma.sync kernels (tied-row, the
-// FlashAttention-2 instances for heads of 256) and the wgmma kernels:
+// Device helpers shared by the mma.sync kernels (the FlashAttention-2
+// instances for heads of 256) and the wgmma kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads, the mma.sync
 // m16n8k16 bf16 product with f32 accumulation, bf16 packing, dot8 and
 // row_sum.
@@ -90,18 +90,6 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int m = N / 2; m > 0; m /= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
-}
-
-// A fragments of 16 rows x DP columns (the warp's rows of a [*][LDS] tile)
-template <int DP, int LDS>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4],
-                                             const __nv_bfloat16* tile, int row0,
-                                             int lane) {
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    const int r = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
-    ldsm_x4(f[ks], tile + r * LDS + ks * 16 + 8 * (lane >> 4));
-  }
 }
 
 }  // namespace flash

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels (the
 // FlashAttention-2 forward and backward, flash_attention_*.cu; the flash-MHA
-// forward and backward, flash_mha_*.cu): mbarriers, TMA tile loads through
+// forward and backward, flash_mha_*.cu; the tied-row attention,
+// tied_row_attention.cu): mbarriers, TMA tile loads through
 // tensor maps, warpgroup matrix products (wgmma) on 128- or 64-byte-swizzled
 // shared memory, named barriers and the register
 // reallocation between warpgroups (setmaxnreg), and bf16x2 arithmetic
@@ -249,6 +250,41 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 192, f32) = A (64 x 16) B (16 x 192) + (scale_d ? D : 0); A from
+// shared memory K-major, B from shared memory MN-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_m64n192_tb(float (&d)[96], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, f32) += A (64 x 16) B (16 x 64); A from registers (the
 // accumulator layout packed to bf16), B from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_t (&a)[4],
@@ -398,20 +434,22 @@ constexpr int ERR_ENCODE = 10000;
 
 // The tensor map of a bf16 [B, H, L, D] operand at element strides (sb, sh,
 // sl) and unit stride over D, read as boxes of `box_cols` columns x
-// `box_rows` rows of one (batch, head), swizzled by `swizzle` (box_cols 64
-// with 128 bytes, 32 with 64). Rows past L and columns past D are
-// zero-filled. A dimension of size 1 takes a stride of 8 elements (its
-// coordinate is always 0, and TMA wants multiples of 16 bytes).
+// `box_rows` rows of `box_h` consecutive heads of one batch, swizzled by
+// `swizzle` (box_cols 64 with 128 bytes, 32 with 64). Rows past L, columns
+// past D and heads past H are zero-filled. A dimension of size 1 takes a
+// stride of 8 elements (its coordinate is always 0, and TMA wants multiples
+// of 16 bytes).
 static int rows_map(CUtensorMap* map, const void* base, int D, int L, int H, int B,
                     long long sl, long long sh, long long sb, int box_rows, int box_cols = 64,
-                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B, int box_h = 1) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(L > 1 ? sl : 8) * 2,
                                  (cuuint64_t)(H > 1 ? sh : 8) * 2,
                                  (cuuint64_t)(B > 1 ? sb : 8) * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, (cuuint32_t)box_h,
+                           1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,

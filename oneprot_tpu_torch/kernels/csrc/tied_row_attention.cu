@@ -6,278 +6,416 @@
 // shared by all R rows of the MSA,
 //   logits[i, j] = scale * sum_r q[r, i, :] . k[r, j, :] + bias[j]
 //   out[r, i, :] = sum_j softmax_j(logits)[i, j] * v[r, j, :],
-// logits in f32, the softmax in base 2 (scale and bias come in log2 units),
-// probabilities rounded to bf16 before the PV product, out in bf16. No
+// logits in f32, an online softmax in base 2 (scale and bias come in log2
+// units), out in bf16. As in the TPU kernel, each 128-key tile's
+// probabilities are rounded to bf16 against the running row max of that
+// tile, p = bf16(2^(s - m_t)), and the output is rescaled tile by tile and
+// divided by the row sum at the end; the plain version rounds the
+// normalised softmax instead. Both sit well inside the 1.5e-2 gate. No
 // [B, H, L, L] tensor goes to device memory.
 //
 // What bounds it on H100: 4 * L^2 * R * 64 flops per (batch, head) against
 // 4 * R * L * 64 * 2 bytes of q/k/v/out, so the card's bound is tensor-core
-// operations (0.21 ms at B=4 R=16 L=1024 H=12). What stands in the way of
-// it here is the tied sum: a query column's logits need every row's keys,
-// so the head dim of this attention is R*64 (1024 at R=16, 3200 at R=50),
-// and a flash layout's f32 PV accumulators for all R rows of a query block
-// (R x 64 x 64 x 4 bytes = 256 KB at R=16) do not fit in shared memory.
+// operations (0.21 ms at B=4 R=16 L=1024 H=12). In the way of it: the tied
+// sum makes this attention's head R*64 wide (1024 at R=16, 3200 at R=50),
+// so neither q nor the f32 output of a query block stays on chip, and every
+// CTA streams its head's q (once per key tile), k and v through shared
+// memory, ~5 MB at R=16 L=1024, beside a probability strip of up to 128 KB.
+// How many bytes the ring keeps in flight, more than the tensor cores or
+// L2's bandwidth, sets the pace (measured on an H100: with no product at
+// all the kernel keeps ~88% of its time, and halving L2's reads of k and v
+// by TMA multicast between two CTAs gained under 3%).
 //
-// Design: one CTA of eight warps per (block of 32 query columns, head,
-// batch), for L <= 1024 (the model's max_positions). Three phases:
-//   1. the [32, L] logit strip, accumulated in registers over the R rows
-//      of one 128-key tile at a time (q and k tiles of each row stream
-//      through a three-stage cp.async ring, two tiles in flight while one
-//      is multiplied), scaled, biased and stored as f32 in shared memory
-//      (128 KB at L = 1024);
-//   2. the exact softmax of each strip row (one warp a row), normalised and
-//      rounded to bf16 in place over the f32 row;
-//   3. per MSA row r, out[r] = P . V[r] with V tiles streaming through the
-//      same ring and one [32, 64] f32 accumulator in registers.
-// Products are mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix
-// fragment loads. Every CTA reads all of its head's K and V, so K and V
-// are read L/32 times from L2; a wider query block (or a cluster sharing
-// K/V tiles through TMA multicast) is the lever for a later change, as is
-// wgmma.
+// Design (sm_90a): one CTA of 160 threads per (block of 64 query columns,
+// head, batch), for L <= 1024 (the model's max_positions). Warp 4 loads
+// with TMA (4-D tensor maps over [B, R, L, H*64], 128-byte swizzle) into a
+// ring of 24 KB stages guarded by mbarriers, as deep as shared memory
+// allows beside the strip (4 stages at L = 1024, 6 at L <= 640);
+// warps 0-3 are one consumer warpgroup that owns the 64 query rows.
+//   1. Logits. For each 128-key tile, S[64, 128] accumulates in registers
+//      over the R MSA rows by SS wgmma (m64n128k16, q_r and k_r both
+//      K-major from the ring, one ring item = q_r's 64 rows and k_r's 128
+//      keys). The tile's online softmax follows (its key bias loaded from
+//      global memory before the tile's products): the running max m, the
+//      running sum l, the tile's rescale factor 2^(m_old - m), and
+//      P = bf16(2^(s - m)) into a [64, L] bf16 strip in shared memory (128
+//      KB at L = 1024, [64][64] blocks swizzled as wgmma reads them; then
+//      fence.proxy.async). Keys past L take -inf by index (TMA's zero fill
+//      is no mask).
+//   2. Output. For each group of G = 3 MSA rows, O[64, 192] accumulates in
+//      registers over the key tiles by SS wgmma (m64n192k16): P from the
+//      strip (K-major), v of the 3 rows from the ring (one TMA box of 64
+//      keys x 64 columns x 3 rows, read MN-major), O scaled by each tile's
+//      factor before its product (skipped where it is 1 on every row of a
+//      warp); then O / l to bf16. The strip is read R / 3 times.
+// Key tiles whose every key carries a bias SKIP_GAP (1e6, natural units)
+// or more below the batch element's largest bias are not visited: with
+// |scale * sum_r q . k| below 4e5 their softmax weight is exactly 0 in
+// f32, so the result is the same (the MSA columns padded to a bucket carry
+// -1e9). An element whose keys are all padded skips nothing, so its rows
+// still average over every key, as in the plain version.
 
-#include "flash_mha_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace hopper;
 
-constexpr int D = 64;           // head dim: MSA-1b's, and the only one taken
-constexpr int BQ = 32;          // query columns per CTA, 16 per row group
-constexpr int BK = 128;         // keys per streamed tile
-constexpr int LDS = D + 8;      // bf16 row pitch of q/k/v tiles: conflict-free ldmatrix
-constexpr int NTHREADS = 256;   // 8 warps: 2 row groups x 4 column groups
+constexpr int BQ = 64;          // query columns of a CTA: the warpgroup's wgmma rows
+constexpr int BK = 128;         // keys of a logit tile
+constexpr int HK = 64;          // keys of an output item (half a tile)
+constexpr int G = 3;            // MSA rows of an output item: O is [64, G * 64]
+constexpr int Q_BYTES = BQ * 128;
+constexpr int K_BYTES = BK * 128;
+constexpr int STAGE_BYTES = Q_BYTES + K_BYTES;  // a logit item; an output item is G * HK * 128
+constexpr int P_BLOCK = BQ * 128;     // [64 rows][64 keys] bf16 of the strip
 constexpr int MAX_L = 1024;
-constexpr int Q_ELEMS = BQ * LDS;
-constexpr int KV_ELEMS = BK * LDS;
-constexpr int STAGE_ELEMS = Q_ELEMS + KV_ELEMS;
-constexpr int NSTAGE = 3;       // ring depth: NSTAGE - 1 tiles in flight
+constexpr int CONSUMERS = 128;
+constexpr int THREADS = CONSUMERS + 32;  // warps 0-3 compute, warp 4 loads
+constexpr float ROW_MAX0 = -1e30f;       // the TPU kernel's starting row max
+constexpr float SKIP_GAP = 1e6f * 1.4426950408889634f;  // in log2 units
+static_assert(G * HK * 128 == STAGE_BYTES, "both kinds of item fill a stage");
+static_assert(MAX_L / BK <= 8, "the quads keep rescale factors of at most 8 tiles");
 
-// f32 pitch of the logit strip: L rounded up to a tile, + 4 floats so the
-// bf16 rows of P (16 bytes past a multiple of 128 apart) load conflict-free
-__host__ __device__ constexpr int strip_pitch(int L) { return (L + BK - 1) / BK * BK + 4; }
-
-__host__ __device__ constexpr size_t smem_bytes(int L) {
-  return (size_t)BQ * strip_pitch(L) * 4 + (size_t)NSTAGE * STAGE_ELEMS * 2;
+// Shared memory from a 1024-aligned base, for n_kt key tiles and ST stages:
+// the ring, the P strip, the barriers.
+__host__ __device__ constexpr int p_off(int st) { return st * STAGE_BYTES; }
+__host__ __device__ constexpr int bars_off(int st, int n_kt) { return p_off(st) + n_kt * 2 * P_BLOCK; }
+__host__ __device__ constexpr int smem_bytes(int st, int n_kt) {
+  return bars_off(st, n_kt) + 2 * st * 8 + 1024;  // + alignment slack
 }
+// the deepest ring that fits beside the strip of n_kt tiles, of 4 to 6
+// stages (a seventh gained ~3% at L = 384)
+constexpr int stages_for(int n_kt) { return n_kt >= 7 ? 4 : n_kt == 6 ? 5 : 6; }
+static_assert(smem_bytes(stages_for(8), 8) <= 232448 && smem_bytes(stages_for(6), 6) <= 232448 &&
+                  smem_bytes(stages_for(5), 5) <= 232448,
+              "each ring fits beside its strip");
 
 struct Params {
-  const __nv_bfloat16* q;  // [B, R, L, H*64]
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const float* bias;       // [B, L] log2 units, or null
-  __nv_bfloat16* out;      // [B, R, L, H*64]
+  const float* bias;   // [B, L] log2 units, or null
+  __nv_bfloat16* out;  // [B, R, L, H*64]
   int R, L, H;
-  float qk_scale;          // scale * log2(e)
+  float qk_scale;      // scale * log2(e)
 };
 
-// Copy rows [row0, row0 + nrows) of one head of MSA row r into a
-// [nrows][LDS] tile, 16 bytes a copy; rows past L are zero-filled.
-template <int NROWS>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          const Params& p, int b, int r, int h,
-                                          int row0) {
-  const size_t HD = (size_t)p.H * D;
-  const size_t base = (((size_t)b * p.R + r) * p.L) * HD + (size_t)h * D;
-  for (int i = threadIdx.x; i < NROWS * (D / 8); i += NTHREADS) {
-    const int rr = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int row = row0 + rr;
-    const bool ok = row < p.L;
-    cp_async16(dst + rr * LDS + c, ok ? src + base + (size_t)row * HD + c : src, ok);
+struct alignas(64) Args {
+  CUtensorMap q;  // boxes of 64 columns x BQ rows of one MSA row
+  CUtensorMap k;  // 64 columns x BK rows
+  CUtensorMap v;  // 64 columns x HK rows x G MSA rows
+  Params p;
+};
+
+// The key tiles that batch element's query rows visit, as a bit mask (bit
+// kt: keys kt * BK ..), the same in every warp that computes it.
+__device__ __forceinline__ uint32_t live_tiles(const float* bias, int L, int n_kt) {
+  const uint32_t all = (1u << n_kt) - 1;
+  if (bias == nullptr) return all;
+  const int lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+  for (int j = lane; j < L; j += 32) mx = fmaxf(mx, bias[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float dead_at = mx - SKIP_GAP;  // a key at or below this weighs 0
+  uint32_t live = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    bool any = false;
+#pragma unroll
+    for (int e = 0; e < BK / 32; ++e) {
+      const int j = kt * BK + lane + 32 * e;
+      any |= j < L && bias[j] > dead_at;
+    }
+    if (__any_sync(0xffffffffu, any)) live |= 1u << kt;
+  }
+  return live != 0 ? live : all;
+}
+
+// Warp 4: the ring's items in the consumers' order. Logits: per live tile,
+// per MSA row, q's 64 rows and k's 128 keys. Output: per group of G MSA
+// rows, per live tile, v of each 64-key half that starts before L.
+template <int ST>
+__device__ __forceinline__ void producer(const Args& a, uint8_t* sm, uint32_t live, int q0,
+                                         int h, int b) {
+  const Params& p = a.p;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + bars_off(ST, (p.L + BK - 1) / BK));
+  uint64_t* empty = full + ST;
+  const int lane = threadIdx.x % 32;
+  int item = 0;
+  auto acquire = [&](int bytes) -> uint8_t* {
+    const int s = item % ST;
+    mbar_wait_or_trap(&empty[s], ((item / ST) & 1) ^ 1);
+    if (lane == 0)
+      mbar_arrive_expect_tx(&full[s], bytes);
+    else
+      mbar_arrive(&full[s]);
+    return sm + s * STAGE_BYTES;
+  };
+  for (uint32_t rest = live; rest != 0; rest &= rest - 1) {
+    const int kt = __ffs(rest) - 1;
+    for (int r = 0; r < p.R; ++r, ++item) {
+      uint8_t* st = acquire(STAGE_BYTES);
+      if (lane == 0) {
+        tma_load_4d(st, &a.q, &full[item % ST], 64 * h, q0, r, b);
+        tma_load_4d(st + Q_BYTES, &a.k, &full[item % ST], 64 * h, kt * BK, r, b);
+      }
+    }
+  }
+  for (int g0 = 0; g0 < p.R; g0 += G) {
+    for (uint32_t rest = live; rest != 0; rest &= rest - 1) {
+      const int kt = __ffs(rest) - 1;
+      for (int k0 = kt * BK; k0 < kt * BK + BK && k0 < p.L; k0 += HK, ++item) {
+        uint8_t* st = acquire(STAGE_BYTES);
+        if (lane == 0) tma_load_4d(st, &a.v, &full[item % ST], 64 * h, k0, g0, b);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-tied_row_attention_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = p.L, R = p.R;
-  const int pitch = strip_pitch(L);
-  float* strip = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* stages =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + (size_t)BQ * pitch * 4);
+// Warps 0-3: the logits and softmax of every live tile into the P strip,
+// then the output, G MSA rows at a time.
+template <int ST>
+__device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t live, int q0,
+                                         int h, int b) {
+  const Params& p = a.p;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + bars_off(ST, (p.L + BK - 1) / BK));
+  uint64_t* empty = full + ST;
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + (size_t)b * p.L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const uint32_t ring = smem_u32(sm);
+  const uint32_t strip = smem_u32(sm + p_off(ST));
+  int item = 0;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp & 1;   // row group: strip rows wr*16 .. wr*16+15
-  const int wc = warp >> 1;  // column group: 32 keys (phase 1) or 16 head dims (phase 3)
-  const int n_kt = (L + BK - 1) / BK;
+  // ---- logits and softmax, tile by tile --------------------------------
+  float m[2] = {ROW_MAX0, ROW_MAX0}, l[2] = {0.f, 0.f};
+  // the rescale factor 2^(m_old - m_new) of live tile i for the thread's two
+  // rows, kept by lane i % 4 of the quad that shares the rows
+  float c_lo[2] = {1.f, 1.f}, c_hi[2] = {1.f, 1.f};
+  int n_live = 0;
+  for (uint32_t rest = live; rest != 0; rest &= rest - 1, ++n_live) {
+    const int kt = __ffs(rest) - 1;
+    // the key bias of the thread's columns 8j + 2t (+1), in flight during
+    // the tile's products; keys past L at -inf
+    float bb[BK / 4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt * BK + 8 * j + 2 * t + e;
+        bb[2 * j + e] = key < p.L ? (bias == nullptr ? 0.f : __ldg(bias + key)) : -INFINITY;
+      }
+    float sc[BK / 2];
+    for (int r = 0; r < p.R; ++r, ++item) {
+      const int s = item % ST;
+      mbar_wait_or_trap(&full[s], (item / ST) & 1);
+      const uint32_t qa = ring + s * STAGE_BYTES;
+      const uint64_t qd = desc_sw<128>(qa, 16, 1024);
+      const uint64_t kd = desc_sw<128>(qa + Q_BYTES, 16, 1024);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_m64n128(sc, qd + 2 * kk, kd + 2 * kk, r > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous item's products are done: free its stage
+      fence_regs(sc);
+      if (r > 0) mbar_arrive(&empty[(item - 1) % ST]);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(&empty[(item - 1) % ST]);
 
-  // ---- phase 1: logits of the 32 query columns against every key --------
-  // item it = kt * R + r: q rows [q0, q0+32) and k rows of key tile kt, MSA row r
-  const int n_qk = n_kt * R;
-  auto fetch_qk = [&](int it) {
-    __nv_bfloat16* st = stages + (it % NSTAGE) * STAGE_ELEMS;
-    const int kt = it / R, r = it % R;
-    copy_rows<BQ>(st, p.q, p, b, r, h, q0);
-    copy_rows<BK>(st + Q_ELEMS, p.k, p, b, r, h, kt * BK);
-  };
+    // base-2 logits s * scale + bias, the tile's max
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int it = 0; it < NSTAGE - 1; ++it) {
-    if (it < n_qk) fetch_qk(it);
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  }
-  float s[BK / 32][4];  // the warp's 16 rows x 32 keys: 4 blocks of 8
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-  for (int j = 0; j < BK / 32; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  for (int it = 0; it < n_qk; ++it) {
-    cp_async_wait<NSTAGE - 2>();  // item it has landed for this thread
-    __syncthreads();  // ... for every thread; and item it-1's stage is free
-    if (it + NSTAGE - 1 < n_qk) fetch_qk(it + NSTAGE - 1);
-    cp_async_commit();
-    const __nv_bfloat16* qs = stages + (it % NSTAGE) * STAGE_ELEMS;
-    const __nv_bfloat16* ks = qs + Q_ELEMS;
-    uint32_t qf[D / 16][4];
-    load_a_frags<D, LDS>(qf, qs, wr * 16, lane);
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = fmaf(sc[4 * j + e], p.qk_scale, bb[2 * j + (e & 1)]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+    float corr[2];
 #pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-#pragma unroll
-      for (int kp = 0; kp < D / 32; ++kp) {
-        uint32_t kf[4];  // b0, b1 of k-steps 2kp and 2kp+1
-        ldsm_x4(kf, ks + (wc * (BK / 4) + j * 8 + (lane & 7)) * LDS + kp * 32 +
-                        8 * (lane >> 3));
-        mma16816(s[j], qf[2 * kp], kf[0], kf[1]);
-        mma16816(s[j], qf[2 * kp + 1], kf[2], kf[3]);
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float mn = fmaxf(m[hh], mx[hh]);
+      corr[hh] = fast_exp2(m[hh] - mn);
+      m[hh] = mn;
+    }
+    if (t == (n_live & 3)) {
+      if (n_live < 4) {
+        c_lo[0] = corr[0];
+        c_lo[1] = corr[1];
+      } else {
+        c_hi[0] = corr[0];
+        c_hi[1] = corr[1];
       }
     }
-    if (it % R == R - 1) {  // the tile's sum over rows is complete: store it
-      const int k0 = (it / R) * BK + wc * (BK / 4);
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int col = k0 + j * 8 + 2 * t;
-        float add[2];
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          add[e] = (p.bias != nullptr && col + e < L) ? p.bias[(size_t)b * L + col + e] : 0.f;
-        float* ra = strip + (wr * 16 + g) * pitch + col;
-        float* rb = ra + 8 * pitch;
-        *reinterpret_cast<float2*>(ra) =
-            make_float2(s[j][0] * p.qk_scale + add[0], s[j][1] * p.qk_scale + add[1]);
-        *reinterpret_cast<float2*>(rb) =
-            make_float2(s[j][2] * p.qk_scale + add[0], s[j][3] * p.qk_scale + add[1]);
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = fast_exp2(sc[4 * j + e] - m[e >> 1]);
+        sum[e >> 1] += sc[4 * j + e];
+      }
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+    // P of this tile into strip blocks 2 n_live (keys 0-63) and 2 n_live + 1:
+    // row r's 16-byte chunk c at chunk c ^ (r % 8), as TMA's 128-byte swizzle
+    // lays out the operands wgmma reads
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * warp + lane / 4 + 8 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(sm + p_off(ST) + (2 * n_live + j / 8) * P_BLOCK +
+                                           row * 128 + (((j % 8) ^ (row % 8)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]);
+      }
+  }
+  fence_proxy_async();  // P, written here, is read by wgmma
+  named_bar_sync(1, CONSUMERS);
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    inv[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+  }
+
+  // ---- the output, G MSA rows at a time ---------------------------------
+  const size_t HD = (size_t)p.H * 64;
+  const int row_a = q0 + 16 * warp + lane / 4;
+  for (int g0 = 0; g0 < p.R; g0 += G) {
+    float o[4 * G * 8];
+    int j = 0;  // this group's items
+    int i = 0;  // live tile
+    for (uint32_t rest = live; rest != 0; rest &= rest - 1, ++i) {
+      const int kt = __ffs(rest) - 1;
+      for (int hh = 0; hh < 2 && kt * BK + hh * HK < p.L; ++hh, ++item, ++j) {
+        if (hh == 0 && i > 0) {
+          // O *= tile i's factor, unless it is 1 on every row of the warp
+          const int owner = (lane & ~3) | (i & 3);
+          const float c0 = __shfl_sync(0xffffffffu, i < 4 ? c_lo[0] : c_hi[0], owner);
+          const float c1 = __shfl_sync(0xffffffffu, i < 4 ? c_lo[1] : c_hi[1], owner);
+          if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
+            wgmma_wait<0>();
+            fence_regs(o);
+#pragma unroll
+            for (int n = 0; n < G * 8; ++n) {
+              o[4 * n + 0] *= c0;
+              o[4 * n + 1] *= c0;
+              o[4 * n + 2] *= c1;
+              o[4 * n + 3] *= c1;
+            }
+          }
+        }
+        const int s = item % ST;
+        mbar_wait_or_trap(&full[s], (item / ST) & 1);
+        const uint64_t pd = desc_sw<128>(strip + (2 * i + hh) * P_BLOCK, 16, 1024);
+        const uint64_t vd = desc_sw<128>(ring + s * STAGE_BYTES, HK * 128, 1024);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HK / 16; ++kk)
+          wgmma_ss_m64n192_tb(o, pd + 2 * kk, vd + 128 * kk, j > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(o);
+        if (j > 0) mbar_arrive(&empty[(item - 1) % ST]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[(item - 1) % ST]);
+    // o[4n + e]: row row_a (+ 8 for e >= 2), column 8n + 2t + (e & 1) of the
+    // group's G x 64: MSA row g0 + n / 8, head column 8 (n % 8) + 2t
+#pragma unroll
+    for (int n = 0; n < G * 8; ++n) {
+      const int r = g0 + n / 8;
+      if (r < p.R) {
+        __nv_bfloat16* orow =
+            p.out + ((size_t)b * p.R + r) * p.L * HD + 64 * h + 8 * (n % 8) + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row_a + 8 * hh;
+          if (row < p.L)
+            *reinterpret_cast<__nv_bfloat162*>(orow + row * HD) = __floats2bfloat162_rn(
+                o[4 * n + 2 * hh] * inv[hh], o[4 * n + 2 * hh + 1] * inv[hh]);
+        }
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the strip is complete and the ring is free
+}
 
-  // ---- phase 3's first V tiles, in flight during the softmax -------------
-  // item it = r * n_kt + kt: v rows of key tile kt, MSA row r
-  const int n_pv = R * n_kt;
-  auto fetch_pv = [&](int it) {
-    __nv_bfloat16* st = stages + (it % NSTAGE) * STAGE_ELEMS;
-    copy_rows<BK>(st + Q_ELEMS, p.v, p, b, it / n_kt, h, (it % n_kt) * BK);
-  };
-#pragma unroll
-  for (int it = 0; it < NSTAGE - 1; ++it) {
-    if (it < n_pv) fetch_pv(it);
-    cp_async_commit();
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 1)
+    tied_row_attention_kernel(const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const int n_kt = (a.p.L + BK - 1) / BK;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + bars_off(ST, n_kt));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + s, 32);              // full: the loader warp (+ TMA's bytes)
+      mbar_init(bars + ST + s, CONSUMERS);  // empty: every consumer thread
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t live =
+      live_tiles(a.p.bias == nullptr ? nullptr : a.p.bias + (size_t)b * a.p.L, a.p.L, n_kt);
+  if (threadIdx.x >= CONSUMERS)
+    producer<ST>(a, sm, live, q0, h, b);
+  else
+    consumer<ST>(a, sm, live, q0, h, b);
+}
 
-  // ---- phase 2: exact softmax per strip row, bf16 P in place -------------
-  // P row i is the first half of f32 row i: pitch * 2 bf16 apart. A warp
-  // reads its whole row into registers before it writes any of it.
-  for (int i = warp; i < BQ; i += NTHREADS / 32) {
-    float* row = strip + i * pitch;
-    float x[MAX_L / 32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < MAX_L / 32; ++m) {
-      const int j = lane + 32 * m;
-      x[m] = j < L ? row[j] : -INFINITY;
-      mx = fmaxf(mx, x[m]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < MAX_L / 32; ++m) {
-      x[m] = lane + 32 * m < L ? exp2f(x[m] - mx) : 0.f;
-      sum += x[m];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float inv = 1.f / sum;
-    __syncwarp();
-    __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(row);
-#pragma unroll
-    for (int m = 0; m < MAX_L / 32; ++m) {
-      const int j = lane + 32 * m;
-      if (j < n_kt * BK) prow[j] = __float2bfloat16(x[m] * inv);  // 0 past L
-    }
-  }
-
-  // ---- phase 3: out[r] = P . V[r], one MSA row at a time -----------------
-  const __nv_bfloat16* P = reinterpret_cast<const __nv_bfloat16*>(strip);
-  const int pp = 2 * pitch;  // bf16 pitch of P
-  const size_t HD = (size_t)p.H * D;
-  float acc[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int it = 0; it < n_pv; ++it) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // P is written (first item); item it-1's stage is free
-    if (it + NSTAGE - 1 < n_pv) fetch_pv(it + NSTAGE - 1);
-    cp_async_commit();
-    const int kt = it % n_kt;
-    const __nv_bfloat16* vs = stages + (it % NSTAGE) * STAGE_ELEMS + Q_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4], vf[4];
-      const int prow = wr * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      ldsm_x4(pf, P + prow * pp + kt * BK + kk * 16 + 8 * (lane >> 4));
-      const int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      ldsm_x4_trans(vf, vs + key * LDS + wc * 16 + 8 * (lane >> 4));
-      mma16816(acc[0], pf, vf[0], vf[1]);
-      mma16816(acc[1], pf, vf[2], vf[3]);
-    }
-    if (kt == n_kt - 1) {  // row r is complete: write it
-      const int r = it / n_kt;
-      const size_t base = (((size_t)b * R + r) * L) * HD + (size_t)h * D;
-      const int row_a = q0 + wr * 16 + g, row_b = row_a + 8;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = wc * 16 + j * 8 + 2 * t;
-        if (row_a < L)
-          *reinterpret_cast<uint32_t*>(p.out + base + (size_t)row_a * HD + col) =
-              pack_bf16(acc[j][0], acc[j][1]);
-        if (row_b < L)
-          *reinterpret_cast<uint32_t*>(p.out + base + (size_t)row_b * HD + col) =
-              pack_bf16(acc[j][2], acc[j][3]);
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      }
-    }
-  }
+template <int ST>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const int smem = smem_bytes(ST, (a.p.L + BK - 1) / BK);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tied_row_attention_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.p.L + BQ - 1) / BQ, a.p.H, B);
+  tied_row_attention_kernel<ST><<<grid, THREADS, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, out: contiguous bf16 [B, R, L, H*64], 16-byte aligned; bias: f32
 // [B, L] in log2 units or null; qk_scale = scale * log2(e). The caller
-// checks 1 <= L <= 1024. Returns cudaGetLastError() after the launch.
+// checks 1 <= L <= 1024. Returns cudaGetLastError() after the launch, or
+// hopper::ERR_* if a tensor map could not be made. `device`: the card's
+// index.
 extern "C" int oneprot_tied_row_attention(const void* q, const void* k, const void* v,
                                           const void* bias, void* out, int B, int R,
-                                          int L, int H, float qk_scale, void* stream) {
+                                          int L, int H, float qk_scale, int device,
+                                          void* stream) {
   if (L < 1 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(L);
-  const cudaError_t err = cudaFuncSetAttribute(
-      tied_row_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.R = R;
-  p.L = L;
-  p.H = H;
-  p.qk_scale = qk_scale;
-  const dim3 grid((L + BQ - 1) / BQ, H, B);
-  tied_row_attention_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  // cuTensorMapEncodeTiled needs the card's context current on this thread
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  Args a;
+  const int HD = H * 64;
+  const long long sl = HD, sr = (long long)L * HD, sb = (long long)R * L * HD;
+  // [B, R, L, H*64] read as rows_map's [B, H, L, D] with R in the place of H
+  int rc = rows_map(&a.q, q, HD, L, R, B, sl, sr, sb, BQ);
+  if (rc == 0) rc = rows_map(&a.k, k, HD, L, R, B, sl, sr, sb, BK);
+  if (rc == 0)
+    rc = rows_map(&a.v, v, HD, L, R, B, sl, sr, sb, HK, 64, CU_TENSOR_MAP_SWIZZLE_128B, G);
+  if (rc != 0) return rc;
+  a.p.bias = static_cast<const float*>(bias);
+  a.p.out = static_cast<__nv_bfloat16*>(out);
+  a.p.R = R;
+  a.p.L = L;
+  a.p.H = H;
+  a.p.qk_scale = qk_scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stages_for((L + BK - 1) / BK)) {
+    case 4: return launch<4>(a, B, s);
+    case 5: return launch<5>(a, B, s);
+    default: return launch<6>(a, B, s);
+  }
 }

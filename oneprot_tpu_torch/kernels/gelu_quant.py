@@ -6,7 +6,10 @@ fc2 products, `fused_gelu_quant(y)` turns y [..., N] (bf16 or f32) into
 s = max(max|g|, 1e-12) / 127 and q = round_half_even(g / s), which
 `Int8Dense(pre_quant=...)` consumes. On a CUDA tensor it launches the kernel
 of `csrc/gelu_quant.cu` or raises; on a CPU tensor it runs
-`gelu_quant_reference`.
+`gelu_quant_reference`. The kernel takes erf from Abramowitz-Stegun 7.1.26,
+as the TPU kernel does, and multiplies by one reciprocal of the scale a
+row, so a code may differ by one from the plain version's where g / s sits
+at a .5 tie (a few in a million of the hub's values).
 """
 
 from __future__ import annotations

@@ -12,10 +12,11 @@ with `scale` = D^-0.5 * R^-0.5 by default and an additive column bias
 probabilities are rounded to the input dtype before the PV product.
 
 `tied_row_attention_cuda` launches the hand-written kernel of
-`csrc/tied_row_attention.cu` (bf16, D = 64, 1 <= L <= 1024, any R and H)
-or raises; `tied_row_attention_plain` is the same function in plain
-PyTorch, for any device, which the CPU path runs. The dispatch (and the
-refusal of a gradient) is `kernels.attention.fused_tied_row`.
+`csrc/tied_row_attention.cu` (bf16, D = 64, 1 <= L <= 1024, any R and H;
+wgmma and TMA, so sm_90a) or raises; `tied_row_attention_plain` is the same
+function in plain PyTorch, for any device, which the CPU path runs. The
+dispatch (and the refusal of a gradient) is
+`kernels.attention.fused_tied_row`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from oneprot_tpu_torch.kernels import _build
 
 HEAD_DIM = 64       # the kernel's one head dim: MSA-1b's
-MAX_LENGTH = 1024   # the kernel's logit strip holds at most this many keys
+MAX_LENGTH = 1024   # the kernel's probability strip holds at most this many keys
 LOG2E = math.log2(math.e)
 
 
@@ -108,7 +109,7 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias_b is None else bias_b.data_ptr(), out.data_ptr(),
-                B, R, L, num_heads, scale * LOG2E, stream)
+                B, R, L, num_heads, scale * LOG2E, dev.index, stream)
     _build.check(rc, "tied_row_attention")
     tied_row_attention_cuda.launches += 1
     return out

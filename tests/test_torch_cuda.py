@@ -213,8 +213,9 @@ def test_flash_backward_kernels_on_ragged_packed_rows(card, d, L, shuffled):
     ((3, 7, 128), torch.bfloat16),    # leading dims, esm2_tiny width
     ((64, 5120), torch.float32),
     ((64, 100), torch.bfloat16),      # N % 8 != 0: scalar path
-    ((16, 10240), torch.bfloat16),    # 3B hub width: two-pass path
-    ((64, 20480), torch.bfloat16),    # 15B hub width: two-pass path
+    ((16, 10240), torch.bfloat16),    # 3B hub width
+    ((64, 20480), torch.bfloat16),    # 15B hub width
+    ((16384, 20480), torch.bfloat16),  # 15B hub width, a batch of 32 x 512
 ])
 def test_gelu_quant_kernel_matches_plain(card, shape, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -265,12 +266,23 @@ def test_default_sequence_encoder_embeds_on_the_card(card):
 
 
 def _tied_inputs(B, R, L, nh, card, seed, masked_tail):
+    """q, k, v [B, R, L, nh*64] bf16 and a column bias [B, 1, 1, L] of -1e9
+    on the last `masked_tail` columns: one count for every batch element,
+    or a tuple of one count each."""
     gen = torch.Generator(device=card).manual_seed(seed)
     q, k, v = (torch.randn(B, R, L, nh * 64, device=card, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
     bias = torch.zeros(B, 1, 1, L, device=card)
-    bias[..., L - masked_tail:] = -1e9
+    tails = masked_tail if isinstance(masked_tail, tuple) else (masked_tail,) * B
+    for b, tail in enumerate(tails):
+        bias[b, ..., L - tail:] = -1e9
     return q, k, v, bias
+
+
+def _serving_tails(L):
+    """Padded tails of four MSAs in one bucket of L columns: none, a third
+    (part of a key tile), all but column 0, and every column."""
+    return (0, L // 3 + 1, L - 1, L)
 
 
 @pytest.mark.gpu
@@ -280,6 +292,11 @@ def _tied_inputs(B, R, L, nh, card, seed, masked_tail):
     (2, 16, 300, 3, 17),     # off the tile grid, odd heads, masked tail
     (1, 1, 1, 1, 0),         # one row, one column
     (2, 3, 64, 2, 5),        # the smallest bucket
+] + [
+    # every serving bucket at depths 1, 16 and 50, each batch element with
+    # its own padded tail (key tiles of padding alone are skipped)
+    (4, R, L, 2, _serving_tails(L))
+    for L in (64, 128, 256, 512, 1024) for R in (1, 16, 50)
 ])
 def test_tied_row_kernel_matches_plain(card, B, R, L, nh, masked_tail):
     q, k, v, bias = _tied_inputs(B, R, L, nh, card, L + R, masked_tail)

@@ -25,6 +25,7 @@ from oneprot_tpu.models.esm2 import rotary_cos_sin as jax_rotary
 from oneprot_tpu_torch.kernels import _build
 from oneprot_tpu_torch.kernels import attention as port_attn
 from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
+from oneprot_tpu_torch.kernels import tied_row_attention as tra
 
 # f32 on the CPU, the bar of the JAX package's own interpret-mode tests
 # (tests/test_kernels.py): only summation order differs
@@ -227,9 +228,127 @@ def test_gelu_quant_plain_matches_jax_reference():
     _codes_match(q.numpy(), np.asarray(q_ref), 1e-3)
 
 
+# A float32 mirror of the element function of csrc/gelu_quant.cu: the
+# Abramowitz-Stegun 7.1.26 erf (one reciprocal, five multiply-adds, one
+# exp2), gelu(x) = x - c (x >= 0) or c (x < 0) with c = x poly(t)
+# e^(-x^2/2) / 2, and the row's codes as g times one reciprocal of the
+# scale, rounded to nearest even as the kernel's fused multiply-add with
+# 1.5 * 2^23 rounds the exact product (float64 holds it exactly). The
+# constants are the kernel's f32 ones.
+_F32 = np.float32
+_AS_P_OVER_SQRT2 = _F32(_F32(0.3275911) * _F32(0.70710678118654752440))
+_AS_A = [_F32(a) for a in (0.254829592, -0.284496736, 1.421413741,
+                           -1.453152027, 1.061405429)]
+_NEG_HALF_LOG2E = _F32(-0.72134752044448170368)
+
+
+def _gelu_quant_mirror(y):
+    x = y.float()
+    t = 1.0 / (x.abs() * float(_AS_P_OVER_SQRT2) + 1.0)
+    poly = t * (_AS_A[0] + t * (_AS_A[1] + t * (_AS_A[2] + t * (
+        _AS_A[3] + t * _AS_A[4]))))
+    c = (0.5 * x) * (poly * torch.exp2(x * x * float(_NEG_HALF_LOG2E)))
+    g = torch.where(x >= 0, x - c, c)
+    s = g.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
+    inv = 1.0 / s
+    return torch.round(g.double() * inv.double()).to(torch.int8), s, g
+
+
+def _finite_bf16_patterns():
+    """Every finite bf16 value, as float32, sorted."""
+    vals = (np.arange(65536, dtype=np.uint32) << 16).view(np.float32)
+    return np.sort(vals[np.isfinite(vals)])
+
+
+@pytest.mark.parametrize("rows", ["every_bf16_pattern", "hub_activations"])
+def test_gelu_quant_kernel_arithmetic_matches_reference(rows):
+    """The kernel's arithmetic (A-S erf, reciprocal quantize) against the
+    plain version's exact erf and division: codes within 1, at most 1e-3 of
+    them off, scales to 1e-5. `every_bf16_pattern`: each finite bf16 value
+    once, sorted and cut into rows of the 650M hub's fc1 width (5120), so
+    each row spans its own band of magnitudes and has its own scale;
+    `hub_activations`: rows of that width as the hub's fc1 hands them over
+    (2 N(0, 1), bf16)."""
+    if rows == "every_bf16_pattern":
+        v = _finite_bf16_patterns()
+        # from 2^127 on, the plain version's gelu, x (1 + erf) / 2,
+        # overflows to inf in f32 (the next test holds those values)
+        v = v[v < 2.0 ** 127]
+        width = 5120
+        v = np.concatenate([v, np.zeros(-len(v) % width, np.float32)])
+        y = torch.from_numpy(v.reshape(-1, width)).to(torch.bfloat16)
+    else:
+        rng = np.random.RandomState(0)
+        y = torch.from_numpy(rng.randn(64, 5120).astype(np.float32)
+                             * 2.0).to(torch.bfloat16)
+    q, s, _ = _gelu_quant_mirror(y)
+    q_ref, s_ref = gelu_quant.gelu_quant_reference(y)
+    np.testing.assert_allclose(s.numpy(), s_ref.numpy(), rtol=1e-5, atol=0)
+    _codes_match(q.numpy(), q_ref.numpy(), 1e-3)
+
+
+def test_gelu_quant_kernel_arithmetic_at_the_largest_bf16():
+    """Where the plain version overflows (x >= 2^127: x (1 + erf) is inf in
+    f32), the kernel's arithmetic gives gelu(x) = x exactly, and the codes
+    of such a row are round(x / (max / 127))."""
+    v = _finite_bf16_patterns()
+    y = torch.from_numpy(v[v >= 2.0 ** 127].copy()).to(torch.bfloat16)
+    assert y.numel() == 128
+    q, s, g = _gelu_quant_mirror(y[None])
+    assert torch.equal(g[0], y.float())
+    assert not torch.isfinite(gelu_quant.gelu_quant_reference(y[None])[1]).all()
+    x = y.double()
+    want = torch.round(x / (x.max() / 127.0))
+    assert s.item() == np.float32(y.float().max().item() / np.float32(127.0))
+    assert torch.equal(q[0].double(), want)
+
+
 def test_gelu_quant_rejects_other_dtypes():
     with pytest.raises(TypeError):
         gelu_quant.fused_gelu_quant(torch.zeros(4, 8, dtype=torch.float16))
+
+
+# ---------------------------------------------------------------------------
+# Tied-row attention: the kernel's key-tile skip rule
+
+
+def _live_key_tiles(bias_row, L, tile=128, gap=1e6):
+    """A mirror of csrc/tied_row_attention.cu:live_tiles for one batch
+    element: the key tiles holding a key whose bias lies less than `gap`
+    below the element's largest (in log2 units, as the kernel compares);
+    every tile if none does."""
+    b = bias_row.float() * float(tra.LOG2E)
+    dead_at = b.max() - np.float32(gap * tra.LOG2E)
+    n = -(-L // tile)
+    live = [bool((b[i * tile:(i + 1) * tile] > dead_at).any()) for i in range(n)]
+    return live if any(live) else [True] * n
+
+
+def test_tied_row_skipped_key_tiles_carry_no_weight():
+    """Attention that leaves out the keys of the tiles the kernel skips gives
+    the plain version's output on columns padded as embed_msas pads them
+    (-1e9): one element unpadded, one with a third padded, one whose only
+    key is column 0, one padded throughout (nothing skipped: its rows
+    average over every column, as the plain version's do)."""
+    B, R, L, H, D = 4, 3, 300, 2, 64
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(B, R, L, H * D).astype(np.float32))
+               for _ in range(3))
+    bias = torch.zeros(B, 1, 1, L)
+    for b, tail in enumerate((0, L // 3 + 1, L - 1, L)):
+        bias[b, ..., L - tail:] = -1e9
+    lives = [_live_key_tiles(bias[b, 0, 0], L) for b in range(B)]
+    assert lives == [[True] * 3, [True, True, False], [True, False, False],
+                     [True] * 3]
+    ref = tra.tied_row_attention_plain(q, k, v, H, col_bias=bias)
+    heads = lambda x: x.reshape(B, R, L, H, D)
+    logits = torch.einsum("brihd,brjhd->bhij", heads(q), heads(k)) \
+        * tra.tied_scale(D, R) + bias
+    keep = torch.tensor([[live[j // 128] for j in range(L)] for live in lives])
+    logits = logits.masked_fill(~keep[:, None, None, :], float("-inf"))
+    out = torch.einsum("bhij,brjhd->brihd", torch.softmax(logits, -1),
+                       heads(v)).reshape(B, R, L, H * D)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +361,9 @@ def test_cuda_launchers_refuse_cpu_tensors():
         flash_mha.flash_mha_cuda(x.bfloat16(), x.bfloat16(), x.bfloat16(), 2)
     with pytest.raises(ValueError):
         gelu_quant.gelu_quant_cuda(x)
+    with pytest.raises(ValueError):
+        tra.tied_row_attention_cuda(*(torch.zeros(1, 2, 16, 64,
+                                                  dtype=torch.bfloat16),) * 3, 1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
