@@ -68,7 +68,32 @@ the elapsed seconds:
 10. training parity: the same weights at 2 hub + 2 tower layers, one packed
    step on the card (bf16, kernels) against the CPU (f32, plain versions),
    and cached == uncached on the card;
-11. LoRA training at the ESM2-15B width: `create_sequence_encoder` on the
+11. trainer: `Trainer.fit` over `OneProtDataModule` (train_packed.yaml's
+   packing: 16 rows of 1024 tokens, 16 slots; the default buckets; val
+   batches of 16) on 1024 train and 128 val synthetic seq <-> 3Di pairs
+   (bench.py's log-normal lengths, their own numpy seed) held in memory by
+   a subclass of the package's `StructTokenDataset`; the same model as 9,
+   fresh random weights, Adam at bench.py's 1e-3, the plateau scheduler:
+   2 epochs through the frozen-feature cache (epoch 1: a packed hub
+   forward per batch, then `train_step_packed_cached`; epoch 2 and its
+   validation served from the cache), each ending in a validation
+   (val/loss, R@1/10/100, median ranks), a checkpoint and the scheduler,
+   then a second `Trainer(max_epochs=3)` resumes from `checkpoints/last`
+   for one more epoch. It prints pairs/s and the median batch wall per
+   epoch (beside the bare cached step of 9), the validation walls, each
+   checkpoint's save time and size, the cache's hit rates and the peak
+   memory; the launch counters, read per epoch and per validation, must
+   be exact (33 #1 launches a hub forward, 12 each of #1, #2, #3 a tower
+   step, 12 #1 a validation batch), no plain version may run, every loss
+   must be finite, the resume must continue the step and the epoch, and
+   the plateau scheduler, driven with patience 0 on a metric that does
+   not improve, must halve the learning rate once;
+12. trainer parity: the trainer (packed + cache) at 2 hub + 2 tower layers
+   of the same initial weights, 4 steps (2 epochs of 2 batches of 4 rows,
+   the second epoch from the cache) at Adam 1e-3, card (bf16, kernels)
+   against CPU (f32, plain versions): each step's loss within 2e-2
+   relative, the final trainable parameters' cosine >= 0.99;
+13. LoRA training at the ESM2-15B width: `create_sequence_encoder` on the
    committed config.json with LoRA (r 16, alpha 16, dropout 0.1 on q, k,
    v), frozen bf16 weights and per-layer remat, the mlp head, the
    trainable ESM2-35M struct-token tower, CLIP + 0.01 L1 and clipped Adam
@@ -80,7 +105,7 @@ the elapsed seconds:
    fifth step is split into forward, backward and clip + Adam by CUDA
    events, and a sixth, on the same batch, is profiled (torch.profiler:
    device time by kernel group);
-12. LoRA training parity: the same initial weights at 2 hub + 2 tower
+14. LoRA training parity: the same initial weights at 2 hub + 2 tower
    layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
    against the CPU (f32, plain versions); the second step starts both
    from the CPU's weights after the first (see `lora_parity`).
@@ -104,6 +129,10 @@ import numpy as np
 import torch
 
 from oneprot_tpu_torch.data import packing
+from oneprot_tpu_torch.data.datamodule import OneProtDataModule
+from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
+    StructTokenDataset,
+)
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
@@ -117,8 +146,15 @@ from oneprot_tpu_torch.models.encoders import (
     create_struct_token_encoder,
 )
 from oneprot_tpu_torch.serving import OneProtEmbedder
+from oneprot_tpu_torch.train import checkpoint as checkpoint_lib
+from oneprot_tpu_torch.train.feature_cache import FrozenFeatureCache
 from oneprot_tpu_torch.train.module import OneProtModule
 from oneprot_tpu_torch.train.optim import adam
+from oneprot_tpu_torch.train.scheduler import (
+    ReduceLROnPlateau,
+    get_learning_rate,
+)
+from oneprot_tpu_torch.train.trainer import Trainer
 
 T0 = time.time()
 
@@ -164,6 +200,14 @@ SMOKE_LR = 1e-4
 # sequence.yaml sets it (use_lora: r 16, alpha 16, dropout 0.1 on q/k/v)
 LORA_BATCH, LORA_STEPS = 16, 4
 LORA = dict(use_lora=True, lora_r=16, lora_alpha=16, lora_dropout=0.1)
+# the trainer phase: synthetic seq <-> 3Di pairs (their own numpy seed) at
+# configs/data/default.yaml's buckets, a val batch of 16, Adam at bench.py's
+# 1e-3 (no loss-falls gate there), a loss read every 10 steps
+TRAINER_PAIRS, TRAINER_VAL_PAIRS, TRAINER_VAL_BATCH = 1024, 128, 16
+TRAINER_SEED, TRAINER_LR, TRAINER_LOG_EVERY = 11, 1e-3, 10
+DATA_BUCKETS = (128, 256, 384, 512, 768, 1024)
+FOLDSEEK = "pynwrqhgdlvtmfsaeikc"  # the 3Di letters
+PARITY_TRAIN_PAIRS, TRAINER_PARITY_STEPS = 16, 4
 
 
 def phase(name: str) -> None:
@@ -1155,6 +1199,374 @@ def training_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg,
     return out
 
 
+class MemoryStructTokens(StructTokenDataset):
+    """The package's StructTokenDataset with its records in memory (the
+    card's host has no h5py): ids from the split's id file, as the package
+    reads them, strucseq strings from `records`."""
+
+    def __init__(self, records: dict, **kwargs):
+        super().__init__(**kwargs)
+        self.records = records
+
+    def read_strucseq(self, seq_id: str):
+        return self.records.get(seq_id)
+
+
+def struct_token_records(root: str, rng) -> dict:
+    """TRAINER_PAIRS train and TRAINER_VAL_PAIRS val (and test) pairs:
+    bench.py's log-normal residue lengths (median 290, sigma 0.65) clipped
+    to [30, 1022], a random sequence and a 3Di string as long, interleaved
+    as SaProt stores them; the split id files are written to `root`."""
+    records = {}
+    for split, n in (("train", TRAINER_PAIRS), ("val", TRAINER_VAL_PAIRS),
+                     ("test", TRAINER_VAL_PAIRS)):
+        ids = [f"{split}_{i:05d}" for i in range(n)]
+        lens = np.clip(rng.lognormal(np.log(290.0), 0.65, n), 30, 1022)
+        for sid, n_res in zip(ids, lens.astype(int)):
+            aa = rng.choice(list(AAS), n_res)
+            tdi = rng.choice(list(FOLDSEEK), n_res)
+            records[sid] = "".join(a + b for a, b in zip(aa, tdi))
+        with open(os.path.join(root, f"{split}_saprot.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return records
+
+
+def struct_token_datamodule(root: str, records: dict, rows: int = ROWS,
+                            val_batch: int = TRAINER_VAL_BATCH
+                            ) -> OneProtDataModule:
+    """configs/experiment/train_packed.yaml's data module (packed train
+    rows of ROW_LEN tokens, SLOTS slots; the default buckets; the
+    struct-token batch sizes) over the in-memory records."""
+    return OneProtDataModule(
+        modalities={"struct_token": {
+            "dataset": {"data_dir": root, "filename": "", "max_length": 1024,
+                        "records": records},
+            "batch_size": {"train": 16, "val": val_batch, "test": 64}}},
+        buckets=list(DATA_BUCKETS), pack_sequences=True, pack_rows=rows,
+        pack_row_len=ROW_LEN, pack_slots=SLOTS,
+        dataset_classes={"struct_token": MemoryStructTokens})
+
+
+def trainer_module(hub, tower) -> OneProtModule:
+    """bench.py's module at its Adam rate (CLIP + 0.01 L1, clipping at 1.0),
+    with the reference's plateau scheduler on val/loss_best."""
+    return OneProtModule({"sequence": hub, "struct_token": tower},
+                         optimizer=adam(TRAINER_LR), loss_fn="CLIP",
+                         use_l1_regularization=True,
+                         scheduler={"monitor": "val/loss_best",
+                                    "factor": 0.1, "patience": 10})
+
+
+class TrainerProbe:
+    """Reads the trainer's run from outside: each epoch's start (set_epoch)
+    and each validation are marked with the launch counters, the cache's
+    counts, the hub forwards and the clock; each training batch's wall
+    ends at a synchronize after its step (so its host and device work do
+    not overlap) and is split at the cache's lookup (`get_pooled_packed`)
+    into the loader's share (from the last step's end), the lookup's and
+    the step's; every step's loss is kept. Checkpoint writes are timed."""
+
+    def __init__(self, module, datamodule):
+        self.marks, self.batch_ends, self.losses, self.saves = [], [], [], []
+        self.lookups = []  # (start, end) of each get_pooled_packed
+        self.hub_forwards = 0
+        self.trainer = None
+        patch = lambda obj, name, wrap: setattr(obj, name, wrap(getattr(obj, name)))
+
+        def count_hub(fn):
+            def run(*a, **k):
+                self.hub_forwards += 1
+                return fn(*a, **k)
+            return run
+
+        def step(fn):
+            def run(*a, **k):
+                loss, n = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.batch_ends.append(time.time())
+                self.losses.append(loss)
+                return loss, n
+            return run
+
+        def set_epoch(fn):
+            def run(epoch):
+                self.mark("epoch", epoch)
+                return fn(epoch)
+            return run
+
+        patch(module, "encode_packed_pooled", count_hub)
+        patch(module, "encode_pooled", count_hub)
+        patch(module, "train_step_packed_cached", step)
+        patch(datamodule, "set_epoch", set_epoch)
+        self._write = checkpoint_lib.CheckpointManager._write
+
+        def timed_write(manager, name, *a, **k):
+            t = time.time()
+            path = self._write(manager, name, *a, **k)
+            size = os.path.getsize(os.path.join(path, checkpoint_lib.STATE_FILE))
+            self.saves.append({"name": name, "s": time.time() - t,
+                               "gib": size / 2**30})
+            return path
+
+        checkpoint_lib.CheckpointManager._write = timed_write
+        self._lookup = FrozenFeatureCache.get_pooled_packed
+
+        def timed_lookup(cache, *a, **k):
+            t = time.time()
+            out = self._lookup(cache, *a, **k)
+            self.lookups.append((t, time.time()))
+            return out
+
+        FrozenFeatureCache.get_pooled_packed = timed_lookup
+
+    def close(self) -> None:
+        checkpoint_lib.CheckpointManager._write = self._write
+        FrozenFeatureCache.get_pooled_packed = self._lookup
+
+    def mark(self, kind: str, epoch=None) -> None:
+        torch.cuda.synchronize()
+        cache = self.trainer._feature_cache if self.trainer else None
+        self.marks.append({
+            "kind": kind, "epoch": epoch, "t": time.time(),
+            "launches": read_launches(), "hub_forwards": self.hub_forwards,
+            "steps": len(self.batch_ends), "hits": cache.hits if cache else 0,
+            "misses": cache.misses if cache else 0})
+
+    def attach(self, trainer) -> None:
+        """Mark the start and end of each of `trainer`'s validations."""
+        self.trainer = trainer
+        validate = trainer.validate
+
+        def run(*a, **k):
+            self.mark("val start")
+            out = validate(*a, **k)
+            self.mark("val end")
+            return out
+
+        trainer.validate = run
+
+
+def delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
+    """Trainer.fit at full width: 2 epochs, then a resume from last for a
+    third; fills `launches`. Returns (numbers, (the hub's and the tower's
+    first 2 layers before training, their configs), the records)."""
+    hub = create_sequence_encoder(proj_type="mlp")
+    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(9))
+    tower = create_struct_token_encoder()
+    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(10))
+    require((hub.config.num_layers, tower.config.num_layers)
+            == (N_LAYERS, TOWER_LAYERS), "trainer model depths")
+    initial = (first_layers(hub.state_dict(), 2),
+               first_layers(tower.state_dict(), 2), hub.config, tower.config)
+    module = trainer_module(hub, tower)
+    out, result = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
+        records = struct_token_records(root, np.random.RandomState(TRAINER_SEED))
+        dm = struct_token_datamodule(root, records)
+        probe = TrainerProbe(module, dm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            for run, epochs, ckpt in (("fit", 2, None),
+                                      ("resume", 3, "checkpoints/last")):
+                trainer = Trainer(max_epochs=epochs, accelerator="gpu",
+                                  cache_frozen_features=True,
+                                  log_every_n_steps=TRAINER_LOG_EVERY,
+                                  default_root_dir=root)
+                probe.attach(trainer)
+                t = time.time()
+                out[run] = trainer.fit(
+                    module, dm, ckpt_path=ckpt and os.path.join(root, ckpt))
+                probe.mark("end")
+                out[run + "_s"] = time.time() - t
+                out[run + "_step"] = module.step
+                with open(os.path.join(root, "checkpoints",
+                                       "last.metrics.json")) as f:
+                    out[run + "_sidecar_epoch"] = json.load(f)["trainer/epoch"]
+        finally:
+            probe.close()
+        launches["trainer"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"trainer: plain versions ran on the card: {PLAIN_CALLS}")
+    losses = torch.stack(probe.losses).float().cpu().numpy()
+    require(bool(np.isfinite(losses).all()), f"non-finite trainer loss {losses}")
+
+    # per epoch: the marks run epoch, val start, val end, epoch, ...
+    marks, epochs = probe.marks, []
+    none = {name: 0 for name in LAUNCHERS}
+    for i, m in enumerate(marks):
+        if m["kind"] != "epoch":
+            continue
+        v0, v1 = marks[i + 1], marks[i + 2]
+        require(v0["kind"] == "val start" and v1["kind"] == "val end",
+                f"epoch {m['epoch']}: marks {marks[i:i + 3]}")
+        nb = v0["steps"] - m["steps"]
+        hub_train = v0["hub_forwards"] - m["hub_forwards"]
+        hub_val = v1["hub_forwards"] - v0["hub_forwards"]
+        n_val = TRAINER_VAL_PAIRS // TRAINER_VAL_BATCH
+        train_l, val_l = delta(m["launches"], v0["launches"]), delta(
+            v0["launches"], v1["launches"])
+        want_train = {**none, "flash_mha_fwd": N_LAYERS * hub_train
+                      + TOWER_LAYERS * nb, "flash_mha_bwd_dq": TOWER_LAYERS * nb,
+                      "flash_mha_bwd_dkv": TOWER_LAYERS * nb}
+        want_val = {**none, "flash_mha_fwd": N_LAYERS * hub_val
+                    + TOWER_LAYERS * n_val}
+        require(train_l == want_train, f"epoch {m['epoch']} launches {train_l}, "
+                f"want {want_train}")
+        require(val_l == want_val, f"validation {m['epoch']} launches {val_l}, "
+                f"want {want_val}")
+        # a fresh cache (epochs 0 and 2: the resumed run's is new) misses
+        # on every protein; epoch 1 and its validation hit on every one
+        cold = m["epoch"] != 1
+        require(hub_train == (nb if cold else 0) and hub_val == (
+            n_val if cold else 0), f"epoch {m['epoch']}: hub forwards "
+            f"{hub_train} train, {hub_val} val over {nb} and {n_val} batches")
+        # each run's trainer builds its own cache: counts start at 0
+        hits, misses = v0["hits"] - m["hits"], v0["misses"] - m["misses"]
+        vh, vm = v1["hits"] - v0["hits"], v1["misses"] - v0["misses"]
+        require((misses, vm) == ((TRAINER_PAIRS, TRAINER_VAL_PAIRS) if cold
+                                 else (0, 0)),
+                f"epoch {m['epoch']}: {misses} train and {vm} val misses")
+        ends = [m["t"]] + probe.batch_ends[m["steps"]:v0["steps"]]
+        walls = np.diff(ends) * 1e3
+        looks = np.array(probe.lookups[m["steps"]:v0["steps"]])
+        split = {"loader": np.median(looks[:, 0] - ends[:-1]) * 1e3,
+                 "lookup": np.median(looks[:, 1] - looks[:, 0]) * 1e3,
+                 "step": np.median(np.array(ends[1:]) - looks[:, 1]) * 1e3}
+        train_s = v0["t"] - m["t"]
+        epochs.append({
+            "epoch": m["epoch"], "batches": nb,
+            "pairs_per_s": TRAINER_PAIRS / train_s, "train_s": train_s,
+            "median_batch_ms": float(np.median(walls)),
+            "batch_ms": [float(x) for x in walls],
+            "median_split_ms": {k: float(v) for k, v in split.items()},
+            "cache_hit_rate": hits / max(hits + misses, 1),
+            "val_cache_hit_rate": vh / max(vh + vm, 1),
+            "val_s": v1["t"] - v0["t"], "launches": train_l,
+            "val_launches": val_l})
+    require([e["epoch"] for e in epochs] == [0, 1, 2],
+            f"epochs run: {[e['epoch'] for e in epochs]}")
+    require(out["fit_sidecar_epoch"] == 1 and out["resume_sidecar_epoch"] == 2,
+            f"sidecar epochs {out['fit_sidecar_epoch']}, "
+            f"{out['resume_sidecar_epoch']}")
+    steps = [e["batches"] for e in epochs]
+    require(out["fit_step"] == steps[0] + steps[1]
+            and out["resume_step"] == sum(steps),
+            f"steps {out['fit_step']}, {out['resume_step']} over batches {steps}")
+    require(out["resume"]["train/steps"] == out["resume_step"],
+            "resumed train/steps")
+    # the plateau scheduler on a scripted metric that does not improve:
+    # patience 0 multiplies the rate by its factor once
+    lr0 = get_learning_rate(module.opt)
+    plateau = ReduceLROnPlateau(monitor="val/loss", patience=0, factor=0.5)
+    plateau.on_validation_end(module, {"val/loss": 1.0})
+    reduced = plateau.on_validation_end(module, {"val/loss": 1.0})
+    lr1 = get_learning_rate(module.opt)
+    require(reduced == lr1 == lr0 * 0.5, f"plateau: lr {lr0} -> {lr1}")
+    result = {
+        "pairs": {"train": TRAINER_PAIRS, "val": TRAINER_VAL_PAIRS},
+        "epochs": epochs, "fit_s": out["fit_s"], "resume_s": out["resume_s"],
+        "steps": {"fit": out["fit_step"], "resume": out["resume_step"]},
+        "bare_cached_step_ms": cached_step_ms,
+        "saves": probe.saves, "lr": [lr0, lr1],
+        "val": {k: out[run][k] for run in ("fit",) for k in out[run]
+                if k.startswith("val/")},
+        "resumed_val_loss": out["resume"]["val/loss"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for e in epochs:
+        print(f"  epoch {e['epoch']}: {e['batches']} packed batches, "
+              f"{e['pairs_per_s']:.1f} pairs/s ({e['train_s']:.2f} s), median "
+              f"batch {e['median_batch_ms']:.1f} ms against the bare cached "
+              f"step's {cached_step_ms:.1f} ms (medians: loader "
+              f"{e['median_split_ms']['loader']:.1f}, cache lookup "
+              f"{e['median_split_ms']['lookup']:.1f}, step "
+              f"{e['median_split_ms']['step']:.1f} ms); cache hit rate "
+              f"{e['cache_hit_rate']:.3f} train, {e['val_cache_hit_rate']:.3f} "
+              f"val; validation {e['val_s']:.2f} s; launches {e['launches']}; "
+              f"validation {e['val_launches']}", flush=True)
+    val = result["val"]
+    print(f"  val/loss {val['val/loss']:.4f} (resumed run "
+          f"{result['resumed_val_loss']:.4f}); seq->mod R@1 "
+          f"{val['val/seq_to_mod_R@1/val_struct_token']:.4f} R@10 "
+          f"{val['val/seq_to_mod_R@10/val_struct_token']:.4f} median rank "
+          f"{val['val/seq_to_mod_median_rank/val_struct_token']:.0f}; mod->seq "
+          f"R@1 {val['val/mod_to_seq_R@1/val_struct_token']:.4f} R@10 "
+          f"{val['val/mod_to_seq_R@10/val_struct_token']:.4f} median rank "
+          f"{val['val/mod_to_seq_median_rank/val_struct_token']:.0f}", flush=True)
+    print("  checkpoint saves: " + ", ".join(
+        f"{s['name']} {s['s']:.2f} s {s['gib']:.2f} GiB" for s in probe.saves)
+        + f"; steps {out['fit_step']} then {out['resume_step']} after the "
+        f"resume; plateau lr {lr0:g} -> {lr1:g}; peak "
+        f"{result['peak_gib']:.2f} GiB; {smi}", flush=True)
+    return result, initial, records
+
+
+def trainer_parity(initial, records: dict) -> dict:
+    """Trainer.fit (packed + cache) at 2 hub + 2 tower layers from the
+    same weights, PARITY_ROWS rows a batch, 2 batches an epoch, 2 epochs,
+    Adam at bench.py's 1e-3: card (bf16, kernels) against CPU (f32, plain
+    versions), loss by loss and on the final trainable parameters."""
+    hub_state, tower_state, hub_cfg, tower_cfg = initial
+    state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
+             **{"encoders.struct_token." + k: v for k, v in tower_state.items()}}
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_parity_") as root:
+        # the trainer phase's records; PARITY_TRAIN_PAIRS of them to train
+        # on (two batches of PARITY_ROWS rows), so epoch 2 hits the cache
+        ids = {s: sorted(k for k in records if k.startswith(s + "_"))
+               for s in ("train", "val", "test")}
+        ids["train"] = ids["train"][:PARITY_TRAIN_PAIRS]
+        for split, keys in ids.items():
+            with open(os.path.join(root, f"{split}_saprot.txt"), "w") as f:
+                f.write("\n".join(keys) + "\n")
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            module = OneProtModule(
+                {"sequence": SequenceEncoder(
+                    dataclasses.replace(hub_cfg, num_layers=2), 1024,
+                    proj_type="mlp", device=device, dtype=dtype),
+                 "struct_token": StructTokenEncoder(
+                     dataclasses.replace(tower_cfg, num_layers=2), 1024,
+                     device=device, dtype=dtype)},
+                optimizer=adam(1e-3), loss_fn="CLIP",
+                use_l1_regularization=True)
+            module.model.load_state_dict(state)
+            run_dir = os.path.join(root, device)
+            trainer = Trainer(max_epochs=2, accelerator="gpu" if device == "cuda"
+                              else "cpu", limit_train_batches=2,
+                              check_val_every_n_epoch=3, log_every_n_steps=1,
+                              default_root_dir=run_dir)
+            trainer.fit(module, struct_token_datamodule(root, records,
+                                                        rows=PARITY_ROWS))
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                losses = [json.loads(line)["train/loss_struct_token"]
+                          for line in f if "train/loss_struct_token" in line]
+            runs[device] = {"losses": losses, "params": flat(module.opt.params),
+                            "hits": trainer._feature_cache.hits}
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"])]
+    out = {"loss_card": card["losses"], "loss_cpu": cpu["losses"],
+           "loss_rel_diff": rel,
+           "param_cosine": cosine(card["params"], cpu["params"]),
+           "cache_hits": [card["hits"], cpu["hits"]]}
+    print(f"  trainer, 4 steps, card vs CPU: losses "
+          + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(card["losses"],
+                                                          cpu["losses"]))
+          + f" (rel diff max {max(rel):.2e}, gate <= 2e-2 each); final "
+          f"trainable parameters' cosine {out['param_cosine']:.6f} (gate >= "
+          f"0.99); cache hits {out['cache_hits']}", flush=True)
+    require(len(card["losses"]) == len(cpu["losses"]) == TRAINER_PARITY_STEPS,
+            f"trainer parity steps {len(card['losses'])}, {len(cpu['losses'])}")
+    require(card["hits"] == cpu["hits"], "trainer parity cache hits differ")
+    require(max(rel) <= 2e-2, f"trainer loss parity {rel}")
+    require(out["param_cosine"] >= 0.99, f"trainer parameter parity {out}")
+    return out
+
+
 def lora_batch(rng, n: int = LORA_BATCH, max_res: int = 1022):
     """n (sequence, 3Di) pairs for the unpacked step: log-normal lengths
     around 290 residues clipped to [30, max_res], hub tokens 4..23 and
@@ -1759,6 +2171,18 @@ def main() -> int:
     del embedder, enc, hub_state, tower_state
     torch.cuda.empty_cache()
 
+    phase("trainer: Trainer.fit, ESM2-650M hub + ESM2-35M struct-token tower, "
+          "packed rows through the feature cache, 2 epochs, then a resume for "
+          "a third")
+    trainer, trainer_initial, records = trainer_phase(
+        smi, launches, train["cached"]["median_step_ms"])
+    torch.cuda.empty_cache()
+
+    phase("trainer parity: 2 + 2 layers at full width, 4 steps, card (bf16, "
+          "kernels) vs CPU (f32, plain)")
+    trainer["parity"] = trainer_parity(trainer_initial, records)
+    del trainer_initial, records
+
     phase("training: LoRA-15B (48 x 5120 frozen bf16, LoRA r 16 on q/k/v, "
           "remat) + ESM2-35M struct-token tower, unpacked steps")
     lora, lora_initial = train_lora_hub(smi, launches)
@@ -1787,6 +2211,7 @@ def main() -> int:
         "wide_hub_serving": wide,
         "msa_serving": msa,
         "training": {**train, "parity": train_parity},
+        "trainer": trainer,
         "lora_training": lora,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)

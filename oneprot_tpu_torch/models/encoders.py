@@ -328,6 +328,12 @@ class OneProtModel(nn.Module):
         return self.encoders[_route(modality)].packed_pooled(
             inputs, segment_ids, num_segments)
 
+    def encode_pooled(self, inputs: torch.Tensor,
+                      modality: str = "sequence") -> torch.Tensor:
+        """Frozen-cacheable representation (transformer + pooling) of
+        padded rows: [B, d_model]."""
+        return self.encoders[_route(modality)].backbone_pooled(inputs)
+
     def head_from_pooled(self, pooled: torch.Tensor,
                          modality: str = "sequence") -> torch.Tensor:
         """Trainable head on a cached pooled representation."""

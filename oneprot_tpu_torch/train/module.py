@@ -1,6 +1,8 @@
-"""OneProtModule: the training steps (counterpart of
-oneprot_tpu/train/module.py for `train_step`, `train_step_packed` and
-`train_step_packed_cached`, CLIP loss, one process).
+"""OneProtModule: the training and eval steps (counterpart of
+oneprot_tpu/train/module.py for `train_step`, `train_step_cached`,
+`train_step_packed`, `train_step_packed_cached`, `eval_step`,
+`eval_step_cached`, `encode_pooled`, `encode_packed_pooled`, CLIP loss,
+one process).
 
     module = OneProtModule({"sequence": hub, "struct_token": tower},
                            optimizer=adam(1e-3), use_l1_regularization=True)
@@ -17,12 +19,16 @@ runs without an autograd graph. In the cached step the hub's pooled
 features come in as an input (from `encode_packed_pooled`) and only its
 head runs; a hub that trains (LoRA) is not cacheable and is refused there.
 The unpacked step (`train_step`) takes [B, L] padded rows on both sides
-and the plain CLIP (+ 0.01 * mean L1). Every step runs the model in
-training mode with LoRA dropout seeded from (seed, step), the counterpart
-of the JAX step's fold_in(key(seed), step).
+and the plain CLIP (+ 0.01 * mean L1); `train_step_cached` is its twin on
+the hub's pooled features (from `encode_pooled`). Every step runs the
+model in training mode with LoRA dropout seeded from (seed, step), the
+counterpart of the JAX step's fold_in(key(seed), step). The eval steps run
+in eval mode without autograd and return (seq_feats, mod_feats, loss). The
+`scheduler` config is read by the trainer (`train/scheduler.py`).
 
-Not ported here: SigLIP, sharding over several cards, the int8 canary,
-the fully cached step, schedulers.
+Not ported here: SigLIP (ROADMAP.md Queue 1 item 3), the fully cached
+steps (item 4), sharding over several cards (item 6), pretrained loading
+and the int8 canary (item 8).
 """
 
 from __future__ import annotations
@@ -44,8 +50,11 @@ class OneProtModule:
         self,
         components: Dict[str, torch.nn.Module],
         optimizer: Optional[optim_lib.OptimizerFn] = None,
+        scheduler: Optional[Mapping[str, Any]] = None,
         loss_fn: str = "CLIP",
         use_l1_regularization: bool = False,
+        use_seqsim: bool = False,
+        train_on_all_modalities_after_step: int = 0,
         gradient_clip_val: float = 1.0,
         mesh: Optional[Any] = None,
         seed: int = 0,
@@ -60,7 +69,11 @@ class OneProtModule:
         self.encoders = dict(components)
         self.model = OneProtModel(self.encoders)
         self.optimizer_fn = optimizer
+        self.scheduler_cfg = scheduler
         self.use_l1_regularization = use_l1_regularization
+        self.use_seqsim = use_seqsim
+        self.train_on_all_modalities_after_step = int(
+            train_on_all_modalities_after_step)
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
         self.frozen_param_dtype = frozen_param_dtype
@@ -147,11 +160,36 @@ class OneProtModule:
         mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
         return self._update(self._loss_value(mod_feats, seq_feats))
 
+    def train_step_cached(self, modality: str, seq_pooled,
+                          mod_ids) -> Tuple[torch.Tensor, int]:
+        """`train_step` with the hub's pooled features cached: seq_pooled
+        [B, d_model] (from `encode_pooled`); only the hub's head and the
+        modality tower run. Refused for a hub that is not cacheable."""
+        self._require_cacheable_hub()
+        self._begin_step()
+        seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
+                                                "sequence")
+        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        return self._update(self._loss_value(mod_feats, seq_feats))
+
     def hub_is_cacheable(self) -> bool:
         """Whether the hub's pooled features stay the same for all training
         (frozen, no LoRA): only then may the cached step stand in for it."""
         enc = self.encoders.get("sequence")
         return bool(getattr(enc, "backbone_is_cacheable", False))
+
+    def modality_is_cacheable(self, modality: str) -> bool:
+        """Whether the MODALITY tower's pooled features are constant
+        (seqsim routes to the hub)."""
+        if modality in ("sequence", "seqsim"):
+            return self.hub_is_cacheable()
+        enc = self.encoders.get(modality)
+        return bool(getattr(enc, "backbone_is_cacheable", False))
+
+    def _require_cacheable_hub(self) -> None:
+        if not self.hub_is_cacheable():
+            raise ValueError("the hub trains (LoRA) or is not frozen: its "
+                             "pooled features cannot be cached")
 
     def train_step_packed(self, modality: str, seq_pack: Pack, mod_pack: Pack,
                           valid) -> Tuple[torch.Tensor, int]:
@@ -178,9 +216,7 @@ class OneProtModule:
         seq_pooled [R*P, d_model] slot-aligned (from
         `encode_packed_pooled`); only the hub's head and the modality tower
         run. Refused for a hub that is not cacheable."""
-        if not self.hub_is_cacheable():
-            raise ValueError("the hub trains (LoRA) or is not frozen: its "
-                             "pooled features cannot be cached")
+        self._require_cacheable_hub()
         self._begin_step()
         valid = self._tensor(valid, torch.float32)
         P = valid.shape[1]
@@ -201,3 +237,48 @@ class OneProtModule:
             self._tensor(ids, torch.long),
             self._tensor(segment_ids, torch.int32), num_segments, modality)
         return pooled
+
+    @torch.no_grad()
+    def encode_pooled(self, modality: str, ids) -> torch.Tensor:
+        """Frozen backbone over padded rows [B, L] -> pooled [B, d_model]:
+        the cached step's input."""
+        return self.model.encode_pooled(self._tensor(ids, torch.long),
+                                        modality)
+
+    @torch.no_grad()
+    def eval_step(self, modality: str, seq_ids, mod_ids
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Both towers over padded rows in eval mode: (seq_feats,
+        mod_feats, loss)."""
+        self.model.eval()
+        seq_feats = self.model(self._tensor(seq_ids, torch.long), "sequence")
+        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+
+    @torch.no_grad()
+    def eval_step_cached(self, modality: str, seq_pooled, mod_ids
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """`eval_step` on the hub's pooled features."""
+        self.model.eval()
+        seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
+                                                "sequence")
+        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+
+    def modalities_to_train(self, step: int, batch_keys) -> list:
+        """Curriculum gate: struct_token alone before
+        train_on_all_modalities_after_step, then every modality of the
+        batch (seqsim only with use_seqsim)."""
+        if step < self.train_on_all_modalities_after_step:
+            return [m for m in ("struct_token",) if m in batch_keys]
+        mods = list(batch_keys)
+        if not self.use_seqsim and "seqsim" in mods:
+            mods.remove("seqsim")
+        return mods
+
+    def num_params(self) -> Tuple[int, int]:
+        """(total, trainable) parameter counts."""
+        total = sum(p.numel() for p in self.model.parameters())
+        trainable = sum(p.numel() for p in self.model.parameters()
+                        if p.requires_grad)
+        return total, trainable
