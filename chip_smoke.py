@@ -108,7 +108,20 @@ the elapsed seconds:
 14. LoRA training parity: the same initial weights at 2 hub + 2 tower
    layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
    against the CPU (f32, plain versions); the second step starts both
-   from the CPU's weights after the first (see `lora_parity`).
+   from the CPU's weights after the first (see `lora_parity`);
+15. cli: `oneprot_tpu_torch.cli.train.main`, in process, on the checkout's
+   configs/: `experiment=train_packed` as shipped (ESM2-8M towers in f32)
+   must be refused when the model is built; then with
+   `data=struct_token_only` and bench.py's widths in bf16 (`CLI_MODEL`),
+   on 11's synthetic pairs served from memory through an alias of the
+   configs' data-module target (`CliDataModule`), 2 epochs through the
+   cache and the test split, then `train=false test=true ckpt_path=<last>`.
+   Gated: the launches of each epoch, validation and test batch, 100% hits
+   in epoch 2, finite val and test metrics, the run dir's snapshot,
+   metrics and checkpoints, no yaml, h5py, jax or oneprot_tpu module
+   loaded, and the test-only run's metrics against a restore of `last`
+   (rel 1e-5). It prints compose ms, model build s, fit s, pairs/s per
+   epoch, test s and checkpoint s beside the card's name and power limit.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -128,6 +141,13 @@ import time
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.cli import default_config_dir
+from oneprot_tpu_torch.cli import train as cli_train
+from oneprot_tpu_torch.core.config import (
+    TARGET_ALIASES,
+    load_config,
+    register_target_alias,
+)
 from oneprot_tpu_torch.data import packing
 from oneprot_tpu_torch.data.datamodule import OneProtDataModule
 from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
@@ -208,6 +228,25 @@ TRAINER_SEED, TRAINER_LR, TRAINER_LOG_EVERY = 11, 1e-3, 10
 DATA_BUCKETS = (128, 256, 384, 512, 768, 1024)
 FOLDSEEK = "pynwrqhgdlvtmfsaeikc"  # the 3Di letters
 PARITY_TRAIN_PAIRS, TRAINER_PARITY_STEPS = 16, 4
+# the CLI phase: configs/experiment/train_packed.yaml at bench.py:1212-1224's
+# widths in bf16 (the shipped struct_token_debug model is ESM2-8M in f32,
+# which Esm2 refuses on the card: its attention kernels take bf16 only);
+# `data=struct_token_only`, as
+# the experiment keeps train.yaml's five-modality data group
+CLI_BASE = ("experiment=train_packed", "trainer=gpu", "data=struct_token_only",
+            "extras.print_config=false")
+CLI_MODEL = (
+    "model.components.sequence.model_name_or_path=facebook/esm2_t33_650M_UR50D",
+    "model.components.sequence.output_dim=1024",
+    "model.components.sequence.proj_type=mlp",
+    "model.components.sequence.frozen=true",
+    "model.components.sequence.dtype=bfloat16",
+    "model.components.struct_token.model_name_or_path="
+    "facebook/esm2_t12_35M_UR50D",
+    "model.components.struct_token.dtype=bfloat16",
+    "model.use_l1_regularization=true")
+CLI_TEST_BATCH = 64  # configs/data/modalities/struct_token.yaml's test batch
+CLI_DATA_TARGET = "oneprot_tpu.data.datamodule.OneProtDataModule"
 
 
 def phase(name: str) -> None:
@@ -1011,7 +1050,7 @@ def build_module(hub: SequenceEncoder, tower: StructTokenEncoder) -> OneProtModu
     """bench.py's module: CLIP + L1 regularizer, Adam after global norm
     clipping at 1.0 (at SMOKE_LR)."""
     return OneProtModule({"sequence": hub, "struct_token": tower},
-                         optimizer=adam(SMOKE_LR), loss_fn="CLIP",
+                         optimizer=lambda: adam(SMOKE_LR), loss_fn="CLIP",
                          use_l1_regularization=True).init()
 
 
@@ -1251,7 +1290,7 @@ def trainer_module(hub, tower) -> OneProtModule:
     """bench.py's module at its Adam rate (CLIP + 0.01 L1, clipping at 1.0),
     with the reference's plateau scheduler on val/loss_best."""
     return OneProtModule({"sequence": hub, "struct_token": tower},
-                         optimizer=adam(TRAINER_LR), loss_fn="CLIP",
+                         optimizer=lambda: adam(TRAINER_LR), loss_fn="CLIP",
                          use_l1_regularization=True,
                          scheduler={"monitor": "val/loss_best",
                                     "factor": 0.1, "patience": 10})
@@ -1350,53 +1389,14 @@ def delta(a: dict, b: dict) -> dict:
     return {k: b[k] - a[k] for k in a}
 
 
-def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
-    """Trainer.fit at full width: 2 epochs, then a resume from last for a
-    third; fills `launches`. Returns (numbers, (the hub's and the tower's
-    first 2 layers before training, their configs), the records)."""
-    hub = create_sequence_encoder(proj_type="mlp")
-    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(9))
-    tower = create_struct_token_encoder()
-    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(10))
-    require((hub.config.num_layers, tower.config.num_layers)
-            == (N_LAYERS, TOWER_LAYERS), "trainer model depths")
-    initial = (first_layers(hub.state_dict(), 2),
-               first_layers(tower.state_dict(), 2), hub.config, tower.config)
-    module = trainer_module(hub, tower)
-    out, result = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
-        records = struct_token_records(root, np.random.RandomState(TRAINER_SEED))
-        dm = struct_token_datamodule(root, records)
-        probe = TrainerProbe(module, dm)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        try:
-            for run, epochs, ckpt in (("fit", 2, None),
-                                      ("resume", 3, "checkpoints/last")):
-                trainer = Trainer(max_epochs=epochs, accelerator="gpu",
-                                  cache_frozen_features=True,
-                                  log_every_n_steps=TRAINER_LOG_EVERY,
-                                  default_root_dir=root)
-                probe.attach(trainer)
-                t = time.time()
-                out[run] = trainer.fit(
-                    module, dm, ckpt_path=ckpt and os.path.join(root, ckpt))
-                probe.mark("end")
-                out[run + "_s"] = time.time() - t
-                out[run + "_step"] = module.step
-                with open(os.path.join(root, "checkpoints",
-                                       "last.metrics.json")) as f:
-                    out[run + "_sidecar_epoch"] = json.load(f)["trainer/epoch"]
-        finally:
-            probe.close()
-        launches["trainer"] = read_launches()
-    require(not any(PLAIN_CALLS.values()),
-            f"trainer: plain versions ran on the card: {PLAIN_CALLS}")
-    losses = torch.stack(probe.losses).float().cpu().numpy()
-    require(bool(np.isfinite(losses).all()), f"non-finite trainer loss {losses}")
-
-    # per epoch: the marks run epoch, val start, val end, epoch, ...
+def epoch_rows(probe: TrainerProbe) -> list:
+    """Per epoch of the probe's runs (its marks: epoch, val start, val end,
+    epoch, ...): batches, pairs/s, the batch walls and their split, the
+    cache's hit rates, the validation's wall and the launches of both.
+    Gated: the launches of each epoch and of its validation (33 #1 a hub
+    forward, 12 each of #1, #2, #3 a tower step, 12 #1 a validation batch),
+    the hub forwards and the misses. Epoch 1 and its validation take every
+    protein from the cache; the others start from a fresh one."""
     marks, epochs = probe.marks, []
     none = {name: 0 for name in LAUNCHERS}
     for i, m in enumerate(marks):
@@ -1449,6 +1449,56 @@ def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
             "val_cache_hit_rate": vh / max(vh + vm, 1),
             "val_s": v1["t"] - v0["t"], "launches": train_l,
             "val_launches": val_l})
+    return epochs
+
+
+def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
+    """Trainer.fit at full width: 2 epochs, then a resume from last for a
+    third; fills `launches`. Returns (numbers, (the hub's and the tower's
+    first 2 layers before training, their configs), the records)."""
+    hub = create_sequence_encoder(proj_type="mlp")
+    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(9))
+    tower = create_struct_token_encoder()
+    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(10))
+    require((hub.config.num_layers, tower.config.num_layers)
+            == (N_LAYERS, TOWER_LAYERS), "trainer model depths")
+    initial = (first_layers(hub.state_dict(), 2),
+               first_layers(tower.state_dict(), 2), hub.config, tower.config)
+    module = trainer_module(hub, tower)
+    out, result = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
+        records = struct_token_records(root, np.random.RandomState(TRAINER_SEED))
+        dm = struct_token_datamodule(root, records)
+        probe = TrainerProbe(module, dm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            for run, epochs, ckpt in (("fit", 2, None),
+                                      ("resume", 3, "checkpoints/last")):
+                trainer = Trainer(max_epochs=epochs, accelerator="gpu",
+                                  cache_frozen_features=True,
+                                  log_every_n_steps=TRAINER_LOG_EVERY,
+                                  default_root_dir=root)
+                probe.attach(trainer)
+                t = time.time()
+                out[run] = trainer.fit(
+                    module, dm, ckpt_path=ckpt and os.path.join(root, ckpt))
+                probe.mark("end")
+                out[run + "_s"] = time.time() - t
+                out[run + "_step"] = module.step
+                with open(os.path.join(root, "checkpoints",
+                                       "last.metrics.json")) as f:
+                    out[run + "_sidecar_epoch"] = json.load(f)["trainer/epoch"]
+        finally:
+            probe.close()
+        launches["trainer"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"trainer: plain versions ran on the card: {PLAIN_CALLS}")
+    losses = torch.stack(probe.losses).float().cpu().numpy()
+    require(bool(np.isfinite(losses).all()), f"non-finite trainer loss {losses}")
+
+    epochs = epoch_rows(probe)
     require([e["epoch"] for e in epochs] == [0, 1, 2],
             f"epochs run: {[e['epoch'] for e in epochs]}")
     require(out["fit_sidecar_epoch"] == 1 and out["resume_sidecar_epoch"] == 2,
@@ -1532,7 +1582,7 @@ def trainer_parity(initial, records: dict) -> dict:
                  "struct_token": StructTokenEncoder(
                      dataclasses.replace(tower_cfg, num_layers=2), 1024,
                      device=device, dtype=dtype)},
-                optimizer=adam(1e-3), loss_fn="CLIP",
+                optimizer=lambda: adam(1e-3), loss_fn="CLIP",
                 use_l1_regularization=True)
             module.model.load_state_dict(state)
             run_dir = os.path.join(root, device)
@@ -1564,6 +1614,190 @@ def trainer_parity(initial, records: dict) -> dict:
     require(card["hits"] == cpu["hits"], "trainer parity cache hits differ")
     require(max(rel) <= 2e-2, f"trainer loss parity {rel}")
     require(out["param_cosine"] >= 0.99, f"trainer parameter parity {out}")
+    return out
+
+
+class CliDataModule(OneProtDataModule):
+    """The data module the configs name, over RECORDS in memory: each
+    modality's dataset config gains the records, and the struct-token
+    dataset is MemoryStructTokens (the card's host has no h5py; the data
+    module ignores a dataset's `_target_`, as the JAX package's does).
+    The CLI phase aliases the configs' data-module target to it."""
+
+    RECORDS: dict = {}
+
+    def __init__(self, modalities, **kwargs):
+        modalities = {name: {**cfg, "dataset": {**cfg["dataset"],
+                                                "records": self.RECORDS}}
+                      for name, cfg in modalities.items()}
+        super().__init__(modalities,
+                         dataset_classes={"struct_token": MemoryStructTokens},
+                         **kwargs)
+
+
+class CliProbe:
+    """Reads `cli.train.main` runs from outside: each run's model build
+    (timed to a synchronize), its Trainer.fit (through a TrainerProbe) and
+    its Trainer.test (wall and launches), one dict per run in `runs`."""
+
+    def __init__(self):
+        self.runs = []
+        self.saved = (cli_train.build_model, Trainer.fit, Trainer.test)
+        build0, fit0, test0 = self.saved
+
+        def build(*a, **k):
+            t = time.time()
+            module = build0(*a, **k)
+            torch.cuda.synchronize()
+            self.runs[-1]["build_s"] = time.time() - t
+            return module
+
+        def fit(trainer, module, datamodule, **k):
+            probe = TrainerProbe(module, datamodule)
+            probe.attach(trainer)
+            self.runs[-1].update(module=module, datamodule=datamodule,
+                                 probe=probe)
+            t = time.time()
+            try:
+                return fit0(trainer, module, datamodule, **k)
+            finally:
+                probe.mark("end")
+                probe.close()
+                self.runs[-1]["fit_s"] = time.time() - t
+
+        def test(trainer, module, datamodule):
+            torch.cuda.synchronize()
+            t, before = time.time(), read_launches()
+            metrics = test0(trainer, module, datamodule)
+            torch.cuda.synchronize()
+            self.runs[-1].update(test_s=time.time() - t,
+                                 test_launches=delta(before, read_launches()))
+            return metrics
+
+        cli_train.build_model, Trainer.fit, Trainer.test = build, fit, test
+
+    def main(self, argv: list):
+        self.runs.append({})
+        t = time.time()
+        metrics = cli_train.main(argv)
+        self.runs[-1]["main_s"] = time.time() - t
+        return metrics
+
+    def close(self) -> None:
+        cli_train.build_model, Trainer.fit, Trainer.test = self.saved
+
+
+def cli_phase(smi: str, launches: dict) -> dict:
+    """configs/experiment/train_packed.yaml through `cli.train.main`, in
+    process: as shipped (f32) the model build must refuse it; at
+    bench.py's widths in bf16, 2 epochs and the test split, then a
+    test-only run from the first run's `last`. Fills launches["cli"]."""
+    none = {name: 0 for name in LAUNCHERS}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        CliDataModule.RECORDS = struct_token_records(
+            root, np.random.RandomState(TRAINER_SEED))
+        register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+        base = list(CLI_BASE) + [f"paths.data_dir={root}"]
+        run_dir = os.path.join(root, "run")
+        argv = base + list(CLI_MODEL) + ["trainer.max_epochs=2", "test=true",
+                                         f"hydra.run.dir={run_dir}"]
+        last = os.path.join(run_dir, "checkpoints", "last")
+        probe = CliProbe()
+        try:
+            try:
+                probe.main(base + [f"hydra.run.dir={root}/f32"])
+                raise RuntimeError("train_packed in f32 ran on the card")
+            except ValueError as e:  # Esm2 refuses f32 on the card
+                out["f32_refusal"] = str(e)
+            t = time.time()
+            load_config(default_config_dir(), "train", argv)
+            out["compose_ms"] = (time.time() - t) * 1e3
+            torch.cuda.synchronize()
+            reset_launches()
+            fit_metrics = probe.main(argv)
+            test_metrics = probe.main(
+                base + list(CLI_MODEL) + ["train=false", "test=true",
+                                          f"ckpt_path={last}",
+                                          f"hydra.run.dir={root}/test_only"])
+            launches["cli"] = read_launches()
+            plain = dict(PLAIN_CALLS)
+            files = {name: os.path.exists(os.path.join(run_dir, name)) for name in (
+                "resolved_config.json", "resolved_config.yaml", "metrics.jsonl",
+                "checkpoints/last", "checkpoints/best")}
+            # the first run's module at `last`, tested without a cache
+            first = probe.runs[1]
+            checkpoint_lib.load_state(first["module"], last)
+            reference = Trainer(
+                accelerator="gpu", default_root_dir=os.path.join(root, "ref")
+            ).validate(first["module"], first["datamodule"], split="test")
+        finally:
+            probe.close()
+            TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
+            CliDataModule.RECORDS = {}
+    f32, first, second = probe.runs
+    require("bfloat16" in out["f32_refusal"] and "build_s" not in f32,
+            f"the f32 experiment's refusal: {out['f32_refusal']}")
+    require(not any(plain.values()), f"cli: plain versions ran on the card: "
+            f"{plain}")
+    epochs = epoch_rows(first["probe"])
+    require([e["epoch"] for e in epochs] == [0, 1], f"cli epochs {epochs}")
+    require(epochs[1]["cache_hit_rate"] == epochs[1]["val_cache_hit_rate"]
+            == 1.0, "cli epoch 2 cache hits")
+    require(first["module"].step == sum(e["batches"] for e in epochs)
+            == fit_metrics["train/steps"], "cli steps")
+    n_test = -(-TRAINER_VAL_PAIRS // CLI_TEST_BATCH)
+    want_test = {**none, "flash_mha_fwd": (N_LAYERS + TOWER_LAYERS) * n_test}
+    for run in (first, second):
+        require(run["test_launches"] == want_test, f"cli test launches "
+                f"{run['test_launches']}, want {want_test}")
+    total = {k: sum(e["launches"][k] + e["val_launches"][k] for e in epochs)
+             + first["test_launches"][k] + second["test_launches"][k]
+             for k in none}
+    require(launches["cli"] == total, f"cli launches {launches['cli']}, want "
+            f"{total}")
+    finite = [v for k, v in {**fit_metrics, **test_metrics}.items()
+              if k.startswith(("val/", "test/"))]
+    require(len(finite) > 10 and bool(np.isfinite(finite).all()),
+            f"cli metrics {fit_metrics} {test_metrics}")
+    require(all(files.values()), f"cli run dir: {files}")
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("yaml", "h5py", "jax", "oneprot_tpu")]
+    require(not loaded, f"cli: modules loaded {loaded}")
+    tested = {k: v for k, v in test_metrics.items() if k.startswith("test/")}
+    rel = max(abs(tested[k] - reference[k]) / max(abs(reference[k]), 1e-12)
+              for k in reference)
+    require(sorted(tested) == sorted(reference) and rel <= 1e-5,
+            f"test-only run {tested} against last {reference}")
+    out.update({
+        "pairs": {"train": TRAINER_PAIRS, "val": TRAINER_VAL_PAIRS,
+                  "test": TRAINER_VAL_PAIRS},
+        "model_build_s": first["build_s"], "fit_s": first["fit_s"],
+        "epochs": [{k: e[k] for k in ("epoch", "batches", "pairs_per_s",
+                                      "train_s", "median_batch_ms",
+                                      "median_split_ms", "cache_hit_rate",
+                                      "val_cache_hit_rate", "val_s")}
+                   for e in epochs],
+        "test_s": first["test_s"], "main_s": first["main_s"],
+        "checkpoint_saves": first["probe"].saves,
+        "test_only": {"model_build_s": second["build_s"],
+                      "test_s": second["test_s"], "main_s": second["main_s"],
+                      "max_rel_diff_vs_last": rel},
+        "val_loss": fit_metrics["val/loss"], "test_loss": test_metrics["test/loss"],
+        "launches": launches["cli"]})
+    print("  cli: compose {:.1f} ms, model build {:.2f} s, fit {:.2f} s ({}), "
+          "test {:.2f} s, checkpoints {}; test-only run: build {:.2f} s, test "
+          "{:.2f} s, max rel diff against last {:.1e}; val/loss {:.4f}, "
+          "test/loss {:.4f}; f32 refused: {}; launches {}; {}".format(
+              out["compose_ms"], first["build_s"], first["fit_s"],
+              ", ".join(f"epoch {e['epoch']}: {e['batches']} batches, "
+                        f"{e['pairs_per_s']:.1f} pairs/s, hit rate "
+                        f"{e['cache_hit_rate']:.3f}" for e in epochs),
+              first["test_s"], ", ".join(
+                  f"{s['name']} {s['s']:.2f} s" for s in first["probe"].saves),
+              second["build_s"], second["test_s"], rel, out["val_loss"],
+              out["test_loss"], out["f32_refusal"], launches["cli"], smi),
+          flush=True)
     return out
 
 
@@ -2192,6 +2426,12 @@ def main() -> int:
           "(bf16, kernels) vs CPU (f32, plain)")
     lora["parity"] = lora_parity(*lora_initial)
     del lora_initial
+    torch.cuda.empty_cache()
+
+    phase("cli: experiment=train_packed through cli.train.main, ESM2-650M hub "
+          "+ ESM2-35M tower in bf16, 2 epochs and the test split, then a "
+          "test-only run from last")
+    cli = cli_phase(smi, launches)
 
     for row in rows:
         # each path's count read from its own run; `launches` is their sum
@@ -2213,6 +2453,7 @@ def main() -> int:
         "training": {**train, "parity": train_parity},
         "trainer": trainer,
         "lora_training": lora,
+        "cli": cli,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,19 @@
+"""Command-line entry points (counterpart of oneprot_tpu/cli/): the console
+script `train_command_torch` and `python -m oneprot_tpu_torch.cli.train`."""
+
+import os
+
+
+def default_config_dir() -> str:
+    """The config tree: $ONEPROT_CONFIG_DIR, else the checkout's `configs/`
+    (two levels above this package), else `./configs` under the caller's
+    working directory (an installed wheel)."""
+    env = os.environ.get("ONEPROT_CONFIG_DIR")
+    if env:
+        return env
+    repo = os.path.abspath(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    cand = os.path.join(repo, "configs")
+    if os.path.isdir(cand):
+        return cand
+    return os.path.join(os.getcwd(), "configs")

@@ -15,6 +15,7 @@ yet.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -195,6 +196,18 @@ def _dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
+def _refuse_pretrained(model_name_or_path: str) -> None:
+    """A local HF directory with weights: the JAX package loads them
+    (`OneProtModule._load_pretrained`); the port cannot yet, and does not
+    start from random weights in their place."""
+    if os.path.isdir(model_name_or_path) and any(
+            os.path.isfile(os.path.join(model_name_or_path, name))
+            for name in ("model.safetensors", "pytorch_model.bin")):
+        raise NotImplementedError(
+            f"{model_name_or_path} holds pretrained weights; loading them is "
+            "not ported yet: ROADMAP.md Queue 1 item 8 (checkpoint interop)")
+
+
 def create_sequence_encoder(
     model_name_or_path: str = "facebook/esm2_t33_650M_UR50D",
     output_dim: int = 1024,
@@ -220,8 +233,10 @@ def create_sequence_encoder(
     q, k and v (the only target set, as in the JAX package: the target
     list is accepted and not read); `remat` checkpoints each layer. Weights
     are PyTorch's default init: load a state_dict (see `convert`) or call
-    `esm2.init_esm2_weights_`."""
+    `esm2.init_esm2_weights_`; a local directory that holds weights raises
+    (loading them is ROADMAP.md Queue 1 item 8)."""
     del lora_target_modules  # q/k/v is the only supported target set
+    _refuse_pretrained(model_name_or_path)
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' is supported")
     quant_int8 = quantize == "int8"
@@ -253,7 +268,8 @@ def create_struct_token_encoder(
     """Build a StructTokenEncoder from the config keys of
     configs/model/components/struct_token.yaml: the named ESM2 with 21
     more embedding rows. Defaults to bf16 on the card, as
-    `create_sequence_encoder`."""
+    `create_sequence_encoder`, and refuses pretrained weights as it does."""
+    _refuse_pretrained(model_name_or_path)
     cfg = resolve_esm2_config(model_name_or_path)
     cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size + STRUCT_EXTRA_TOKENS)
     return StructTokenEncoder(
@@ -338,3 +354,4 @@ class OneProtModel(nn.Module):
                          modality: str = "sequence") -> torch.Tensor:
         """Trainable head on a cached pooled representation."""
         return self.encoders[_route(modality)].head_from_pooled(pooled)
+

@@ -5,7 +5,8 @@ oneprot_tpu/train/module.py for `train_step`, `train_step_cached`,
 one process).
 
     module = OneProtModule({"sequence": hub, "struct_token": tower},
-                           optimizer=adam(1e-3), use_l1_regularization=True)
+                           optimizer=lambda: adam(1e-3),
+                           use_l1_regularization=True)
     module.init()
     loss, step = module.train_step_packed("struct_token", seq_pack, mod_pack,
                                           valid)
@@ -24,7 +25,9 @@ the hub's pooled features (from `encode_pooled`). Every step runs the
 model in training mode with LoRA dropout seeded from (seed, step), the
 counterpart of the JAX step's fold_in(key(seed), step). The eval steps run
 in eval mode without autograd and return (seq_feats, mod_feats, loss). The
-`scheduler` config is read by the trainer (`train/scheduler.py`).
+`scheduler` config is read by the trainer (`train/scheduler.py`);
+`local_loss` and `gather_with_grad`, how CLIP gathers the features of
+several processes, change nothing in one.
 
 Not ported here: SigLIP (ROADMAP.md Queue 1 item 3), the fully cached
 steps (item 4), sharding over several cards (item 6), pretrained loading
@@ -33,7 +36,7 @@ and the int8 canary (item 8).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -49,9 +52,11 @@ class OneProtModule:
     def __init__(
         self,
         components: Dict[str, torch.nn.Module],
-        optimizer: Optional[optim_lib.OptimizerFn] = None,
+        optimizer: Optional[Callable[[], optim_lib.OptimizerFn]] = None,
         scheduler: Optional[Mapping[str, Any]] = None,
         loss_fn: str = "CLIP",
+        local_loss: bool = True,
+        gather_with_grad: bool = True,
         use_l1_regularization: bool = False,
         use_seqsim: bool = False,
         train_on_all_modalities_after_step: int = 0,
@@ -70,6 +75,9 @@ class OneProtModule:
         self.model = OneProtModel(self.encoders)
         self.optimizer_fn = optimizer
         self.scheduler_cfg = scheduler
+        # how CLIP gathers features across processes (ROADMAP.md Queue 1
+        # item 6): there is nothing to gather in one
+        del local_loss, gather_with_grad
         self.use_l1_regularization = use_l1_regularization
         self.use_seqsim = use_seqsim
         self.train_on_all_modalities_after_step = int(

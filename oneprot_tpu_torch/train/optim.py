@@ -61,11 +61,14 @@ class ClippedOptimizer:
 
 
 def build_optimizer(params: Iterable[nn.Parameter],
-                    optimizer_fn: Optional[OptimizerFn] = None,
+                    optimizer_fn: Optional[Callable[[], OptimizerFn]] = None,
                     gradient_clip_val: float = 1.0) -> ClippedOptimizer:
-    """Global-norm clipping (when gradient_clip_val > 0) -> Adam (or
-    `optimizer_fn`)."""
-    return ClippedOptimizer(params, optimizer_fn or adam(),
+    """Global-norm clipping (when gradient_clip_val > 0) -> Adam (or what
+    `optimizer_fn()` returns). `optimizer_fn` takes no arguments, as the
+    JAX package's does: `lambda: adam(1e-3)`, or `partial(adam, lr=1e-3)`
+    as a config's `_partial_: true` makes it."""
+    base = optimizer_fn() if optimizer_fn is not None else adam()
+    return ClippedOptimizer(params, base,
                             gradient_clip_val if gradient_clip_val > 0 else None)
 
 

@@ -99,7 +99,9 @@ class EarlyStopping:
         return False
 
 
-def _select_device(accelerator: str) -> torch.device:
+def select_device(accelerator: str) -> torch.device:
+    """The device of `accelerator`: "cpu", or "auto" / "gpu" / "cuda" for
+    the current CUDA device, which must exist (no fallback to the CPU)."""
     if accelerator == "cpu":
         return torch.device("cpu")
     if accelerator not in ("auto", "gpu", "cuda"):
@@ -146,7 +148,7 @@ class Trainer:
                 "the port trains on one device without a profiler; several "
                 "devices, model sharding and profiling are ROADMAP.md "
                 "Queue 1 item 6")
-        self.device = _select_device(accelerator)
+        self.device = select_device(accelerator)
         if detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
         self.min_epochs = min_epochs

@@ -173,7 +173,7 @@ def main() -> int:
     hub.load_state_dict(initial[0])
     tower.load_state_dict(initial[1])
     module = OneProtModule({"sequence": hub, "struct_token": tower},
-                           optimizer=adam(BENCH_LR),
+                           optimizer=lambda: adam(BENCH_LR),
                            use_l1_regularization=True).init()
     losses = [module.train_step_packed("struct_token", batch["seq"],
                                        batch["mod"], batch["valid"])[0].item()

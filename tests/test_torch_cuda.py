@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from oneprot_tpu_torch.cli import train as cli_train
+from oneprot_tpu_torch.core import config
 from oneprot_tpu_torch.data import packing
+from oneprot_tpu_torch.data.datamodule import OneProtDataModule
+from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
+    StructTokenDataset,
+)
 from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
@@ -644,3 +650,47 @@ def test_wide_head_esm2_on_the_card(card):
     ids = torch.ones(1, 8, dtype=torch.long, device=card)
     with pytest.raises(ValueError):  # the dense segment mask has no kernel
         enc.transformer(ids, segment_ids=torch.zeros_like(ids))
+
+
+class _MemoryStructTokens(StructTokenDataset):
+    """StructTokenDataset serving RECORDS from memory (no h5py here)."""
+
+    RECORDS: dict = {}
+
+    def read_strucseq(self, seq_id):
+        return self.RECORDS.get(seq_id)
+
+
+class _MemoryDataModule(OneProtDataModule):
+    def __init__(self, modalities, **kwargs):
+        super().__init__(modalities,
+                         dataset_classes={"struct_token": _MemoryStructTokens},
+                         **kwargs)
+
+
+@pytest.mark.gpu
+def test_cli_shipped_train_packed_is_refused_in_f32(card, tmp_path,
+                                                    monkeypatch):
+    """experiment=train_packed as shipped asks for ESM2-8M towers in
+    float32 (configs/model/struct_token_debug.yaml); the card's attention
+    kernels take bf16 only, so Esm2 refuses the model when the CLI builds
+    it: nothing casts it behind the config's back."""
+    rng = np.random.RandomState(0)
+    records = {}
+    for split in ("train", "val", "test"):
+        ids = [f"{split}_{i}" for i in range(16)]
+        for sid in ids:
+            records[sid] = "".join(a + b for a, b in zip(
+                rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), 60),
+                rng.choice(list("pynwrqhgdlvtmfsaeikc"), 60)))
+        (tmp_path / f"{split}_saprot.txt").write_text("\n".join(ids) + "\n")
+    monkeypatch.setattr(_MemoryStructTokens, "RECORDS", records)
+    monkeypatch.setitem(config.TARGET_ALIASES,
+                        "oneprot_tpu.data.datamodule.OneProtDataModule",
+                        f"{__name__}._MemoryDataModule")
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        cli_train.main(["experiment=train_packed", "trainer=gpu",
+                        "data=struct_token_only", "data.pack_rows=2",
+                        "data.pack_row_len=256", f"paths.data_dir={tmp_path}",
+                        f"hydra.run.dir={tmp_path / 'run'}",
+                        "extras.print_config=false"])

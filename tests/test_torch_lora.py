@@ -193,7 +193,7 @@ def _port_module(tiny_dir, jax_module, use_lora=True, frozen=True,
     st = encoders.StructTokenEncoder(_tower_cfg(), 32, device="cpu",
                                      dtype=torch.float32)
     module = OneProtModule({"sequence": seq, "struct_token": st},
-                           optimizer=optim.adam(LR),
+                           optimizer=lambda: optim.adam(LR),
                            use_l1_regularization=True, frozen_param_dtype=None)
     module.model.load_state_dict(convert.oneprot_state_dict(
         _numpy_tree(jax_module.state.params)))

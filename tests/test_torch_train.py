@@ -259,7 +259,8 @@ def test_clipped_adam_matches_optax(weight_decay, scale):
     grads = [[scale * rng.randn(*s).astype(np.float32) for s in shapes]
              for _ in range(3)]
     params = [torch.nn.Parameter(torch.from_numpy(x.copy())) for x in init]
-    opt = optim.build_optimizer(params, optim.adam(1e-2, weight_decay), 1.0)
+    opt = optim.build_optimizer(
+        params, lambda: optim.adam(1e-2, weight_decay), 1.0)
     base = (optax.adamw(1e-2, weight_decay=weight_decay, b1=0.9, b2=0.999,
                         eps=1e-8) if weight_decay
             else optax.adam(1e-2, b1=0.9, b2=0.999, eps=1e-8))
@@ -306,7 +307,7 @@ def _port_module(jax_module, frozen_param_dtype=None, params=None):
     st = encoders.StructTokenEncoder(cfg("struct_token"), 32, device="cpu",
                                      dtype=torch.float32)
     module = OneProtModule({"sequence": seq, "struct_token": st},
-                           optimizer=optim.adam(1e-3),
+                           optimizer=lambda: optim.adam(1e-3),
                            use_l1_regularization=True,
                            frozen_param_dtype=frozen_param_dtype)
     module.model.load_state_dict(convert.oneprot_state_dict(

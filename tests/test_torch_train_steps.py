@@ -72,7 +72,7 @@ def _port_module(jax_module):
     tower = encoders.StructTokenEncoder(cfg("struct_token"), 1024,
                                         device="cpu", dtype=torch.float32)
     module = OneProtModule({"sequence": hub, "struct_token": tower},
-                           optimizer=optim.adam(LR),
+                           optimizer=lambda: optim.adam(LR),
                            use_l1_regularization=True,
                            frozen_param_dtype=None)
     module.model.load_state_dict(

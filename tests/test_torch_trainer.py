@@ -101,7 +101,7 @@ def port_module(params, jax_encoders, scheduler=None, device="cpu"):
     tower = encoders.StructTokenEncoder(cfg("struct_token"), WIDTH,
                                         device=device, dtype=torch.float32)
     module = OneProtModule({"sequence": hub, "struct_token": tower},
-                           optimizer=optim.adam(LR), scheduler=scheduler,
+                           optimizer=lambda: optim.adam(LR), scheduler=scheduler,
                            frozen_param_dtype=None)
     module.model.load_state_dict(convert.oneprot_state_dict(params))
     return module
