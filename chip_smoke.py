@@ -30,7 +30,12 @@ the elapsed seconds:
    D=128, at D=64 and 256 and at L=300), with its time, the plain
    version's, a library call's where one computes the same function, and
    the card's lower bound; the whole FA-2 backward on the card (dq, then
-   dk/dv) is timed beside scaled_dot_product_attention's backward;
+   dk/dv) is timed beside scaled_dot_product_attention's backward; and
+   the flash-MHA kernels without rotary tables, as BERT calls them (heads
+   of 64, 12 heads): the forward at embed_texts' B=32 L=512 with rows
+   padded 0-75%, the forward and both backward kernels at the LoRA text
+   step's B=16 L=512 and on the text rows of a packed batch (key bias and
+   segment ids), each call launching its kernel exactly once;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -121,7 +126,33 @@ the elapsed seconds:
    metrics and checkpoints, no yaml, h5py, jax or oneprot_tpu module
    loaded, and the test-only run's metrics against a restore of `last`
    (rel 1e-5). It prints compose ms, model build s, fit s, pairs/s per
-   epoch, test s and checkpoint s beside the card's name and power limit.
+   epoch, test s and checkpoint s beside the card's name and power limit;
+16. text serving: `embed_texts` on `create_text_encoder`'s defaults
+   (BiomedBERT-base: 12 x 768, 12 heads of 64, the mlp head with the
+   fixed logit scale, bf16, random weights from a seed), 3 requests of
+   32 texts of tiny-vocabulary words (log-normal token counts around 150,
+   at most 512) and one top-10 retrieval: finite embeddings of norm
+   1/0.07, each text finds itself first, 12 #1 launches a request and no
+   plain version; then 2 layers of the same weights card vs CPU (least
+   cosine >= 0.999);
+17. text cli: `experiment=seq_text` through `cli.train.main` with the
+   ESM2-650M hub and BiomedBERT-base (names, resolved to sizes; bf16;
+   weights from the config's seed) on 1024 / 128 / 128 synthetic pairs
+   from memory (`MemoryTexts` through the data-module alias): CLIP 2
+   epochs and the test split (the frozen text tower: the fully cached
+   steps; epoch 2's validation hits in full and launches nothing, and
+   epoch 2's training runs a backbone again only for a batch whose padded
+   rows went to another bucket, since the cache keys padded rows), a LoRA
+   text tower with SigLIP for 1 epoch (`train_step_cached`: BERT through
+   #1-#3), and that on packed rows for TEXT_PACKED_BATCHES batches
+   (`train_step_packed_cached`). Gated: the launches of every epoch,
+   validation and test as the batch and backbone-forward counts predict,
+   finite losses and
+   metrics, no plain version, no yaml/h5py/jax/pandas module loaded;
+18. text parity: 2 hub + 2 BERT layers of full width, LoRA text, SigLIP,
+   4 `train_step_cached` steps at Adam 1e-3, card (bf16, kernels) vs CPU
+   (f32, plain): loss within 2e-2 a step, trainable parameters' cosine
+   >= 0.99.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -149,21 +180,30 @@ from oneprot_tpu_torch.core.config import (
     register_target_alias,
 )
 from oneprot_tpu_torch.data import packing
+from oneprot_tpu_torch.data.common import pick_bucket
 from oneprot_tpu_torch.data.datamodule import OneProtDataModule
 from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
     StructTokenDataset,
 )
+from oneprot_tpu_torch.data.datasets.text_dataset import TextDataset
+from oneprot_tpu_torch.data.tokenizers import (
+    TINY_WORDS,
+    esm2_tokenizer,
+    resolve_text_tokenizer,
+)
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
-from oneprot_tpu_torch.models import esm2, msa_transformer
+from oneprot_tpu_torch.models import bert, esm2, msa_transformer
 from oneprot_tpu_torch.models.encoders import (
     OneProtModel,
     SequenceEncoder,
     StructTokenEncoder,
+    TextEncoder,
     create_msa_encoder,
     create_sequence_encoder,
     create_struct_token_encoder,
+    create_text_encoder,
 )
 from oneprot_tpu_torch.serving import OneProtEmbedder
 from oneprot_tpu_torch.train import checkpoint as checkpoint_lib
@@ -247,6 +287,28 @@ CLI_MODEL = (
     "model.use_l1_regularization=true")
 CLI_TEST_BATCH = 64  # configs/data/modalities/struct_token.yaml's test batch
 CLI_DATA_TARGET = "oneprot_tpu.data.datamodule.OneProtDataModule"
+# the text path: BiomedBERT-base (12 x 768, 12 heads of 64), bf16, random
+# weights from TEXT_SEED; texts of one-token words of the tiny WordPiece
+# vocabulary with log-normal token counts around 150, at most 512
+TEXT_MODEL = "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract-fulltext"
+TEXT_LAYERS, TEXT_HEADS, TEXT_L = 12, 12, 512
+TEXT_SEED, TEXT_REQUESTS = 13, 3
+TEXT_MEDIAN_TOKENS, TEXT_SIGMA, TEXT_MAX_TOKENS = 150.0, 0.6, 512
+TEXT_WORDS = ([w for w in TINY_WORDS if not w.startswith("##")]
+              + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+              + [str(d) for d in range(10)])
+TEXT_COS = 0.999  # text tower at 2 layers, card vs CPU, least cosine
+# configs/experiment/seq_text.yaml at configs/model/oneprot.yaml's widths:
+# the ESM2-650M hub and BiomedBERT-base (names, resolved to sizes)
+TEXT_CLI_BASE = (
+    "experiment=seq_text", "trainer=gpu", "extras.print_config=false",
+    "model.components.sequence.model_name_or_path=facebook/esm2_t33_650M_UR50D",
+    f"model.components.text.model_name_or_path={TEXT_MODEL}")
+TEXT_LORA_SIGLIP = ("model.components.text.use_lora=true",
+                    "model.loss_fn=SigLIP")
+TEXT_VAL_BATCH, TEXT_TEST_BATCH = 16, 64  # configs/data/modalities/text.yaml
+TEXT_PACKED_BATCHES, TEXT_PACKED_VAL = 4, 2
+TEXT_PARITY_STEPS, TEXT_PARITY_BATCH = 4, 8
 
 
 def phase(name: str) -> None:
@@ -770,6 +832,15 @@ def packed_struct_segments(seed: int = PACKED_SEG_SEED):
     return make_packed_batch(np.random.RandomState(seed))["mod"]["segment_ids"]
 
 
+def sdpa_heads(x, H, cos=None, sin=None) -> torch.Tensor:
+    """[B, L, H*D] -> bf16 [B, H, L, D], rotated when tables are given."""
+    B, L, hd = x.shape
+    xh = x.view(B, L, H, hd // H).transpose(1, 2)
+    if cos is None:
+        return xh.contiguous()
+    return flash_mha.apply_rotary(xh.float(), cos, sin).to(torch.bfloat16)
+
+
 def sdpa_backward_ms(q, k, v, cos, sin, mask, dout, H):
     """scaled_dot_product_attention's backward (forward + backward minus
     forward) on pre-rotated [B, H, L, D] inputs with a dense bf16 mask:
@@ -777,8 +848,7 @@ def sdpa_backward_ms(q, k, v, cos, sin, mask, dout, H):
     B, L, hd = q.shape
     D = hd // H
     heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
-    qr = flash_mha.apply_rotary(heads(q).float(), cos, sin).to(torch.bfloat16)
-    kr = flash_mha.apply_rotary(heads(k).float(), cos, sin).to(torch.bfloat16)
+    qr, kr = sdpa_heads(q, H, cos, sin), sdpa_heads(k, H, cos, sin)
     leaves = [x.detach().contiguous().requires_grad_() for x in (qr, kr, heads(v))]
     do_h = heads(dout).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -922,12 +992,9 @@ def time_flash_fwd(what, q, k, v, H, side) -> dict:
     mask = side["bias"]
     if seg is not None:
         mask = flash_mha.packed_segment_bias(seg, mask, mask_value=-1e30)
-    heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
-    qr = flash_mha.apply_rotary(heads(q).float(), side["rope_cos"],
-                                side["rope_sin"]).to(torch.bfloat16)
-    kr = flash_mha.apply_rotary(heads(k).float(), side["rope_cos"],
-                                side["rope_sin"]).to(torch.bfloat16)
-    vh, m16 = heads(v).contiguous(), mask.to(torch.bfloat16)
+    rot = side["rope_cos"], side["rope_sin"]
+    qr, kr = sdpa_heads(q, H, *rot), sdpa_heads(k, H, *rot)
+    vh, m16 = sdpa_heads(v, H), mask.to(torch.bfloat16)
     sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qr, kr, vh, attn_mask=m16))
     del qr, kr, vh, m16
@@ -936,9 +1003,10 @@ def time_flash_fwd(what, q, k, v, H, side) -> dict:
     pairs = needed_pairs(seg, B, L) * H
     dense = B * L * L * H
     # q, k, v read and out written in bf16; lse out, bias and ids in f32 /
-    # int32, both rotary tables in bf16
+    # int32, both rotary tables in bf16 where there are tables
     nbytes = (4 * B * L * H * D * 2 + B * H * L * 4
-              + B * L * 4 * (2 if seg is not None else 1) + 2 * L * D * 2)
+              + B * L * 4 * (2 if seg is not None else 1)
+              + (0 if rot[0] is None else 2 * L * D * 2))
     b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * D, BF16_FLOPS)
     dense_ms = bound_ms(nbytes, 4.0 * dense * D, BF16_FLOPS)[0]
     print(f"  flash-MHA forward timed, {what}: #1 {ms:.4f} ms against SDPA "
@@ -978,7 +1046,8 @@ def time_flash_bwd(what, q, k, v, out, lse, dout, H, side, q_r, delta) -> dict:
     tiles = 1.0 if seg is None else flash_mha.segment_tile_hits(seg).float().mean().item()
     qkvo = B * L * H * D * 2  # one bf16 [B, L, H*D] tensor, in bytes
     row = B * H * L * 4       # one f32 [B, H, L] tensor (lse, delta)
-    side_bytes = B * L * 4 * (2 if seg is not None else 1) + 2 * L * D * 2
+    side_bytes = (B * L * 4 * (2 if seg is not None else 1)
+                  + (0 if side["rope_cos"] is None else 2 * L * D * 2))
     # #2 reads q, k, v, out, dout, lse and writes dq, q_r, delta; #3 reads
     # q_r, k, v, dout, lse, delta and writes dk, dv; the whole backward
     # reads what #2 reads and writes dq, dk, dv, its least work five
@@ -1299,31 +1368,45 @@ def trainer_module(hub, tower) -> OneProtModule:
 class TrainerProbe:
     """Reads the trainer's run from outside: each epoch's start (set_epoch)
     and each validation are marked with the launch counters, the cache's
-    counts, the hub forwards and the clock; each training batch's wall
-    ends at a synchronize after its step (so its host and device work do
-    not overlap) and is split at the cache's lookup (`get_pooled_packed`)
-    into the loader's share (from the last step's end), the lookup's and
-    the step's; every step's loss is kept. Checkpoint writes are timed."""
+    counts, the backbone forwards (`encode_pooled`, `encode_packed_pooled`:
+    the hub's, and a frozen text tower's) and the clock; each training
+    batch's wall ends at a synchronize after its step (so its host and
+    device work do not overlap) and is split at the cache's lookups
+    (`get_pooled_packed`, `get_pooled`) into the loader's share (from the
+    last step's end), the lookups' and the step's; every step's loss is
+    kept. Checkpoint writes are timed."""
+
+    STEPS = ("train_step_packed_cached", "train_step_cached",
+             "train_step_fully_cached")
+    LOOKUPS = ("get_pooled_packed", "get_pooled")
 
     def __init__(self, module, datamodule):
         self.marks, self.batch_ends, self.losses, self.saves = [], [], [], []
-        self.lookups = []  # (start, end) of each get_pooled_packed
+        self.pairs = []  # real pairs of each step
+        # step index -> [first lookup's start, last lookup's end]
+        self.lookups = {}
         self.hub_forwards = 0
+        self.encodes = {}  # backbone forwards by modality
         self.trainer = None
+        self.in_val = False
         patch = lambda obj, name, wrap: setattr(obj, name, wrap(getattr(obj, name)))
 
         def count_hub(fn):
-            def run(*a, **k):
+            def run(modality, *a, **k):
                 self.hub_forwards += 1
-                return fn(*a, **k)
+                self.encodes[modality] = self.encodes.get(modality, 0) + 1
+                return fn(modality, *a, **k)
             return run
 
-        def step(fn):
+        def step(fn, packed):
             def run(*a, **k):
                 loss, n = fn(*a, **k)
                 torch.cuda.synchronize()
                 self.batch_ends.append(time.time())
                 self.losses.append(loss)
+                # the real pairs: a packed step's valid slots, else its rows
+                self.pairs.append(int(np.asarray(a[-1]).sum()) if packed
+                                  else len(a[-1]))
                 return loss, n
             return run
 
@@ -1335,7 +1418,10 @@ class TrainerProbe:
 
         patch(module, "encode_packed_pooled", count_hub)
         patch(module, "encode_pooled", count_hub)
-        patch(module, "train_step_packed_cached", step)
+        for name in self.STEPS:
+            patch(module, name,
+                  lambda fn, packed=name.startswith("train_step_packed"):
+                  step(fn, packed))
         patch(datamodule, "set_epoch", set_epoch)
         self._write = checkpoint_lib.CheckpointManager._write
 
@@ -1348,19 +1434,41 @@ class TrainerProbe:
             return path
 
         checkpoint_lib.CheckpointManager._write = timed_write
-        self._lookup = FrozenFeatureCache.get_pooled_packed
+        self._lookups = {name: getattr(FrozenFeatureCache, name)
+                         for name in self.LOOKUPS}
 
-        def timed_lookup(cache, *a, **k):
-            t = time.time()
-            out = self._lookup(cache, *a, **k)
-            self.lookups.append((t, time.time()))
-            return out
+        def timed(fn):
+            def lookup(cache, *a, **k):
+                t = time.time()
+                out = fn(cache, *a, **k)
+                if not self.in_val:
+                    span = self.lookups.setdefault(len(self.batch_ends), [t, 0.0])
+                    span[1] = time.time()
+                return out
+            return lookup
 
-        FrozenFeatureCache.get_pooled_packed = timed_lookup
+        for name, fn in self._lookups.items():
+            setattr(FrozenFeatureCache, name, timed(fn))
 
     def close(self) -> None:
         checkpoint_lib.CheckpointManager._write = self._write
-        FrozenFeatureCache.get_pooled_packed = self._lookup
+        for name, fn in self._lookups.items():
+            setattr(FrozenFeatureCache, name, fn)
+
+    def batch_split(self, s0: int, s1: int, t0: float):
+        """(walls ms, median split ms) of steps s0..s1-1, the first batch
+        starting at t0: the loader's share (from the last step's end to the
+        first lookup), the lookups' and the step's (a step without a lookup
+        has a lookup share of 0)."""
+        ends = [t0] + self.batch_ends[s0:s1]
+        parts = []
+        for j, (start, end) in enumerate(zip(ends[:-1], ends[1:])):
+            a, b = self.lookups.get(s0 + j, (start, start))
+            parts.append((a - start, b - a, end - b))
+        med = np.median(np.array(parts), axis=0) * 1e3
+        return (np.diff(ends) * 1e3,
+                {"loader": float(med[0]), "lookup": float(med[1]),
+                 "step": float(med[2])})
 
     def mark(self, kind: str, epoch=None) -> None:
         torch.cuda.synchronize()
@@ -1368,6 +1476,7 @@ class TrainerProbe:
         self.marks.append({
             "kind": kind, "epoch": epoch, "t": time.time(),
             "launches": read_launches(), "hub_forwards": self.hub_forwards,
+            "encodes": dict(self.encodes),
             "steps": len(self.batch_ends), "hits": cache.hits if cache else 0,
             "misses": cache.misses if cache else 0})
 
@@ -1378,7 +1487,11 @@ class TrainerProbe:
 
         def run(*a, **k):
             self.mark("val start")
-            out = validate(*a, **k)
+            self.in_val = True
+            try:
+                out = validate(*a, **k)
+            finally:
+                self.in_val = False
             self.mark("val end")
             return out
 
@@ -1432,19 +1545,14 @@ def epoch_rows(probe: TrainerProbe) -> list:
         require((misses, vm) == ((TRAINER_PAIRS, TRAINER_VAL_PAIRS) if cold
                                  else (0, 0)),
                 f"epoch {m['epoch']}: {misses} train and {vm} val misses")
-        ends = [m["t"]] + probe.batch_ends[m["steps"]:v0["steps"]]
-        walls = np.diff(ends) * 1e3
-        looks = np.array(probe.lookups[m["steps"]:v0["steps"]])
-        split = {"loader": np.median(looks[:, 0] - ends[:-1]) * 1e3,
-                 "lookup": np.median(looks[:, 1] - looks[:, 0]) * 1e3,
-                 "step": np.median(np.array(ends[1:]) - looks[:, 1]) * 1e3}
+        walls, split = probe.batch_split(m["steps"], v0["steps"], m["t"])
         train_s = v0["t"] - m["t"]
         epochs.append({
             "epoch": m["epoch"], "batches": nb,
             "pairs_per_s": TRAINER_PAIRS / train_s, "train_s": train_s,
             "median_batch_ms": float(np.median(walls)),
             "batch_ms": [float(x) for x in walls],
-            "median_split_ms": {k: float(v) for k, v in split.items()},
+            "median_split_ms": split,
             "cache_hit_rate": hits / max(hits + misses, 1),
             "val_cache_hit_rate": vh / max(vh + vm, 1),
             "val_s": v1["t"] - v0["t"], "launches": train_l,
@@ -1619,8 +1727,9 @@ def trainer_parity(initial, records: dict) -> dict:
 
 class CliDataModule(OneProtDataModule):
     """The data module the configs name, over RECORDS in memory: each
-    modality's dataset config gains the records, and the struct-token
-    dataset is MemoryStructTokens (the card's host has no h5py; the data
+    modality's dataset config gains the records, and the struct-token and
+    text datasets are MemoryStructTokens and MemoryTexts (the card's host
+    has no h5py; the data
     module ignores a dataset's `_target_`, as the JAX package's does).
     The CLI phase aliases the configs' data-module target to it."""
 
@@ -1631,7 +1740,8 @@ class CliDataModule(OneProtDataModule):
                                                 "records": self.RECORDS}}
                       for name, cfg in modalities.items()}
         super().__init__(modalities,
-                         dataset_classes={"struct_token": MemoryStructTokens},
+                         dataset_classes={"struct_token": MemoryStructTokens,
+                                          "text": MemoryTexts},
                          **kwargs)
 
 
@@ -2278,6 +2388,484 @@ def mean_cosine(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.mean(np.sum(a * b, axis=-1)))
 
 
+# ---------------------------------------------------------------------------
+# the text path: BERT at BiomedBERT-base width through #1-#3 without rotary
+
+
+def sample_texts(n: int, rng) -> list:
+    """n texts of one-token words of the tiny WordPiece vocabulary (whole
+    words, letters and digits), [CLS] and [SEP] included: log-normal token
+    counts around TEXT_MEDIAN_TOKENS, clipped to [8, TEXT_MAX_TOKENS]."""
+    lens = np.clip(rng.lognormal(np.log(TEXT_MEDIAN_TOKENS), TEXT_SIGMA, n),
+                   8, TEXT_MAX_TOKENS).astype(int)
+    return [" ".join(rng.choice(TEXT_WORDS, n_tok - 2)) for n_tok in lens]
+
+
+def text_attention_case(what, B, L, gen, lens=None, seg=None):
+    """q, k, v [B, L, 12*64] bf16 and the side inputs of a BERT layer: the
+    key bias (-1e9 past each row's length, or on a packed row's padding)
+    and the segment ids of a packed row; no rotary tables."""
+    H, D = TEXT_HEADS, 64
+    q, k, v = (torch.randn(B, L, H * D, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    if seg is None:
+        valid = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    else:
+        seg = torch.as_tensor(seg, device="cuda", dtype=torch.int32)
+        valid = seg >= 0
+    bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
+    side = dict(bias=bias, rope_cos=None, rope_sin=None, segment_ids=seg)
+    return q, k, v, side, valid, f"{what}: B={B} L={L} H={H} D={D}"
+
+
+def one_launch(launcher, fn):
+    """fn()'s result, after checking that it launched `launcher` once."""
+    before = launcher.launches
+    out = fn()
+    require(launcher.launches == before + 1, f"{launcher.__name__}: "
+            f"{launcher.launches - before} launches for one call")
+    return out
+
+
+def packed_text_segments(rng):
+    """Text-side segment ids [ROWS, ROW_LEN] of a packed seq<->text batch
+    as `pack_stream` lays it out (the text CLI phase's lengths)."""
+    pairs = []
+    while len(pairs) < 200:
+        n = int(np.clip(rng.lognormal(np.log(290.0), 0.65), 30, 1022)) + 2
+        t = len(sample_texts(1, rng)[0].split()) + 2
+        pairs.append((np.zeros(n, np.int32), np.zeros(t, np.int32)))
+    batch = next(packing.pack_stream(iter(pairs), ROW_LEN, ROWS, SLOTS))
+    return batch["seg_b"]
+
+
+def check_flash_text(gen, rows: list) -> dict:
+    """#1-#3 without rotary at the text path's shapes, each against its
+    plain version (out and lse; dq with its prologue, dk and dv, also
+    against the whole plain backward) with exact launches, and timed
+    beside SDPA with its bound: #1 at embed_texts' B=32 L=512 with rows
+    padded 0-75%; #1-#3 at the LoRA text step's B=16 L=512 with that bias;
+    #1-#3 on the text rows of a packed batch (bias on the padding and the
+    segment ids). The cases go into the three kernels' rows under
+    `text_cases`."""
+    rng = np.random.RandomState(TEXT_SEED)
+    serve_lens = torch.from_numpy(
+        rng.randint(TEXT_L // 4, TEXT_L + 1, size=32)).cuda()
+    train_lens = torch.from_numpy(
+        rng.randint(TEXT_L // 4, TEXT_L + 1, size=16)).cuda()
+    cases = [text_attention_case("serving", 32, TEXT_L, gen, serve_lens),
+             text_attention_case("LoRA step", 16, TEXT_L, gen, train_lens),
+             text_attention_case("packed text rows", ROWS, ROW_LEN, gen,
+                                 seg=packed_text_segments(rng))]
+    fwd, dq_row, dkv_row = rows
+    for row in rows:
+        row["text_cases"] = []
+    H = TEXT_HEADS
+    worst = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i, (q, k, v, side, valid, what) in enumerate(cases):
+        out, lse = one_launch(flash_mha.flash_mha_cuda, lambda: flash_mha.flash_mha_cuda(
+            q, k, v, H, **side))
+        ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, H, **side)
+        torch.cuda.synchronize()
+        require(torch.isfinite(out.float()).all().item(), f"{what}: non-finite")
+        rel = ((out.float() - ref.float()).abs().max()
+               / ref.float().abs().max().clamp_min(1e-6)).item()
+        lse_err = (lse - ref_lse).abs()[valid[:, None, :].expand_as(lse)].max().item()
+        require(rel <= FLASH_REL_TOL, f"#1 {what}: rel err {rel}")
+        require(lse_err <= 5e-2, f"#1 {what}: lse err {lse_err}")
+        worst["fwd"], worst["lse"] = max(worst["fwd"], rel), max(worst["lse"],
+                                                                 lse_err)
+        timing = time_flash_fwd(what, q, k, v, H, side)
+        timing["plain_ms"] = time_ms(lambda: flash_mha.mha_attention_plain(
+            q, k, v, H, **side), iters=3)
+        timing.update(max_rel_err=rel, lse_max_abs_err=lse_err)
+        fwd["text_cases"].append(timing)
+        if i == 0:  # serving runs the forward only
+            continue
+        dout = (torch.randn(q.shape, device="cuda", generator=gen)
+                * valid[..., None]).to(torch.bfloat16)
+        dq, q_r, delta = one_launch(
+            flash_mha.flash_mha_bwd_dq_cuda, lambda: flash_mha.flash_mha_bwd_dq_cuda(
+                q, k, v, out, lse, dout, H, **side))
+        dk, dv = one_launch(
+            flash_mha.flash_mha_bwd_dkv_cuda, lambda: flash_mha.flash_mha_bwd_dkv_cuda(
+                q_r, k, v, dout, lse, delta, H, **side))
+        whole = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, H,
+                                                  **side)
+        own_dq, own_qr, _ = flash_mha.flash_mha_bwd_dq_plain(
+            q, k, v, out, lse, dout, H, **side)
+        own_dkv = flash_mha.flash_mha_bwd_dkv_plain(q_r, k, v, dout, lse,
+                                                    delta, H, **side)
+        torch.cuda.synchronize()
+        require(torch.equal(q_r, own_qr), f"#2 {what}: q_r")
+        errs = {}
+        for name, got, refs in (("dq", dq, (whole[0], own_dq)),
+                                ("dk", dk, (whole[1], own_dkv[0])),
+                                ("dv", dv, (whole[2], own_dkv[1]))):
+            require(torch.isfinite(got.float()).all().item(),
+                    f"{name} {what}: non-finite")
+            errs[name] = max(((got.float() - r.float()).abs().max()
+                              / r.float().abs().max().clamp_min(1e-6)).item()
+                             for r in refs)
+            require(errs[name] <= FLASH_REL_TOL, f"{name} {what}: rel err "
+                    f"{errs[name]}")
+            worst[name] = max(worst[name], errs[name])
+        print(f"  no-rotary backward {what}: max rel err " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()), flush=True)
+        del whole, own_dq, own_qr, own_dkv, dq, dk, dv
+        timing = time_flash_bwd(what, q, k, v, out, lse, dout, H, side, q_r,
+                                delta)
+        timing["max_rel_err"] = errs
+        dq_row["text_cases"].append(timing)
+        dkv_row["text_cases"].append(timing)
+    del cases
+    torch.cuda.empty_cache()
+    return worst
+
+
+class MemoryTexts(TextDataset):
+    """The package's TextDataset with its protein sequences in memory (the
+    card's host has no h5py): ids and texts from the split's CSV, as the
+    package reads them, sequences from `records`."""
+
+    def __init__(self, records: dict, **kwargs):
+        super().__init__(**kwargs)
+        self.records = records
+
+    def read_seq(self, seq_id: str):
+        return self.records.get(seq_id)
+
+
+def text_records(root: str, rng) -> dict:
+    """TRAINER_PAIRS train and TRAINER_VAL_PAIRS val and test seq<->text
+    pairs: sequences as `struct_token_records` draws their lengths, texts
+    as `sample_texts`; each split's (id, text) CSV is written to `root`."""
+    records = {}
+    for split, n in (("train", TRAINER_PAIRS), ("val", TRAINER_VAL_PAIRS),
+                     ("test", TRAINER_VAL_PAIRS)):
+        ids = [f"{split}_{i:05d}" for i in range(n)]
+        lens = np.clip(rng.lognormal(np.log(290.0), 0.65, n), 30, 1022)
+        texts = sample_texts(n, rng)
+        for sid, n_res in zip(ids, lens.astype(int)):
+            records[sid] = "".join(rng.choice(list(AAS), n_res))
+        with open(os.path.join(root, f"{split}_text.csv"), "w") as f:
+            f.write("".join(f"{sid},{t}\n" for sid, t in zip(ids, texts)))
+    return records
+
+
+def text_serving(smi: str, launches: dict):
+    """embed_texts at BiomedBERT-base width (bf16, random weights from a
+    seed), 3 requests of 32 texts, then one top-10 retrieval; fills
+    launches["text_serve"]. Returns (numbers, the tower's state)."""
+    enc = create_text_encoder(TEXT_MODEL)
+    require((enc.config.num_layers, enc.config.hidden_size,
+             enc.config.num_heads) == (TEXT_LAYERS, 768, TEXT_HEADS),
+            f"text tower {enc.config}")
+    bert.init_bert_weights_(enc, torch.Generator(device="cuda").manual_seed(
+        TEXT_SEED))
+    embedder = OneProtEmbedder(OneProtModel({"text": enc}))
+    rng = np.random.RandomState(TEXT_SEED)
+    requests = [sample_texts(32, rng) for _ in range(TEXT_REQUESTS)]
+    tok = embedder.text_tok
+    lens = [len(tok.encode_ids(t)) for r in requests for t in r]
+    buckets = [pick_bucket(max(len(t) + 2 for t in r), embedder.buckets, 512)
+               for r in requests]
+    embedder.embed_texts(requests[0][:2])  # warm-up: cuBLAS handles, caches
+    torch.cuda.synchronize()
+    reset_launches()
+    feats, secs = [], []
+    scale = 1.0 / 0.07
+    for req in requests:
+        t = time.time()
+        feats.append(embedder.embed_texts(req))
+        secs.append(time.time() - t)
+        f = feats[-1]
+        require(f.shape == (len(req), 1024) and bool(np.isfinite(f).all()),
+                f"text embeddings {f.shape}")
+        norms = np.linalg.norm(f, axis=-1)
+        require(bool(np.all(np.abs(norms / scale - 1.0) <= 1e-2)),
+                f"text norms {norms.min()}..{norms.max()}, want {scale}")
+    launches["text_serve"] = read_launches()
+    none = {name: 0 for name in LAUNCHERS}
+    want = {**none, "flash_mha_fwd": TEXT_LAYERS * len(requests)}
+    require(launches["text_serve"] == want,
+            f"text serving launches {launches['text_serve']}, want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"text serving: plain versions ran on the card: {PLAIN_CALLS}")
+    feats = np.concatenate(feats)
+    check_retrieval(embedder, feats / scale, rng, "text tower")
+    n = len(feats)
+    out = {"texts": n, "requests": len(requests),
+           "texts_per_s": n / sum(secs), "request_ms": [s * 1e3 for s in secs],
+           "tokens": {"median": float(np.median(lens)), "max": int(max(lens)),
+                      "min": int(min(lens))},
+           "buckets": buckets}
+    print(f"  text tower (bert_base, 12 x 768, bf16): {n} texts in "
+          f"{sum(secs):.3f} s = {out['texts_per_s']:.1f} texts/s (requests: "
+          + ", ".join(f"{s * 1e3:.1f} ms" for s in secs)
+          + f"); tokens median {np.median(lens):.0f}, max {max(lens)}; buckets "
+          f"by characters + 2: {buckets}; launches {launches['text_serve']}; "
+          f"{smi}", flush=True)
+    state = first_layers(enc.state_dict(), 2)
+    del embedder, enc
+    torch.cuda.empty_cache()
+
+    # 2 layers of the same weights, card (bf16, kernels) vs CPU (f32, plain)
+    cfg2 = dataclasses.replace(bert.resolve_bert_config(TEXT_MODEL),
+                               num_layers=2)
+    texts = requests[0][:8]
+    embs = []
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = TextEncoder(cfg2, 1024, device=device, dtype=dtype)
+        model.load_state_dict(state)
+        embs.append(OneProtEmbedder(OneProtModel({"text": model})).embed_texts(
+            texts))
+    out["parity_mean_cosine"] = mean_cosine(*embs)
+    out["parity_min_cosine"] = float(np.min(np.sum(
+        embs[0] * embs[1], -1) / np.linalg.norm(embs[0], axis=-1)
+        / np.linalg.norm(embs[1], axis=-1)))
+    print(f"  text tower at 2 layers, card vs CPU: mean cosine "
+          f"{out['parity_mean_cosine']:.6f}, least {out['parity_min_cosine']:.6f} "
+          f"(gate >= {TEXT_COS})", flush=True)
+    require(out["parity_min_cosine"] >= TEXT_COS,
+            f"text parity {out['parity_min_cosine']} < {TEXT_COS}")
+    return out
+
+
+def text_epochs(probe: "TrainerProbe") -> list:
+    """Per epoch of a text CLI run: batches, pairs/s, the batch walls and
+    their split, the caches' hit rates, the validation's wall and the
+    launches of both."""
+    marks, out = probe.marks, []
+    for i, m in enumerate(marks):
+        if m["kind"] != "epoch":
+            continue
+        v0, v1 = marks[i + 1], marks[i + 2]
+        require(v0["kind"] == "val start" and v1["kind"] == "val end",
+                f"epoch {m['epoch']}: marks {marks[i:i + 3]}")
+        nb = v0["steps"] - m["steps"]
+        hits, misses = v0["hits"] - m["hits"], v0["misses"] - m["misses"]
+        vh, vm = v1["hits"] - v0["hits"], v1["misses"] - v0["misses"]
+        walls, split = probe.batch_split(m["steps"], v0["steps"], m["t"])
+        train_s = v0["t"] - m["t"]
+        pairs = sum(probe.pairs[m["steps"]:v0["steps"]])
+        encodes = lambda a, b: {k: b["encodes"].get(k, 0) - a["encodes"].get(k, 0)
+                                for k in ("sequence", "text")}
+        out.append({
+            "epoch": m["epoch"], "batches": nb, "pairs": pairs,
+            "pairs_per_s": pairs / train_s, "train_s": train_s,
+            "median_batch_ms": float(np.median(walls)),
+            "median_split_ms": split,
+            "cache_hit_rate": hits / max(hits + misses, 1),
+            "val_cache_hit_rate": vh / max(vh + vm, 1),
+            "val_s": v1["t"] - v0["t"],
+            "encodes": encodes(m, v0), "val_encodes": encodes(v0, v1),
+            "launches": delta(m["launches"], v0["launches"]),
+            "val_launches": delta(v0["launches"], v1["launches"])})
+    return out
+
+
+def text_cli_phase(smi: str, launches: dict) -> dict:
+    """configs/experiment/seq_text.yaml through `cli.train.main` at
+    ESM2-650M + BiomedBERT-base width (bf16, random weights from `seed`),
+    on text_records held in memory: run 1 as shipped (CLIP, frozen text
+    tower: the fully cached steps) 2 epochs and the test split; run 2 with
+    a LoRA text tower and SigLIP, 1 epoch (`train_step_cached`: BERT
+    forward and backward through #1-#3); run 3 as run 2 on packed rows
+    (`train_step_packed_cached`), TEXT_PACKED_BATCHES batches. Fills
+    launches["text_cli"] with the three runs' launches."""
+    none = {name: 0 for name in LAUNCHERS}
+    hub_l = N_LAYERS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_cli_") as root:
+        CliDataModule.RECORDS = text_records(root,
+                                             np.random.RandomState(TEXT_SEED))
+        register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+        base = list(TEXT_CLI_BASE) + [f"paths.data_dir={root}"]
+        runs = {"clip": ["trainer.max_epochs=2", "test=true"],
+                "lora_siglip": ["trainer.max_epochs=1", "test=false",
+                                *TEXT_LORA_SIGLIP],
+                "packed": ["trainer.max_epochs=1", "test=false",
+                           *TEXT_LORA_SIGLIP, "data.pack_sequences=true",
+                           f"trainer.limit_train_batches={TEXT_PACKED_BATCHES}",
+                           f"trainer.limit_val_batches={TEXT_PACKED_VAL}"]}
+        probe = CliProbe()
+        metrics = {}
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            for name, extra in runs.items():
+                metrics[name] = probe.main(base + extra + [
+                    f"hydra.run.dir={root}/{name}"])
+            launches["text_cli"] = read_launches()
+            plain = dict(PLAIN_CALLS)
+        finally:
+            probe.close()
+            TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
+            CliDataModule.RECORDS = {}
+    require(not any(plain.values()), f"text cli: plain versions ran on the "
+            f"card: {plain}")
+    clip, lora, packed = probe.runs
+    total = dict(none)
+    n_val = TRAINER_VAL_PAIRS // TEXT_VAL_BATCH
+    n_test = -(-TRAINER_VAL_PAIRS // TEXT_TEST_BATCH)
+    for name, run in zip(runs, probe.runs):
+        epochs = text_epochs(run["probe"])
+        module = run["module"]
+        require(module.step == sum(e["batches"] for e in epochs)
+                == metrics[name]["train/steps"], f"text cli {name} steps")
+        losses = torch.stack(run["probe"].losses).float().cpu().numpy()
+        require(bool(np.isfinite(losses).all()), f"text cli {name} losses")
+        for e in epochs:
+            nb, cold = e["batches"], e["epoch"] == 0
+            enc, val_enc = e["encodes"], e["val_encodes"]
+            if name == "clip":
+                # a batch that misses a cache runs that backbone's forward
+                # (33 or 12 #1): in epoch 1 every batch misses in both. The
+                # cache keys padded rows, so a pair whose batch pads it to
+                # another bucket in epoch 2 misses again; the validation's
+                # batches repeat and hit
+                nv = n_val
+                if cold:
+                    require(enc == {"sequence": nb, "text": nb}
+                            and val_enc == {"sequence": nv, "text": nv},
+                            f"text cli epoch 1 forwards {enc}, {val_enc}")
+                else:
+                    require(val_enc == {"sequence": 0, "text": 0}
+                            and e["val_cache_hit_rate"] == 1.0,
+                            f"text cli epoch 2 validation {val_enc}, hit rate "
+                            f"{e['val_cache_hit_rate']}")
+                want = {**none, "flash_mha_fwd": hub_l * enc["sequence"]
+                        + TEXT_LAYERS * enc["text"]}
+                want_val = {**none, "flash_mha_fwd": hub_l * val_enc["sequence"]
+                            + TEXT_LAYERS * val_enc["text"]}
+            else:
+                # the hub misses its cache once a batch; BERT trains
+                nv = TEXT_PACKED_VAL if name == "packed" else n_val
+                require(enc["sequence"] == nb and val_enc["sequence"] == nv
+                        and enc["text"] == val_enc["text"] == 0,
+                        f"text cli {name} forwards {enc}, {val_enc}")
+                want = {**none, "flash_mha_fwd": (hub_l + TEXT_LAYERS) * nb,
+                        "flash_mha_bwd_dq": TEXT_LAYERS * nb,
+                        "flash_mha_bwd_dkv": TEXT_LAYERS * nb}
+                want_val = {**none, "flash_mha_fwd": (hub_l + TEXT_LAYERS) * nv}
+            require(e["launches"] == want, f"text cli {name} epoch "
+                    f"{e['epoch']} launches {e['launches']}, want {want}")
+            require(e["val_launches"] == want_val, f"text cli {name} "
+                    f"validation {e['epoch']} launches {e['val_launches']}, "
+                    f"want {want_val}")
+            for k in none:
+                total[k] += e["launches"][k] + e["val_launches"][k]
+        if "test_launches" in run:
+            want_test = {**none, "flash_mha_fwd": (hub_l + TEXT_LAYERS) * n_test}
+            require(run["test_launches"] == want_test, f"text cli test "
+                    f"launches {run['test_launches']}, want {want_test}")
+            for k in none:
+                total[k] += run["test_launches"][k]
+        finite = [v for k, v in metrics[name].items()
+                  if k.startswith(("val/", "test/"))]
+        require(len(finite) > 5 and bool(np.isfinite(finite).all()),
+                f"text cli {name} metrics {metrics[name]}")
+        out[name] = {
+            "model_build_s": run["build_s"], "fit_s": run["fit_s"],
+            "main_s": run["main_s"], "steps": module.step,
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "epochs": [{k: v for k, v in e.items()
+                        if k not in ("launches", "val_launches")}
+                       for e in epochs],
+            "launches_per_epoch": [e["launches"] for e in epochs],
+            "checkpoint_saves": run["probe"].saves,
+            "val_loss": metrics[name]["val/loss"]}
+        if "test_s" in run:
+            out[name]["test_s"] = run["test_s"]
+            out[name]["test_loss"] = metrics[name]["test/loss"]
+        print(f"  text cli {name}: build {run['build_s']:.2f} s, fit "
+              f"{run['fit_s']:.2f} s, " + "; ".join(
+                  f"epoch {e['epoch']}: {e['batches']} batches, "
+                  f"{e['pairs_per_s']:.1f} pairs/s, median batch "
+                  f"{e['median_batch_ms']:.1f} ms (loader "
+                  f"{e['median_split_ms']['loader']:.1f}, lookup "
+                  f"{e['median_split_ms']['lookup']:.1f}, step "
+                  f"{e['median_split_ms']['step']:.1f}), hit rate "
+                  f"{e['cache_hit_rate']:.3f} / val "
+                  f"{e['val_cache_hit_rate']:.3f}, backbone forwards "
+                  f"{e['encodes']} / val {e['val_encodes']}, validation "
+                  f"{e['val_s']:.2f} s"
+                  for e in epochs)
+              + (f"; test {run['test_s']:.2f} s" if "test_s" in run else "")
+              + "; checkpoints " + ", ".join(
+                  f"{s['name']} {s['s']:.2f} s" for s in run["probe"].saves)
+              + f"; loss {losses[0]:.4f} -> {losses[-1]:.4f}; val/loss "
+              f"{metrics[name]['val/loss']:.4f}; {smi}", flush=True)
+    require(launches["text_cli"] == total, f"text cli launches "
+            f"{launches['text_cli']}, want {total}")
+    loaded = [m for m in sys.modules if m.split(".")[0] in (
+        "yaml", "h5py", "jax", "oneprot_tpu", "pandas")]
+    require(not loaded, f"text cli: modules loaded {loaded}")
+    out["launches"] = launches["text_cli"]
+    return out
+
+
+def text_parity() -> dict:
+    """2 hub + 2 BERT layers of full width, LoRA text tower (dropout 0),
+    SigLIP + L1, 4 `train_step_cached` steps at Adam 1e-3 on fresh batches
+    of TEXT_PARITY_BATCH pairs, each side's hub pooled features its own:
+    card (bf16, kernels) against CPU (f32, plain versions)."""
+    gen = torch.Generator(device="cpu").manual_seed(TEXT_SEED)
+    hub_cfg = dataclasses.replace(esm2.ESM2_SIZES["esm2_t33_650M"], num_layers=2)
+    text_cfg = dataclasses.replace(bert.resolve_bert_config(TEXT_MODEL),
+                                   num_layers=2)
+    lora = esm2.LoraConfig(8, 8.0, 0.0)  # text.yaml's r and alpha
+
+    def module_on(device, dtype):
+        m = OneProtModule(
+            {"sequence": SequenceEncoder(hub_cfg, 1024, proj_type="mlp",
+                                         device=device, dtype=dtype),
+             "text": TextEncoder(text_cfg, 1024, lora=lora, device=device,
+                                 dtype=dtype)},
+            optimizer=lambda: adam(1e-3), loss_fn="SigLIP",
+            use_l1_regularization=True)
+        return m
+
+    cpu = module_on("cpu", torch.float32)
+    esm2.init_esm2_weights_(cpu.encoders["sequence"], gen)
+    bert.init_bert_weights_(cpu.encoders["text"], gen)
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    cpu.init()
+    card = module_on("cuda", torch.bfloat16)
+    card.model.load_state_dict(state)
+    card.init()
+    rng = np.random.RandomState(TEXT_SEED + 1)
+    seq_tok, text_tok = esm2_tokenizer(), resolve_text_tokenizer("tiny")
+    losses = {"cuda": [], "cpu": []}
+    for _ in range(TEXT_PARITY_STEPS):
+        seqs = sample_seqs(TEXT_PARITY_BATCH, rng)
+        texts = sample_texts(TEXT_PARITY_BATCH, rng)
+        seq_ids = seq_tok(seqs, max_length=1024, padding=pick_bucket(
+            max(len(s) + 2 for s in seqs), DATA_BUCKETS, 1024))
+        longest = max(len(text_tok.encode_ids(t, 512)) for t in texts)
+        text_ids = text_tok(texts, max_length=512, padding=pick_bucket(
+            longest, DATA_BUCKETS, 512))
+        for device, m in (("cuda", card), ("cpu", cpu)):
+            pooled = m.encode_pooled("sequence", seq_ids)
+            loss, _ = m.train_step_cached("text", pooled, text_ids)
+            losses[device].append(loss.item())
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    trainable = lambda m: flat(m.opt.params)
+    out = {"loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+           "loss_rel_diff": rel,
+           "param_cosine": cosine(trainable(card), trainable(cpu))}
+    print(f"  LoRA text + SigLIP, {TEXT_PARITY_STEPS} steps, card vs CPU: "
+          f"losses " + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(
+              losses["cuda"], losses["cpu"]))
+          + f" (rel diff max {max(rel):.2e}, gate <= 2e-2 each); trainable "
+          f"parameters' cosine {out['param_cosine']:.6f} (gate >= 0.99)",
+          flush=True)
+    require(max(rel) <= 2e-2, f"text parity losses {rel}")
+    require(out["param_cosine"] >= 0.99, f"text parity parameters {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2308,6 +2896,7 @@ def main() -> int:
     rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen),
             check_tied_row(gen), check_flash_attention(gen),
             *check_flash_attention_bwd(gen)]
+    text_kernels = check_flash_text(gen, rows[:3])
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -2432,6 +3021,22 @@ def main() -> int:
           "+ ESM2-35M tower in bf16, 2 epochs and the test split, then a "
           "test-only run from last")
     cli = cli_phase(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("text serving: embed_texts, BiomedBERT-base width (12 x 768), "
+          "bf16, 3 requests of 32 texts; then 2 layers card vs CPU")
+    text = {"kernels": text_kernels, "serving": text_serving(smi, launches)}
+    torch.cuda.empty_cache()
+
+    phase("text cli: experiment=seq_text through cli.train.main, ESM2-650M "
+          "hub + BiomedBERT-base in bf16: CLIP 2 epochs + test (fully "
+          "cached), LoRA + SigLIP 1 epoch, packed LoRA + SigLIP")
+    text["cli"] = text_cli_phase(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("text parity: 2 hub + 2 BERT layers at full width, LoRA text, "
+          "SigLIP, 4 steps, card (bf16, kernels) vs CPU (f32, plain)")
+    text["parity"] = text_parity()
 
     for row in rows:
         # each path's count read from its own run; `launches` is their sum
@@ -2454,6 +3059,7 @@ def main() -> int:
         "trainer": trainer,
         "lora_training": lora,
         "cli": cli,
+        "text": text,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -54,7 +54,8 @@ log = get_pylogger("train")
 def build_model(model_cfg, device: torch.device, seed: int):
     """`model.components` built on `device` with weights drawn from `seed`
     (one generator, encoder by encoder), then the module around them."""
-    from oneprot_tpu_torch.models.encoders import MsaEncoder
+    from oneprot_tpu_torch.models.bert import init_bert_weights_
+    from oneprot_tpu_torch.models.encoders import MsaEncoder, TextEncoder
     from oneprot_tpu_torch.models.esm2 import init_esm2_weights_
     from oneprot_tpu_torch.models.msa_transformer import init_msa_weights_
 
@@ -63,9 +64,12 @@ def build_model(model_cfg, device: torch.device, seed: int):
     components = {}
     for name, comp_cfg in (model_cfg.pop("components", None) or {}).items():
         encoder = instantiate({**comp_cfg, "device": device})
-        init = (init_msa_weights_ if isinstance(encoder, MsaEncoder)
-                else init_esm2_weights_)
-        init(encoder, generator)
+        if isinstance(encoder, MsaEncoder):
+            init_msa_weights_(encoder, generator)
+        elif isinstance(encoder, TextEncoder):
+            init_bert_weights_(encoder, generator)
+        else:
+            init_esm2_weights_(encoder, generator)
         components[name] = encoder
     return instantiate({**model_cfg, "seed": seed}, components=components)
 

@@ -14,8 +14,10 @@ numpy arrays converts here with no JAX installed. Mappings:
 - the MSA Transformer's raw tables (`embed_tokens`, `embed_positions`,
   `msa_position_embedding` [max_rows, 1, H]) keep their shapes, the token
   table as `embed_tokens.weight`;
+- BERT's raw tables (`word_embeddings`, `position_embeddings`,
+  `token_type_embeddings`) keep their names and shapes;
 - `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token,
-  msa).
+  msa, text).
 
 Values are copied as float32 (int8 codes as int8); load the result with
 `module.load_state_dict(...)`, which casts to the module's dtype.
@@ -128,15 +130,43 @@ def msa_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def bert_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `Bert` params (with or without LoRA on q/k/v) -> the port's
+    `Bert` state."""
+    out = {prefix + name: _t(tree[name]) for name in (
+        "word_embeddings", "position_embeddings", "token_type_embeddings")}
+    out.update(_layer_norm(tree["emb_ln"], prefix + "emb_ln."))
+    n_layers = sum(1 for key in tree if key.startswith("layer_"))
+    for i in range(n_layers):
+        lt, lp = tree[f"layer_{i}"], f"{prefix}layers.{i}."
+        for name in ("q", "k", "v", "o"):
+            out.update(_dense(lt["attn"][name], f"{lp}attn.{name}."))
+        out.update(_layer_norm(lt["attn_ln"], lp + "attn_ln."))
+        out.update(_dense(lt["fc1"], lp + "fc1."))
+        out.update(_dense(lt["fc2"], lp + "fc2."))
+        out.update(_layer_norm(lt["ffn_ln"], lp + "ffn_ln."))
+    return out
+
+
+def text_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `TextEncoder` params (a `Bert` and an `EncoderHead`) -> the
+    port's `TextEncoder` state."""
+    out = bert_state_dict(tree["transformer"], prefix + "transformer.")
+    out.update(head_state_dict(tree.get("head", {}), prefix + "head."))
+    return out
+
+
 _ENCODERS = {"encoders_sequence": encoder_state_dict,
              "encoders_struct_token": encoder_state_dict,
-             "encoders_msa": msa_state_dict}
+             "encoders_msa": msa_state_dict,
+             "encoders_text": text_state_dict}
 
 
 def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     """JAX `OneProtModel` params (the params of a `OneProtModule` state)
-    with any of `encoders_sequence`, `encoders_struct_token` and
-    `encoders_msa` -> the port's `OneProtModel` state."""
+    with any of `encoders_sequence`, `encoders_struct_token`,
+    `encoders_msa` and `encoders_text` -> the port's `OneProtModel`
+    state."""
     unported = set(tree) - set(_ENCODERS)
     if unported:
         raise NotImplementedError(f"{sorted(unported)} are not ported yet")

@@ -441,10 +441,6 @@ TARGET_ALIASES: Dict[str, str] = {
 # targets (or module prefixes) of the configs with no counterpart in the
 # port yet, after the rewrite, and the ROADMAP.md item that ports each
 UNPORTED_TARGETS: Dict[str, str] = {
-    "oneprot_tpu_torch.models.encoders.create_text_encoder":
-        "Queue 1 item 3 (the text tower)",
-    "oneprot_tpu_torch.data.datasets.text_dataset":
-        "Queue 1 item 3 (the text tower)",
     "oneprot_tpu_torch.data.datasets.msa_dataset":
         "Queue 1 item 4 (seqsim and MSA training)",
     "oneprot_tpu_torch.data.datasets.seqsim_dataset":

@@ -13,7 +13,8 @@ order is sharded rank::world (rank and world size from torch.distributed
 when it is initialised); packed loaders then keep every process to the
 same batch count.
 
-Only the struct-token modality is ported; the others raise.
+The struct-token and text modalities are ported; the others raise naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ import numpy as np
 from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
     StructTokenDataset,
 )
+from oneprot_tpu_torch.data.datasets.text_dataset import TextDataset
 from oneprot_tpu_torch.data.packing import pack_stream
 from oneprot_tpu_torch.utils.loggers import get_pylogger
 
 log = get_pylogger(__name__)
 
-DATASET_CLASSES = {"struct_token": StructTokenDataset}
+DATASET_CLASSES = {"struct_token": StructTokenDataset, "text": TextDataset}
 # the modalities the JAX package knows and the ROADMAP item that ports each
 UNPORTED_MODALITIES = {
-    "text": "Queue 1 item 3 (the text tower)",
     "msa": "Queue 1 item 4 (seqsim and MSA training)",
     "seqsim": "Queue 1 item 4 (seqsim and MSA training)",
     "struct_graph": "Queue 1 item 5 (the graph and pocket tower)",

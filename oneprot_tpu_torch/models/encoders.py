@@ -1,6 +1,6 @@
 """Encoders and the hub model (counterpart of
 oneprot_tpu/models/encoders.py: `SequenceEncoder`, `StructTokenEncoder`,
-`MsaEncoder`, their factories, `OneProtModel`).
+`MsaEncoder`, `TextEncoder`, their factories, `OneProtModel`).
 
 Encoders compute in `dtype` (bf16 on the card). A frozen transformer stores
 its parameters in that dtype; a trainable one keeps float32 master
@@ -8,8 +8,8 @@ parameters, and heads always do, as flax stores them. A frozen transformer
 with LoRA keeps its trainable leaves (the factors and the biases) in
 float32 too, and has no gradient barrier: the adapters train through it.
 `OneProtModel` routes 'sequence' and 'seqsim' to the sequence encoder and
-'struct_token' and 'msa' to theirs; the other modalities are not ported
-yet.
+'struct_token', 'msa' and 'text' to theirs; the other modalities are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from oneprot_tpu_torch.models.bert import Bert, BertConfig, resolve_bert_config
 from oneprot_tpu_torch.models.esm2 import (
     LORA_TRAINABLE_LEAVES,
     Esm2,
@@ -35,18 +36,19 @@ from oneprot_tpu_torch.models.msa_transformer import (
 )
 
 STRUCT_EXTRA_TOKENS = 21  # +21 3Di rows of the struct-token vocabulary
-PORTED_MODALITIES = ("sequence", "struct_token", "msa")
+PORTED_MODALITIES = ("sequence", "struct_token", "msa", "text")
 
 
-def _segment_packed_pooled(transformer: Esm2, pooling_type: str,
+def _segment_packed_pooled(transformer: Union[Esm2, Bert], pooling_type: str,
                            input_ids: torch.Tensor, segment_ids: torch.Tensor,
                            num_segments: int, stop_grad: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed forward of a token encoder: segment-masked transformer ->
-    per-segment pooling -> ([B*P, d_model], counts [B*P]). With
-    `stop_grad` (a frozen transformer without LoRA) it runs under no_grad:
-    no graph is kept for it (the JAX package's stop_gradient); the head
-    after it still trains."""
+    per-segment pooling -> ([B*P, d_model], counts [B*P]). A token counts
+    when it is not the transformer's pad id (ESM2's 1, BERT's 0) and lies
+    in a segment. With `stop_grad` (a frozen transformer without LoRA) it
+    runs under no_grad: no graph is kept for it (the JAX package's
+    stop_gradient); the head after it still trains."""
     mask = (input_ids != transformer.config.pad_token_id) & (segment_ids >= 0)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_grad):
         hidden = transformer(input_ids, segment_ids=segment_ids)
@@ -57,10 +59,11 @@ def _segment_packed_pooled(transformer: Esm2, pooling_type: str,
 
 
 class _TokenEncoder(nn.Module):
-    """ESM2 transformer + head, with the unpacked and packed paths the
-    sequence and struct-token encoders share."""
+    """A transformer + head, with the unpacked and packed paths the
+    sequence, struct-token and text encoders share: ESM2, or BERT where a
+    subclass's `_transformer` builds it."""
 
-    def __init__(self, config: Esm2Config, output_dim: int, pooling_type: str,
+    def __init__(self, config, output_dim: int, pooling_type: str,
                  proj_type: Optional[str], use_logit_scale: bool,
                  learnable_logit_scale: bool, frozen: bool,
                  quant_int8: bool = False, lora: Optional[LoraConfig] = None,
@@ -71,7 +74,7 @@ class _TokenEncoder(nn.Module):
         self.frozen = frozen
         self.lora_rank = 0 if lora is None else lora.rank
         self.pooling_type = pooling_type
-        self.transformer = Esm2(
+        self.transformer = self._transformer(
             config, quant_int8, lora, remat, device=device, dtype=dtype,
             param_dtype=dtype if frozen else torch.float32)
         self.head = EncoderHead(config.hidden_size, output_dim, proj_type,
@@ -85,6 +88,10 @@ class _TokenEncoder(nn.Module):
                     if name.rsplit(".", 1)[-1] in LORA_TRAINABLE_LEAVES:
                         p.data = p.data.float()
                         p.requires_grad_(True)
+
+    @staticmethod
+    def _transformer(config, quant_int8, lora, remat, **kw) -> nn.Module:
+        return Esm2(config, quant_int8, lora, remat, **kw)
 
     @property
     def _stop_grad(self) -> bool:
@@ -156,6 +163,27 @@ class StructTokenEncoder(_TokenEncoder):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen=False,
                          device=device, dtype=dtype)
+
+
+class TextEncoder(_TokenEncoder):
+    """BiomedBERT-style text encoder: `Bert` + head, CLS pooling and the mlp
+    head with the fixed logit scale in the shipped config. Frozen by
+    default; with LoRA its adapters and biases train through it."""
+
+    def __init__(self, config: BertConfig, output_dim: int,
+                 pooling_type: str = "cls", proj_type: Optional[str] = "mlp",
+                 use_logit_scale: bool = True,
+                 learnable_logit_scale: bool = False, frozen: bool = True,
+                 lora: Optional[LoraConfig] = None, remat: bool = False, *,
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+        super().__init__(config, output_dim, pooling_type, proj_type,
+                         use_logit_scale, learnable_logit_scale, frozen,
+                         lora=lora, remat=remat, device=device, dtype=dtype)
+
+    @staticmethod
+    def _transformer(config, quant_int8, lora, remat, **kw) -> nn.Module:
+        del quant_int8  # BERT is not quantized
+        return Bert(config, lora, remat, **kw)
 
 
 class MsaEncoder(nn.Module):
@@ -277,6 +305,48 @@ def create_struct_token_encoder(
         proj_type=proj_type, use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, device=device,
         dtype=_dtype(dtype))
+
+
+def create_text_encoder(
+    model_name_or_path: str = "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract-fulltext",
+    output_dim: int = 1024,
+    pooling_type: str = "cls",
+    proj_type: Optional[str] = "mlp",
+    use_logit_scale: bool = True,
+    learnable_logit_scale: bool = False,
+    use_lora: bool = False,
+    lora_r: int = 8,
+    lora_alpha: int = 8,
+    lora_dropout: float = 0.1,
+    lora_target_modules=None,
+    frozen: bool = True,
+    vocab_size: Optional[int] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+    remat: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> TextEncoder:
+    """Build a TextEncoder from the config keys of
+    configs/model/components/text.yaml: the BERT size the name resolves to
+    (`resolve_bert_config`; BiomedBERT is bert_base), `vocab_size`
+    overriding its vocabulary, rank-`lora_r` adapters on q, k and v with
+    `use_lora` (the target list is accepted and not read, as in the JAX
+    package), per-layer remat with `remat`. `dtype` defaults to the
+    config's bfloat16, the card's one dtype (the JAX factory defaults to
+    float32; float32 runs on the CPU). Weights are as built (the layers'
+    default init, zero embedding tables): load a state_dict
+    (`convert.text_state_dict`) or call `bert.init_bert_weights_`; a local
+    directory that holds weights raises (loading them is ROADMAP.md Queue
+    1 item 8)."""
+    del lora_target_modules  # q/k/v is the only supported target set
+    _refuse_pretrained(model_name_or_path)
+    lora = (LoraConfig(lora_r, float(lora_alpha), lora_dropout) if use_lora
+            else None)
+    return TextEncoder(
+        resolve_bert_config(model_name_or_path, vocab_size=vocab_size),
+        output_dim=output_dim, pooling_type=pooling_type, proj_type=proj_type,
+        use_logit_scale=use_logit_scale,
+        learnable_logit_scale=learnable_logit_scale, frozen=frozen, lora=lora,
+        remat=remat, device=device, dtype=_dtype(dtype))
 
 
 def create_msa_encoder(

@@ -1,15 +1,20 @@
-"""Serving API: embed sequences or MSAs with a hub model and retrieve by
-cosine.
+"""Serving API: embed sequences, texts or MSAs with a hub model and
+retrieve by cosine.
 
-Counterpart of oneprot_tpu/serving.py for the sequence and MSA modalities:
+Counterpart of oneprot_tpu/serving.py for the sequence, text and MSA
+modalities:
 
     embedder = OneProtEmbedder(model)          # a models.encoders.OneProtModel
     feats = embedder.embed_sequences(["MKTAY...", ...])
+    text_feats = embedder.embed_texts(["a membrane protein ...", ...])
     msa_feats = embedder.embed_msas(["a.a3m", "b.a3m"])
     scores, idx = embedder.retrieve(feats, pool_feats, k=10)
 
 Batches are padded to length buckets (MSAs: columns to a bucket, rows to
-the MSA depth), so the model sees a few fixed shapes. The embedder runs
+the MSA depth), so the model sees a few fixed shapes. A text batch's
+bucket is picked from its longest text's characters + 2, not its tokens,
+as the JAX embedder picks it; a text whose tokens outrun the bucket is
+cut to it. The embedder runs
 where the model's weights live, in eval mode (no LoRA dropout), as the JAX
 embedder runs deterministic.
 """
@@ -23,7 +28,11 @@ import torch
 
 from oneprot_tpu_torch.data.common import pick_bucket
 from oneprot_tpu_torch.data.msa_io import greedy_select, read_msa
-from oneprot_tpu_torch.data.tokenizers import MsaBatchConverter, esm2_tokenizer
+from oneprot_tpu_torch.data.tokenizers import (
+    MsaBatchConverter,
+    esm2_tokenizer,
+    resolve_text_tokenizer,
+)
 from oneprot_tpu_torch.models.heads import l2_normalize
 
 DEFAULT_BUCKETS = (64, 128, 256, 512, 1024)
@@ -33,27 +42,43 @@ Array = Union[np.ndarray, torch.Tensor]
 
 class OneProtEmbedder:
     def __init__(self, model: torch.nn.Module,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 text_vocab: str = "tiny"):
         self.model = model.eval()
         self.buckets = list(buckets)
         self.seq_tok = esm2_tokenizer()
+        self.text_tok = resolve_text_tokenizer(text_vocab)
         self.device = next(model.parameters()).device
 
     @torch.inference_mode()
-    def embed_sequences(self, sequences: Sequence[str], max_length: int = 1024,
-                        batch_size: int = 32) -> np.ndarray:
+    def _embed_tokens(self, modality: str, tok, items: Sequence[str],
+                      max_length: int, batch_size: int) -> np.ndarray:
         """[n, output_dim] f32 embeddings, one forward per batch of
-        `batch_size`, each padded to the smallest bucket that fits it."""
+        `batch_size`, each padded to the smallest bucket that fits its
+        longest item's characters + 2."""
         out = []
-        for start in range(0, len(sequences), batch_size):
-            chunk = list(sequences[start:start + batch_size])
+        for start in range(0, len(items), batch_size):
+            chunk = list(items[start:start + batch_size])
             pad = pick_bucket(max(len(s) + 2 for s in chunk), self.buckets,
                               max_length)
-            ids = torch.from_numpy(
-                self.seq_tok(chunk, max_length=max_length, padding=pad))
-            feats = self.model(ids.to(self.device, torch.long), "sequence")
+            ids = torch.from_numpy(tok(chunk, max_length=max_length,
+                                       padding=pad))
+            feats = self.model(ids.to(self.device, torch.long), modality)
             out.append(feats.float().cpu().numpy())
         return np.concatenate(out, axis=0)
+
+    def embed_sequences(self, sequences: Sequence[str], max_length: int = 1024,
+                        batch_size: int = 32) -> np.ndarray:
+        """Protein sequences through the hub: [n, output_dim] f32."""
+        return self._embed_tokens("sequence", self.seq_tok, sequences,
+                                  max_length, batch_size)
+
+    def embed_texts(self, texts: Sequence[str], max_length: int = 512,
+                    batch_size: int = 32) -> np.ndarray:
+        """Texts through the text tower (WordPiece, at most `max_length`
+        tokens): [n, output_dim] f32."""
+        return self._embed_tokens("text", self.text_tok, texts, max_length,
+                                  batch_size)
 
     @torch.inference_mode()
     def embed_msas(self, a3m_paths: Sequence[str], msa_depth: int = 16,

@@ -5,11 +5,13 @@ oneprot_tpu/train/feature_cache.py: `params_fingerprint`,
 A frozen hub without LoRA gives the same pooled [d_model] representation
 for a tokenized sequence all run long, so the trainer computes it once per
 protein and trains through the hub's head from then on
-(`OneProtModule.train_step_packed_cached`, `train_step_cached`). Rows live
-on the host as f32 numpy arrays; the step moves them to the card.
+(`OneProtModule.train_step_packed_cached`, `train_step_cached`); a frozen
+modality tower (the text tower) is cached the same way, and then only the
+two heads train (`train_step_fully_cached`). Rows live on the host as f32
+numpy arrays; the step moves them to the card.
 
 Keys: the raw bytes of the tokenized id row under an encoder namespace
-(`sequence|`); a protein of a PACKED batch keys on its token subsequence
+(`sequence|`, `text|`); a protein of a PACKED batch keys on its token subsequence
 (`packed|sequence|`), so hits survive the re-packing of every epoch. Both
 are the JAX package's keys. Eviction is LRU under `max_entries`.
 

@@ -1,8 +1,8 @@
 """OneProtModule: the training and eval steps (counterpart of
 oneprot_tpu/train/module.py for `train_step`, `train_step_cached`,
-`train_step_packed`, `train_step_packed_cached`, `eval_step`,
-`eval_step_cached`, `encode_pooled`, `encode_packed_pooled`, CLIP loss,
-one process).
+`train_step_fully_cached`, `train_step_packed`, `train_step_packed_cached`,
+`eval_step`, `eval_step_cached`, `eval_step_fully_cached`, `encode_pooled`,
+`encode_packed_pooled`, CLIP and SigLIP losses, one process).
 
     module = OneProtModule({"sequence": hub, "struct_token": tower},
                            optimizer=lambda: adam(1e-3),
@@ -13,25 +13,31 @@ one process).
 
 One step is the JAX step's fwd + bwd + update: both towers run packed rows
 (several proteins per row, block-diagonal attention), pool per segment, and
-the CLIP loss (+ 0.01 * masked L1) runs over the per-protein features with
+the loss (+ 0.01 * masked L1) runs over the per-protein features with
 empty pack slots masked; the gradients of the trainable parameters are
 clipped by their global norm and Adam steps. A frozen hub without LoRA
 runs without an autograd graph. In the cached step the hub's pooled
 features come in as an input (from `encode_packed_pooled`) and only its
 head runs; a hub that trains (LoRA) is not cacheable and is refused there.
 The unpacked step (`train_step`) takes [B, L] padded rows on both sides
-and the plain CLIP (+ 0.01 * mean L1); `train_step_cached` is its twin on
-the hub's pooled features (from `encode_pooled`). Every step runs the
+and the plain loss (+ 0.01 * mean L1); `train_step_cached` is its twin on
+the hub's pooled features (from `encode_pooled`), and
+`train_step_fully_cached` takes both towers' pooled features (a frozen hub
+and a frozen modality tower, such as the shipped text tower): only the two
+heads run. `loss_fn` is "CLIP" (symmetric InfoNCE) or "SigLIP" (pairwise
+sigmoid, `losses/siglip.py`) at logit scale 1 with no bias, as the JAX
+module calls them: the heads scale the features. Every step runs the
 model in training mode with LoRA dropout seeded from (seed, step), the
 counterpart of the JAX step's fold_in(key(seed), step). The eval steps run
 in eval mode without autograd and return (seq_feats, mod_feats, loss). The
 `scheduler` config is read by the trainer (`train/scheduler.py`);
 `local_loss` and `gather_with_grad`, how CLIP gathers the features of
-several processes, change nothing in one.
+several processes, change nothing in one. A loss name other than CLIP or
+SigLIP raises; the JAX module takes any other name for SigLIP.
 
-Not ported here: SigLIP (ROADMAP.md Queue 1 item 3), the fully cached
-steps (item 4), sharding over several cards (item 6), pretrained loading
-and the int8 canary (item 8).
+Not ported here: sharding over several cards and SigLIP's ring of
+negatives (ROADMAP.md Queue 1 item 6), pretrained loading and the int8
+canary (item 8).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
+from oneprot_tpu_torch.losses.siglip import siglip_loss, siglip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
 from oneprot_tpu_torch.models.esm2 import Int8Dense, set_lora_dropout_seed
 from oneprot_tpu_torch.train import optim as optim_lib
@@ -65,12 +72,13 @@ class OneProtModule:
         seed: int = 0,
         frozen_param_dtype: Optional[str] = "bfloat16",
     ):
-        if loss_fn.upper() != "CLIP":
-            raise NotImplementedError(f"loss_fn={loss_fn!r}: only CLIP is ported")
+        if loss_fn.upper() not in ("CLIP", "SIGLIP"):
+            raise ValueError(f"loss_fn={loss_fn!r}: CLIP or SigLIP")
         if mesh is not None:
             raise NotImplementedError("sharding over a mesh is not ported")
         if frozen_param_dtype not in (None, "bfloat16", "bf16"):
             raise ValueError(f"frozen_param_dtype={frozen_param_dtype!r}")
+        self.loss_name = loss_fn.upper()
         self.encoders = dict(components)
         self.model = OneProtModel(self.encoders)
         self.optimizer_fn = optimizer
@@ -124,9 +132,10 @@ class OneProtModule:
 
     def _loss_value(self, mod_feats: torch.Tensor,
                     seq_feats: torch.Tensor) -> torch.Tensor:
-        """CLIP over the batch, + 0.01 * the mean L1 of both sides'
-        features."""
-        loss = clip_loss(mod_feats, seq_feats)
+        """CLIP or SigLIP over the batch, + 0.01 * the mean L1 of both
+        sides' features."""
+        loss = (clip_loss if self.loss_name == "CLIP" else siglip_loss)(
+            mod_feats, seq_feats)
         if self.use_l1_regularization:
             loss = loss + 0.01 * (seq_feats.float().abs().mean()
                                   + mod_feats.float().abs().mean())
@@ -135,9 +144,10 @@ class OneProtModule:
     def _packed_loss_value(self, mod_feats: torch.Tensor,
                            seq_feats: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
-        """CLIP over the packed batch's slots, + 0.01 * the masked L1 of
-        both sides' features (mean over the real pairs' elements)."""
-        loss = clip_loss_masked(mod_feats, seq_feats, valid)
+        """CLIP or SigLIP over the packed batch's slots, + 0.01 * the masked
+        L1 of both sides' features (mean over the real pairs' elements)."""
+        loss = (clip_loss_masked if self.loss_name == "CLIP"
+                else siglip_loss_masked)(mod_feats, seq_feats, valid)
         if self.use_l1_regularization:
             v = valid.float()[:, None]
             n = v.sum().clamp_min(1.0) * seq_feats.shape[-1]
@@ -179,6 +189,24 @@ class OneProtModule:
                                                 "sequence")
         mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
         return self._update(self._loss_value(mod_feats, seq_feats))
+
+    def train_step_fully_cached(self, modality: str, seq_pooled,
+                                mod_pooled) -> Tuple[torch.Tensor, int]:
+        """`train_step` with BOTH towers' pooled features cached (a frozen
+        hub and a frozen modality tower: seq<->text, seq<->msa, seqsim):
+        seq_pooled, mod_pooled [B, d_model] from `encode_pooled`; only the
+        two heads run."""
+        self._begin_step()
+        seq_feats, mod_feats = self._heads(modality, seq_pooled, mod_pooled)
+        return self._update(self._loss_value(mod_feats, seq_feats))
+
+    def _heads(self, modality: str, seq_pooled, mod_pooled
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(seq_feats, mod_feats) of both heads on pooled features."""
+        return (self.model.head_from_pooled(self._tensor(seq_pooled),
+                                            "sequence"),
+                self.model.head_from_pooled(self._tensor(mod_pooled),
+                                            modality))
 
     def hub_is_cacheable(self) -> bool:
         """Whether the hub's pooled features stay the same for all training
@@ -271,6 +299,15 @@ class OneProtModule:
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
                                                 "sequence")
         mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+
+    @torch.no_grad()
+    def eval_step_fully_cached(self, modality: str, seq_pooled, mod_pooled
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+        """`eval_step` on both towers' pooled features."""
+        self.model.eval()
+        seq_feats, mod_feats = self._heads(modality, seq_pooled, mod_pooled)
         return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
 
     def modalities_to_train(self, step: int, batch_keys) -> list:

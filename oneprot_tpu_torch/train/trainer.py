@@ -13,7 +13,9 @@ oneprot_tpu/train/trainer.py: `Trainer`, `EarlyStopping`).
 optimizer step per modality per batch: packed batches through
 `train_step_packed_cached` on the frozen-feature cache (or
 `train_step_packed`), padded ones through `train_step_cached` (or
-`train_step`). Each epoch ends in a validation (R@k, median rank,
+`train_step`), and padded ones of a frozen modality tower (text) through
+`train_step_fully_cached` with both towers' pooled features from the
+cache; validation takes the matching eval step. Each epoch ends in a validation (R@k, median rank,
 val/loss, cache statistics), a checkpoint (`last`, and `best` on
 improvement), the plateau scheduler and early stopping, with the JAX
 trainer's Lightning-parity accounting: `max_epochs` counts epochs across
@@ -28,8 +30,7 @@ device than the trainer's is refused. One difference from the JAX
 trainer: a resumed run takes the checkpoint callback's best value from the
 sidecar's `checkpoint/best_value`, not from the last monitored value.
 Not ported: profiling, several devices and model sharding (ROADMAP.md
-Queue 1 item 6), the fully cached steps (item 4), the LoRA adapter export
-(item 8).
+Queue 1 item 6), the LoRA adapter export (item 8).
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ from oneprot_tpu_torch.train.metrics import (
 from oneprot_tpu_torch.utils.loggers import CsvLogger, get_pylogger
 
 log = get_pylogger(__name__)
-
-_FULLY_CACHED = ("the fully cached steps (a frozen modality tower) are not "
-                 "ported yet: ROADMAP.md Queue 1 item 4")
-
 
 class EarlyStopping:
     """Stop on a plateau of the monitored metric, or on a non-finite
@@ -298,10 +295,15 @@ class Trainer:
                 loss, _ = module.train_step_packed(modality, seq_in, mod_in,
                                                    extra)
         elif cached:
-            pooled = self._get_feature_cache(module).get_pooled(module, seq_in)
+            cache = self._get_feature_cache(module)
+            pooled = cache.get_pooled(module, seq_in)
             if module.modality_is_cacheable(modality):
-                raise NotImplementedError(_FULLY_CACHED)
-            loss, _ = module.train_step_cached(modality, pooled, mod_in)
+                # a frozen modality tower (text): both backbones cached
+                loss, _ = module.train_step_fully_cached(
+                    modality, pooled, cache.get_pooled(module, mod_in,
+                                                       modality))
+            else:
+                loss, _ = module.train_step_cached(modality, pooled, mod_in)
         else:
             loss, _ = module.train_step(modality, seq_in, mod_in)
         return loss
@@ -438,12 +440,15 @@ class Trainer:
                          or self.cache_persist_dir)):
                 # the val pool repeats every epoch; an eval-only run without
                 # a disk store gains nothing from caching
-                pooled = self._get_feature_cache(module).get_pooled(module,
-                                                                    seq_in)
+                cache = self._get_feature_cache(module)
+                pooled = cache.get_pooled(module, seq_in)
                 if module.modality_is_cacheable(modality):
-                    raise NotImplementedError(_FULLY_CACHED)
-                seq_f, mod_f, loss = module.eval_step_cached(modality, pooled,
-                                                             mod_in)
+                    seq_f, mod_f, loss = module.eval_step_fully_cached(
+                        modality, pooled, cache.get_pooled(module, mod_in,
+                                                           modality))
+                else:
+                    seq_f, mod_f, loss = module.eval_step_cached(
+                        modality, pooled, mod_in)
             else:
                 seq_f, mod_f, loss = module.eval_step(modality, seq_in, mod_in)
             loss_metric.update(float(loss))

@@ -13,7 +13,8 @@ are equal. Then the port's own seeded init (two runs, identical losses),
 the test-only `ckpt_path` divergence in both packages, multirun, the
 sweeper search end to end and its trials against the JAX sweepers, the
 refusals (`trainer=default` without CUDA, an unported modality or logger,
-pretrained weights), and one
+pretrained weights), `experiment=seq_text` (the fully cached steps of a
+frozen text tower) against the JAX CLI, and one
 `python -m oneprot_tpu_torch.cli.train` process with `yaml` blocked that
 imports neither jax nor oneprot_tpu.
 """
@@ -288,10 +289,63 @@ def test_default_trainer_without_cuda_names_the_accelerator(data_dir, tmp_path):
 
 
 def test_unported_modality_refused_naming_item(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        run_port(["experiment=seq_text", "trainer=cpu",
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        run_port(["experiment=seq_struct_graph", "trainer=cpu",
                   f"paths.data_dir={data_dir}", "extras.print_config=false"],
                  tmp_path / "run")
+
+
+# seq_text.yaml's towers (ESM2-35M hub, bert_small text tower) shrunk in
+# both packages: 2 hub layers of 32; 2 BERT layers of 64 with one head of 64
+# (the head width of every BERT size) over the tiny WordPiece vocabulary
+TINY_BERT = dict(hidden_size=64, num_layers=2, num_heads=1,
+                 intermediate_size=128)
+
+
+def test_cli_seq_text_matches_jax(data_dir, tmp_path, monkeypatch):
+    """`experiment=seq_text` in both CLIs (in f32, the frozen leaves stored
+    bf16 as the model config says): the frozen text tower runs the fully
+    cached steps, 2 epochs of 2 batches and the test split. Every logged
+    loss, val/loss and the test metrics agree at 1e-4."""
+    from oneprot_tpu.models import bert as jax_bert
+    from oneprot_tpu_torch.models import bert as port_bert
+
+    monkeypatch.setitem(jax_esm2.ESM2_SIZES, "esm2_t12_35M",
+                        jax_esm2.Esm2Config(**TINY))
+    monkeypatch.setitem(port_esm2.ESM2_SIZES, "esm2_t12_35M",
+                        port_esm2.Esm2Config(**TINY))
+    monkeypatch.setitem(jax_bert.BERT_SIZES, "bert_small",
+                        jax_bert.BertConfig(**TINY_BERT))
+    monkeypatch.setitem(port_bert.BERT_SIZES, "bert_small",
+                        port_bert.BertConfig(**TINY_BERT))
+    ovs = ["experiment=seq_text", "trainer=cpu", f"paths.data_dir={data_dir}",
+           "model.components.sequence.output_dim=32",
+           "model.components.sequence.dtype=float32",
+           "model.components.text.dtype=float32",
+           "data.modalities.text.batch_size.train=4",
+           "data.modalities.text.batch_size.val=4",
+           "data.modalities.text.batch_size.test=4",
+           "trainer.limit_train_batches=2", "trainer.max_epochs=2",
+           "trainer.log_every_n_steps=1", "extras.print_config=false",
+           "test=True"]
+    jmet = run_jax(ovs, tmp_path / "jax")
+    monkeypatch.setitem(INITIAL, "params", jax_initial_params(ovs))
+    monkeypatch.setitem(config.TARGET_ALIASES, MODULE_TARGET,
+                        f"{__name__}.JaxInitModule")
+    pmet = run_port(ovs, tmp_path / "port")
+
+    jrows, prows = rows(tmp_path / "jax")[::2], rows(tmp_path / "port")
+    assert [sorted(r) for r in prows] == [sorted(r) for r in jrows]
+    assert pmet["train/steps"] == jmet["train/steps"] == 4
+    assert any(k.startswith("test/") for r in prows for k in r)
+    for p, j in zip(prows, jrows):
+        for k in j:
+            np.testing.assert_allclose(p[k], j[k], rtol=RTOL, err_msg=k)
+    assert sorted(pmet) == sorted(jmet)
+    for k in jmet:
+        np.testing.assert_allclose(pmet[k], jmet[k], rtol=RTOL, err_msg=k)
+    # epoch 2 and the validations come from the cache of both towers
+    assert pmet["cache/hit_rate"] == jmet["cache/hit_rate"] > 0
 
 
 def test_unported_logger_refused_naming_item(data_dir, tmp_path):

@@ -306,8 +306,14 @@ def test_reference_target_alias():
     })
     assert type(enc).__module__ == "oneprot_tpu_torch.models.encoders"
     assert enc(torch.full((1, 8), 5)).shape == (1, 32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        instantiate({"_target_": "src.models.components.text_encoder.TextEncoder"})
+    text = instantiate({
+        "_target_": "src.models.components.text_encoder.TextEncoder",
+        "model_name_or_path": "bert_tiny", "output_dim": 32, "device": "cpu",
+        "dtype": "float32"})
+    assert type(text).__name__ == "TextEncoder"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        instantiate({"_target_":
+                     "src.models.components.struct_graph_encoder.StructEncoder"})
 
 
 # ---------------------------------------------------------------------------
@@ -355,15 +361,17 @@ TARGETS = _committed_targets()
 PORTED = {
     "oneprot_tpu.data.datamodule.OneProtDataModule",
     "oneprot_tpu.data.datasets.struct_token_dataset.StructTokenDataset",
+    "oneprot_tpu.data.datasets.text_dataset.TextDataset",
     "oneprot_tpu.models.encoders.create_msa_encoder",
     "oneprot_tpu.models.encoders.create_sequence_encoder",
     "oneprot_tpu.models.encoders.create_struct_token_encoder",
+    "oneprot_tpu.models.encoders.create_text_encoder",
     "oneprot_tpu.train.module.OneProtModule",
     "oneprot_tpu.train.optim.adam",
     "oneprot_tpu.train.trainer.Trainer",
     "oneprot_tpu.utils.loggers.CsvLogger",
 }
-ITEMS = {"create_text_encoder": 3, "text_dataset": 3, "msa_dataset": 4,
+ITEMS = {"msa_dataset": 4,
          "seqsim_dataset": 4, "create_struct_graph_encoder": 5,
          "struct_graph_dataset": 5, "downstream": 10, "WandbLogger": 11}
 

@@ -7,6 +7,8 @@ conftest imports JAX, hence `--noconftest` there:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,7 @@ from oneprot_tpu_torch.kernels import flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
 from oneprot_tpu_torch.kernels.attention import fused_tied_row
 from oneprot_tpu_torch.kernels.flash_attention import dot_product_attention
-from oneprot_tpu_torch.models import encoders, esm2
+from oneprot_tpu_torch.models import bert, encoders, esm2
 from oneprot_tpu_torch.models.esm2 import int8_matmul, rotary_cos_sin
 from oneprot_tpu_torch.serving import OneProtEmbedder
 
@@ -694,3 +696,92 @@ def test_cli_shipped_train_packed_is_refused_in_f32(card, tmp_path,
                         "data.pack_row_len=256", f"paths.data_dir={tmp_path}",
                         f"hydra.run.dir={tmp_path / 'run'}",
                         "extras.print_config=false"])
+
+
+# ---------------------------------------------------------------------------
+# the text tower: #1-#3 without rotary, BERT on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,segments", [
+    (32, 512, False),   # embed_texts' batch at bucket 512, key padding
+    (16, 384, False),   # the LoRA text step's batch
+    (3, 200, True),     # packed text rows: key bias and segment ids
+    (2, 77, True),      # ragged: L off the tile grid
+])
+def test_flash_kernels_without_rotary_at_the_text_shapes(card, B, L, segments):
+    """BERT's calls: heads of 64, 12 heads, the key-padding bias and, on
+    packed rows, segment ids, no rotary tables. Forward, then dq and dk/dv,
+    one launch each, against the plain versions."""
+    q, k, v, kw = _attention_inputs(B, L, 12, 64, card, L + B, False, True,
+                                    segments)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = [f.launches for f in (flash_mha.flash_mha_cuda,
+                                   flash_mha.flash_mha_bwd_dq_cuda,
+                                   flash_mha.flash_mha_bwd_dkv_cuda)]
+    out, lse = flash_mha.mha_attention(q, k, v, 12, **kw)
+    valid = kw["bias"][:, 0, 0] == 0
+    dout = (torch.randn(out.shape, device=card) * valid[..., None]).to(
+        torch.bfloat16)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    after = [f.launches for f in (flash_mha.flash_mha_cuda,
+                                  flash_mha.flash_mha_bwd_dq_cuda,
+                                  flash_mha.flash_mha_bwd_dkv_cuda)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, 12, **kw)
+    refs = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, 12, **kw)
+    for got, want in ((out, ref), *zip(grads, refs)):
+        assert torch.isfinite(got.float()).all()
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= FLASH_REL_TOL
+    rows = valid[:, None, :].expand_as(lse)
+    assert (lse - ref_lse).abs()[rows].max().item() <= 5e-2
+
+
+@pytest.mark.gpu
+def test_bert_on_the_card_matches_the_cpu(card):
+    """bert_base's widths at 2 layers (random weights from a seed), bf16 on
+    the card through #1 against f32 on the CPU, on padded and packed rows:
+    the text encoder's features agree in cosine, and a packed text's
+    features equal its padded row's on the card."""
+    cfg = dataclasses.replace(bert.BERT_SIZES["bert_base"], num_layers=2)
+    cpu = encoders.TextEncoder(cfg, 256, device="cpu", dtype=torch.float32)
+    bert.init_bert_weights_(cpu, torch.Generator().manual_seed(0))
+    gpu = encoders.TextEncoder(cfg, 256, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    lens = [120, 37, 300, 64]
+    ids = np.zeros((4, 384), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(5, 3000, size=n)
+        ids[i, 0], ids[i, n - 1] = 2, 3
+    t = torch.from_numpy(ids)
+    with torch.no_grad():
+        want = cpu(t)
+        got = gpu(t.to(card)).float().cpu()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert cos.min().item() >= 0.999
+    packed = np.full((1, 640), 1, np.int64)
+    seg = np.full((1, 640), -1, np.int32)
+    off = 0
+    for s, i in enumerate((0, 1, 3)):
+        packed[0, off:off + lens[i]] = ids[i, :lens[i]]
+        seg[0, off:off + lens[i]] = s
+        off += lens[i]
+    with torch.no_grad():
+        feats, counts = gpu.packed_features(
+            torch.from_numpy(packed).to(card), torch.from_numpy(seg).to(card), 4)
+        alone = gpu(t[[0, 1, 3]].to(card))
+    assert counts.tolist() == [120, 37, 64, 0]
+    cos = torch.nn.functional.cosine_similarity(feats[:3].float(), alone.float(),
+                                                dim=-1)
+    assert cos.min().item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_float32_bert_is_refused_when_built(card):
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        encoders.create_text_encoder("bert_tiny", dtype="float32")
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        bert.Bert(bert.BERT_SIZES["bert_tiny"], dtype=torch.float32, device=card)

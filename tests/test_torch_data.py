@@ -157,10 +157,13 @@ def test_datamodule_matches_jax(data_dir, packed):
 
 
 def test_unported_modality_raises(data_dir):
-    for modality, item in (("text", "item 3"), ("msa", "item 4"),
+    for modality, item in (("struct_graph", "item 5"), ("msa", "item 4"),
                            ("pocket", "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             datamodule.OneProtDataModule({modality: {"dataset": {}}})
+    # the text modality is ported (tests/test_torch_text.py)
+    assert datamodule.DATASET_CLASSES["text"].__name__ == "TextDataset"
+    assert "text" not in datamodule.UNPORTED_MODALITIES
 
 
 def test_world_without_process_group():

@@ -124,7 +124,7 @@ def test_create_sequence_encoder_validates_like_jax():
         encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
                                          frozen=False, device="cpu")
     with pytest.raises(NotImplementedError):
-        encoders.OneProtModel({"text": torch.nn.Identity()})
+        encoders.OneProtModel({"struct_graph": torch.nn.Identity()})
 
 
 def test_cuda_request_without_a_card_raises():
