@@ -35,7 +35,14 @@ the elapsed seconds:
    of 64, 12 heads): the forward at embed_texts' B=32 L=512 with rows
    padded 0-75%, the forward and both backward kernels at the LoRA text
    step's B=16 L=512 and on the text rows of a packed batch (key bias and
-   segment ids), each call launching its kernel exactly once;
+   segment ids), each call launching its kernel exactly once; the f32
+   instances of #1-#3 (the debug towers' float32) at the debug hub's
+   packed rows (B=16 L=1024 H=20 D=16, 16 segments a row) and at
+   bert_tiny's heads of 64 (key bias, no rotary), one launch each,
+   against their f32 plain versions (max rel err <= 1e-4, lse within
+   1e-5), timed beside SDPA in f32 and their f32 bound; and #8 on heads
+   of 16 (the debug MSA tower's, zero-padded to 64 around the launch)
+   at the bf16 gate;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -95,9 +102,10 @@ the elapsed seconds:
    not improve, must halve the learning rate once;
 12. trainer parity: the trainer (packed + cache) at 2 hub + 2 tower layers
    of the same initial weights, 4 steps (2 epochs of 2 batches of 4 rows,
-   the second epoch from the cache) at Adam 1e-3, card (bf16, kernels)
-   against CPU (f32, plain versions): each step's loss within 2e-2
-   relative, the final trainable parameters' cosine >= 0.99;
+   the second epoch from the cache) at Adam 1e-3, and again at 1e-4,
+   card (bf16, kernels) against CPU (f32, plain versions): each step's
+   loss within 2e-2 relative, the final trainable parameters' cosine >=
+   0.99; both margins under the gate are printed;
 13. LoRA training at the ESM2-15B width: `create_sequence_encoder` on the
    committed config.json with LoRA (r 16, alpha 16, dropout 0.1 on q, k,
    v), frozen bf16 weights and per-layer remat, the mlp head, the
@@ -115,8 +123,7 @@ the elapsed seconds:
    against the CPU (f32, plain versions); the second step starts both
    from the CPU's weights after the first (see `lora_parity`);
 15. cli: `oneprot_tpu_torch.cli.train.main`, in process, on the checkout's
-   configs/: `experiment=train_packed` as shipped (ESM2-8M towers in f32)
-   must be refused when the model is built; then with
+   configs/: `experiment=train_packed` with
    `data=struct_token_only` and bench.py's widths in bf16 (`CLI_MODEL`),
    on 11's synthetic pairs served from memory through an alias of the
    configs' data-module target (`CliDataModule`), 2 epochs through the
@@ -152,7 +159,39 @@ the elapsed seconds:
 18. text parity: 2 hub + 2 BERT layers of full width, LoRA text, SigLIP,
    4 `train_step_cached` steps at Adam 1e-3, card (bf16, kernels) vs CPU
    (f32, plain): loss within 2e-2 a step, trainable parameters' cosine
-   >= 0.99.
+   >= 0.99;
+19. graph tower: `create_struct_graph_encoder` at struct_graph.yaml's
+   widths (ProNet hidden 128, 4 layers, out 1024, f32; random weights from
+   a seed) on 3 requests of 16 synthetic backbones of 1024 residues,
+   written as PDB text, parsed by `structure_io` and built by
+   `protein_to_padded_graph` (K=24) inside `embed_structures`, then at
+   pocket.yaml's on 128 residues: graphs/s end to end and for the tower
+   alone, peak memory, no counter moved; card vs CPU in eval mode on the
+   same weights, least cosine >= 0.999;
+20. seq<->msa and seqsim: `Trainer.fit` over `OneProtDataModule` with
+   msa.yaml's and seqsim.yaml's datasets (depth 50; synthetic .a3m files
+   of log-normal length around 290 columns, 64 homologs; seqsim files with
+   one benign and one pathogenic mutation a protein), one bucket of 1024,
+   the frozen ESM2-650M hub and esm_msa1b, both cached
+   (`train_step_fully_cached`, use_seqsim), 2 epochs: epoch 1 fills both
+   caches (33 #1 a hub forward, 12 #8 an MSA forward, exact); epoch 2 and
+   its validation launch neither (100% hits); pairs/s per epoch and
+   modality, the batch wall split, the cache's host bytes;
+21. the shipped default configs/train.yaml through `cli.train.main` (data
+   oneprot: pocket, seqsim, struct_graph, text; model oneprot: the
+   ESM2-650M hub, ProNet struct_graph and pocket, BiomedBERT-base text;
+   only paths, accelerator, epochs and the data module's alias
+   overridden): 2 epochs and the test split on synthetic data (the HDF5
+   modalities from memory through `CliDataModule`, text and seqsim files
+   on disk); pairs/s per modality and epoch, the batch wall split, exact
+   launches (33 #1 a hub forward, 12 a BERT forward, nothing else), no
+   plain version;
+22. the f32 experiments as shipped: `experiment=debug_struct_token`,
+   `experiment=train_packed` (`data=struct_token_only`, 1 epoch) and
+   `experiment=debug_all_modalities` through `cli.train.main`, each to
+   its end (train and test), with the f32 instances of #1-#3 launched and
+   no bf16 flash-MHA; debug_all_modalities' MSA tower through #8 on heads
+   of 16.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -179,9 +218,10 @@ from oneprot_tpu_torch.core.config import (
     load_config,
     register_target_alias,
 )
-from oneprot_tpu_torch.data import packing
+from oneprot_tpu_torch.data import graphs, packing, structure_io, synthetic
 from oneprot_tpu_torch.data.common import pick_bucket
 from oneprot_tpu_torch.data.datamodule import OneProtDataModule
+from oneprot_tpu_torch.data.datasets.struct_graph_dataset import StructDataset
 from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
     StructTokenDataset,
 )
@@ -202,6 +242,7 @@ from oneprot_tpu_torch.models.encoders import (
     TextEncoder,
     create_msa_encoder,
     create_sequence_encoder,
+    create_struct_graph_encoder,
     create_struct_token_encoder,
     create_text_encoder,
 )
@@ -224,6 +265,9 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 FLASH_REL_TOL = 1.5e-2     # max |kernel - plain| / max |plain|, bf16
+# the f32 instances of #1-#3: max rel err against the f32 plain versions,
+# and the lse's max abs err on the real rows
+F32_REL_TOL, F32_LSE_TOL = 1e-4, 1e-5
 # exp2 a second on the card's special-function units (the FA-3 paper's
 # figure for the H100 SXM: 3.9 TFLOP/s of exponentials)
 SFU_EXP2_S = 3.9e12
@@ -344,6 +388,9 @@ def time_ms(fn, iters: int = 20) -> float:
 LAUNCHERS = {"flash_mha_fwd": flash_mha.flash_mha_cuda,
              "flash_mha_bwd_dq": flash_mha.flash_mha_bwd_dq_cuda,
              "flash_mha_bwd_dkv": flash_mha.flash_mha_bwd_dkv_cuda,
+             "flash_mha_fwd_f32": flash_mha.flash_mha_f32_cuda,
+             "flash_mha_bwd_dq_f32": flash_mha.flash_mha_bwd_dq_f32_cuda,
+             "flash_mha_bwd_dkv_f32": flash_mha.flash_mha_bwd_dkv_f32_cuda,
              "gelu_quant": gelu_quant.gelu_quant_cuda,
              "tied_row_attention": tra.tied_row_attention_cuda,
              "flash_attention_fwd": fa.flash_attention_fwd_cuda,
@@ -1377,12 +1424,13 @@ class TrainerProbe:
     kept. Checkpoint writes are timed."""
 
     STEPS = ("train_step_packed_cached", "train_step_cached",
-             "train_step_fully_cached")
+             "train_step_fully_cached", "train_step_packed", "train_step")
     LOOKUPS = ("get_pooled_packed", "get_pooled")
 
     def __init__(self, module, datamodule):
         self.marks, self.batch_ends, self.losses, self.saves = [], [], [], []
         self.pairs = []  # real pairs of each step
+        self.step_modalities = []
         # step index -> [first lookup's start, last lookup's end]
         self.lookups = {}
         self.hub_forwards = 0
@@ -1404,9 +1452,11 @@ class TrainerProbe:
                 torch.cuda.synchronize()
                 self.batch_ends.append(time.time())
                 self.losses.append(loss)
-                # the real pairs: a packed step's valid slots, else its rows
+                self.step_modalities.append(a[0])
+                # the real pairs: a packed step's valid slots, else the
+                # rows of its hub side (a graph tower's input is a dict)
                 self.pairs.append(int(np.asarray(a[-1]).sum()) if packed
-                                  else len(a[-1]))
+                                  else len(a[1]))
                 return loss, n
             return run
 
@@ -1664,11 +1714,12 @@ def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
     return result, initial, records
 
 
-def trainer_parity(initial, records: dict) -> dict:
+def trainer_parity(initial, records: dict, lr: float = TRAINER_LR) -> dict:
     """Trainer.fit (packed + cache) at 2 hub + 2 tower layers from the
     same weights, PARITY_ROWS rows a batch, 2 batches an epoch, 2 epochs,
-    Adam at bench.py's 1e-3: card (bf16, kernels) against CPU (f32, plain
-    versions), loss by loss and on the final trainable parameters."""
+    Adam at `lr` (bench.py's 1e-3, and 1e-4 beside it): card (bf16,
+    kernels) against CPU (f32, plain versions), loss by loss and on the
+    final trainable parameters."""
     hub_state, tower_state, hub_cfg, tower_cfg = initial
     state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
              **{"encoders.struct_token." + k: v for k, v in tower_state.items()}}
@@ -1690,7 +1741,7 @@ def trainer_parity(initial, records: dict) -> dict:
                  "struct_token": StructTokenEncoder(
                      dataclasses.replace(tower_cfg, num_layers=2), 1024,
                      device=device, dtype=dtype)},
-                optimizer=lambda: adam(1e-3), loss_fn="CLIP",
+                optimizer=lambda: adam(lr), loss_fn="CLIP",
                 use_l1_regularization=True)
             module.model.load_state_dict(state)
             run_dir = os.path.join(root, device)
@@ -1708,13 +1759,14 @@ def trainer_parity(initial, records: dict) -> dict:
     card, cpu = runs["cuda"], runs["cpu"]
     rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"])]
     out = {"loss_card": card["losses"], "loss_cpu": cpu["losses"],
-           "loss_rel_diff": rel,
+           "loss_rel_diff": rel, "lr": lr, "margin": 2e-2 - max(rel),
            "param_cosine": cosine(card["params"], cpu["params"]),
            "cache_hits": [card["hits"], cpu["hits"]]}
-    print(f"  trainer, 4 steps, card vs CPU: losses "
+    print(f"  trainer, 4 steps at Adam {lr:g}, card vs CPU: losses "
           + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(card["losses"],
                                                           cpu["losses"]))
-          + f" (rel diff max {max(rel):.2e}, gate <= 2e-2 each); final "
+          + f" (rel diff max {max(rel):.2e}, gate <= 2e-2 each: margin "
+          f"{out['margin']:.2e}); final "
           f"trainable parameters' cosine {out['param_cosine']:.6f} (gate >= "
           f"0.99); cache hits {out['cache_hits']}", flush=True)
     require(len(card["losses"]) == len(cpu["losses"]) == TRAINER_PARITY_STEPS,
@@ -1726,23 +1778,28 @@ def trainer_parity(initial, records: dict) -> dict:
 
 
 class CliDataModule(OneProtDataModule):
-    """The data module the configs name, over RECORDS in memory: each
-    modality's dataset config gains the records, and the struct-token and
-    text datasets are MemoryStructTokens and MemoryTexts (the card's host
-    has no h5py; the data
-    module ignores a dataset's `_target_`, as the JAX package's does).
-    The CLI phase aliases the configs' data-module target to it."""
+    """The data module the configs name, with the HDF5 modalities served
+    from RECORDS in memory (the card's host has no h5py): RECORDS maps a
+    modality to its records, which its dataset config gains; the
+    struct-token, text, struct_graph and pocket datasets are
+    MemoryStructTokens, MemoryTexts and MemoryStructs (the data module
+    ignores a dataset's `_target_`, as the JAX package's does). MSA and
+    seqsim read their files. The CLI phases alias the configs'
+    data-module target to it."""
 
     RECORDS: dict = {}
 
     def __init__(self, modalities, **kwargs):
-        modalities = {name: {**cfg, "dataset": {**cfg["dataset"],
-                                                "records": self.RECORDS}}
-                      for name, cfg in modalities.items()}
-        super().__init__(modalities,
-                         dataset_classes={"struct_token": MemoryStructTokens,
-                                          "text": MemoryTexts},
-                         **kwargs)
+        memory = {"struct_token": MemoryStructTokens, "text": MemoryTexts,
+                  "struct_graph": MemoryStructs, "pocket": MemoryStructs}
+        modalities = {
+            name: ({**cfg, "dataset": {**cfg["dataset"],
+                                       "records": self.RECORDS[name]}}
+                   if name in self.RECORDS else cfg)
+            for name, cfg in modalities.items()}
+        super().__init__(modalities, dataset_classes={
+            name: cls for name, cls in memory.items() if name in self.RECORDS},
+            **kwargs)
 
 
 class CliProbe:
@@ -1799,14 +1856,14 @@ class CliProbe:
 
 def cli_phase(smi: str, launches: dict) -> dict:
     """configs/experiment/train_packed.yaml through `cli.train.main`, in
-    process: as shipped (f32) the model build must refuse it; at
-    bench.py's widths in bf16, 2 epochs and the test split, then a
+    process, at bench.py's widths in bf16 (as shipped, in f32, it is
+    `f32_experiments_phase`'s): 2 epochs and the test split, then a
     test-only run from the first run's `last`. Fills launches["cli"]."""
     none = {name: 0 for name in LAUNCHERS}
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        CliDataModule.RECORDS = struct_token_records(
-            root, np.random.RandomState(TRAINER_SEED))
+        CliDataModule.RECORDS = {"struct_token": struct_token_records(
+            root, np.random.RandomState(TRAINER_SEED))}
         register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
         base = list(CLI_BASE) + [f"paths.data_dir={root}"]
         run_dir = os.path.join(root, "run")
@@ -1815,11 +1872,6 @@ def cli_phase(smi: str, launches: dict) -> dict:
         last = os.path.join(run_dir, "checkpoints", "last")
         probe = CliProbe()
         try:
-            try:
-                probe.main(base + [f"hydra.run.dir={root}/f32"])
-                raise RuntimeError("train_packed in f32 ran on the card")
-            except ValueError as e:  # Esm2 refuses f32 on the card
-                out["f32_refusal"] = str(e)
             t = time.time()
             load_config(default_config_dir(), "train", argv)
             out["compose_ms"] = (time.time() - t) * 1e3
@@ -1836,7 +1888,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
                 "resolved_config.json", "resolved_config.yaml", "metrics.jsonl",
                 "checkpoints/last", "checkpoints/best")}
             # the first run's module at `last`, tested without a cache
-            first = probe.runs[1]
+            first = probe.runs[0]
             checkpoint_lib.load_state(first["module"], last)
             reference = Trainer(
                 accelerator="gpu", default_root_dir=os.path.join(root, "ref")
@@ -1845,9 +1897,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
             probe.close()
             TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
             CliDataModule.RECORDS = {}
-    f32, first, second = probe.runs
-    require("bfloat16" in out["f32_refusal"] and "build_s" not in f32,
-            f"the f32 experiment's refusal: {out['f32_refusal']}")
+    first, second = probe.runs
     require(not any(plain.values()), f"cli: plain versions ran on the card: "
             f"{plain}")
     epochs = epoch_rows(first["probe"])
@@ -1898,7 +1948,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
     print("  cli: compose {:.1f} ms, model build {:.2f} s, fit {:.2f} s ({}), "
           "test {:.2f} s, checkpoints {}; test-only run: build {:.2f} s, test "
           "{:.2f} s, max rel diff against last {:.1e}; val/loss {:.4f}, "
-          "test/loss {:.4f}; f32 refused: {}; launches {}; {}".format(
+          "test/loss {:.4f}; launches {}; {}".format(
               out["compose_ms"], first["build_s"], first["fit_s"],
               ", ".join(f"epoch {e['epoch']}: {e['batches']} batches, "
                         f"{e['pairs_per_s']:.1f} pairs/s, hit rate "
@@ -1906,7 +1956,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
               first["test_s"], ", ".join(
                   f"{s['name']} {s['s']:.2f} s" for s in first["probe"].saves),
               second["build_s"], second["test_s"], rel, out["val_loss"],
-              out["test_loss"], out["f32_refusal"], launches["cli"], smi),
+              out["test_loss"], launches["cli"], smi),
           flush=True)
     return out
 
@@ -2632,10 +2682,12 @@ def text_serving(smi: str, launches: dict):
     return out
 
 
-def text_epochs(probe: "TrainerProbe") -> list:
-    """Per epoch of a text CLI run: batches, pairs/s, the batch walls and
-    their split, the caches' hit rates, the validation's wall and the
-    launches of both."""
+def text_epochs(probe: "TrainerProbe",
+                backbones=("sequence", "text")) -> list:
+    """Per epoch of a CLI or trainer run: batches, pairs/s (also per
+    modality: its pairs over its steps' walls), the batch walls and their
+    split, the caches' hit rates, the backbone forwards of `backbones`,
+    the validation's wall and the launches of both."""
     marks, out = probe.marks, []
     for i, m in enumerate(marks):
         if m["kind"] != "epoch":
@@ -2650,10 +2702,21 @@ def text_epochs(probe: "TrainerProbe") -> list:
         train_s = v0["t"] - m["t"]
         pairs = sum(probe.pairs[m["steps"]:v0["steps"]])
         encodes = lambda a, b: {k: b["encodes"].get(k, 0) - a["encodes"].get(k, 0)
-                                for k in ("sequence", "text")}
+                                for k in backbones}
+        by_mod = {}
+        for j in range(m["steps"], v0["steps"]):
+            mod = probe.step_modalities[j]
+            wall = walls[j - m["steps"]] / 1e3
+            got = by_mod.setdefault(mod, {"steps": 0, "pairs": 0, "s": 0.0})
+            got["steps"] += 1
+            got["pairs"] += probe.pairs[j]
+            got["s"] += wall
+        for got in by_mod.values():
+            got["pairs_per_s"] = got["pairs"] / max(got["s"], 1e-9)
         out.append({
             "epoch": m["epoch"], "batches": nb, "pairs": pairs,
             "pairs_per_s": pairs / train_s, "train_s": train_s,
+            "by_modality": by_mod,
             "median_batch_ms": float(np.median(walls)),
             "median_split_ms": split,
             "cache_hit_rate": hits / max(hits + misses, 1),
@@ -2678,8 +2741,8 @@ def text_cli_phase(smi: str, launches: dict) -> dict:
     hub_l = N_LAYERS
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_text_cli_") as root:
-        CliDataModule.RECORDS = text_records(root,
-                                             np.random.RandomState(TEXT_SEED))
+        CliDataModule.RECORDS = {"text": text_records(
+            root, np.random.RandomState(TEXT_SEED))}
         register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
         base = list(TEXT_CLI_BASE) + [f"paths.data_dir={root}"]
         runs = {"clip": ["trainer.max_epochs=2", "test=true"],
@@ -2866,6 +2929,762 @@ def text_parity() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the f32 instances of #1-#3, #8 at heads of 16, the graph tower, seq<->msa
+# and seqsim training, the shipped default train.yaml and the f32 debug
+# experiments
+
+
+def f32_case(B, L, H, D, gen, rotary, n_seg):
+    """f32 q, k, v [B, L, H*D], the side inputs (a key bias, rotary tables,
+    n_seg contiguous segments a row with padding as its own id) and an
+    upstream gradient zero on padding rows; the valid positions [B, L]."""
+    dev = "cuda"
+    q, k, v = (torch.randn(B, L, H * D, device=dev, generator=gen)
+               for _ in range(3))
+    lens = torch.randint(L // 2, L + 1, (B,), device=dev, generator=gen)
+    valid = torch.arange(L, device=dev)[None, :] < lens[:, None]
+    side = {"bias": ((1.0 - valid.float()) * -1e9)[:, None, None, :]}
+    if rotary:
+        side["rope_cos"], side["rope_sin"] = esm2.rotary_cos_sin(L, D, device=dev)
+    if n_seg:
+        seg = (torch.arange(L, device=dev)[None, :] * n_seg // L).repeat(B, 1)
+        side["segment_ids"] = torch.where(valid, seg, -1).to(torch.int32)
+    dout = torch.randn(B, L, H * D, device=dev, generator=gen) * valid[..., None]
+    return q, k, v, side, dout, valid
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-6)).item()
+
+
+F32_NAMES = ("flash_mha_fwd_f32", "flash_mha_bwd_dq_f32", "flash_mha_bwd_dkv_f32")
+# (what, B, L, H, D, rotary, segments a row): the debug hubs' packed rows
+# (ESM2-8M: 320 / 20 = heads of 16; train_packed's 16 x 1024) and
+# bert_tiny's heads of 64 (key bias, no rotary) at a text bucket
+F32_CASES = (("debug hub, packed", 16, 1024, 20, 16, True, 16),
+             ("bert_tiny", 16, 512, 2, 64, False, 0))
+
+
+def check_flash_f32(gen) -> list:
+    """The f32 forward (#1), dq (#2, its prologue's q_r and delta too) and
+    dk/dv (#3) kernels, one launch each, against their own plain versions
+    in f32 on the card (max rel err <= 1e-4, lse within 1e-5 on the real
+    rows), dq, dk and dv also against the whole plain backward; each timed
+    beside its plain version, SDPA's f32 forward or backward (both passes:
+    forward + backward minus forward) on the same inputs with a dense f32
+    mask, and its bound (f32 67 TFLOP/s over the logit pairs of equal
+    segment ids, or the bytes at 3.35 TB/s). Returns the three rows; the
+    first case is each row, the second its case."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    found = {n: [] for n in F32_NAMES}
+    for what, B, L, H, D, rotary, n_seg in F32_CASES:
+        q, k, v, side, dout, valid = f32_case(B, L, H, D, gen, rotary, n_seg)
+        seg = side.get("segment_ids")
+        before = [LAUNCHERS[n].launches for n in F32_NAMES]
+        out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
+        dq, q_r, delta = flash_mha.flash_mha_bwd_dq_cuda(q, k, v, out, lse,
+                                                         dout, H, **side)
+        dk, dv = flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse, delta,
+                                                  H, **side)
+        torch.cuda.synchronize()
+        require([LAUNCHERS[n].launches - b for n, b in zip(F32_NAMES, before)]
+                == [1, 1, 1], f"f32 {what}: one launch each")
+        ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, H, **side)
+        ref_dq, ref_qr, ref_delta = flash_mha.flash_mha_bwd_dq_plain(
+            q, k, v, out, lse, dout, H, **side)
+        ref_dk, ref_dv = flash_mha.flash_mha_bwd_dkv_plain(
+            q_r, k, v, dout, lse, delta, H, **side)
+        whole = flash_mha.mha_attention_bwd_plain(q, k, v, out, lse, dout, H,
+                                                  **side)
+        rows = valid[:, None, :].expand_as(lse)
+        lse_err = (lse - ref_lse).abs()[rows].max().item()
+        errs = {"flash_mha_fwd_f32": [rel_err(out, ref)],
+                "flash_mha_bwd_dq_f32": [rel_err(dq, ref_dq), rel_err(q_r, ref_qr),
+                                         rel_err(delta, ref_delta),
+                                         rel_err(dq, whole[0])],
+                "flash_mha_bwd_dkv_f32": [rel_err(dk, ref_dk), rel_err(dv, ref_dv),
+                                          rel_err(dk, whole[1]),
+                                          rel_err(dv, whole[2])]}
+        abs_errs = {"flash_mha_fwd_f32": (out - ref).abs().max().item(),
+                    "flash_mha_bwd_dq_f32": (dq - ref_dq).abs().max().item(),
+                    "flash_mha_bwd_dkv_f32": max((dk - ref_dk).abs().max().item(),
+                                                 (dv - ref_dv).abs().max().item())}
+        for name, e in errs.items():
+            require(max(e) <= F32_REL_TOL and all(np.isfinite(e)),
+                    f"f32 {what} {name}: max rel errs {e} > {F32_REL_TOL}")
+        require(lse_err <= F32_LSE_TOL, f"f32 {what}: lse err {lse_err}")
+        times = {
+            "flash_mha_fwd_f32": time_ms(lambda: flash_mha.flash_mha_cuda(
+                q, k, v, H, **side)),
+            "flash_mha_bwd_dq_f32": time_ms(lambda: flash_mha.flash_mha_bwd_dq_cuda(
+                q, k, v, out, lse, dout, H, **side)),
+            "flash_mha_bwd_dkv_f32": time_ms(
+                lambda: flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse,
+                                                         delta, H, **side))}
+        plains = {
+            "flash_mha_fwd_f32": time_ms(lambda: flash_mha.mha_attention_plain(
+                q, k, v, H, **side), iters=3),
+            "flash_mha_bwd_dq_f32": time_ms(lambda: flash_mha.flash_mha_bwd_dq_plain(
+                q, k, v, out, lse, dout, H, **side), iters=3),
+            "flash_mha_bwd_dkv_f32": time_ms(
+                lambda: flash_mha.flash_mha_bwd_dkv_plain(
+                    q_r, k, v, dout, lse, delta, H, **side), iters=3)}
+        heads = lambda x: x.view(B, L, H, D).transpose(1, 2)
+        qh, kh = heads(q), heads(k)
+        if rotary:
+            qh = flash_mha.apply_rotary(qh, side["rope_cos"], side["rope_sin"])
+            kh = flash_mha.apply_rotary(kh, side["rope_cos"], side["rope_sin"])
+        leaves = [x.detach().contiguous().requires_grad_()
+                  for x in (qh, kh, heads(v))]
+        mask = side["bias"].expand(B, 1, L, L)
+        if seg is not None:
+            mask = mask + flash_mha.packed_segment_bias(
+                seg, mask_value=flash_mha.SEG_MASK)
+        mask = mask.contiguous()
+        do_h = heads(dout).contiguous()
+        lib_fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves, attn_mask=mask), leaves, do_h)) - lib_fwd
+        libs = {"flash_mha_fwd_f32": lib_fwd, "flash_mha_bwd_dq_f32": lib_bwd,
+                "flash_mha_bwd_dkv_f32": lib_bwd}
+        pairs = needed_pairs(seg, B, L) * H
+        x = B * L * H * D * 4  # one [B, L, H*D] f32 tensor
+        side_bytes = B * L * 4 * (1 + (seg is not None)) + (
+            2 * L * D * 4 if rotary else 0)
+        stat = B * H * L * 4
+        bounds = {
+            "flash_mha_fwd_f32": bound_ms(4 * x + side_bytes + stat,
+                                          4.0 * D * pairs, F32_FLOPS),
+            "flash_mha_bwd_dq_f32": bound_ms(7 * x + side_bytes + 2 * stat,
+                                             6.0 * D * pairs, F32_FLOPS),
+            "flash_mha_bwd_dkv_f32": bound_ms(6 * x + side_bytes + 2 * stat,
+                                              8.0 * D * pairs, F32_FLOPS)}
+        shape = (f"B={B} L={L} H={H} D={D} f32"
+                 + (f", {n_seg} segments a row" if n_seg else "")
+                 + ("" if rotary else ", no rotary"))
+        for name in F32_NAMES:
+            b_ms, b_by = bounds[name]
+            found[name].append({
+                "shape": shape, "max_rel_err": max(errs[name]),
+                "max_abs_err": abs_errs[name], "ms": times[name],
+                "plain_ms": plains[name], "library_ms": libs[name],
+                "bound_ms": b_ms, "bound_by": b_by})
+            print(f"  {name} {what} ({shape}): max rel err {max(errs[name]):.2e}"
+                  f"{f', lse max abs err {lse_err:.2e}' if 'fwd' in name else ''};"
+                  f" kernel {times[name]:.4f} ms, plain {plains[name]:.4f} ms, "
+                  f"SDPA f32 {libs[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+        del q, k, v, out, lse, dq, q_r, delta, dk, dv, leaves, mask
+        torch.cuda.empty_cache()
+    sources = {"flash_mha_fwd_f32": ("flash_mha_fwd_f32.cu", 157),
+               "flash_mha_bwd_dq_f32": ("flash_mha_bwd_dq_f32.cu", 512),
+               "flash_mha_bwd_dkv_f32": ("flash_mha_bwd_dkv_f32.cu", 619)}
+    out_rows = []
+    for name in F32_NAMES:
+        row, *cases = found[name]
+        src, line = sources[name]
+        out_rows.append({
+            "name": name, "route": "cuda",
+            "source": f"oneprot_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"oneprot_tpu/kernels/flash_mha.py:{line}",
+            **{k: row[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape")},
+            "cases": cases,
+            "note": "the f32 instance (f32 FMA on the CUDA cores); "
+                    "library_ms: SDPA in f32 with a dense f32 mask"
+                    + ("" if "fwd" in name else ", its backward (both "
+                       "passes) for #2 and #3")})
+    return out_rows
+
+
+def check_tied_row_narrow(gen) -> list:
+    """#8 on heads of 16 (the debug MSA tower: 64 wide, 4 heads; depth 4
+    at its bucket 128, and the data config's depth 50 at 1024 columns),
+    zero-padded to 64 around the one launch, against the plain version at
+    the bf16 gate; timed beside the plain version, SDPA on heads of R*16
+    and the bound of the unpadded work."""
+    cases = []
+    for B, R, L, nh, D in ((2, 4, 128, 4, 16), (4, 50, 1024, 4, 16)):
+        q, k, v = (torch.randn(B, R, L, nh * D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        bias = torch.zeros(B, 1, 1, L, device="cuda")
+        bias[-1, ..., L - L // 3:] = -1e9
+        before = tra.tied_row_attention_cuda.launches
+        out = tra.tied_row_attention_cuda(q, k, v, nh, col_bias=bias)
+        ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
+        torch.cuda.synchronize()
+        require(tra.tied_row_attention_cuda.launches == before + 1,
+                "tied-row narrow: one launch")
+        rel = rel_err(out, ref)
+        shape = f"B={B} R={R} L={L} H={nh} D={D} bf16 (zero-padded to 64)"
+        require(rel <= FLASH_REL_TOL and torch.isfinite(out.float()).all().item(),
+                f"tied-row {shape}: rel err {rel}")
+        kernel = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, nh,
+                                                             col_bias=bias))
+        plain = time_ms(lambda: tra.tied_row_attention_plain(
+            q, k, v, nh, col_bias=bias), iters=3)
+        tied = lambda x: x.view(B, R, L, nh, D).permute(0, 3, 2, 1, 4).reshape(
+            B, nh, L, R * D)
+        qt, kt, vt = tied(q), tied(k), tied(v)
+        library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias.to(torch.bfloat16),
+            scale=tra.tied_scale(D, R)))
+        row_bytes = R * nh * D * 2
+        b_ms, b_by = bound_ms(4 * B * L * row_bytes + B * L * 4,
+                              4.0 * nh * L * L * B * R * D, BF16_FLOPS)
+        print(f"  tied-row {shape}: max rel err {rel:.3e}; kernel "
+              f"{kernel:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        cases.append({"shape": shape, "max_rel_err": rel,
+                      "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                      "ms": kernel, "plain_ms": plain, "library_ms": library,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    return cases
+
+
+# the graph towers at configs/model/components/struct_graph.yaml's and
+# pocket.yaml's widths (ProNet hidden 128, 4 layers, out 1024; linear head,
+# logit scale 1/0.07), K = 24 neighbours, requests of 16 graphs
+GRAPH_ENCODER = dict(level="backbone", out_channels=1024, euler_noise=True,
+                     data_augment_eachlayer=True, dropout=0.25,
+                     hidden_size=128, num_layers=4)
+GRAPH_K, GRAPH_BATCH, GRAPH_REQUESTS, GRAPH_SEED = 24, 16, 3, 17
+GRAPH_SIZES = (("struct_graph", 1024), ("pocket", 128))
+GRAPH_COS = 0.999
+GRAPH_PARITY_GRAPHS = 4
+
+
+def parse_chain(path: str):
+    """(sequence, atom names, residue ids, xyz) of chain A of a PDB file, as
+    `structure_io` parses it and StructDataset reads it."""
+    chain = structure_io.parse_structure_file(path)["A"]
+    return (chain.seq1, chain.atom_names, chain.atom_amino_id,
+            chain.xyz.astype(np.float64))
+
+
+def write_structures(root: str, rng, lengths, tag: str) -> list:
+    """One synthetic chain a length, written as PDB text to `root` and
+    parsed back: [(sequence, atom names, residue ids, xyz), ...]."""
+    out = []
+    for i, n_res in enumerate(lengths):
+        seq = "".join(rng.choice(list(AAS), int(n_res)))
+        path = os.path.join(root, f"{tag}_{i:05d}.pdb")
+        with open(path, "w") as f:
+            f.write(synthetic.backbone_pdb(seq, rng))
+        out.append(parse_chain(path))
+    return out
+
+
+def graph_phase(smi: str, launches: dict) -> dict:
+    """StructGraphEncoder at struct_graph.yaml's widths on graphs of 1024
+    residues, then at pocket.yaml's on 128: synthetic backbones written as
+    PDB text, parsed by structure_io, built by protein_to_padded_graph
+    (K = 24) and embedded through `OneProtEmbedder.embed_structures`, 3
+    requests of 16; graphs/s end to end and for the tower alone, peak
+    memory; then card vs CPU in eval mode on the same weights (least
+    cosine >= 0.999 over GRAPH_PARITY_GRAPHS graphs). The tower has no
+    kernel: no counter may move."""
+    out = {}
+    rng = np.random.RandomState(GRAPH_SEED)
+    none = {name: 0 for name in LAUNCHERS}
+    for name, residues in GRAPH_SIZES:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as root:
+            t = time.time()
+            structures = write_structures(
+                root, rng, [residues] * (GRAPH_REQUESTS * GRAPH_BATCH), name)
+            parse_s = time.time() - t
+        enc = create_struct_graph_encoder(encoder=dict(GRAPH_ENCODER),
+                                          output_dim=1024)
+        esm2.init_esm2_weights_(enc, torch.Generator(device="cuda").manual_seed(
+            GRAPH_SEED))
+        embedder = OneProtEmbedder(OneProtModel({name: enc}))
+        kw = dict(modality=name, max_residues=residues, max_neighbors=GRAPH_K,
+                  batch_size=GRAPH_BATCH)
+        embedder.embed_structures(structures[:2], **kw)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        feats, secs = [], []
+        for r in range(GRAPH_REQUESTS):
+            t = time.time()
+            feats.append(embedder.embed_structures(
+                structures[r * GRAPH_BATCH:(r + 1) * GRAPH_BATCH], **kw))
+            secs.append(time.time() - t)
+        launches[f"{name} serving"] = read_launches()
+        require(launches[f"{name} serving"] == none and not any(
+            PLAIN_CALLS.values()), f"{name}: launches {launches[name + ' serving']}")
+        feats = np.concatenate(feats)
+        norms = np.linalg.norm(feats, axis=-1)
+        require(feats.shape == (len(structures), 1024)
+                and bool(np.isfinite(feats).all())
+                and bool(np.all(np.abs(norms * 0.07 - 1.0) <= 1e-3)),
+                f"{name} embeddings {feats.shape}, norms {norms.min()}..")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the tower alone on one built batch, host work excluded
+        t = time.time()
+        batch = graphs.stack_graphs([graphs.protein_to_padded_graph(
+            *s, max_residues=residues, max_neighbors=GRAPH_K)
+            for s in structures[:GRAPH_BATCH]])
+        build_s = time.time() - t
+        graph = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        enc.eval()
+        with torch.no_grad():
+            tower_ms = time_ms(lambda: enc(graph), iters=5)
+        # card vs CPU on the same weights, eval mode
+        cpu = create_struct_graph_encoder(encoder=dict(GRAPH_ENCODER),
+                                          output_dim=1024, device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+        few = {k: v[:GRAPH_PARITY_GRAPHS] for k, v in batch.items()}
+        with torch.no_grad():
+            got = enc({k: torch.from_numpy(v).cuda() for k, v in few.items()})
+            want = cpu({k: torch.from_numpy(v) for k, v in few.items()})
+        cos = torch.nn.functional.cosine_similarity(
+            got.float().cpu(), want, dim=-1)
+        out[name] = {
+            "graphs": len(structures), "residues": residues, "k": GRAPH_K,
+            "graphs_per_s": len(structures) / sum(secs),
+            "request_ms": [x * 1e3 for x in secs],
+            "tower_ms_per_batch": tower_ms,
+            "tower_graphs_per_s": GRAPH_BATCH / tower_ms * 1e3,
+            "host_build_ms_per_batch": build_s * 1e3,
+            "pdb_write_parse_s": parse_s, "peak_gib": peak,
+            "parity_min_cosine": float(cos.min()),
+            "parity_mean_cosine": float(cos.mean())}
+        print(f"  {name} (ProNet 128 x 4, out 1024, f32): {len(structures)} "
+              f"graphs of {residues} residues, K={GRAPH_K}: "
+              f"{out[name]['graphs_per_s']:.1f} graphs/s end to end (requests "
+              + ", ".join(f"{x * 1e3:.1f} ms" for x in secs)
+              + f"); the tower alone {tower_ms:.2f} ms a batch of "
+              f"{GRAPH_BATCH} ({out[name]['tower_graphs_per_s']:.1f} graphs/s), "
+              f"host graph build {build_s * 1e3:.1f} ms a batch; PDB write + "
+              f"parse {parse_s:.2f} s; peak {peak:.2f} GiB; card vs CPU least "
+              f"cosine {out[name]['parity_min_cosine']:.6f} (gate >= "
+              f"{GRAPH_COS}); {smi}", flush=True)
+        require(out[name]["parity_min_cosine"] >= GRAPH_COS,
+                f"{name} parity {out[name]['parity_min_cosine']}")
+        del embedder, enc, cpu, graph
+        torch.cuda.empty_cache()
+    return out
+
+
+# seq<->msa and seqsim through Trainer.fit: configs/data/modalities/msa.yaml
+# (depth 50, batches 16 / 8) and seqsim.yaml (16 / 16), the 650M hub and
+# esm_msa1b, one bucket of 1024 so a protein's padded row (the cache's key)
+# is the same in every batch
+MSA_TRAIN_DEPTH, MSA_TRAIN_HOMOLOGS = 50, 64
+MSA_TRAIN_ITEMS, MSA_EVAL_ITEMS = 128, 32
+SEQSIM_ITEMS, SEQSIM_EVAL_ITEMS = 128, 32
+MSA_TRAIN_SEED = 19
+
+
+def seqsim_files(root: str, rng, counts: dict) -> None:
+    """`{split}_seqsim.txt` (sequences: the ClinVar tables key mutations by
+    sequence), `{split}_msa_seqsim.csv` (req_seq, aligned_seq with 5% '-')
+    and the two mutation tables, one benign and one pathogenic mutation a
+    protein, so each protein's pairs are the same in every epoch."""
+    benign, pathogenic = {}, {}
+    for split, n in counts.items():
+        seqs = sample_seqs(n, rng)
+        rows = ["req_seq,aligned_seq"]
+        for seq in seqs:
+            pos = rng.randint(0, len(seq), 2)
+            benign[seq] = [f"{seq[pos[0]]}{pos[0] + 1}{rng.choice(list(AAS))}"]
+            pathogenic[seq] = [f"{seq[pos[1]]}{pos[1] + 1}{rng.choice(list(AAS))}"]
+            aligned = "".join("-" if rng.rand() < 0.05 else c for c in seq)
+            rows.append(f"{seq},{aligned}")
+        with open(os.path.join(root, f"{split}_seqsim.txt"), "w") as f:
+            f.write("\n".join(seqs) + "\n")
+        with open(os.path.join(root, f"{split}_msa_seqsim.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    for name, table in (("benign", benign), ("pathogenic", pathogenic)):
+        with open(os.path.join(root, f"clinvar_full_{name}_mutations.json"),
+                  "w") as f:
+            json.dump(table, f)
+
+
+def msa_files(root: str, rng, counts: dict,
+              homologs: int = MSA_TRAIN_HOMOLOGS) -> None:
+    """`write_msas`' synthetic .a3m files (query lengths log-normal around
+    290 columns, at most 1022) and `{split}_msa.csv` naming them."""
+    for split, n in counts.items():
+        sub = os.path.join(root, f"msa_{split}")
+        os.makedirs(sub, exist_ok=True)
+        paths = write_msas(sub, rng, n, homologs)
+        with open(os.path.join(root, f"{split}_msa.csv"), "w") as f:
+            f.write("".join(f"{split}_{i:05d},{p}\n"
+                            for i, p in enumerate(paths)))
+
+
+def msa_seqsim_phase(smi: str, launches: dict) -> dict:
+    """seq<->msa and seqsim through Trainer.fit: the frozen ESM2-650M hub
+    and the frozen esm_msa1b tower (depth 50), both cached
+    (`train_step_fully_cached`), 2 epochs. Epoch 1 fills both caches (33 #1
+    a hub forward, 12 #8 an MSA forward); epoch 2 and its validation
+    launch neither. Fills launches["msa_seqsim"]."""
+    hub = create_sequence_encoder(proj_type="mlp")
+    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(21))
+    tower = create_msa_encoder()
+    msa_transformer.init_msa_weights_(
+        tower, torch.Generator(device="cuda").manual_seed(22))
+    module = OneProtModule({"sequence": hub, "msa": tower},
+                           optimizer=lambda: adam(TRAINER_LR), loss_fn="CLIP",
+                           use_l1_regularization=True, use_seqsim=True)
+    rng = np.random.RandomState(MSA_TRAIN_SEED)
+    counts = {"train": MSA_TRAIN_ITEMS, "val": MSA_EVAL_ITEMS,
+              "test": MSA_EVAL_ITEMS}
+    none = {name: 0 for name in LAUNCHERS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_msa_train_") as root:
+        msa_files(root, rng, counts)
+        seqsim_files(root, rng, {"train": SEQSIM_ITEMS, "val": SEQSIM_EVAL_ITEMS,
+                                 "test": SEQSIM_EVAL_ITEMS})
+        dm = OneProtDataModule(
+            modalities={
+                "msa": {"dataset": {"data_dir": root, "max_length": 1024,
+                                    "msa_depth": MSA_TRAIN_DEPTH},
+                        "batch_size": {"train": 16, "val": 8, "test": 8}},
+                "seqsim": {"dataset": {"data_dir": root, "max_length": 1024},
+                           "batch_size": {"train": 16, "val": 16,
+                                          "test": 16}}},
+            buckets=[1024], num_workers=4)
+        probe = TrainerProbe(module, dm)
+        trainer = Trainer(max_epochs=2, accelerator="gpu",
+                          cache_frozen_features=True,
+                          log_every_n_steps=TRAINER_LOG_EVERY,
+                          default_root_dir=os.path.join(root, "run"))
+        probe.attach(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            t = time.time()
+            metrics = trainer.fit(module, dm)
+            probe.mark("end")
+            fit_s = time.time() - t
+        finally:
+            probe.close()
+        launches["msa_seqsim"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"msa/seqsim: plain versions ran on the card: {PLAIN_CALLS}")
+    losses = torch.stack(probe.losses).float().cpu().numpy()
+    require(bool(np.isfinite(losses).all()), f"msa/seqsim losses {losses}")
+    epochs = text_epochs(probe, backbones=("sequence", "msa"))
+    require([e["epoch"] for e in epochs] == [0, 1], f"epochs {epochs}")
+    n_val = MSA_EVAL_ITEMS // 8 + SEQSIM_EVAL_ITEMS // 16
+    total = dict(none)
+    for e in epochs:
+        enc, val_enc = e["encodes"], e["val_encodes"]
+        want = {**none, "flash_mha_fwd": N_LAYERS * enc["sequence"],
+                "tied_row_attention": MSA_LAYERS * enc["msa"]}
+        want_val = {**none, "flash_mha_fwd": N_LAYERS * val_enc["sequence"],
+                    "tied_row_attention": MSA_LAYERS * val_enc["msa"]}
+        require(e["launches"] == want and e["val_launches"] == want_val,
+                f"msa/seqsim epoch {e['epoch']} launches {e['launches']} / "
+                f"{e['val_launches']}, want {want} / {want_val}")
+        if e["epoch"] == 0:
+            # every batch misses: the hub on both sides of a seqsim batch
+            n_msa = e["by_modality"]["msa"]["steps"]
+            n_sim = e["by_modality"]["seqsim"]["steps"]
+            require(enc == {"sequence": n_msa + 2 * n_sim, "msa": n_msa}
+                    and val_enc["msa"] == MSA_EVAL_ITEMS // 8
+                    and val_enc["sequence"] == n_val + SEQSIM_EVAL_ITEMS // 16,
+                    f"msa/seqsim epoch 1 forwards {enc} / {val_enc}")
+        else:
+            require(e["launches"] == e["val_launches"] == none
+                    and e["cache_hit_rate"] == e["val_cache_hit_rate"] == 1.0,
+                    f"msa/seqsim epoch 2: launches {e['launches']} / "
+                    f"{e['val_launches']}, hit rates {e['cache_hit_rate']} / "
+                    f"{e['val_cache_hit_rate']}")
+        for k in none:
+            total[k] += e["launches"][k] + e["val_launches"][k]
+    require(launches["msa_seqsim"] == total, f"msa/seqsim launches "
+            f"{launches['msa_seqsim']}, want {total}")
+    cache = trainer._feature_cache
+    keys = {ns: sum(k.startswith(ns) for k in cache._store)
+            for ns in (b"msa|", b"sequence|")}
+    out = {"items": {"msa": counts, "seqsim": SEQSIM_ITEMS},
+           "fit_s": fit_s, "steps": module.step,
+           "epochs": [{k: v for k, v in e.items()
+                       if k not in ("launches", "val_launches")}
+                      for e in epochs],
+           "launches_per_epoch": [e["launches"] for e in epochs],
+           "cache_host_bytes": cache.host_bytes(),
+           "cache_entries": {k.decode(): v for k, v in keys.items()},
+           "val_loss": metrics["val/loss"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches["msa_seqsim"]}
+    for e in epochs:
+        print(f"  msa/seqsim epoch {e['epoch']}: {e['batches']} steps, "
+              f"{e['pairs_per_s']:.1f} pairs/s (" + ", ".join(
+                  f"{m}: {d['steps']} steps, {d['pairs_per_s']:.1f} pairs/s"
+                  for m, d in e["by_modality"].items())
+              + f"); median batch {e['median_batch_ms']:.1f} ms (loader "
+              f"{e['median_split_ms']['loader']:.1f}, lookup "
+              f"{e['median_split_ms']['lookup']:.1f}, step "
+              f"{e['median_split_ms']['step']:.1f}); hit rate "
+              f"{e['cache_hit_rate']:.3f} / val {e['val_cache_hit_rate']:.3f}; "
+              f"backbone forwards {e['encodes']} / val {e['val_encodes']}; "
+              f"validation {e['val_s']:.2f} s; launches {e['launches']}",
+              flush=True)
+    print(f"  msa/seqsim: fit {fit_s:.2f} s, {module.step} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, val/loss "
+          f"{out['val_loss']:.4f}; cache {out['cache_entries']} entries, "
+          f"{out['cache_host_bytes'] / 2**20:.1f} MiB on the host (an MSA's "
+          f"key is its [50, 1024] token block); peak {out['peak_gib']:.2f} "
+          f"GiB; {smi}", flush=True)
+    del module, hub, tower, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+class MemoryStructs(StructDataset):
+    """The package's StructDataset with its structures in memory (the
+    card's host has no h5py): ids from the split's CSV, as the package
+    reads them, (full sequence, graph sequence, atom names, residue ids,
+    xyz) from `records`."""
+
+    def __init__(self, records: dict, **kwargs):
+        super().__init__(**kwargs)
+        self.records = records
+
+    def read_structure(self, seq_id: str):
+        return self.records.get(seq_id)
+
+
+def graph_records(root: str, rng, counts: dict, pocket_residues: int,
+                  median: float = 290.0) -> dict:
+    """{"struct_graph": records, "pocket": records} for `counts` ids a
+    split: a chain of log-normal length (clipped to [30, 1022]) and a
+    pocket cut-out of its first `pocket_residues` residues, each written
+    as PDB text and parsed by structure_io; `{split}_seqstruc.csv` and
+    `{split}_pocket.csv` list the ids."""
+    out = {"struct_graph": {}, "pocket": {}}
+    pdb_dir = os.path.join(root, "pdb")
+    os.makedirs(pdb_dir, exist_ok=True)
+    for split, n in counts.items():
+        ids = [f"{split}_{i:05d}" for i in range(n)]
+        lens = np.clip(rng.lognormal(np.log(median), 0.65, n), 30, 1022)
+        for sid, n_res in zip(ids, lens.astype(int)):
+            seq = "".join(rng.choice(list(AAS), n_res))
+            for kind, part in (("struct_graph", seq),
+                               ("pocket", seq[:pocket_residues])):
+                path = os.path.join(pdb_dir, f"{sid}_{kind}.pdb")
+                with open(path, "w") as f:
+                    f.write(synthetic.backbone_pdb(part, rng))
+                out[kind][sid] = (seq, *parse_chain(path))
+        for kind in ("seqstruc", "pocket"):
+            with open(os.path.join(root, f"{split}_{kind}.csv"), "w") as f:
+                f.write("".join(f"{sid},0\n" for sid in ids))
+    return out
+
+
+# the shipped default configs/train.yaml (data: oneprot = pocket, seqsim,
+# struct_graph, text; model: oneprot = the 650M hub, ProNet struct_graph and
+# pocket, BiomedBERT-base text), only the paths, the accelerator, the epochs
+# and the data module's alias overridden
+DEFAULT_CLI = ("trainer=gpu", "trainer.max_epochs=2", "extras.print_config=false")
+DEFAULT_ITEMS, DEFAULT_EVAL_ITEMS, DEFAULT_SEED = 64, 32, 23
+POCKET_RESIDUES = 100  # pockets_100_residues.h5
+
+
+def default_cli_phase(smi: str, launches: dict) -> dict:
+    """configs/train.yaml as shipped through `cli.train.main`: 2 epochs and
+    the test split on synthetic pairs (struct_graph, pocket and the text
+    tower's sequences from memory; text, seqsim files on disk). Gated: no
+    plain version, 33 #1 a hub forward and 12 a BERT forward and nothing
+    else, finite losses and metrics. Fills launches["default_cli"]."""
+    none = {name: 0 for name in LAUNCHERS}
+    rng = np.random.RandomState(DEFAULT_SEED)
+    counts = {"train": DEFAULT_ITEMS, "val": DEFAULT_EVAL_ITEMS,
+              "test": DEFAULT_EVAL_ITEMS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_default_cli_") as root:
+        t = time.time()
+        records = graph_records(root, rng, counts, POCKET_RESIDUES)
+        text = {}
+        for split, n in counts.items():
+            ids = [f"{split}_{i:05d}" for i in range(n)]
+            texts = sample_texts(n, rng)
+            for sid in ids:
+                text[sid] = records["struct_graph"][sid][0]
+            with open(os.path.join(root, f"{split}_text.csv"), "w") as f:
+                f.write("".join(f"{sid},{x}\n" for sid, x in zip(ids, texts)))
+        seqsim_files(root, rng, counts)
+        data_s = time.time() - t
+        CliDataModule.RECORDS = {**records, "text": text}
+        register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+        probe = CliProbe()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            metrics = probe.main(list(DEFAULT_CLI) + [
+                f"paths.data_dir={root}", f"hydra.run.dir={root}/run"])
+            launches["default_cli"] = read_launches()
+            plain = dict(PLAIN_CALLS)
+        finally:
+            probe.close()
+            TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
+            CliDataModule.RECORDS = {}
+    require(not any(plain.values()), f"default cli: plain versions ran on the "
+            f"card: {plain}")
+    run = probe.runs[0]
+    module = run["module"]
+    require(set(module.encoders) == {"sequence", "struct_graph", "pocket",
+                                     "text"}, f"encoders {set(module.encoders)}")
+    epochs = text_epochs(run["probe"], backbones=("sequence", "text"))
+    require([e["epoch"] for e in epochs] == [0, 1], f"epochs {epochs}")
+    total = dict(none)
+    for e in epochs:
+        for got, enc in ((e["launches"], e["encodes"]),
+                         (e["val_launches"], e["val_encodes"])):
+            want = {**none, "flash_mha_fwd": N_LAYERS * enc["sequence"]
+                    + TEXT_LAYERS * enc["text"]}
+            require(got == want, f"default cli epoch {e['epoch']} launches "
+                    f"{got}, want {want}")
+            for k in none:
+                total[k] += got[k]
+    # seqsim is not trained (model/oneprot.yaml: use_seqsim false)
+    require(sorted(set(run["probe"].step_modalities))
+            == ["pocket", "struct_graph", "text"],
+            f"trained {set(run['probe'].step_modalities)}")
+    test_enc = run["test_launches"]["flash_mha_fwd"]
+    require(run["test_launches"] == {**none, "flash_mha_fwd": test_enc},
+            f"default cli test launches {run['test_launches']}")
+    for k in none:
+        total[k] += run["test_launches"][k]
+    require(launches["default_cli"] == total, f"default cli launches "
+            f"{launches['default_cli']}, want {total}")
+    losses = torch.stack(run["probe"].losses).float().cpu().numpy()
+    finite = [v for k, v in metrics.items() if k.startswith(("val/", "test/"))]
+    require(bool(np.isfinite(losses).all()) and len(finite) > 20
+            and bool(np.isfinite(finite).all()), f"default cli metrics {metrics}")
+    out = {"items": counts, "data_s": data_s, "model_build_s": run["build_s"],
+           "fit_s": run["fit_s"], "test_s": run["test_s"],
+           "main_s": run["main_s"], "steps": module.step,
+           "epochs": [{k: v for k, v in e.items()
+                       if k not in ("launches", "val_launches")}
+                      for e in epochs],
+           "checkpoint_saves": run["probe"].saves,
+           "val_loss": metrics["val/loss"], "test_loss": metrics["test/loss"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches["default_cli"]}
+    for e in epochs:
+        print(f"  train.yaml epoch {e['epoch']}: {e['batches']} steps, "
+              f"{e['pairs_per_s']:.1f} pairs/s (" + ", ".join(
+                  f"{m}: {d['steps']} steps, {d['pairs_per_s']:.1f} pairs/s"
+                  for m, d in e["by_modality"].items())
+              + f"); median batch {e['median_batch_ms']:.1f} ms (loader "
+              f"{e['median_split_ms']['loader']:.1f}, lookup "
+              f"{e['median_split_ms']['lookup']:.1f}, step "
+              f"{e['median_split_ms']['step']:.1f}); hit rate "
+              f"{e['cache_hit_rate']:.3f} / val {e['val_cache_hit_rate']:.3f}; "
+              f"backbone forwards {e['encodes']} / val {e['val_encodes']}; "
+              f"validation {e['val_s']:.2f} s; launches {e['launches']}",
+              flush=True)
+    print(f"  train.yaml: data {data_s:.2f} s, build {run['build_s']:.2f} s, "
+          f"fit {run['fit_s']:.2f} s, test {run['test_s']:.2f} s, "
+          f"{module.step} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"val/loss {out['val_loss']:.4f}, test/loss {out['test_loss']:.4f}; "
+          "checkpoints " + ", ".join(f"{s['name']} {s['s']:.2f} s"
+                                     for s in run["probe"].saves)
+          + f"; peak {out['peak_gib']:.2f} GiB; launches "
+          f"{launches['default_cli']}; {smi}", flush=True)
+    return out
+
+
+# the f32 debug experiments as shipped (ESM2-8M towers, bert_tiny, ProNet
+# 32 x 2, the 64-wide MSA tower with heads of 16), on the card
+F32_EXPERIMENTS = (
+    ("debug_struct_token", ("experiment=debug_struct_token", "trainer=gpu")),
+    ("train_packed", ("experiment=train_packed", "trainer=gpu",
+                      "data=struct_token_only", "trainer.max_epochs=1")),
+    ("debug_all_modalities", ("experiment=debug_all_modalities",
+                              "trainer=gpu")))
+F32_ITEMS, F32_EVAL_ITEMS, F32_SEED = 64, 16, 29
+
+
+def f32_experiments_phase(smi: str, launches: dict) -> dict:
+    """experiment=debug_struct_token, train_packed (data=struct_token_only)
+    and debug_all_modalities through `cli.train.main` as shipped, f32 on
+    the card: each runs to its end (train and test) through the f32
+    instances of #1-#3 and no bf16 flash-MHA launch; debug_all_modalities'
+    MSA tower (heads of 16) through #8's zero-padded launch, 2 a forward.
+    Fills launches["f32 <experiment>"]."""
+    out = {}
+    rng = np.random.RandomState(F32_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as root:
+        t = time.time()
+        counts = {"train": F32_ITEMS, "val": F32_EVAL_ITEMS,
+                  "test": F32_EVAL_ITEMS}
+        tokens = struct_token_records(root, np.random.RandomState(TRAINER_SEED))
+        records = graph_records(root, rng, counts, 16, median=60.0)
+        text = {}
+        for split, n in counts.items():
+            ids = [f"{split}_{i:05d}" for i in range(n)]
+            for sid in ids:
+                text[sid] = records["struct_graph"][sid][0]
+            with open(os.path.join(root, f"{split}_text.csv"), "w") as f:
+                f.write("".join(f"{sid},{x}\n" for sid, x in zip(
+                    ids, sample_texts(n, rng))))
+        msa_files(root, rng, counts, homologs=8)
+        seqsim_files(root, rng, counts)
+        data_s = time.time() - t
+        CliDataModule.RECORDS = {**records, "text": text,
+                                 "struct_token": tokens}
+        register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+        probe = CliProbe()
+        try:
+            for name, argv in F32_EXPERIMENTS:
+                torch.cuda.synchronize()
+                reset_launches()
+                t = time.time()
+                metrics = probe.main(list(argv) + [
+                    f"paths.data_dir={root}", f"hydra.run.dir={root}/{name}",
+                    "extras.print_config=false"])
+                wall = time.time() - t
+                launches[f"f32 {name}"] = read_launches()
+                run = probe.runs[-1]
+                out[name] = {"main_s": wall, "steps": run["module"].step,
+                             "val_loss": metrics.get("val/loss"),
+                             "test_loss": metrics.get("test/loss"),
+                             "plain": dict(PLAIN_CALLS),
+                             "launches": launches[f"f32 {name}"],
+                             "metrics_finite": bool(np.isfinite([
+                                 v for k, v in metrics.items()
+                                 if k.startswith(("val/", "test/"))]).all())}
+        finally:
+            probe.close()
+            TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
+            CliDataModule.RECORDS = {}
+    for (name, _), run in zip(F32_EXPERIMENTS, probe.runs):
+        got = out[name]
+        n = got["launches"]
+        print(f"  {name} (f32): {got['steps']} steps, main {got['main_s']:.2f} "
+              f"s, val/loss {got['val_loss']:.4f}, test/loss "
+              f"{got['test_loss']:.4f}; f32 #1 {n['flash_mha_fwd_f32']}, #2 "
+              f"{n['flash_mha_bwd_dq_f32']}, #3 {n['flash_mha_bwd_dkv_f32']}, "
+              f"#8 at heads of 16 {n['tied_row_attention']}, bf16 #1 "
+              f"{n['flash_mha_fwd']}; {smi}", flush=True)
+        require(not any(got["plain"].values()),
+                f"{name}: plain versions ran on the card: {got['plain']}")
+        require(got["metrics_finite"] and got["test_loss"] is not None
+                and got["steps"] > 0, f"{name}: did not run to its end {got}")
+        require(min(n[k] for k in F32_NAMES) > 0 and n["flash_mha_fwd"] == 0
+                and n["flash_mha_bwd_dq"] == n["flash_mha_bwd_dkv"] == 0,
+                f"{name}: launches {n}")
+        if name == "debug_all_modalities":
+            msa_forwards = run["probe"].step_modalities.count("msa")
+            require(n["tied_row_attention"] >= 2 * msa_forwards > 0,
+                    f"{name}: #8 launches {n['tied_row_attention']} over "
+                    f"{msa_forwards} MSA steps")
+        else:
+            require(n["tied_row_attention"] == 0, f"{name}: #8 launches")
+    out["data_s"] = data_s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2897,6 +3716,9 @@ def main() -> int:
             check_tied_row(gen), check_flash_attention(gen),
             *check_flash_attention_bwd(gen)]
     text_kernels = check_flash_text(gen, rows[:3])
+    rows += check_flash_f32(gen)
+    tied_row = next(r for r in rows if r["name"] == "tied_row_attention")
+    tied_row["narrow_heads"] = check_tied_row_narrow(gen)
 
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
@@ -3004,6 +3826,11 @@ def main() -> int:
     phase("trainer parity: 2 + 2 layers at full width, 4 steps, card (bf16, "
           "kernels) vs CPU (f32, plain)")
     trainer["parity"] = trainer_parity(trainer_initial, records)
+    trainer["parity_lr_1e-4"] = trainer_parity(trainer_initial, records,
+                                               lr=1e-4)
+    print(f"  trainer parity margins under the 2e-2 gate: Adam 1e-3 "
+          f"{trainer['parity']['margin']:.2e}, Adam 1e-4 "
+          f"{trainer['parity_lr_1e-4']['margin']:.2e}", flush=True)
     del trainer_initial, records
 
     phase("training: LoRA-15B (48 x 5120 frozen bf16, LoRA r 16 on q/k/v, "
@@ -3037,6 +3864,28 @@ def main() -> int:
     phase("text parity: 2 hub + 2 BERT layers at full width, LoRA text, "
           "SigLIP, 4 steps, card (bf16, kernels) vs CPU (f32, plain)")
     text["parity"] = text_parity()
+    torch.cuda.empty_cache()
+
+    phase("graph tower: StructGraphEncoder at struct_graph.yaml's widths "
+          "(ProNet 128 x 4, out 1024) on 1024 residues, then pocket.yaml's "
+          "on 128, K=24, 3 requests of 16 from PDB text; card vs CPU")
+    graph = graph_phase(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("seq<->msa and seqsim: Trainer.fit, ESM2-650M hub + esm_msa1b "
+          "(depth 50), both cached, 2 epochs")
+    msa_train = msa_seqsim_phase(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("the shipped default train.yaml through cli.train.main: ESM2-650M "
+          "hub, ProNet struct_graph and pocket, BiomedBERT-base text, seqsim "
+          "data; 2 epochs and the test split")
+    default_cli = default_cli_phase(smi, launches)
+    torch.cuda.empty_cache()
+
+    phase("the f32 experiments as shipped through cli.train.main: "
+          "debug_struct_token, train_packed, debug_all_modalities")
+    f32_runs = f32_experiments_phase(smi, launches)
 
     for row in rows:
         # each path's count read from its own run; `launches` is their sum
@@ -3060,6 +3909,10 @@ def main() -> int:
         "lora_training": lora,
         "cli": cli,
         "text": text,
+        "graph": graph,
+        "msa_seqsim_training": msa_train,
+        "default_train_yaml": default_cli,
+        "f32_experiments": f32_runs,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -16,8 +16,10 @@ numpy arrays converts here with no JAX installed. Mappings:
   table as `embed_tokens.weight`;
 - BERT's raw tables (`word_embeddings`, `position_embeddings`,
   `token_type_embeddings`) keep their names and shapes;
+- ProNet's `aa_embed` `embedding` [21, H] -> `aa_embed.weight`, its
+  `layer_{i}` Dense and LayerNorm leaves as above;
 - `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token,
-  msa, text).
+  msa, text, struct_graph, pocket).
 
 Values are copied as float32 (int8 codes as int8); load the result with
 `module.load_state_dict(...)`, which casts to the module's dtype.
@@ -156,17 +158,43 @@ def text_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def pronet_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `ProNet` params -> the port's `ProNet` state."""
+    out = {prefix + "aa_embed.weight": _t(tree["aa_embed"]["embedding"])}
+    for name in ("bb_proj", "sc_proj", "readout1", "readout2"):
+        if name in tree:
+            out.update(_dense(tree[name], f"{prefix}{name}."))
+    n_layers = sum(1 for key in tree if key.startswith("layer_"))
+    for i in range(n_layers):
+        lt, lp = tree[f"layer_{i}"], f"{prefix}layers.{i}."
+        for name in ("msg1", "msg2", "gate", "upd1", "upd2"):
+            out.update(_dense(lt[name], f"{lp}{name}."))
+        out.update(_layer_norm(lt["ln"], lp + "ln."))
+    return out
+
+
+def struct_graph_state_dict(tree: Tree,
+                            prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX `StructGraphEncoder` params (a `ProNet` named `encoder` and an
+    `EncoderHead`) -> the port's `StructGraphEncoder` state."""
+    out = pronet_state_dict(tree["encoder"], prefix + "encoder.")
+    out.update(head_state_dict(tree.get("head", {}), prefix + "head."))
+    return out
+
+
 _ENCODERS = {"encoders_sequence": encoder_state_dict,
              "encoders_struct_token": encoder_state_dict,
              "encoders_msa": msa_state_dict,
-             "encoders_text": text_state_dict}
+             "encoders_text": text_state_dict,
+             "encoders_struct_graph": struct_graph_state_dict,
+             "encoders_pocket": struct_graph_state_dict}
 
 
 def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     """JAX `OneProtModel` params (the params of a `OneProtModule` state)
     with any of `encoders_sequence`, `encoders_struct_token`,
-    `encoders_msa` and `encoders_text` -> the port's `OneProtModel`
-    state."""
+    `encoders_msa`, `encoders_text`, `encoders_struct_graph` and
+    `encoders_pocket` -> the port's `OneProtModel` state."""
     unported = set(tree) - set(_ENCODERS)
     if unported:
         raise NotImplementedError(f"{sorted(unported)} are not ported yet")

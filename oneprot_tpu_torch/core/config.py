@@ -441,14 +441,6 @@ TARGET_ALIASES: Dict[str, str] = {
 # targets (or module prefixes) of the configs with no counterpart in the
 # port yet, after the rewrite, and the ROADMAP.md item that ports each
 UNPORTED_TARGETS: Dict[str, str] = {
-    "oneprot_tpu_torch.data.datasets.msa_dataset":
-        "Queue 1 item 4 (seqsim and MSA training)",
-    "oneprot_tpu_torch.data.datasets.seqsim_dataset":
-        "Queue 1 item 4 (seqsim and MSA training)",
-    "oneprot_tpu_torch.models.encoders.create_struct_graph_encoder":
-        "Queue 1 item 5 (the graph and pocket tower)",
-    "oneprot_tpu_torch.data.datasets.struct_graph_dataset":
-        "Queue 1 item 5 (the graph and pocket tower)",
     "oneprot_tpu_torch.downstream": "Queue 1 item 10 (downstream probes)",
     "oneprot_tpu_torch.utils.loggers.WandbLogger":
         "Queue 1 item 11 (the wandb logger)",

@@ -13,8 +13,9 @@ order is sharded rank::world (rank and world size from torch.distributed
 when it is initialised); packed loaders then keep every process to the
 same batch count.
 
-The struct-token and text modalities are ported; the others raise naming
-their ROADMAP.md item.
+Every modality of the JAX package is served: struct_token, text, msa,
+seqsim, and struct_graph and pocket (one dataset class, the `pocket` flag
+in its config).
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from oneprot_tpu_torch.data.datasets.msa_dataset import MSADataset
+from oneprot_tpu_torch.data.datasets.seqsim_dataset import SequenceSimDataset
+from oneprot_tpu_torch.data.datasets.struct_graph_dataset import StructDataset
 from oneprot_tpu_torch.data.datasets.struct_token_dataset import (
     StructTokenDataset,
 )
@@ -33,13 +37,13 @@ from oneprot_tpu_torch.utils.loggers import get_pylogger
 
 log = get_pylogger(__name__)
 
-DATASET_CLASSES = {"struct_token": StructTokenDataset, "text": TextDataset}
-# the modalities the JAX package knows and the ROADMAP item that ports each
-UNPORTED_MODALITIES = {
-    "msa": "Queue 1 item 4 (seqsim and MSA training)",
-    "seqsim": "Queue 1 item 4 (seqsim and MSA training)",
-    "struct_graph": "Queue 1 item 5 (the graph and pocket tower)",
-    "pocket": "Queue 1 item 5 (the graph and pocket tower)",
+DATASET_CLASSES = {
+    "msa": MSADataset,
+    "struct_graph": StructDataset,
+    "pocket": StructDataset,
+    "text": TextDataset,
+    "struct_token": StructTokenDataset,
+    "seqsim": SequenceSimDataset,
 }
 
 
@@ -261,11 +265,6 @@ class OneProtDataModule:
         """`dataset_classes` overrides DATASET_CLASSES per modality (a
         dataset serving records from memory, for instance)."""
         del pin_memory  # batches are numpy; the step moves them
-        for modality in modalities:
-            if modality in UNPORTED_MODALITIES:
-                raise NotImplementedError(
-                    f"modality {modality!r} is not ported yet: ROADMAP.md "
-                    f"{UNPORTED_MODALITIES[modality]}")
         self.modalities = modalities
         self.dataset_classes = {**DATASET_CLASSES, **(dataset_classes or {})}
         self.num_workers = num_workers

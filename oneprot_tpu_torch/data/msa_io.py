@@ -1,6 +1,7 @@
 """MSA file reading and diversity subsampling (counterpart of
 oneprot_tpu/data/utils/msa_io.py: `remove_insertions`, `read_fasta`,
-`read_msa`, `greedy_select`), numpy only.
+`read_msa`, `greedy_select`, `filter_and_create_msa_file_list`), numpy
+only.
 
 a3m/FASTA records are read without BioPython; lowercase insertion states
 and '.'/'*' are dropped, so every row of an aligned MSA has the query's
@@ -74,3 +75,15 @@ def greedy_select(msa: Msa, num_seqs: int) -> Msa:
         mean_dist[selected] = -np.inf
         selected.append(int(np.argmax(mean_dist)))
     return [msa[i] for i in sorted(selected)]
+
+
+def filter_and_create_msa_file_list(filename: str) -> List[str]:
+    """The second CSV column of every line that mentions '.a3m' (the MSA
+    paths of `{split}_msa.csv`)."""
+    out: List[str] = []
+    with open(filename) as f:
+        for line in f:
+            line = line.strip()
+            if ".a3m" in line:
+                out.append(line.split(",")[1])
+    return out

@@ -15,6 +15,8 @@ Tiny but schema-faithful fixtures for all six modalities:
   - {split}_seqsim.txt, {split}_msa_seqsim.csv, clinvar_*.json
   - downstream task CSVs (id, sequence, label)
 
+`backbone_pdb` writes one synthetic chain as PDB text.
+
 The HDF5 files need h5py, which is imported only when fixtures are
 written: the card's host has none, and there `ensure_fixtures` raises
 ImportError naming it unless the fixtures are already there.
@@ -27,6 +29,8 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from oneprot_tpu_torch.data.structure_io import THREE_TO_ONE
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 FOLDSEEK = "pynwrqhgdlvtmfsaeikc"
@@ -59,6 +63,27 @@ def _write_protein_group(h5, pid: str, seq: str, rng) -> None:
                      data=np.array(amino_id, np.int64))
     g.create_dataset("polypeptide/xyz",
                      data=np.array(xyz, np.float32))
+
+
+def backbone_pdb(sequence: str, rng: np.random.RandomState,
+                 chain: str = "A") -> str:
+    """PDB text of a synthetic chain for `sequence`: the fixtures'
+    helix-like CA trace, and N, CA, C, O and CB of each residue scattered
+    around it by N(0, 0.5) Angstrom, as fixed-column ATOM records
+    (`structure_io.parse_pdb_atoms` reads them back)."""
+    one_to_three = {v: k for k, v in THREE_TO_ONE.items() if k != "MSE"}
+    t = np.arange(len(sequence)) * 100.0 * np.pi / 180.0
+    ca = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t),
+                   1.5 * np.arange(len(sequence))], 1)
+    lines, serial = [], 0
+    for i, aa in enumerate(sequence):
+        for atom in _BACKBONE:
+            serial += 1
+            x, y, z = ca[i] + rng.normal(0, 0.5, 3)
+            lines.append(f"ATOM  {serial:5d} {atom.decode():<4s} "
+                         f"{one_to_three[aa]:>3s} {chain}{i + 1:4d}    "
+                         f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00")
+    return "\n".join(lines) + "\nEND\n"
 
 
 def generate_fixtures(

@@ -38,6 +38,15 @@ SIGNATURES = {
     "flash_mha_bwd_dkv": ("oneprot_flash_mha_bwd_dkv",
                           [_VOID_P] * 12 + [_INT] * 4 + [ctypes.c_float, _INT,
                                                          _VOID_P]),
+    "flash_mha_fwd_f32": ("oneprot_flash_mha_fwd_f32",
+                          [_VOID_P] * 9 + [_INT] * 4 + [ctypes.c_float, _INT,
+                                                        _VOID_P]),
+    "flash_mha_bwd_dq_f32": ("oneprot_flash_mha_bwd_dq_f32",
+                             [_VOID_P] * 13 + [_INT] * 4
+                             + [ctypes.c_float] * 2 + [_INT, _VOID_P]),
+    "flash_mha_bwd_dkv_f32": ("oneprot_flash_mha_bwd_dkv_f32",
+                              [_VOID_P] * 12 + [_INT] * 4
+                              + [ctypes.c_float, _INT, _VOID_P]),
     "flash_attention_fwd": ("oneprot_flash_attention_fwd",
                             [_VOID_P] * 6 + [_INT] * 5
                             + [ctypes.c_longlong] * 12

@@ -75,5 +75,5 @@ def fused_tied_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """MSA tied-row attention on the projections' [B, R, L, H*D] layout
     (see `tied_row_attention`). CPU tensors take the plain version; CUDA
     tensors the kernel, which raises on what it does not take (a head dim
-    other than 64). No gradient: backward raises NotImplementedError."""
+    above 64 or not a multiple of 8; narrower ones are zero-padded). No gradient: backward raises NotImplementedError."""
     return _TiedRow.apply(q, k, v, num_heads, col_bias, scale)

@@ -13,8 +13,11 @@ On CUDA tensors the forward launches the hand-written kernel of
 `csrc/flash_mha_bwd_dq.cu` (whose prologue writes q_r = rot(q) * q_pre and
 delta = rowsum(dO * O)) and then the dk/dv kernel of
 `csrc/flash_mha_bwd_dkv.cu` on them (bf16, head dim a multiple of 8 and at
-most 64), or they raise. The two backward kernels skip the tiles of a packed
-row that share no segment (`segment_tile_hits`). On CPU tensors they run
+most 64), or they raise. float32 tensors go to the f32 instances of
+the three kernels (`csrc/flash_mha_*_f32.cu`: f32 FMA on the CUDA
+cores, the same head dims); any other dtype raises. The backward kernels
+skip the tiles of a packed row that share no segment
+(`segment_tile_hits`). On CPU tensors they run
 `mha_attention_plain` and `mha_attention_bwd_plain`, the same functions in
 plain PyTorch with f32 logits and softmax.
 """
@@ -47,6 +50,21 @@ def fused_mha_applies(head_dim: int) -> bool:
     rotary pairs half with half). Wider heads go through
     `flash_attention.dot_product_attention`."""
     return head_dim <= MAX_HEAD_DIM and head_dim % 2 == 0
+
+
+def check_card_dtype(device, dtype: torch.dtype, head_dim: int) -> None:
+    """Refuse a model the card's attention kernels cannot run: bf16 runs
+    every head width, float32 only the flash-MHA path's (`fused_mha_applies`
+    and a multiple of 8), through the f32 instances of #1-#3."""
+    if torch.device(device).type != "cuda" or dtype == torch.bfloat16:
+        return
+    if dtype != torch.float32:
+        raise ValueError(f"dtype {dtype} on the card: the attention kernels "
+                         "take bfloat16 or float32")
+    if not fused_mha_applies(head_dim) or head_dim % 8:
+        raise ValueError(f"float32 on the card with heads of {head_dim}: the "
+                         "f32 attention kernels take head dims that are "
+                         "multiples of 8 up to 64")
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -302,6 +320,7 @@ def flash_mha_bwd_dkv_plain(
     return _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype)
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 SKIP_TILE = 64  # rows of a tile of the backward kernels' skip rule
 FWD_Q_TILE = 128  # query rows of a CTA of the forward kernel
 _I32 = torch.iinfo(torch.int32)
@@ -346,23 +365,26 @@ def segment_tile_hits(segment_ids: torch.Tensor, tile: int = SKIP_TILE,
 
 def _kernel_args(tensors, num_heads, bias, rope_cos, rope_sin, segment_ids):
     """Check what the CUDA kernels take and make their side inputs: the key
-    bias in log2 units (f32 [B, L]), bf16 rotary tables, int32 segment ids.
-    `tensors` are the [B, L, H*D] operands (q first), which must be
-    contiguous, 16-byte aligned bf16 on q's card with a head dim that is a
-    multiple of 8. Returns (B, L, D, bias_b, cos, sin, seg)."""
+    bias in log2 units (f32 [B, L]), rotary tables in the operands' dtype,
+    int32 segment ids. `tensors` are the [B, L, H*D] operands (q first),
+    which must be contiguous, 16-byte aligned bf16 or f32 (all of q's
+    dtype) on q's card with a head dim that is a multiple of 8. Returns
+    (B, L, D, bias_b, cos, sin, seg)."""
     q, k, v = tensors[:3]
     B, L, D = _check_args(q, k, v, num_heads, bias, rope_cos, rope_sin,
                           segment_ids)
     if D % 8:
         raise ValueError(f"head dim {D} unsupported by the kernel: must be a "
                          "multiple of 8")
-    dev = q.device
+    dev, dt = q.device, q.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"operands must be bfloat16 or float32, got {dt}")
     for i, t in enumerate(tensors):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"operand {i} must be on the card of q, got "
                              f"{t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"operand {i} must be bfloat16, got {t.dtype}")
+        if t.dtype != dt:
+            raise TypeError(f"operand {i} must be {dt} like q, got {t.dtype}")
         if tuple(t.shape) != tuple(q.shape):
             raise ValueError(f"operand {i} must be [B, L, H*D] like q")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -371,8 +393,7 @@ def _kernel_args(tensors, num_heads, bias, rope_cos, rope_sin, segment_ids):
     bias_b = (None if bias is None else
               (bias.reshape(B, L).to(dev, torch.float32) * LOG2E).contiguous())
     cos, sin = ((None, None) if rope_cos is None else
-                (t.to(dev, torch.bfloat16).contiguous()
-                 for t in (rope_cos, rope_sin)))
+                (t.to(dev, dt).contiguous() for t in (rope_cos, rope_sin)))
     seg = (None if segment_ids is None else
            segment_ids.to(dev, torch.int32).contiguous())
     return B, L, D, bias_b, cos, sin, seg
@@ -398,9 +419,13 @@ def flash_mha_cuda(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel (with rotary, after its pass that writes
-    rot(k) once). Returns (out, base-2 lse [B, H, L])."""
+    rot(k) once); f32 operands launch its f32 instance. Returns (out,
+    base-2 lse [B, H, L])."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
         (q, k, v), num_heads, bias, rope_cos, rope_sin, segment_ids)
+    if q.dtype == torch.float32:
+        return flash_mha_f32_cuda(q, k, v, num_heads, B, L, D, bias_b, cos,
+                                  sin, seg)
     dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
@@ -432,13 +457,17 @@ def flash_mha_bwd_dq_cuda(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the dq kernel on bf16 CUDA tensors (out and lse from the
-    forward). Its prologue writes what the dk/dv kernel reads. Returns (dq,
-    q_r, delta): dq and q_r = bf16(rot(q) * q_pre), bf16 [B, L, H*D];
-    delta = rowsum(dout * out), f32 [B, H, L]."""
+    forward; f32 operands launch its f32 instance). Its prologue writes
+    what the dk/dv kernel reads. Returns (dq, q_r, delta): dq and q_r =
+    rot(q) * q_pre in the operands' dtype, [B, L, H*D]; delta =
+    rowsum(dout * out), f32 [B, H, L]."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
         (q, k, v, out, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
     dev = q.device
     lse = _row_stats(lse, B, num_heads, L, dev)
+    if q.dtype == torch.float32:
+        return flash_mha_bwd_dq_f32_cuda(q, k, v, out, lse, dout, num_heads,
+                                         B, L, D, bias_b, cos, sin, seg)
     dq, q_r = torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if dq.numel() == 0:
@@ -467,13 +496,17 @@ def flash_mha_bwd_dkv_cuda(
     rope_sin: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv kernel on bf16 CUDA tensors, with q_r and delta as
-    `flash_mha_bwd_dq_cuda` returns them. Returns (dk, dv), bf16
-    [B, L, H*D]."""
+    """Launch the dk/dv kernel on bf16 CUDA tensors (f32 operands launch
+    its f32 instance), with q_r and delta as `flash_mha_bwd_dq_cuda`
+    returns them. Returns (dk, dv), [B, L, H*D] in the operands' dtype."""
     B, L, D, bias_b, cos, sin, seg = _kernel_args(
         (q_r, k, v, dout), num_heads, bias, rope_cos, rope_sin, segment_ids)
     dev = q_r.device
     lse, delta = (_row_stats(t, B, num_heads, L, dev) for t in (lse, delta))
+    if q_r.dtype == torch.float32:
+        return flash_mha_bwd_dkv_f32_cuda(q_r, k, v, dout, lse, delta,
+                                          num_heads, B, L, D, bias_b, cos,
+                                          sin, seg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -490,6 +523,70 @@ def flash_mha_bwd_dkv_cuda(
 
 
 flash_mha_bwd_dkv_cuda.launches = 0
+
+
+def flash_mha_f32_cuda(q, k, v, num_heads, B, L, D, bias_b, cos, sin, seg):
+    """The f32 instance of the forward, on `_kernel_args`'s side inputs."""
+    dev = q.device
+    out = torch.empty_like(q)
+    lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out, lse
+    fn = _build.library("flash_mha_fwd_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
+                _ptr(cos), _ptr(sin), _ptr(seg), out.data_ptr(), lse.data_ptr(),
+                B, L, num_heads, D, bwd_scales(D)[0], dev.index, stream)
+    _build.check(rc, "flash_mha_fwd_f32")
+    flash_mha_f32_cuda.launches += 1
+    return out, lse
+
+
+def flash_mha_bwd_dq_f32_cuda(q, k, v, out, lse, dout, num_heads, B, L, D,
+                              bias_b, cos, sin, seg):
+    """The f32 instance of the dq kernel (prologue included)."""
+    dev = q.device
+    dq, q_r = torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
+    if dq.numel() == 0:
+        return dq, q_r, delta
+    q_pre, dq_scale, _ = bwd_scales(D)
+    fn = _build.library("flash_mha_bwd_dq_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), _ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg),
+                lse.data_ptr(), dq.data_ptr(), q_r.data_ptr(), delta.data_ptr(),
+                B, L, num_heads, D, q_pre, dq_scale, dev.index, stream)
+    _build.check(rc, "flash_mha_bwd_dq_f32")
+    flash_mha_bwd_dq_f32_cuda.launches += 1
+    return dq, q_r, delta
+
+
+def flash_mha_bwd_dkv_f32_cuda(q_r, k, v, dout, lse, delta, num_heads, B, L,
+                               D, bias_b, cos, sin, seg):
+    """The f32 instance of the dk/dv kernel."""
+    dev = q_r.device
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = _build.library("flash_mha_bwd_dkv_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q_r.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L,
+                num_heads, D, bwd_scales(D)[2], dev.index, stream)
+    _build.check(rc, "flash_mha_bwd_dkv_f32")
+    flash_mha_bwd_dkv_f32_cuda.launches += 1
+    return dk, dv
+
+
+# launches of the f32 instances, counted apart from the bf16 kernels'
+flash_mha_f32_cuda.launches = 0
+flash_mha_bwd_dq_f32_cuda.launches = 0
+flash_mha_bwd_dkv_f32_cuda.launches = 0
 
 
 def flash_mha_bwd_cuda(

@@ -13,7 +13,11 @@ probabilities are rounded to the input dtype before the PV product.
 
 `tied_row_attention_cuda` launches the hand-written kernel of
 `csrc/tied_row_attention.cu` (bf16, D = 64, 1 <= L <= 1024, any R and H;
-wgmma and TMA, so sm_90a) or raises; `tied_row_attention_plain` is the same
+wgmma and TMA, so sm_90a) or raises. Narrower heads (D a multiple of 8
+below 64, as the debug MSA tower's 16) are zero-padded to 64 around the
+launch: zero columns add nothing to q . k summed over rows and D, so the
+logits are the unpadded ones, the scale stays the true D's, and the
+output's padded columns are cut off; `tied_row_attention_plain` is the same
 function in plain PyTorch, for any device, which the CPU path runs. The
 dispatch (and the refusal of a gradient) is
 `kernels.attention.fused_tied_row`.
@@ -78,11 +82,12 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                             col_bias: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel on contiguous, 16-byte aligned bf16 q, k, v on one
-    card. Returns [B, R, L, H*64] bf16."""
+    card, heads narrower than 64 zero-padded to 64 (`_pad_heads`). Returns
+    [B, R, L, H*D] bf16."""
     B, R, L, D = _check_args(q, k, v, num_heads, col_bias)
-    if D != HEAD_DIM:
+    if D > HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D} unsupported by the kernel: must be "
-                         f"{HEAD_DIM}")
+                         f"a multiple of 8 up to {HEAD_DIM}")
     if not 1 <= L <= MAX_LENGTH:
         raise ValueError(f"L={L} unsupported by the kernel: 1 <= L <= "
                          f"{MAX_LENGTH}")
@@ -98,6 +103,8 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              "aligned")
     if scale is None:
         scale = tied_scale(D, R)
+    if D < HEAD_DIM:
+        q, k, v = (_pad_heads(t, num_heads) for t in (q, k, v))
     bias_b = (None if col_bias is None else
               (col_bias.reshape(B, L).to(dev, torch.float32) * LOG2E)
               .contiguous())
@@ -112,7 +119,18 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                 B, R, L, num_heads, scale * LOG2E, dev.index, stream)
     _build.check(rc, "tied_row_attention")
     tied_row_attention_cuda.launches += 1
+    if D < HEAD_DIM:
+        out = out.view(B, R, L, num_heads, HEAD_DIM)[..., :D].reshape(
+            B, R, L, num_heads * D)
     return out
+
+
+def _pad_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, R, L, H*D] -> [B, R, L, H*64], each head's columns past D zero."""
+    B, R, L, hd = x.shape
+    x = x.reshape(B, R, L, num_heads, hd // num_heads)
+    return torch.nn.functional.pad(
+        x, (0, HEAD_DIM - x.shape[-1])).reshape(B, R, L, num_heads * HEAD_DIM)
 
 
 tied_row_attention_cuda.launches = 0

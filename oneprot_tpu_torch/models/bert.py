@@ -21,8 +21,9 @@ text encoded alone.
 With `lora`, q, k and v are `LoraDense` layers (streams 3 * layer + 0..2);
 with `remat`, each layer runs under `torch.utils.checkpoint` when autograd
 records. Modules are built on the card in bf16 unless the caller names
-another device and dtype; the card takes bf16 only (the attention kernels
-do), and `Bert` refuses another compute dtype there when it is built.
+another device and dtype; the card takes bf16, or f32 with heads of at
+most 64 (the attention kernels' f32 instances), and `Bert` refuses any
+other compute dtype there when it is built.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from oneprot_tpu_torch.kernels.flash_mha import mha_attention
+from oneprot_tpu_torch.kernels.flash_mha import check_card_dtype, mha_attention
 from oneprot_tpu_torch.models.esm2 import LoraConfig, LoraDense
 from oneprot_tpu_torch.models.layers import Dense, LayerNorm
 
@@ -163,9 +164,8 @@ class Bert(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(f"dtype {dtype} on the card: the attention "
-                             "kernels take bfloat16 only")
+        check_card_dtype(device, dtype,
+                         config.hidden_size // config.num_heads)
         self.config = config
         self.remat = remat
         self.compute_dtype = dtype

@@ -8,8 +8,9 @@ parameters, and heads always do, as flax stores them. A frozen transformer
 with LoRA keeps its trainable leaves (the factors and the biases) in
 float32 too, and has no gradient barrier: the adapters train through it.
 `OneProtModel` routes 'sequence' and 'seqsim' to the sequence encoder and
-'struct_token', 'msa' and 'text' to theirs; the other modalities are not
-ported yet.
+'struct_token', 'msa', 'text', 'struct_graph' and 'pocket' to theirs. The
+graph towers (`StructGraphEncoder`: ProNet, dropout, head) take a dict of
+padded graph arrays rather than token ids, and compute in float32.
 """
 
 from __future__ import annotations
@@ -34,9 +35,16 @@ from oneprot_tpu_torch.models.msa_transformer import (
     MsaTransformer,
     MsaTransformerConfig,
 )
+from oneprot_tpu_torch.models.pronet import (
+    ProNet,
+    ProNetConfig,
+    dropout_stream,
+    graph_dropout,
+)
 
 STRUCT_EXTRA_TOKENS = 21  # +21 3Di rows of the struct-token vocabulary
-PORTED_MODALITIES = ("sequence", "struct_token", "msa", "text")
+PORTED_MODALITIES = ("sequence", "struct_token", "msa", "text",
+                     "struct_graph", "pocket")
 
 
 def _segment_packed_pooled(transformer: Union[Esm2, Bert], pooling_type: str,
@@ -186,10 +194,43 @@ class TextEncoder(_TokenEncoder):
         return Bert(config, lora, remat, **kw)
 
 
+class StructGraphEncoder(nn.Module):
+    """ProNet -> dropout -> head with identity pooling (the struct_graph and
+    pocket towers), trainable, in float32. Dropout draws its mask from the
+    step's seed (`pronet.set_graph_noise_seed`) in training mode only."""
+
+    def __init__(self, config: ProNetConfig, output_dim: int,
+                 proj_type: Optional[str] = "linear",
+                 use_logit_scale: bool = True,
+                 learnable_logit_scale: bool = False, dropout: float = 0.25,
+                 *, device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.frozen = False
+        self.dropout = dropout
+        self.encoder = ProNet(config, device=device, dtype=dtype)
+        self.head = EncoderHead(
+            config.out_channels, output_dim, proj_type, "identity",
+            use_logit_scale, learnable_logit_scale, device=device,
+            dtype=dtype)
+        self.noise_seed = 0
+
+    def forward(self, graph: Dict[str, torch.Tensor]) -> torch.Tensor:
+        encoded = self.encoder(graph)
+        if self.training and self.dropout > 0.0:
+            encoded = graph_dropout(encoded, self.dropout, self.noise_seed,
+                                    dropout_stream(self.config))
+        return self.head.project(encoded)
+
+
 class MsaEncoder(nn.Module):
     """The frozen MSA Transformer + head. The tower's output is averaged
     over every token of every row (in f32: ~10^4 summands) and the head
-    does not pool again. The tower runs without an autograd graph."""
+    does not pool again. The tower runs without an autograd graph, so its
+    pooled output can be cached (`backbone_is_cacheable`): the trainer then
+    trains the head alone on it (`head_from_pooled`)."""
+
+    backbone_is_cacheable = True  # always frozen, parameter-free pooling
 
     def __init__(self, config: MsaTransformerConfig, output_dim: int,
                  proj_type: Optional[str] = "mlp", use_logit_scale: bool = True,
@@ -211,6 +252,10 @@ class MsaEncoder(nn.Module):
         m = (tokens != self.config.pad_token_id)[..., None].float()
         total = (reps.float() * m).sum(dim=(1, 2))
         return (total / m.sum(dim=(1, 2)).clamp_min(1.0)).to(reps.dtype)
+
+    def head_from_pooled(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The trainable tail on a cached all-MSA mean."""
+        return self.head.project(pooled)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.head.project(self.backbone_pooled(tokens))
@@ -256,10 +301,11 @@ def create_sequence_encoder(
 ) -> SequenceEncoder:
     """Build a SequenceEncoder from the config keys of
     configs/model/components/sequence.yaml. `dtype` defaults to that
-    config's bfloat16, the one dtype the card's attention kernels take
-    (float32 runs on the CPU). `use_lora` puts rank-`lora_r` adapters on
-    q, k and v (the only target set, as in the JAX package: the target
-    list is accepted and not read); `remat` checkpoints each layer. Weights
+    config's bfloat16, which the card takes at every head width (float32
+    runs there on heads of at most 64, anywhere on the CPU). `use_lora`
+    puts rank-`lora_r` adapters on q, k and v (the only target set, as in
+    the JAX package: the target list is accepted and not read); `remat`
+    checkpoints each layer. Weights
     are PyTorch's default init: load a state_dict (see `convert`) or call
     `esm2.init_esm2_weights_`; a local directory that holds weights raises
     (loading them is ROADMAP.md Queue 1 item 8)."""
@@ -331,9 +377,10 @@ def create_text_encoder(
     overriding its vocabulary, rank-`lora_r` adapters on q, k and v with
     `use_lora` (the target list is accepted and not read, as in the JAX
     package), per-layer remat with `remat`. `dtype` defaults to the
-    config's bfloat16, the card's one dtype (the JAX factory defaults to
-    float32; float32 runs on the CPU). Weights are as built (the layers'
-    default init, zero embedding tables): load a state_dict
+    config's bfloat16 (the JAX factory defaults to float32, which the card
+    runs on heads of at most 64, as the debug `bert_tiny`'s). Weights are
+    as built (the layers' default init, zero embedding tables): load a
+    state_dict
     (`convert.text_state_dict`) or call `bert.init_bert_weights_`; a local
     directory that holds weights raises (loading them is ROADMAP.md Queue
     1 item 8)."""
@@ -349,9 +396,45 @@ def create_text_encoder(
         remat=remat, device=device, dtype=_dtype(dtype))
 
 
+def create_struct_graph_encoder(
+    encoder: Optional[Dict] = None,
+    output_dim: int = 1024,
+    proj_type: Optional[str] = "linear",
+    use_logit_scale: bool = True,
+    learnable_logit_scale: bool = False,
+    dtype: Union[str, torch.dtype] = "float32",
+    device: Union[str, torch.device] = "cuda",
+) -> StructGraphEncoder:
+    """Build a StructGraphEncoder from the config keys of
+    configs/model/components/struct_graph.yaml (and pocket.yaml): `encoder`
+    holds ProNet's keys (level, out_channels, euler_noise,
+    data_augment_eachlayer, dropout, hidden_size, num_layers, num_rbf,
+    cutoff). float32 by default, as the JAX factory. Weights are PyTorch's
+    default init: load a state_dict (`convert.struct_graph_state_dict`) or
+    call `esm2.init_esm2_weights_`."""
+    enc = dict(encoder or {})
+    enc.pop("_target_", None)
+    dropout = float(enc.pop("dropout", 0.25))
+    cfg = ProNetConfig(
+        out_channels=int(enc.pop("out_channels", output_dim)),
+        level=str(enc.pop("level", "backbone")),
+        euler_noise=bool(enc.pop("euler_noise", True)),
+        data_augment_eachlayer=bool(enc.pop("data_augment_eachlayer", True)),
+        hidden_size=int(enc.pop("hidden_size", 128)),
+        num_layers=int(enc.pop("num_layers", 4)),
+        num_rbf=int(enc.pop("num_rbf", 32)),
+        cutoff=float(enc.pop("cutoff", 10.0)))
+    return StructGraphEncoder(
+        cfg, output_dim=output_dim, proj_type=proj_type,
+        use_logit_scale=use_logit_scale,
+        learnable_logit_scale=learnable_logit_scale, dropout=dropout,
+        device=device, dtype=_dtype(dtype))
+
+
 def create_msa_encoder(
     model_name_or_path: str = "esm_msa1b_t12_100M_UR50S",
     output_dim: int = 1024,
+    pooling_type: str = "identity",
     proj_type: Optional[str] = "mlp",
     use_logit_scale: bool = True,
     learnable_logit_scale: bool = False,
@@ -359,6 +442,7 @@ def create_msa_encoder(
     hidden_size: int = 768,
     num_heads: int = 12,
     intermediate_size: Optional[int] = None,
+    use_all_msa: bool = True,
     dtype: Union[str, torch.dtype] = "bfloat16",
     device: Union[str, torch.device] = "cuda",
 ) -> MsaEncoder:
@@ -367,8 +451,14 @@ def create_msa_encoder(
     (12 layers of 768, 12 heads of 64, FFN 4 x 768), identity pooling over
     the all-MSA mean, mlp head, fixed logit scale 1/0.07, bf16 on the card.
     Weights are PyTorch's default init: load a state_dict (see
-    `convert.msa_state_dict`) or call `msa_transformer.init_msa_weights_`."""
-    del model_name_or_path  # weights come through the checkpoint converter
+    `convert.msa_state_dict`) or call `msa_transformer.init_msa_weights_`.
+    `pooling_type` is read only without `use_all_msa`, which is not ported
+    (pooling the query row alone) and raises."""
+    del model_name_or_path, pooling_type  # weights: the checkpoint converter
+    if not use_all_msa:
+        raise NotImplementedError(
+            "MsaEncoder(use_all_msa=False), pooling the query row alone, is "
+            "not ported")
     cfg = MsaTransformerConfig(
         num_layers=num_layers, hidden_size=hidden_size, num_heads=num_heads,
         intermediate_size=intermediate_size or 4 * hidden_size)

@@ -22,8 +22,10 @@ input is kept, and its forward runs again in the backward (the JAX
 package's `nn.remat(Esm2Layer)`).
 
 Modules are built on the card in bf16 unless the caller names another
-device and dtype: the attention kernels take bf16 only, so `Esm2` refuses
-another compute dtype on the card; the CPU takes any. `param_dtype` (default:
+device and dtype: on the card the attention kernels take bf16, and f32
+for heads that are multiples of 8 up to 64 (the f32 instances of #1-#3),
+so `Esm2` refuses any other compute dtype there when it is built
+(`flash_mha.check_card_dtype`); the CPU takes any. `param_dtype` (default:
 the compute dtype) is the dtype the parameters are stored in: float32 for a
 trainable bf16 tower, as flax keeps them (see `layers`).
 
@@ -51,6 +53,7 @@ from oneprot_tpu_torch.kernels.attention import packed_segment_bias
 from oneprot_tpu_torch.kernels.flash_attention import dot_product_attention
 from oneprot_tpu_torch.kernels.flash_mha import (  # noqa: F401  (re-exported)
     apply_rotary,
+    check_card_dtype,
     fused_mha_applies,
     mha_attention,
     rotate_half,
@@ -372,9 +375,8 @@ class Esm2(nn.Module):
                  device="cuda", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(f"dtype {dtype} on the card: the attention "
-                             "kernels take bfloat16 only")
+        check_card_dtype(device, dtype,
+                         config.hidden_size // config.num_heads)
         self.config = config
         self.remat = remat
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)

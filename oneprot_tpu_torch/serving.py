@@ -1,13 +1,14 @@
-"""Serving API: embed sequences, texts or MSAs with a hub model and
-retrieve by cosine.
+"""Serving API: embed sequences, texts, MSAs or structure graphs with a
+hub model and retrieve by cosine.
 
-Counterpart of oneprot_tpu/serving.py for the sequence, text and MSA
-modalities:
+Counterpart of oneprot_tpu/serving.py for the sequence, text, MSA and
+graph modalities:
 
     embedder = OneProtEmbedder(model)          # a models.encoders.OneProtModel
     feats = embedder.embed_sequences(["MKTAY...", ...])
     text_feats = embedder.embed_texts(["a membrane protein ...", ...])
     msa_feats = embedder.embed_msas(["a.a3m", "b.a3m"])
+    graph_feats = embedder.embed_graphs("seqstruc.h5", ["P1", "P2"])
     scores, idx = embedder.retrieve(feats, pool_feats, k=10)
 
 Batches are padded to length buckets (MSAs: columns to a bucket, rows to
@@ -26,7 +27,8 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from oneprot_tpu_torch.data.common import pick_bucket
+from oneprot_tpu_torch.data.common import H5, pick_bucket
+from oneprot_tpu_torch.data.graphs import protein_to_padded_graph, stack_graphs
 from oneprot_tpu_torch.data.msa_io import greedy_select, read_msa
 from oneprot_tpu_torch.data.tokenizers import (
     MsaBatchConverter,
@@ -102,6 +104,45 @@ class OneProtEmbedder:
             ids = torch.from_numpy(tokens[:, :, :max_length])
             feats = self.model(ids.to(self.device, torch.long), "msa")
             out.append(feats.float().cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    def embed_graphs(self, h5_path: str, ids: Sequence[str],
+                     modality: str = "struct_graph", max_residues: int = 256,
+                     max_neighbors: int = 24,
+                     batch_size: int = 16) -> np.ndarray:
+        """[n, output_dim] f32 embeddings of residue graphs (struct_graph)
+        or pocket cut-outs (pocket) read from a `seqstruc.h5`-layout file
+        (chain A of each id; `structure_io.ingest_files` writes one from
+        PDB or mmCIF files)."""
+        h5 = H5.get(h5_path)
+        structures = []
+        for pid in ids:
+            node = h5[pid]["structure"]["0"]["A"]
+            poly = node["polypeptide"]
+            structures.append((node["residues"]["seq1"][()].decode("utf-8"),
+                               poly["type"][()], poly["atom_amino_id"][()],
+                               np.asarray(poly["xyz"][()], np.float64)))
+        return self.embed_structures(structures, modality, max_residues,
+                                     max_neighbors, batch_size)
+
+    @torch.inference_mode()
+    def embed_structures(self, structures: Sequence[Tuple], modality: str =
+                         "struct_graph", max_residues: int = 256,
+                         max_neighbors: int = 24,
+                         batch_size: int = 16) -> np.ndarray:
+        """`embed_graphs` on structures in memory: (sequence, atom names,
+        atom residue ids, xyz) each, as `structure_io.Chain` holds them. A
+        batch pads every graph to `max_residues`, so the tower sees one
+        shape."""
+        out = []
+        for start in range(0, len(structures), batch_size):
+            batch = stack_graphs([
+                protein_to_padded_graph(*record, max_residues=max_residues,
+                                        max_neighbors=max_neighbors)
+                for record in structures[start:start + batch_size]])
+            graph = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in batch.items()}
+            out.append(self.model(graph, modality).float().cpu().numpy())
         return np.concatenate(out, axis=0)
 
     @torch.inference_mode()

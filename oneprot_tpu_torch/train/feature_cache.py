@@ -11,7 +11,8 @@ two heads train (`train_step_fully_cached`). Rows live on the host as f32
 numpy arrays; the step moves them to the card.
 
 Keys: the raw bytes of the tokenized id row under an encoder namespace
-(`sequence|`, `text|`); a protein of a PACKED batch keys on its token subsequence
+(`sequence|`, `text|`; an MSA keys on its whole [R, L] token block under
+`msa|`); a protein of a PACKED batch keys on its token subsequence
 (`packed|sequence|`), so hits survive the re-packing of every epoch. Both
 are the JAX package's keys. Eviction is LRU under `max_entries`.
 
@@ -232,6 +233,11 @@ class FrozenFeatureCache:
             out["cache/disk_hits"] = float(self.disk_hits)
             out["cache/disk_entries"] = float(len(self._disk))
         return out
+
+    def host_bytes(self) -> int:
+        """Host memory the RAM entries hold: each key's bytes and its f32
+        row (an MSA's key is its whole [R, L] token block)."""
+        return sum(len(k) + v.nbytes for k, v in self._store.items())
 
     def flush(self) -> None:
         """Push write-behind rows to disk (no-op without persist_dir)."""

@@ -20,15 +20,18 @@ runs without an autograd graph. In the cached step the hub's pooled
 features come in as an input (from `encode_packed_pooled`) and only its
 head runs; a hub that trains (LoRA) is not cacheable and is refused there.
 The unpacked step (`train_step`) takes [B, L] padded rows on both sides
-and the plain loss (+ 0.01 * mean L1); `train_step_cached` is its twin on
+(an MSA tower [B, R, L] tokens, a graph tower a dict of padded graph
+arrays, each moved to the card in its own dtype) and the plain loss (+
+0.01 * mean L1); `train_step_cached` is its twin on
 the hub's pooled features (from `encode_pooled`), and
 `train_step_fully_cached` takes both towers' pooled features (a frozen hub
 and a frozen modality tower, such as the shipped text tower): only the two
 heads run. `loss_fn` is "CLIP" (symmetric InfoNCE) or "SigLIP" (pairwise
 sigmoid, `losses/siglip.py`) at logit scale 1 with no bias, as the JAX
 module calls them: the heads scale the features. Every step runs the
-model in training mode with LoRA dropout seeded from (seed, step), the
-counterpart of the JAX step's fold_in(key(seed), step). The eval steps run
+model in training mode with LoRA dropout and the graph towers' noise
+and dropout seeded from (seed, step), the counterpart of the JAX step's
+fold_in(key(seed), step) (not its numbers). The eval steps run
 in eval mode without autograd and return (seq_feats, mod_feats, loss). The
 `scheduler` config is read by the trainer (`train/scheduler.py`);
 `local_loss` and `gather_with_grad`, how CLIP gathers the features of
@@ -50,6 +53,7 @@ from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
 from oneprot_tpu_torch.losses.siglip import siglip_loss, siglip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
 from oneprot_tpu_torch.models.esm2 import Int8Dense, set_lora_dropout_seed
+from oneprot_tpu_torch.models.pronet import set_graph_noise_seed
 from oneprot_tpu_torch.train import optim as optim_lib
 
 Pack = Mapping[str, Any]  # {"ids": [R, L], "segment_ids": [R, L]}
@@ -130,6 +134,14 @@ class OneProtModule:
         """A numpy array or tensor on the model's device."""
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
+    def _inputs(self, x):
+        """A modality's input on the model's device: token ids [B, L] (or
+        an MSA's [B, R, L]) as int64, a graph dict array by array in its
+        own dtype."""
+        if isinstance(x, Mapping):
+            return {k: self._tensor(v) for k, v in x.items()}
+        return self._tensor(x, torch.long)
+
     def _loss_value(self, mod_feats: torch.Tensor,
                     seq_feats: torch.Tensor) -> torch.Tensor:
         """CLIP or SigLIP over the batch, + 0.01 * the mean L1 of both
@@ -157,9 +169,12 @@ class OneProtModule:
         return loss
 
     def _begin_step(self) -> None:
-        """Training mode, and this step's LoRA dropout seed."""
+        """Training mode, and this step's seed for LoRA dropout and for the
+        graph towers' noise and dropout."""
         self.model.train()
-        set_lora_dropout_seed(self.model, self.seed * 1_000_003 + self.step)
+        seed = self.seed * 1_000_003 + self.step
+        set_lora_dropout_seed(self.model, seed)
+        set_graph_noise_seed(self.model, seed)
 
     def _update(self, loss: torch.Tensor) -> Tuple[torch.Tensor, int]:
         self.opt.zero_grad()
@@ -171,11 +186,12 @@ class OneProtModule:
     def train_step(self, modality: str, seq_ids,
                    mod_ids) -> Tuple[torch.Tensor, int]:
         """One optimizer step over UNPACKED rows: seq_ids, mod_ids [B, L]
-        padded token ids (numpy or tensors), pair i in row i of each.
-        Returns (loss as a device scalar, step count)."""
+        padded token ids (numpy or tensors; a graph tower's mod_ids is a
+        dict of padded graph arrays), pair i in row i of each. Returns
+        (loss as a device scalar, step count)."""
         self._begin_step()
-        seq_feats = self.model(self._tensor(seq_ids, torch.long), "sequence")
-        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        seq_feats = self.model(self._inputs(seq_ids), "sequence")
+        mod_feats = self.model(self._inputs(mod_ids), modality)
         return self._update(self._loss_value(mod_feats, seq_feats))
 
     def train_step_cached(self, modality: str, seq_pooled,
@@ -187,7 +203,7 @@ class OneProtModule:
         self._begin_step()
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
                                                 "sequence")
-        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        mod_feats = self.model(self._inputs(mod_ids), modality)
         return self._update(self._loss_value(mod_feats, seq_feats))
 
     def train_step_fully_cached(self, modality: str, seq_pooled,
@@ -278,8 +294,7 @@ class OneProtModule:
     def encode_pooled(self, modality: str, ids) -> torch.Tensor:
         """Frozen backbone over padded rows [B, L] -> pooled [B, d_model]:
         the cached step's input."""
-        return self.model.encode_pooled(self._tensor(ids, torch.long),
-                                        modality)
+        return self.model.encode_pooled(self._inputs(ids), modality)
 
     @torch.no_grad()
     def eval_step(self, modality: str, seq_ids, mod_ids
@@ -287,8 +302,8 @@ class OneProtModule:
         """Both towers over padded rows in eval mode: (seq_feats,
         mod_feats, loss)."""
         self.model.eval()
-        seq_feats = self.model(self._tensor(seq_ids, torch.long), "sequence")
-        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        seq_feats = self.model(self._inputs(seq_ids), "sequence")
+        mod_feats = self.model(self._inputs(mod_ids), modality)
         return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
 
     @torch.no_grad()
@@ -298,7 +313,7 @@ class OneProtModule:
         self.model.eval()
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
                                                 "sequence")
-        mod_feats = self.model(self._tensor(mod_ids, torch.long), modality)
+        mod_feats = self.model(self._inputs(mod_ids), modality)
         return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
 
     @torch.no_grad()

@@ -41,7 +41,10 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 
 class ClippedOptimizer:
     """clip_by_global_norm(max_norm) -> base optimizer, over the given
-    parameters (those that hold a gradient at `step`)."""
+    parameters. Every parameter steps every time, as optax updates every
+    trainable leaf: one that got no gradient (a tower the step's modality
+    does not run) steps on zeros, so Adam's moments decay and carry it
+    on, and every parameter's step count is the global one."""
 
     def __init__(self, params: Iterable[nn.Parameter], base: OptimizerFn,
                  max_norm: Optional[float]):
@@ -54,9 +57,11 @@ class ClippedOptimizer:
 
     def step(self) -> None:
         """Clip, then update."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.max_norm:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            clip_by_global_norm_(grads, self.max_norm)
+            clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
         self.base.step()
 
 

@@ -311,9 +311,13 @@ def test_reference_target_alias():
         "model_name_or_path": "bert_tiny", "output_dim": 32, "device": "cpu",
         "dtype": "float32"})
     assert type(text).__name__ == "TextEncoder"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        instantiate({"_target_":
-                     "src.models.components.struct_graph_encoder.StructEncoder"})
+    graph = instantiate({
+        "_target_": "src.models.components.struct_graph_encoder.StructEncoder",
+        "encoder": {"hidden_size": 16, "num_layers": 1, "out_channels": 32},
+        "output_dim": 32, "device": "cpu"})
+    assert type(graph).__name__ == "StructGraphEncoder"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        instantiate({"_target_": "oneprot_tpu.downstream.mlp_probe.MLPProbeConfig"})
 
 
 # ---------------------------------------------------------------------------
@@ -360,9 +364,13 @@ TARGETS = _committed_targets()
 # the committed targets the port has: each rewritten to oneprot_tpu_torch
 PORTED = {
     "oneprot_tpu.data.datamodule.OneProtDataModule",
+    "oneprot_tpu.data.datasets.msa_dataset.MSADataset",
+    "oneprot_tpu.data.datasets.seqsim_dataset.SequenceSimDataset",
+    "oneprot_tpu.data.datasets.struct_graph_dataset.StructDataset",
     "oneprot_tpu.data.datasets.struct_token_dataset.StructTokenDataset",
     "oneprot_tpu.data.datasets.text_dataset.TextDataset",
     "oneprot_tpu.models.encoders.create_msa_encoder",
+    "oneprot_tpu.models.encoders.create_struct_graph_encoder",
     "oneprot_tpu.models.encoders.create_sequence_encoder",
     "oneprot_tpu.models.encoders.create_struct_token_encoder",
     "oneprot_tpu.models.encoders.create_text_encoder",
@@ -371,9 +379,7 @@ PORTED = {
     "oneprot_tpu.train.trainer.Trainer",
     "oneprot_tpu.utils.loggers.CsvLogger",
 }
-ITEMS = {"msa_dataset": 4,
-         "seqsim_dataset": 4, "create_struct_graph_encoder": 5,
-         "struct_graph_dataset": 5, "downstream": 10, "WandbLogger": 11}
+ITEMS = {"downstream": 10, "WandbLogger": 11}
 
 
 def test_committed_targets_are_known():

@@ -96,13 +96,15 @@ def test_flash_kernel_refuses(card):
     q = torch.zeros(1, 16, 8 * 12, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # head dim 12 is no multiple of 8
         flash_mha.mha_attention(q, q, q, 8)
-    with pytest.raises(TypeError):
-        flash_mha.mha_attention(q.float(), q.float(), q.float(), 2)
+    with pytest.raises(TypeError):  # bf16 or f32 only
+        flash_mha.mha_attention(q.half(), q.half(), q.half(), 2)
+    with pytest.raises(ValueError):  # f32 too: no multiple of 8
+        flash_mha.mha_attention(q.float(), q.float(), q.float(), 8)
     x = torch.zeros(1, 16, 64, device=card, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 16, device=card)
     with pytest.raises(ValueError):  # lse must be [B, H, L]
         flash_mha.flash_mha_bwd_dq_cuda(x, x, x, x, lse[:, :, :8], x, 1)
-    with pytest.raises(TypeError):  # the backward takes bf16 only
+    with pytest.raises(TypeError):  # one dtype for every operand
         flash_mha.flash_mha_bwd_dkv_cuda(x, x, x, x.float(), lse, lse, 1)
 
 
@@ -323,14 +325,93 @@ def test_tied_row_kernel_matches_plain(card, B, R, L, nh, masked_tail):
 @pytest.mark.gpu
 def test_tied_row_kernel_refuses(card):
     x = torch.zeros(1, 2, 16, 128, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 32
-        fused_tied_row(x, x, x, 4)
+    with pytest.raises(ValueError):  # head dim 128: above 64
+        fused_tied_row(x, x, x, 1)
+    with pytest.raises(ValueError):  # head dim 12: no multiple of 8
+        y = x[..., :48].contiguous()
+        fused_tied_row(y, y, y, 4)
     with pytest.raises(TypeError):
         fused_tied_row(x.float(), x.float(), x.float(), 2)
     q = x.clone().requires_grad_()
     out = fused_tied_row(q, x, x, 2)
     with pytest.raises(NotImplementedError):
         out.sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,R,L,nh,d,masked_tail", [
+    (2, 16, 300, 4, 16, 17),   # the debug MSA tower's heads of 16
+    (2, 3, 64, 2, 8, 5),
+    (1, 50, 1024, 12, 32, 0),
+    (4, 8, 128, 4, 16, _serving_tails(128)),
+])
+def test_tied_row_kernel_pads_narrow_heads(card, B, R, L, nh, d, masked_tail):
+    """Heads narrower than 64 are zero-padded around the one kernel launch,
+    the scale taken from the true head dim."""
+    q, k, v, bias = _tied_inputs(B, R, L, nh, card, L + R + d, masked_tail)
+    q, k, v = (t.view(B, R, L, nh, 64)[..., :d].reshape(B, R, L, nh * d)
+               for t in (q, k, v))
+    before = tra.tied_row_attention_cuda.launches
+    out = fused_tied_row(q, k, v, nh, col_bias=bias)
+    ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
+    torch.cuda.synchronize()
+    assert tra.tied_row_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# the f32 instances of #1-#3 (the float32 debug towers)
+
+F32_REL_TOL, F32_LSE_TOL = 1e-4, 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,nh,d,rotary,bias,segments", [
+    (2, 96, 20, 16, True, True, False),     # the 8M hub's heads
+    (2, 300, 20, 16, True, True, True),     # packed rows, L off the grid
+    (2, 128, 2, 64, False, True, False),    # bert_tiny: key bias, no rotary
+    (1, 37, 4, 8, True, False, False),      # shorter than one tile
+    (2, 200, 4, 24, True, True, True),
+    (2, 130, 2, 40, False, False, True),
+    (1, 3, 2, 56, True, True, False),       # three tokens
+])
+def test_f32_kernels_match_plain(card, B, L, nh, d, rotary, bias, segments):
+    """The f32 forward, dq and dk/dv kernels (one launch each) against the
+    plain versions in f32 on the same inputs: max rel err <= 1e-4, the
+    lse within 1e-5 on the rows that keep digits."""
+    q, k, v, kw = _attention_inputs(B, L, nh, d, card, 3 * L + d, rotary,
+                                    bias, segments)
+    q, k, v = (t.float().requires_grad_() for t in (q, k, v))
+    if rotary:
+        kw["rope_cos"], kw["rope_sin"] = (t.float() for t in (
+            kw["rope_cos"], kw["rope_sin"]))
+    dout = torch.from_numpy(np.random.RandomState(L).randn(
+        B, L, nh * d).astype(np.float32)).to(card)
+    counts = [f.launches for f in F32_KERNELS]
+    out, lse = flash_mha.mha_attention(q, k, v, nh, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    args = (q.detach(), k.detach(), v.detach())
+    ref, ref_lse = flash_mha.mha_attention_plain(*args, nh, **kw)
+    ref_grads = flash_mha.mha_attention_bwd_plain(*args, out.detach(), lse,
+                                                  dout, nh, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(F32_KERNELS, counts)] == [1, 1, 1]
+    for name, got, want in [("out", out, ref)] + list(zip(
+            ("dq", "dk", "dv"), grads, ref_grads)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= F32_REL_TOL, f"{name}: max rel err {rel}"
+    # padded rows of packed rows see only -1e9-biased keys: no digits kept
+    rows = ref_lse.abs() < 1e6
+    assert (lse - ref_lse).abs()[rows].max().item() <= F32_LSE_TOL
+
+
+F32_KERNELS = (flash_mha.flash_mha_f32_cuda,
+               flash_mha.flash_mha_bwd_dq_f32_cuda,
+               flash_mha.flash_mha_bwd_dkv_f32_cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -674,9 +755,10 @@ class _MemoryDataModule(OneProtDataModule):
 def test_cli_shipped_train_packed_is_refused_in_f32(card, tmp_path,
                                                     monkeypatch):
     """experiment=train_packed as shipped asks for ESM2-8M towers in
-    float32 (configs/model/struct_token_debug.yaml); the card's attention
-    kernels take bf16 only, so Esm2 refuses the model when the CLI builds
-    it: nothing casts it behind the config's back."""
+    float32 (configs/model/struct_token_debug.yaml). It was refused on the
+    card while the attention kernels took bf16 only; now it runs to its end
+    through the f32 instances of #1-#3 (nothing casts the model behind the
+    config's back), and no bf16 flash-MHA kernel launches."""
     rng = np.random.RandomState(0)
     records = {}
     for split in ("train", "val", "test"):
@@ -690,12 +772,16 @@ def test_cli_shipped_train_packed_is_refused_in_f32(card, tmp_path,
     monkeypatch.setitem(config.TARGET_ALIASES,
                         "oneprot_tpu.data.datamodule.OneProtDataModule",
                         f"{__name__}._MemoryDataModule")
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        cli_train.main(["experiment=train_packed", "trainer=gpu",
-                        "data=struct_token_only", "data.pack_rows=2",
-                        "data.pack_row_len=256", f"paths.data_dir={tmp_path}",
-                        f"hydra.run.dir={tmp_path / 'run'}",
-                        "extras.print_config=false"])
+    counts = [f.launches for f in F32_KERNELS + (flash_mha.flash_mha_cuda,)]
+    metrics = cli_train.main(
+        ["experiment=train_packed", "trainer=gpu", "data=struct_token_only",
+         "data.pack_rows=2", "data.pack_row_len=256", "trainer.max_epochs=1",
+         f"paths.data_dir={tmp_path}", f"hydra.run.dir={tmp_path / 'run'}",
+         "extras.print_config=false"])
+    ran = [f.launches - c for f, c in zip(
+        F32_KERNELS + (flash_mha.flash_mha_cuda,), counts)]
+    assert min(ran[:3]) > 0 and ran[3] == 0, ran
+    assert np.isfinite(metrics["val/loss"])
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +867,13 @@ def test_bert_on_the_card_matches_the_cpu(card):
 
 @pytest.mark.gpu
 def test_float32_bert_is_refused_when_built(card):
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        encoders.create_text_encoder("bert_tiny", dtype="float32")
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        bert.Bert(bert.BERT_SIZES["bert_tiny"], dtype=torch.float32, device=card)
+    """float32 BERT runs on the card where its heads fit the f32 flash-MHA
+    instances (bert_tiny's 64); wider heads and other dtypes are refused
+    when the model is built."""
+    assert encoders.create_text_encoder("bert_tiny", dtype="float32")
+    wide = dataclasses.replace(bert.BERT_SIZES["bert_tiny"], num_heads=1)
+    with pytest.raises(ValueError, match="heads of 128"):
+        bert.Bert(wide, dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bert.Bert(bert.BERT_SIZES["bert_tiny"], dtype=torch.float16,
+                  device=card)

@@ -157,13 +157,16 @@ def test_datamodule_matches_jax(data_dir, packed):
 
 
 def test_unported_modality_raises(data_dir):
-    for modality, item in (("struct_graph", "item 5"), ("msa", "item 4"),
-                           ("pocket", "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            datamodule.OneProtDataModule({modality: {"dataset": {}}})
-    # the text modality is ported (tests/test_torch_text.py)
-    assert datamodule.DATASET_CLASSES["text"].__name__ == "TextDataset"
-    assert "text" not in datamodule.UNPORTED_MODALITIES
+    """No modality of the JAX package is left unported: the port serves
+    each with the class of the same name (msa, seqsim, struct_graph and
+    pocket are tests/test_torch_graph.py's and test_torch_msa_train.py's),
+    and an unknown modality is skipped with an error logged, as there."""
+    assert not hasattr(datamodule, "UNPORTED_MODALITIES")
+    assert ({k: v.__name__ for k, v in datamodule.DATASET_CLASSES.items()}
+            == {k: v.__name__ for k, v in jdm.DATASET_CLASSES.items()})
+    dm = datamodule.OneProtDataModule({"no_such_modality": {"dataset": {}}})
+    dm.setup()
+    assert dm.datasets == {}
 
 
 def test_world_without_process_group():

@@ -5,6 +5,7 @@ port's import boundary and its refusal to run a CUDA request without a card.
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -123,8 +124,8 @@ def test_create_sequence_encoder_validates_like_jax():
     with pytest.raises(ValueError):
         encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
                                          frozen=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        encoders.OneProtModel({"struct_graph": torch.nn.Identity()})
+    with pytest.raises(NotImplementedError):  # no such modality
+        encoders.OneProtModel({"struct_graph_v2": torch.nn.Identity()})
 
 
 def test_cuda_request_without_a_card_raises():
@@ -161,13 +162,21 @@ def test_modules_default_to_the_card(build):
 
 
 def test_esm2_refuses_float32_on_the_card():
-    """The card's flash-MHA kernel takes bf16 only: an f32 hub on the card
-    is refused when it is built, not at its first forward."""
-    with pytest.raises(ValueError):
-        esm2.Esm2(_TINY, dtype=torch.float32)
-    with pytest.raises(ValueError):
-        encoders.create_sequence_encoder("esm2_tiny", dtype="float32")
-    assert esm2.Esm2(_TINY, dtype=torch.float32, device="cpu") is not None
+    """The card runs float32 only through the f32 flash-MHA instances
+    (heads that are multiples of 8 up to 64): an f32 hub with wider heads,
+    or another dtype, is refused on the card when it is built, not at its
+    first forward. The CPU takes any."""
+    wide = dataclasses.replace(_TINY, num_heads=1)  # heads of 64: fine
+    wider = dataclasses.replace(_TINY, hidden_size=256, num_heads=2,
+                                intermediate_size=512)  # heads of 128
+    with pytest.raises(ValueError, match="heads of 128"):
+        esm2.Esm2(wider, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        esm2.Esm2(_TINY, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        encoders.create_sequence_encoder("esm2_tiny", dtype=torch.float16)
+    for cfg in (_TINY, wide, wider):
+        assert esm2.Esm2(cfg, dtype=torch.float32, device="cpu") is not None
 
 
 # ---------------------------------------------------------------------------

@@ -340,12 +340,18 @@ def test_bert_remat_on_equals_off_under_lora_dropout(small_bert):
 
 
 def test_bert_refuses_float32_on_the_card():
-    with pytest.raises(ValueError, match="bfloat16"):
-        bert.Bert(bert.BertConfig(**SMALL), dtype=torch.float32)
-    with pytest.raises(ValueError, match="bfloat16"):
-        encoders.create_text_encoder("bert_tiny", dtype="float32")
-    assert bert.Bert(bert.BertConfig(**SMALL), dtype=torch.float32,
-                     device="cpu") is not None
+    """float32 runs on the card only through the f32 flash-MHA instances
+    (heads that are multiples of 8 up to 64, as bert_tiny's): BERT with
+    wider heads in f32, or in another dtype, is refused when it is built
+    on the card; the CPU takes any."""
+    wide = bert.BertConfig(**{**SMALL, "num_heads": 1,
+                              "hidden_size": 128})  # heads of 128
+    with pytest.raises(ValueError, match="heads of 128"):
+        bert.Bert(wide, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        encoders.create_text_encoder("bert_tiny", dtype=torch.float16)
+    for cfg in (bert.BertConfig(**SMALL), wide):
+        assert bert.Bert(cfg, dtype=torch.float32, device="cpu") is not None
 
 
 def test_init_bert_weights_is_seeded():
@@ -490,8 +496,8 @@ def test_create_text_encoder_like_jax(tmp_path):
 
 def test_text_modality_is_ported():
     assert "text" in encoders.PORTED_MODALITIES
-    with pytest.raises(NotImplementedError, match="pocket"):
-        encoders.OneProtModel({"pocket": torch.nn.Linear(2, 2)})
+    with pytest.raises(NotImplementedError, match="no_such"):
+        encoders.OneProtModel({"no_such": torch.nn.Linear(2, 2)})
 
 
 # ---------------------------------------------------------------------------

@@ -535,15 +535,16 @@ def test_int8_hub_packed_step_matches_jax():
 def test_module_refuses_what_is_not_ported():
     enc = {"sequence": encoders.create_sequence_encoder(
         "esm2_tiny", device="cpu", dtype="float32")}
-    # SigLIP and the text tower are ported (tests/test_torch_siglip.py,
-    # tests/test_torch_text.py); sharding and the graph towers are not
+    # SigLIP, the text tower and the graph towers are ported
+    # (tests/test_torch_siglip.py, test_torch_text.py, test_torch_graph.py);
+    # sharding is not, nor is a modality the JAX package does not know
     assert OneProtModule(enc, loss_fn="SIGLIP").loss_name == "SIGLIP"
     with pytest.raises(NotImplementedError):
         OneProtModule(enc, mesh=object())
     with pytest.raises(NotImplementedError):
-        encoders.OneProtModel({"pocket": torch.nn.Linear(2, 2)})
+        encoders.OneProtModel({"no_such": torch.nn.Linear(2, 2)})
     with pytest.raises(NotImplementedError):
-        convert.oneprot_state_dict({"encoders_pocket": {}})
+        convert.oneprot_state_dict({"encoders_no_such": {}})
 
 
 def test_struct_token_encoder_matches_jax():
