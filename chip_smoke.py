@@ -117,7 +117,9 @@ the elapsed seconds:
    layer; flash-MHA once a tower layer each way; no plain version), a
    fifth step is split into forward, backward and clip + Adam by CUDA
    events, and a sixth, on the same batch, is profiled (torch.profiler:
-   device time by kernel group);
+   device time by kernel group); the hub's LoRA factors go through
+   `hf_convert.export_peft_lora` (peft's layout) and back through
+   `import_peft_lora` bit for bit;
 14. LoRA training parity: the same initial weights at 2 hub + 2 tower
    layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
    against the CPU (f32, plain versions); the second step starts both
@@ -134,6 +136,8 @@ the elapsed seconds:
    loaded, and the test-only run's metrics against a restore of `last`
    (rel 1e-5). It prints compose ms, model build s, fit s, pairs/s per
    epoch, test s and checkpoint s beside the card's name and power limit;
+   then `OneProtEmbedder.from_run_dir(<run>).embed_struct_tokens` answers
+   one request of 32 3Di strings (12 #1 launches, nothing else);
 16. text serving: `embed_texts` on `create_text_encoder`'s defaults
    (BiomedBERT-base: 12 x 768, 12 heads of 64, the mlp head with the
    fixed logit scale, bf16, random weights from a seed), 3 requests of
@@ -177,7 +181,17 @@ the elapsed seconds:
    caches (33 #1 a hub forward, 12 #8 an MSA forward, exact); epoch 2 and
    its validation launch neither (100% hits); pairs/s per epoch and
    modality, the batch wall split, the cache's host bytes;
-21. the shipped default configs/train.yaml through `cli.train.main` (data
+21. pretrained hub: the ESM2-650M hub written as a local HF checkpoint
+   (config.json and a 2.6 GB f32 model.safetensors of seeded weights, HF
+   names, by `write_safetensors` here), read back by the port's reader
+   (timed, GB/s), then `experiment=train_packed` with the hub's
+   `model_name_or_path` set to the directory and `quantize=int8` through
+   `cli.train.build_model`: the loaded leaves equal the file's (after the
+   bf16 cast; the int8 codes and scales equal its quantization), the int8
+   canary returns finite numbers (printed, not gated: random weights)
+   with exactly 66 #1 and 33 #4 launches, and one request of 32 runs on
+   the loaded int8 hub;
+22. the shipped default configs/train.yaml through `cli.train.main` (data
    oneprot: pocket, seqsim, struct_graph, text; model oneprot: the
    ESM2-650M hub, ProNet struct_graph and pocket, BiomedBERT-base text;
    only paths, accelerator, epochs and the data module's alias
@@ -185,8 +199,17 @@ the elapsed seconds:
    modalities from memory through `CliDataModule`, text and seqsim files
    on disk); pairs/s per modality and epoch, the batch wall split, exact
    launches (33 #1 a hub forward, 12 a BERT forward, nothing else), no
-   plain version;
-22. the f32 experiments as shipped: `experiment=debug_struct_token`,
+   plain version; then, on its run dir: `cli.eval.main` over a combined
+   CSV of 128 rows (structures served from memory): 6 pairs x 2
+   directions, all finite, the fixed-width CSV layout, #1 exactly (33 +
+   12) x 8 batches and nothing else, the sequence and text embeddings
+   equal to `from_run_dir`'s; again from a reference Lightning `.ckpt` of
+   the sequence and text towers (reference names) with those embeddings
+   identical; and `cli.collect_embeddings.main` with the hub checkpoint
+   of 21 as `esm2` and the run as `oneprot` on ToyCls splits of 64: rows,
+   labels, #1 33 a batch of either model, the `esm2` embeddings equal to
+   the hub's masked mean computed here;
+23. the f32 experiments as shipped: `experiment=debug_struct_token`,
    `experiment=train_packed` (`data=struct_token_only`, 1 epoch) and
    `experiment=debug_all_modalities` through `cli.train.main`, each to
    its end (train and test), with the f32 instances of #1-#3 launched and
@@ -199,10 +222,12 @@ is {"ok": true, "device": {...}}; the line before it lists the kernels.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -211,11 +236,14 @@ import time
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.cli import collect_embeddings as cli_collect
 from oneprot_tpu_torch.cli import default_config_dir
+from oneprot_tpu_torch.cli import eval as cli_eval
 from oneprot_tpu_torch.cli import train as cli_train
 from oneprot_tpu_torch.core.config import (
     TARGET_ALIASES,
     load_config,
+    prepare_run_dir,
     register_target_alias,
 )
 from oneprot_tpu_torch.data import graphs, packing, structure_io, synthetic
@@ -246,7 +274,8 @@ from oneprot_tpu_torch.models.encoders import (
     create_struct_token_encoder,
     create_text_encoder,
 )
-from oneprot_tpu_torch.serving import OneProtEmbedder
+from oneprot_tpu_torch.evaluation import retrieval_eval
+from oneprot_tpu_torch.serving import DEFAULT_BUCKETS, OneProtEmbedder
 from oneprot_tpu_torch.train import checkpoint as checkpoint_lib
 from oneprot_tpu_torch.train.feature_cache import FrozenFeatureCache
 from oneprot_tpu_torch.train.module import OneProtModule
@@ -1897,6 +1926,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
             probe.close()
             TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
             CliDataModule.RECORDS = {}
+        out["struct_tokens"] = serve_struct_tokens(run_dir, launches)
     first, second = probe.runs
     require(not any(plain.values()), f"cli: plain versions ran on the card: "
             f"{plain}")
@@ -1959,6 +1989,37 @@ def cli_phase(smi: str, launches: dict) -> dict:
               out["test_loss"], launches["cli"], smi),
           flush=True)
     return out
+
+
+def serve_struct_tokens(run_dir: str, launches: dict) -> dict:
+    """`OneProtEmbedder.from_run_dir(run_dir).embed_struct_tokens` on one
+    request of 32 3Di strings (log-normal lengths): finite embeddings of
+    norm 1/0.07 (the tower's fixed logit scale), 12 #1 launches (one tower forward) and nothing else. Fills
+    launches["struct_tokens"]."""
+    rng = np.random.RandomState(TRAINER_SEED + 1)
+    tdi = ["".join(rng.choice(list(FOLDSEEK), len(s)))
+           for s in sample_seqs(32, rng)]
+    embedder = OneProtEmbedder.from_run_dir(run_dir)
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.time()
+    feats = embedder.embed_struct_tokens(tdi, batch_size=32)
+    request_ms = (time.time() - t) * 1e3
+    launches["struct_tokens"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"struct tokens: plain versions ran on the card: {PLAIN_CALLS}")
+    # the tower's head scales its unit vectors by 1 / 0.07
+    require(feats.shape == (32, 1024) and bool(np.isfinite(feats).all())
+            and bool(np.allclose(np.linalg.norm(feats, axis=-1), 1 / 0.07,
+                                 rtol=1e-2)), "embed_struct_tokens features")
+    want = {**{name: 0 for name in LAUNCHERS}, "flash_mha_fwd": TOWER_LAYERS}
+    require(launches["struct_tokens"] == want, f"embed_struct_tokens "
+            f"launches {launches['struct_tokens']}, want {want}")
+    print(f"  embed_struct_tokens from the run dir: one request of 32 in "
+          f"{request_ms:.1f} ms; launches {launches['struct_tokens']}",
+          flush=True)
+    del embedder
+    return {"request_ms": request_ms, "launches": launches["struct_tokens"]}
 
 
 def lora_batch(rng, n: int = LORA_BATCH, max_res: int = 1022):
@@ -2109,6 +2170,21 @@ def train_lora_hub(smi: str, launches: dict):
     require(all(torch.isfinite(p).all().item() for p in module.opt.params),
             "LoRA-15B: non-finite parameters after the steps")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # the adapters through peft's layout and back, bit for bit
+    from oneprot_tpu_torch.models.hf_convert import (
+        export_peft_lora,
+        import_peft_lora,
+    )
+
+    t = time.time()
+    adapters = {k: v.cpu() for k, v in hub.transformer.state_dict().items()
+                if "lora_" in k}
+    back = import_peft_lora(export_peft_lora(adapters, WIDE_LAYERS), {},
+                            WIDE_LAYERS)
+    peft_s = time.time() - t
+    require(sorted(back) == sorted(adapters) and len(adapters) == 6 * WIDE_LAYERS
+            and all(torch.equal(back[k], v) for k, v in adapters.items()),
+            "LoRA-15B: peft export/import does not give the adapters back")
     split = lora_step_split(module, *batches[-1])
     prof = lora_step_profile(module, *batches[-1])
     lens = [int((ids != 1).sum(1).max()) for ids, _ in batches]
@@ -2144,7 +2220,10 @@ def train_lora_hub(smi: str, launches: dict):
                                                   batches[:LORA_STEPS]],
               "trainable_params": n_train, "hub_trainable_params": n_hub_train,
               "peak_gib": peak, "launches_per_step": per_step,
-              "split": split, "profile": prof}
+              "split": split, "profile": prof,
+              "peft_round_trip": {"tensors": len(adapters), "s": peft_s}}
+    print(f"  LoRA-15B adapters: peft export + import of {len(adapters)} "
+          f"tensors in {peft_s:.3f} s, bit for bit", flush=True)
     return result, initial
 
 
@@ -3489,12 +3568,14 @@ DEFAULT_ITEMS, DEFAULT_EVAL_ITEMS, DEFAULT_SEED = 64, 32, 23
 POCKET_RESIDUES = 100  # pockets_100_residues.h5
 
 
-def default_cli_phase(smi: str, launches: dict) -> dict:
+def default_cli_phase(smi: str, launches: dict, hub_dir: str) -> dict:
     """configs/train.yaml as shipped through `cli.train.main`: 2 epochs and
     the test split on synthetic pairs (struct_graph, pocket and the text
     tower's sequences from memory; text, seqsim files on disk). Gated: no
     plain version, 33 #1 a hub forward and 12 a BERT forward and nothing
-    else, finite losses and metrics. Fills launches["default_cli"]."""
+    else, finite losses and metrics. Fills launches["default_cli"]. Then,
+    on its run dir (nothing trains twice), `eval_phase` and
+    `collect_phase` (with the hub checkpoint at `hub_dir`)."""
     none = {name: 0 for name in LAUNCHERS}
     rng = np.random.RandomState(DEFAULT_SEED)
     counts = {"train": DEFAULT_ITEMS, "val": DEFAULT_EVAL_ITEMS,
@@ -3527,6 +3608,15 @@ def default_cli_phase(smi: str, launches: dict) -> dict:
             probe.close()
             TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
             CliDataModule.RECORDS = {}
+        torch.cuda.empty_cache()
+        phase("eval: cli.eval.main on the train.yaml run, 128 rows x 4 "
+              "modalities, then from a reference Lightning .ckpt")
+        evaluation = eval_phase(root, records, os.path.join(root, "run"),
+                                launches, smi)
+        phase("collect_embeddings: cli.collect_embeddings.main, the hub "
+              "checkpoint as esm2 and the train.yaml run as oneprot")
+        collect = collect_phase(root, hub_dir, os.path.join(root, "run"),
+                                launches, smi)
     require(not any(plain.values()), f"default cli: plain versions ran on the "
             f"card: {plain}")
     run = probe.runs[0]
@@ -3569,7 +3659,8 @@ def default_cli_phase(smi: str, launches: dict) -> dict:
            "checkpoint_saves": run["probe"].saves,
            "val_loss": metrics["val/loss"], "test_loss": metrics["test/loss"],
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches["default_cli"]}
+           "launches": launches["default_cli"], "eval": evaluation,
+           "collect": collect}
     for e in epochs:
         print(f"  train.yaml epoch {e['epoch']}: {e['batches']} steps, "
               f"{e['pairs_per_s']:.1f} pairs/s (" + ", ".join(
@@ -3591,6 +3682,439 @@ def default_cli_phase(smi: str, launches: dict) -> dict:
                                      for s in run["probe"].saves)
           + f"; peak {out['peak_gib']:.2f} GiB; launches "
           f"{launches['default_cli']}; {smi}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoint interop and the eval entry points: a local HF checkpoint of the
+# 650M hub (int8, with the canary), cli.eval on the default train.yaml run
+# (also from a reference Lightning .ckpt), cli.collect_embeddings
+
+HUB_CONFIG = {"architectures": ["EsmForMaskedLM"], "model_type": "esm",
+              "vocab_size": 33, "hidden_size": 1280, "num_hidden_layers": 33,
+              "num_attention_heads": 20, "intermediate_size": 5120,
+              "pad_token_id": 1, "mask_token_id": 32, "token_dropout": True,
+              "layer_norm_eps": 1e-5, "position_embedding_type": "rotary",
+              "emb_layer_norm_before": False, "max_position_embeddings": 1026}
+HUB_SEED = 31
+EVAL_ROWS, EVAL_BATCH, EVAL_SEED = 128, 16, 37
+COLLECT_ROWS, COLLECT_BATCH, COLLECT_SEED = 64, 32, 41
+# a port transformer key's HF name, by layer part (ESM2; BERT where it
+# differs), and the reference head's Sequential indices
+HF_LAYER = {"attn_ln": "attention.LayerNorm", "attn.q": "attention.self.query",
+            "attn.k": "attention.self.key", "attn.v": "attention.self.value",
+            "attn.o": "attention.output.dense", "ffn_ln": "LayerNorm",
+            "fc1": "intermediate.dense", "fc2": "output.dense"}
+HF_BERT_LAYER = {**HF_LAYER, "attn_ln": "attention.output.LayerNorm",
+                 "ffn_ln": "output.LayerNorm"}
+HF_TOP = {"embed_tokens.weight": "embeddings.word_embeddings.weight",
+          "final_ln.weight": "encoder.emb_layer_norm_after.weight",
+          "final_ln.bias": "encoder.emb_layer_norm_after.bias",
+          "word_embeddings": "embeddings.word_embeddings.weight",
+          "position_embeddings": "embeddings.position_embeddings.weight",
+          "token_type_embeddings": "embeddings.token_type_embeddings.weight",
+          "emb_ln.weight": "embeddings.LayerNorm.weight",
+          "emb_ln.bias": "embeddings.LayerNorm.bias"}
+REF_HEAD = {"proj.ln.": "proj.0.", "proj.dense.": "proj.1.",
+            "proj.ln1.": "proj.0.", "proj.dense1.": "proj.1.",
+            "proj.ln2.": "proj.3.", "proj.dense2.": "proj.4."}
+SAFETENSORS_DTYPE = {torch.float32: "F32", torch.bfloat16: "BF16",
+                     torch.int64: "I64"}
+
+
+def hf_name(key: str, bert_names: bool = False) -> str:
+    """A port ESM2 / BERT state-dict key -> the HF EsmModel / BertModel
+    name (test-side: the writer's map, not a port feature)."""
+    if key in HF_TOP:
+        return HF_TOP[key]
+    _, i, rest = key.split(".", 2)
+    part, _, leaf = rest.rpartition(".")
+    return (f"encoder.layer.{i}."
+            f"{(HF_BERT_LAYER if bert_names else HF_LAYER)[part]}.{leaf}")
+
+
+def reference_name(modality: str, key: str) -> str:
+    """A port encoder's key (`transformer.…`, `head.…`) -> the reference
+    OneProt Lightning module's state-dict name."""
+    part, _, rest = key.partition(".")
+    if part == "head":
+        for port_name, ref in REF_HEAD.items():
+            if rest.startswith(port_name):
+                return (f"model.network.{modality}.{ref}"
+                        f"{rest[len(port_name):]}")
+        raise KeyError(key)
+    return (f"model.network.{modality}.transformer."
+            f"{hf_name(rest, modality == 'text')}")
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A `.safetensors` file of CPU tensors (8-byte header length, JSON
+    header, raw bytes, 8-byte aligned header); returns its size."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPE[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().reshape(-1).view(torch.uint8)
+                               .numpy()))
+    return os.path.getsize(path)
+
+
+def write_hub_checkpoint(hub_dir: str) -> tuple:
+    """The ESM2-650M hub as a local HF directory: config.json and an f32
+    model.safetensors of seeded weights (HF names, plus the keys the
+    converter ignores: position_ids, contact_head). Returns (seconds,
+    bytes)."""
+    t = time.time()
+    os.makedirs(hub_dir, exist_ok=True)
+    with open(os.path.join(hub_dir, "config.json"), "w") as f:
+        json.dump(HUB_CONFIG, f)
+    shapes = esm2.Esm2(esm2.resolve_esm2_config(hub_dir), device="meta",
+                       dtype=torch.bfloat16).state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(HUB_SEED)
+    tensors = {}
+    for key, t_meta in shapes.items():
+        x = torch.randn(t_meta.shape, generator=gen, device="cuda") * 0.02
+        if key.endswith("ln.weight"):
+            x = x + 1.0
+        tensors[hf_name(key)] = x.cpu()
+    tensors["embeddings.position_ids"] = torch.arange(1026)[None]
+    tensors["contact_head.regression.weight"] = torch.zeros(1, 660)
+    nbytes = write_safetensors(os.path.join(hub_dir, "model.safetensors"),
+                               tensors)
+    return time.time() - t, nbytes
+
+
+def pretrained_hub_phase(hub_dir: str, smi: str, launches: dict) -> dict:
+    """(a): write the 650M hub as a local HF checkpoint (f32 safetensors),
+    read it back through the port's reader (timed), then compose
+    `experiment=train_packed data=struct_token_only` with the hub's
+    `model_name_or_path` set to the directory and `quantize=int8` and call
+    `cli.train.build_model`: the weights are loaded (float leaves equal the
+    file's after the bf16 cast, the int8 codes and scales equal the
+    file's quantized), the int8 canary runs (#1 33 x 2, #4 33, nothing
+    else) and returns finite numbers; then one embed_sequences request.
+    Fills launches["pretrained hub"] and launches["pretrained hub request"]."""
+    from oneprot_tpu_torch.models import hf_convert
+
+    none = {name: 0 for name in LAUNCHERS}
+    write_s, nbytes = write_hub_checkpoint(hub_dir)
+    t = time.time()
+    file_state = hf_convert.load_torch_state_dict(hub_dir)
+    read_s = time.time() - t
+    argv = list(CLI_BASE) + list(CLI_MODEL) + [
+        f"model.components.sequence.model_name_or_path={hub_dir}",
+        "model.components.sequence.quantize=int8"]
+    cfg = load_config(default_config_dir(), "train", argv)
+    cfg = prepare_run_dir(cfg, output_dir=os.path.join(hub_dir, "run"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.time()
+    module = cli_train.build_model(cfg["model"], torch.device("cuda"), 0)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    launches["pretrained hub"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"pretrained hub: plain versions ran on the card: {PLAIN_CALLS}")
+    want = {**none, "flash_mha_fwd": 2 * N_LAYERS, "gelu_quant": N_LAYERS}
+    require(launches["pretrained hub"] == want, f"pretrained hub launches "
+            f"{launches['pretrained hub']}, want {want}")
+    canary = module.int8_canaries.get("sequence")
+    require(canary is not None and canary["rows"] == 16 and all(
+        np.isfinite(canary[k]) for k in ("cos_min", "cos_mean", "r1")),
+        f"int8 canary {canary}")
+    enc = module.encoders["sequence"]
+    require(enc.pretrained_dir == hub_dir and enc.quant_int8, "hub encoder")
+    converted = hf_convert.convert_esm2_state_dict(file_state, N_LAYERS)
+    loaded = enc.transformer.state_dict()
+    for key, want_t in converted.items():
+        if key.endswith(".weight") and key.split(".")[-2] in esm2.INT8_LAYERS:
+            # quantized on the host, as load_pretrained quantizes
+            q, s = esm2.quantize_int8_kernel(want_t)
+            ok = (torch.equal(loaded[key[:-6] + "weight_q"].cpu(), q)
+                  and torch.equal(loaded[key[:-6] + "weight_scale"].cpu(), s))
+        else:
+            ok = torch.equal(loaded[key].cpu(), want_t.to(loaded[key].dtype))
+        require(ok, f"pretrained hub: {key} differs from the file")
+    seqs = sample_seqs(32, np.random.RandomState(HUB_SEED))
+    reset_launches()
+    t = time.time()
+    feats = OneProtEmbedder(module.model, buckets=BUCKETS).embed_sequences(seqs)
+    request_s = time.time() - t
+    launches["pretrained hub request"] = read_launches()
+    check_embeddings(feats, 32, "pretrained int8 hub")
+    require(launches["pretrained hub request"] == {
+        **none, "flash_mha_fwd": N_LAYERS, "gelu_quant": N_LAYERS},
+        f"pretrained hub request launches {launches['pretrained hub request']}")
+    out = {"file_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+           "read_gb_per_s": nbytes / read_s / 1e9, "build_s": build_s,
+           "canary": canary, "canary_launches": launches["pretrained hub"],
+           "request_ms": request_s * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"  pretrained hub: wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s; "
+          f"read back by the port's safetensors reader in {read_s:.3f} s = "
+          f"{out['read_gb_per_s']:.2f} GB/s (page cache warm); build_model "
+          f"{build_s:.2f} s (read, convert, int8 quantize, canary); canary "
+          f"centred cosine min {canary['cos_min']:.4f} mean "
+          f"{canary['cos_mean']:.4f}, R@1 {canary['r1']:.4f} over "
+          f"{canary['rows']} rows (random weights: reported, not gated); "
+          f"launches {launches['pretrained hub']}; one request of 32 "
+          f"{request_s * 1e3:.1f} ms; {smi}", flush=True)
+    del module, enc, loaded, file_state, converted
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_csv(root: str, records: dict, rng) -> tuple:
+    """A combined eval CSV of EVAL_ROWS rows (header first) over the ids of
+    `records`: 3Di strings as long as each sequence (so both share the
+    sequence's bucket), texts from sample_texts, and every EVAL_BATCH-th
+    text longer than 512 tokens, so that every batch pads its texts to 512
+    as embed_texts does. Returns (path, sequences, texts)."""
+    ids = list(records["struct_graph"])[:EVAL_ROWS]
+    long_text = " ".join(rng.choice(TEXT_WORDS, TEXT_MAX_TOKENS + 88))
+    seqs, texts = [], []
+    path = os.path.join(root, "test_all_modalities.csv")
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(retrieval_eval.COLUMN_NAMES)
+        for i, sid in enumerate(ids):
+            seq = records["struct_graph"][sid][1]  # as read_structure gives it
+            text = long_text if i % EVAL_BATCH == 0 else sample_texts(1, rng)[0]
+            tdi = "".join(rng.choice(list(FOLDSEEK), len(seq)))
+            writer.writerow([sid, f"{sid}.a3m", text, tdi, sid, sid, sid])
+            seqs.append(seq)
+            texts.append(text)
+    return path, seqs, texts
+
+
+def eval_phase(root: str, records: dict, run_dir: str, launches: dict,
+               smi: str) -> dict:
+    """(b): `cli.eval.main` on the default train.yaml run (4 modalities,
+    structures from memory), then again from a reference Lightning `.ckpt`
+    of its sequence and text towers. Gated: 6 pairs x 2 directions, all
+    finite, the CSV layout, #1 exactly (33 + 12) x batches and nothing
+    else, no plain version, the sequence and text embeddings equal
+    `from_run_dir`'s and the Lightning run's. Fills launches["eval"] and
+    launches["eval lightning"]."""
+    none = {name: 0 for name in LAUNCHERS}
+    csv_path, seqs, texts = eval_csv(root, records, np.random.RandomState(
+        EVAL_SEED))
+    batches = -(-len(seqs) // EVAL_BATCH)
+    argv = [f"run_dir={run_dir}", f"csv_file={csv_path}",
+            f"paths.data_dir={root}", f"paths.log_dir={root}/eval_logs",
+            f"batch_size={EVAL_BATCH}"]
+
+    def from_memory(self, h5_path, pid):
+        kind = ("pocket" if h5_path.endswith("pockets_100_residues.h5")
+                else "struct_graph")
+        if pid not in records[kind]:
+            raise KeyError(pid)
+        return records[kind][pid][1:]
+
+    captured, runs = {}, {}
+    # seconds in each tower's forwards (to a synchronize) and in the host's
+    # batch build (tokenizing, the graphs), first eval run only
+    split = {"host batches": 0.0}
+    saved = (retrieval_eval.CombinedDataset.read_structure,
+             retrieval_eval.CombinedDataset.batches,
+             retrieval_eval.embed_all, OneProtModel.forward)
+
+    def capture(*a, **k):
+        captured[len(captured)] = saved[2](*a, **k)
+        return captured[len(captured) - 1]
+
+    def timed_batches(self, batch_size):
+        it = saved[1](self, batch_size)
+        while True:
+            t = time.time()
+            batch = next(it, None)
+            if not captured:
+                split["host batches"] += time.time() - t
+            if batch is None:
+                return
+            yield batch
+
+    def timed_forward(self, inputs, modality="sequence"):
+        t = time.time()
+        out = saved[3](self, inputs, modality)
+        if not captured:
+            torch.cuda.synchronize()
+            split[modality] = split.get(modality, 0.0) + time.time() - t
+        return out
+
+    try:
+        retrieval_eval.CombinedDataset.read_structure = from_memory
+        retrieval_eval.CombinedDataset.batches = timed_batches
+        retrieval_eval.embed_all = capture
+        OneProtModel.forward = timed_forward
+        for name, extra in (("eval", []), ("eval lightning", None)):
+            if extra is None:
+                state = torch.load(os.path.join(
+                    run_dir, "checkpoints", "best", checkpoint_lib.STATE_FILE),
+                    map_location="cpu", weights_only=True)["model"]
+                ckpt = os.path.join(root, "reference.ckpt")
+                t = time.time()
+                torch.save({"state_dict": {
+                    reference_name(mod, k[len(f"encoders.{mod}."):]): v
+                    for mod in ("sequence", "text") for k, v in state.items()
+                    if k.startswith(f"encoders.{mod}.")}}, ckpt)
+                runs["lightning_write_s"] = time.time() - t
+                del state
+                extra = [f"ckpt_path={ckpt}",
+                         "output_csv=retrieval_results_lightning.csv"]
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.time()
+            results = cli_eval.main(argv + extra)
+            torch.cuda.synchronize()
+            runs[name] = {"s": time.time() - t, "results": results}
+            launches[name] = read_launches()
+            require(not any(PLAIN_CALLS.values()), f"{name}: plain versions "
+                    f"ran on the card: {PLAIN_CALLS}")
+            want = {**none, "flash_mha_fwd": (N_LAYERS + TEXT_LAYERS) * batches}
+            require(launches[name] == want, f"{name} launches "
+                    f"{launches[name]}, want {want}")
+        embedder = OneProtEmbedder.from_run_dir(run_dir)
+        direct = {"sequence": embedder.embed_sequences(seqs,
+                                                        batch_size=EVAL_BATCH),
+                  "text": embedder.embed_texts(texts, batch_size=EVAL_BATCH)}
+        del embedder
+    finally:
+        (retrieval_eval.CombinedDataset.read_structure,
+         retrieval_eval.CombinedDataset.batches, retrieval_eval.embed_all,
+         OneProtModel.forward) = saved
+    results = runs["eval"]["results"]
+    emb, emb_ckpt = captured[0], captured[1]
+    require(sorted(emb) == ["pocket", "sequence", "struct_graph", "text"]
+            and all(e.shape == (EVAL_ROWS, 1024) and np.isfinite(e).all()
+                    for e in emb.values()), "eval embeddings")
+    require(len(results) == 6 and all(
+        np.isfinite(v) for m in results.values() for v in m.values()),
+        f"eval results {results}")
+    with open(os.path.join(run_dir, "retrieval_results.csv")) as f:
+        lines = f.read().splitlines()
+    row = re.compile(r"^[a-z_]+-[a-z_]+ *,(?:[01]\.\d{3} {6},){4}\d+ *$")
+    require(len(lines) == 13 and lines[0] == "Modality Pair           ,R@1"
+            "        ,R@10       ,R@100      ,R@500      ,MR         "
+            and all(row.match(x) and len(x.split(",")[0]) == 25
+                    for x in lines[1:]), f"results csv {lines}")
+    for m in ("sequence", "text"):
+        require(np.array_equal(emb[m], direct[m]), f"eval {m} embeddings "
+                "differ from from_run_dir's")
+        require(np.array_equal(emb[m], emb_ckpt[m]), f"eval {m} embeddings "
+                "from the Lightning .ckpt differ from the port checkpoint's")
+    out = {"rows": EVAL_ROWS, "batches": batches, "eval_s": runs["eval"]["s"],
+           "lightning_eval_s": runs["eval lightning"]["s"],
+           "lightning_write_s": runs["lightning_write_s"],
+           "rows_per_s": EVAL_ROWS / runs["eval"]["s"],
+           "split_s": split,
+           "rows_per_s_by_modality": {m: EVAL_ROWS / v for m, v in split.items()
+                                      if m != "host batches"},
+           "R@1": {p: m["seq_to_mod_R@1"] for p, m in results.items()},
+           "launches": launches["eval"]}
+    print(f"  eval: {EVAL_ROWS} rows x 4 modalities in {out['eval_s']:.2f} s "
+          f"({out['rows_per_s']:.1f} rows/s, model build and restore "
+          f"included; forwards " + ", ".join(
+              f"{m} {v:.3f} s" for m, v in split.items()
+              if m != "host batches")
+          + f", host batches {split['host batches']:.3f} s); from a "
+          f"Lightning .ckpt (written in "
+          f"{out['lightning_write_s']:.2f} s) {out['lightning_eval_s']:.2f} s; "
+          f"sequence and text embeddings equal from_run_dir's and the "
+          f"Lightning run's; R@1 (random weights) {out['R@1']}; launches "
+          f"{launches['eval']}; {smi}", flush=True)
+    return out
+
+
+def collect_phase(root: str, hub_dir: str, run_dir: str, launches: dict,
+                  smi: str) -> dict:
+    """(c): `cli.collect_embeddings.main` with the hub of (a) as `esm2`
+    (`checkpoint_dir`) and the default run as `oneprot`, on ToyCls
+    train/valid/test CSVs of COLLECT_ROWS rows. Gated: each combined file's
+    rows and labels, #1 exactly 33 a batch of either model, and the `esm2`
+    embeddings equal to the hub's masked mean computed here. Fills
+    launches["collect"]."""
+    from oneprot_tpu_torch.models import hf_convert
+
+    none = {name: 0 for name in LAUNCHERS}
+    rng = np.random.RandomState(COLLECT_SEED)
+    down = os.path.join(root, "downstream")
+    os.makedirs(down, exist_ok=True)
+    splits = {}
+    for split in ("train", "valid", "test"):
+        seqs = sample_seqs(COLLECT_ROWS, rng)
+        labels = rng.randint(0, 3, COLLECT_ROWS)
+        splits[split] = (seqs, labels)
+        with open(os.path.join(down, f"ToyCls_{split}.csv"), "w") as f:
+            f.write("sequence,label\n" + "".join(
+                f"{s},{y}\n" for s, y in zip(seqs, labels)))
+    out_dir = os.path.join(root, "embeddings")
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.time()
+    outputs = cli_collect.main([
+        "tasks=[ToyCls]", f"downstream_dir={down}", f"output_dir={out_dir}",
+        f"batch_size={COLLECT_BATCH}", f"+models.esm2.checkpoint_dir={hub_dir}",
+        "+models.oneprot.type=oneprot", f"+models.oneprot.run_dir={run_dir}",
+        f"paths.log_dir={root}/collect_logs"])
+    torch.cuda.synchronize()
+    collect_s = time.time() - t
+    launches["collect"] = read_launches()
+    require(not any(PLAIN_CALLS.values()),
+            f"collect: plain versions ran on the card: {PLAIN_CALLS}")
+    batches = 3 * -(-COLLECT_ROWS // COLLECT_BATCH)
+    want = {**none, "flash_mha_fwd": 2 * N_LAYERS * batches}
+    require(launches["collect"] == want,
+            f"collect launches {launches['collect']}, want {want}")
+    require(len(outputs) == 6, f"collect outputs {outputs}")
+    hub = esm2.Esm2(esm2.resolve_esm2_config(hub_dir), device="cuda",
+                    dtype=torch.bfloat16).eval()
+    hub.load_state_dict(hf_convert.convert_esm2_state_dict(
+        hf_convert.load_torch_state_dict(hub_dir), N_LAYERS))
+    tok = esm2_tokenizer()
+    for split, (seqs, labels) in splits.items():
+        for model, width in (("esm2", 1280), ("oneprot", 1024)):
+            data = np.load(os.path.join(
+                out_dir, model, f"ToyCls_{split}_embeddings_labels.npz"))
+            require(data["embeddings"].shape == (COLLECT_ROWS, width)
+                    and np.isfinite(data["embeddings"]).all()
+                    and np.array_equal(data["labels_fitness"], labels),
+                    f"collect {model} {split}")
+        direct = []
+        with torch.inference_mode():
+            for start in range(0, COLLECT_ROWS, COLLECT_BATCH):
+                chunk = seqs[start:start + COLLECT_BATCH]
+                pad = pick_bucket(max(len(s) + 2 for s in chunk),
+                                  list(DEFAULT_BUCKETS), 1024)
+                ids = torch.from_numpy(tok(chunk, max_length=1024, padding=pad)
+                                       ).to("cuda", torch.long)
+                hidden = hub(ids)
+                mask = (ids != 1).to(hidden.dtype)[..., None]
+                direct.append(((hidden * mask).sum(1) / mask.sum(1)).float()
+                              .cpu().numpy())
+        got = np.load(os.path.join(
+            out_dir, "esm2", f"ToyCls_{split}_embeddings_labels.npz"))
+        require(np.array_equal(got["embeddings"], np.concatenate(direct)),
+                f"collect esm2 {split}: not the hub's masked mean")
+    del hub
+    torch.cuda.empty_cache()
+    n_seq = 2 * 3 * COLLECT_ROWS
+    out = {"sequences": n_seq, "collect_s": collect_s,
+           "seq_per_s": n_seq / collect_s, "launches": launches["collect"]}
+    print(f"  collect_embeddings: 2 models x 3 splits x {COLLECT_ROWS} rows in "
+          f"{collect_s:.2f} s ({out['seq_per_s']:.1f} seq/s, model builds "
+          f"and the 2.6 GB checkpoint read included); esm2 embeddings equal "
+          f"the hub's masked mean; launches {launches['collect']}; {smi}",
+          flush=True)
     return out
 
 
@@ -3877,10 +4401,23 @@ def main() -> int:
     msa_train = msa_seqsim_phase(smi, launches)
     torch.cuda.empty_cache()
 
-    phase("the shipped default train.yaml through cli.train.main: ESM2-650M "
-          "hub, ProNet struct_graph and pocket, BiomedBERT-base text, seqsim "
-          "data; 2 epochs and the test split")
-    default_cli = default_cli_phase(smi, launches)
+    hub_root = tempfile.mkdtemp(prefix="chip_smoke_hub_")
+    try:
+        phase("pretrained hub: ESM2-650M as a local HF checkpoint (f32 "
+              "safetensors), loaded int8 by cli.train.build_model with the "
+              "int8 canary, then one request")
+        t = time.time()
+        pretrained = pretrained_hub_phase(
+            os.path.join(hub_root, "esm2_t33_650M_UR50D"), smi, launches)
+        pretrained["s"] = time.time() - t
+
+        phase("the shipped default train.yaml through cli.train.main: "
+              "ESM2-650M hub, ProNet struct_graph and pocket, BiomedBERT-base "
+              "text, seqsim data; 2 epochs and the test split")
+        default_cli = default_cli_phase(
+            smi, launches, os.path.join(hub_root, "esm2_t33_650M_UR50D"))
+    finally:
+        shutil.rmtree(hub_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     phase("the f32 experiments as shipped through cli.train.main: "
@@ -3911,6 +4448,7 @@ def main() -> int:
         "text": text,
         "graph": graph,
         "msa_seqsim_training": msa_train,
+        "pretrained_hub": pretrained,
         "default_train_yaml": default_cli,
         "f32_experiments": f32_runs,
         "wall_s": time.time() - T0}), flush=True)

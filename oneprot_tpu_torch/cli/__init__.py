@@ -1,5 +1,7 @@
-"""Command-line entry points (counterpart of oneprot_tpu/cli/): the console
-script `train_command_torch` and `python -m oneprot_tpu_torch.cli.train`."""
+"""Command-line entry points (counterpart of oneprot_tpu/cli/ and the root
+collect_embeddings.py): the console scripts `train_command_torch`,
+`eval_command_torch` and `collect_embeddings_command_torch`, and
+`python -m oneprot_tpu_torch.cli.{train,eval,collect_embeddings}`."""
 
 import os
 

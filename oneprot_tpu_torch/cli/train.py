@@ -53,7 +53,10 @@ log = get_pylogger("train")
 
 def build_model(model_cfg, device: torch.device, seed: int):
     """`model.components` built on `device` with weights drawn from `seed`
-    (one generator, encoder by encoder), then the module around them."""
+    (one generator, encoder by encoder), then the module around them; an
+    encoder built from a local HF directory then takes its weights
+    (`OneProtModule.load_pretrained`, after the seeded draw, which would
+    overwrite them)."""
     from oneprot_tpu_torch.models.bert import init_bert_weights_
     from oneprot_tpu_torch.models.encoders import MsaEncoder, TextEncoder
     from oneprot_tpu_torch.models.esm2 import init_esm2_weights_
@@ -71,7 +74,9 @@ def build_model(model_cfg, device: torch.device, seed: int):
         else:
             init_esm2_weights_(encoder, generator)
         components[name] = encoder
-    return instantiate({**model_cfg, "seed": seed}, components=components)
+    module = instantiate({**model_cfg, "seed": seed}, components=components)
+    module.load_pretrained()
+    return module
 
 
 @task_wrapper

@@ -18,6 +18,8 @@ numpy arrays converts here with no JAX installed. Mappings:
   `token_type_embeddings`) keep their names and shapes;
 - ProNet's `aa_embed` `embedding` [21, H] -> `aa_embed.weight`, its
   `layer_{i}` Dense and LayerNorm leaves as above;
+- a head's attention pooling `attention1d/attn` Dense ->
+  `attention1d.attn`;
 - `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token,
   msa, text, struct_graph, pocket).
 
@@ -90,6 +92,9 @@ def head_state_dict(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     if "logit_scale" in tree:
         out[prefix + "logit_scale.log_logit_scale"] = _t(
             tree["logit_scale"]["log_logit_scale"])
+    if "attention1d" in tree:
+        out.update(_dense(tree["attention1d"]["attn"],
+                          prefix + "attention1d.attn."))
     return out
 
 

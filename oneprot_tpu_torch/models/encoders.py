@@ -76,12 +76,17 @@ class _TokenEncoder(nn.Module):
                  learnable_logit_scale: bool, frozen: bool,
                  quant_int8: bool = False, lora: Optional[LoraConfig] = None,
                  remat: bool = False, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 pretrained_dir: Optional[str] = None):
         super().__init__()
         self.config = config
         self.frozen = frozen
+        self.quant_int8 = quant_int8
         self.lora_rank = 0 if lora is None else lora.rank
         self.pooling_type = pooling_type
+        # a local HF checkpoint directory whose weights
+        # `OneProtModule.load_pretrained` puts into the transformer
+        self.pretrained_dir = pretrained_dir
         self.transformer = self._transformer(
             config, quant_int8, lora, remat, device=device, dtype=dtype,
             param_dtype=dtype if frozen else torch.float32)
@@ -153,10 +158,12 @@ class SequenceEncoder(_TokenEncoder):
                  learnable_logit_scale: bool = False, frozen: bool = True,
                  quant_int8: bool = False, lora: Optional[LoraConfig] = None,
                  remat: bool = False, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen,
-                         quant_int8, lora, remat, device=device, dtype=dtype)
+                         quant_int8, lora, remat, device=device, dtype=dtype,
+                         pretrained_dir=pretrained_dir)
 
 
 class StructTokenEncoder(_TokenEncoder):
@@ -167,10 +174,12 @@ class StructTokenEncoder(_TokenEncoder):
                  pooling_type: str = "mean", proj_type: Optional[str] = "linear",
                  use_logit_scale: bool = True,
                  learnable_logit_scale: bool = False, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen=False,
-                         device=device, dtype=dtype)
+                         device=device, dtype=dtype,
+                         pretrained_dir=pretrained_dir)
 
 
 class TextEncoder(_TokenEncoder):
@@ -183,10 +192,12 @@ class TextEncoder(_TokenEncoder):
                  use_logit_scale: bool = True,
                  learnable_logit_scale: bool = False, frozen: bool = True,
                  lora: Optional[LoraConfig] = None, remat: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen,
-                         lora=lora, remat=remat, device=device, dtype=dtype)
+                         lora=lora, remat=remat, device=device, dtype=dtype,
+                         pretrained_dir=pretrained_dir)
 
     @staticmethod
     def _transformer(config, quant_int8, lora, remat, **kw) -> nn.Module:
@@ -269,16 +280,15 @@ def _dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-def _refuse_pretrained(model_name_or_path: str) -> None:
-    """A local HF directory with weights: the JAX package loads them
-    (`OneProtModule._load_pretrained`); the port cannot yet, and does not
-    start from random weights in their place."""
-    if os.path.isdir(model_name_or_path) and any(
-            os.path.isfile(os.path.join(model_name_or_path, name))
+def _local_hf_dir(name_or_path: str) -> Optional[str]:
+    """A local HF checkpoint directory (config.json + weights) or None: hub
+    names still select the architecture, and the weights then come from
+    the seed (or a run's checkpoint)."""
+    if name_or_path and os.path.isdir(name_or_path) and any(
+            os.path.isfile(os.path.join(name_or_path, name))
             for name in ("model.safetensors", "pytorch_model.bin")):
-        raise NotImplementedError(
-            f"{model_name_or_path} holds pretrained weights; loading them is "
-            "not ported yet: ROADMAP.md Queue 1 item 8 (checkpoint interop)")
+        return name_or_path
+    return None
 
 
 def create_sequence_encoder(
@@ -288,6 +298,7 @@ def create_sequence_encoder(
     proj_type: Optional[str] = None,
     use_logit_scale: bool = False,
     learnable_logit_scale: bool = False,
+    pretrained: bool = True,
     use_lora: bool = False,
     lora_r: int = 8,
     lora_alpha: int = 16,
@@ -307,10 +318,10 @@ def create_sequence_encoder(
     the JAX package: the target list is accepted and not read); `remat`
     checkpoints each layer. Weights
     are PyTorch's default init: load a state_dict (see `convert`) or call
-    `esm2.init_esm2_weights_`; a local directory that holds weights raises
-    (loading them is ROADMAP.md Queue 1 item 8)."""
+    `esm2.init_esm2_weights_`. A local HF directory with weights sets
+    `pretrained_dir` (unless `pretrained` is false), and
+    `OneProtModule.load_pretrained` loads them."""
     del lora_target_modules  # q/k/v is the only supported target set
-    _refuse_pretrained(model_name_or_path)
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' is supported")
     quant_int8 = quantize == "int8"
@@ -326,7 +337,9 @@ def create_sequence_encoder(
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen,
         quant_int8=quant_int8, lora=lora, remat=remat, device=device,
-        dtype=_dtype(dtype))
+        dtype=_dtype(dtype),
+        pretrained_dir=_local_hf_dir(model_name_or_path) if pretrained
+        else None)
 
 
 def create_struct_token_encoder(
@@ -342,15 +355,15 @@ def create_struct_token_encoder(
     """Build a StructTokenEncoder from the config keys of
     configs/model/components/struct_token.yaml: the named ESM2 with 21
     more embedding rows. Defaults to bf16 on the card, as
-    `create_sequence_encoder`, and refuses pretrained weights as it does."""
-    _refuse_pretrained(model_name_or_path)
+    `create_sequence_encoder`, and takes a local HF directory's weights as
+    it does (the new rows drawn from the module's seed)."""
     cfg = resolve_esm2_config(model_name_or_path)
     cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size + STRUCT_EXTRA_TOKENS)
     return StructTokenEncoder(
         cfg, output_dim=output_dim, pooling_type=pooling_type,
         proj_type=proj_type, use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, device=device,
-        dtype=_dtype(dtype))
+        dtype=_dtype(dtype), pretrained_dir=_local_hf_dir(model_name_or_path))
 
 
 def create_text_encoder(
@@ -382,10 +395,8 @@ def create_text_encoder(
     as built (the layers' default init, zero embedding tables): load a
     state_dict
     (`convert.text_state_dict`) or call `bert.init_bert_weights_`; a local
-    directory that holds weights raises (loading them is ROADMAP.md Queue
-    1 item 8)."""
+    HF directory's weights are loaded by `OneProtModule.load_pretrained`."""
     del lora_target_modules  # q/k/v is the only supported target set
-    _refuse_pretrained(model_name_or_path)
     lora = (LoraConfig(lora_r, float(lora_alpha), lora_dropout) if use_lora
             else None)
     return TextEncoder(
@@ -393,7 +404,8 @@ def create_text_encoder(
         output_dim=output_dim, pooling_type=pooling_type, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen, lora=lora,
-        remat=remat, device=device, dtype=_dtype(dtype))
+        remat=remat, device=device, dtype=_dtype(dtype),
+        pretrained_dir=_local_hf_dir(model_name_or_path))
 
 
 def create_struct_graph_encoder(

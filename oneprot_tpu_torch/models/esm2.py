@@ -102,15 +102,17 @@ ESM2_SIZES = {
 }
 
 
-def resolve_esm2_config(name_or_path) -> Esm2Config:
+def resolve_esm2_config(name_or_path,
+                        vocab_size: Optional[int] = None) -> Esm2Config:
     """Map HF-style names ('facebook/esm2_t33_650M_UR50D') or a local HF
     directory holding a config.json (its keys as HF's EsmConfig names them;
-    other keys are ignored) to a config."""
+    other keys are ignored) to a config; `vocab_size` overrides the
+    vocabulary."""
     cfg_json = os.path.join(name_or_path, "config.json")
     if os.path.isfile(cfg_json):
         with open(cfg_json) as f:
             hf = json.load(f)
-        return Esm2Config(
+        cfg = Esm2Config(
             vocab_size=int(hf.get("vocab_size", 33)),
             hidden_size=int(hf["hidden_size"]),
             num_layers=int(hf["num_hidden_layers"]),
@@ -121,11 +123,15 @@ def resolve_esm2_config(name_or_path) -> Esm2Config:
             token_dropout=bool(hf.get("token_dropout", True)),
             layer_norm_eps=float(hf.get("layer_norm_eps", 1e-5)),
         )
-    key = str(name_or_path).rstrip("/").split("/")[-1]
-    for prefix, cfg in ESM2_SIZES.items():
-        if key.startswith(prefix):
-            return cfg
-    raise ValueError(f"Unknown ESM2 model name: {name_or_path}")
+    else:
+        key = str(name_or_path).rstrip("/").split("/")[-1]
+        cfg = next((c for prefix, c in ESM2_SIZES.items()
+                    if key.startswith(prefix)), None)
+        if cfg is None:
+            raise ValueError(f"Unknown ESM2 model name: {name_or_path}")
+    if vocab_size is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    return cfg
 
 
 def rotary_cos_sin(length: int, dim: int, device=None,

@@ -1,9 +1,11 @@
 """Post-backbone heads: pooling -> projection -> L2-norm (+ logit scale).
 
 Counterpart of oneprot_tpu/models/heads.py (`l2_normalize`, `mean_pool`,
-`cls_pool`, `Projection`, `LogitScale`, `EncoderHead`, and the per-segment
-pools of packed rows: `empty_slot_filler`, `segment_mean_pool`,
-`segment_cls_pool`, `segment_pool`). Attention pooling is not ported yet.
+`cls_pool`, `Attention1dPooling`, `Projection`, `LogitScale`,
+`EncoderHead`, and the per-segment pools of packed rows:
+`empty_slot_filler`, `segment_mean_pool`, `segment_cls_pool`,
+`segment_pool`). Attention pooling pools padded rows only: the packed
+pooling raises for it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -38,6 +40,27 @@ def mean_pool(features: torch.Tensor,
 def cls_pool(features: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     return features[:, 0]
+
+
+class Attention1dPooling(nn.Module):
+    """Masked attention pooling (the reference's MaskedConv1d of kernel 1:
+    one logit a position, from the masked features). Masked positions get
+    -inf, the softmax runs in f32 and is cast back to the features' dtype.
+    Its `attn` Linear computes in f32 over f32 parameters, as the JAX
+    layer's Dense promotes bf16 features against f32 parameters."""
+
+    def __init__(self, d_model: int, *, device="cuda"):
+        super().__init__()
+        self.attn = Dense(d_model, 1, device=device, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+        x_in = x if mask is None else x * mask.to(x.dtype)[..., None]
+        logits = self.attn(x_in)[..., 0]                          # [B, L]
+        if mask is not None:
+            logits = logits.masked_fill(~mask.bool(), float("-inf"))
+        attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        return (attn[..., None] * x).sum(dim=1)
 
 
 class Projection(nn.Module):
@@ -105,10 +128,12 @@ class EncoderHead(nn.Module):
                  learnable_logit_scale: bool = False, *, device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pooling_type not in ("mean", "cls", None, "identity"):
-            raise NotImplementedError(
-                f"pooling_type {pooling_type!r} is not ported yet")
+        if pooling_type not in ("mean", "cls", "attention1d", None,
+                                "identity"):
+            raise ValueError(f"unknown pooling_type {pooling_type!r}")
         self.pooling_type = pooling_type
+        if pooling_type == "attention1d":
+            self.attention1d = Attention1dPooling(d_model, device=device)
         self.proj = Projection(d_model, output_dim, proj_type, device=device,
                                dtype=dtype)
         self.logit_scale = (LogitScale(learnable=learnable_logit_scale,
@@ -121,6 +146,8 @@ class EncoderHead(nn.Module):
             return mean_pool(features, mask)
         if self.pooling_type == "cls":
             return cls_pool(features, mask)
+        if self.pooling_type == "attention1d":
+            return self.attention1d(features, mask)
         return features
 
     def project(self, pooled: torch.Tensor) -> torch.Tensor:

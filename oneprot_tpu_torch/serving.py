@@ -1,11 +1,12 @@
 """Serving API: embed sequences, texts, MSAs or structure graphs with a
 hub model and retrieve by cosine.
 
-Counterpart of oneprot_tpu/serving.py for the sequence, text, MSA and
-graph modalities:
+Counterpart of oneprot_tpu/serving.py for every modality:
 
     embedder = OneProtEmbedder(model)          # a models.encoders.OneProtModel
+    embedder = OneProtEmbedder.from_run_dir("logs/train/runs/<stamp>")
     feats = embedder.embed_sequences(["MKTAY...", ...])
+    st_feats = embedder.embed_struct_tokens(["dpvlqwd...", ...])
     text_feats = embedder.embed_texts(["a membrane protein ...", ...])
     msa_feats = embedder.embed_msas(["a.a3m", "b.a3m"])
     graph_feats = embedder.embed_graphs("seqstruc.h5", ["P1", "P2"])
@@ -17,7 +18,11 @@ bucket is picked from its longest text's characters + 2, not its tokens,
 as the JAX embedder picks it; a text whose tokens outrun the bucket is
 cut to it. The embedder runs
 where the model's weights live, in eval mode (no LoRA dropout), as the JAX
-embedder runs deterministic.
+embedder runs deterministic. `from_run_dir` rebuilds a trained run's
+model on the device of its `trainer.accelerator` and restores `best` (or
+`ckpt`: a checkpoint name, directory or a reference Lightning `.ckpt`); a
+checkpoint that is not there raises FileNotFoundError, where the JAX
+embedder warns and serves random weights.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from oneprot_tpu_torch.data.tokenizers import (
     MsaBatchConverter,
     esm2_tokenizer,
     resolve_text_tokenizer,
+    struct_token_tokenizer,
 )
 from oneprot_tpu_torch.models.heads import l2_normalize
 
@@ -49,8 +55,29 @@ class OneProtEmbedder:
         self.model = model.eval()
         self.buckets = list(buckets)
         self.seq_tok = esm2_tokenizer()
+        self.struct_tok = struct_token_tokenizer()
         self.text_tok = resolve_text_tokenizer(text_vocab)
         self.device = next(model.parameters()).device
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, ckpt: str = "best",
+                     device=None) -> "OneProtEmbedder":
+        """The embedder of a trained run: its model restored from `ckpt`,
+        its training buckets (else the defaults) and its `text_vocab`."""
+        from oneprot_tpu_torch.evaluation.retrieval_eval import (
+            load_trained_module,
+        )
+        from oneprot_tpu_torch.train.checkpoint import restore_any
+        from oneprot_tpu_torch.utils.loggers import get_pylogger
+
+        module, cfg = load_trained_module(run_dir, device)
+        get_pylogger(__name__).info(
+            f"loaded {restore_any(module, run_dir, ckpt)}")
+        buckets = (cfg.get("data", {}) or {}).get("buckets") or DEFAULT_BUCKETS
+        text_vocab = str((cfg.get("paths", {}) or {}).get("text_vocab",
+                                                           "tiny"))
+        return cls(module.model, buckets=[int(b) for b in buckets],
+                   text_vocab=text_vocab)
 
     @torch.inference_mode()
     def _embed_tokens(self, modality: str, tok, items: Sequence[str],
@@ -74,6 +101,14 @@ class OneProtEmbedder:
         """Protein sequences through the hub: [n, output_dim] f32."""
         return self._embed_tokens("sequence", self.seq_tok, sequences,
                                   max_length, batch_size)
+
+    def embed_struct_tokens(self, tdi_strings: Sequence[str],
+                            max_length: int = 1024,
+                            batch_size: int = 32) -> np.ndarray:
+        """SaProt 3Di structure-token strings through the struct-token
+        tower: [n, output_dim] f32."""
+        return self._embed_tokens("struct_token", self.struct_tok,
+                                  tdi_strings, max_length, batch_size)
 
     def embed_texts(self, texts: Sequence[str], max_length: int = 512,
                     batch_size: int = 32) -> np.ndarray:

@@ -9,6 +9,12 @@ validation metrics it was saved with, the trainer's epoch and whether the
 epoch had completed, and `checkpoint/best_value`, the best monitored value
 so far, which a resumed run takes up. When `best` is saved with `last` it
 is a hard link to the same file (a copy where links are refused).
+
+`restore_any` takes such a checkpoint or a reference-trained Lightning
+`.ckpt`; an Orbax directory written by the JAX package is refused (the
+port has no Orbax reader: convert its params with
+`convert.oneprot_state_dict`). `PeftCheckpoint` writes the hub's LoRA
+factors in peft's layout on every improvement.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
@@ -30,13 +37,14 @@ def state_of(module) -> dict:
             "step": int(module.step)}
 
 
-def load_state(module, path: str) -> None:
-    """Restore a checkpoint directory (or its state file) into an
-    initialised module, on the module's device."""
-    path = os.path.abspath(path)
-    if os.path.isdir(path):
-        path = os.path.join(path, STATE_FILE)
-    state = torch.load(path, map_location=module.device, weights_only=True)
+def load_state(module, path: str, state: Optional[dict] = None) -> None:
+    """Restore a checkpoint directory (or its state file, or that file's
+    loaded `state`) into an initialised module, on the module's device."""
+    if state is None:
+        path = os.path.abspath(path)
+        if os.path.isdir(path):
+            path = os.path.join(path, STATE_FILE)
+        state = torch.load(path, map_location=module.device, weights_only=True)
     module.model.load_state_dict(state["model"])
     module.opt.base.load_state_dict(state["optimizer"])
     module.step = int(state["step"])
@@ -114,15 +122,67 @@ class CheckpointManager:
 
 
 def restore_any(module, run_dir, ckpt) -> str:
-    raise NotImplementedError(
-        "restoring Lightning or HF checkpoints needs the hf_convert pieces: "
-        "ROADMAP.md Queue 1 item 8")
+    """Restore `module` from a checkpoint of the port (`best` / `last` under
+    run_dir/checkpoints, a checkpoint directory or its state file) or a
+    reference-trained Lightning `.ckpt` file (told apart by its contents).
+    Returns what was restored. Raises FileNotFoundError when `ckpt` names
+    nothing that exists, and ValueError on an Orbax directory of the JAX
+    package."""
+    from oneprot_tpu_torch.models.hf_convert import convert_oneprot_state_dict
+
+    ckpt = str(ckpt)
+    if os.path.isfile(ckpt):
+        obj = torch.load(ckpt, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict) and {"model", "optimizer", "step"} <= set(obj):
+            load_state(module, ckpt, obj)
+            return f"checkpoint {ckpt}"
+        sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+        module.model.load_state_dict(convert_oneprot_state_dict(
+            sd, module.encoders, module.model.state_dict(), seed=module.seed))
+        return f"lightning checkpoint {ckpt}"
+    path = ckpt if os.path.isdir(ckpt) else os.path.join(
+        run_dir or "", "checkpoints", ckpt)
+    if os.path.isfile(os.path.join(path, STATE_FILE)):
+        load_state(module, path)
+        return f"checkpoint {path}"
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: an Orbax checkpoint of the JAX "
+            "package? The port reads no Orbax; restore it with the JAX "
+            "package and carry its params over with "
+            "oneprot_tpu_torch.convert.oneprot_state_dict")
+    raise FileNotFoundError(f"no checkpoint at {path}")
 
 
 class PeftCheckpoint:
-    """The LoRA adapter export on improvement: not ported yet."""
+    """Save only the hub's LoRA adapter on each improvement of `monitor`
+    (the reference's PeftBestModelCheckpoint), in peft's tensor layout, to
+    `dirpath/adapter_model.npz`, the file the JAX package writes."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PeftCheckpoint needs the peft LoRA export of hf_convert: "
-            "ROADMAP.md Queue 1 item 8")
+    def __init__(self, dirpath: str, monitor: str = "val/loss",
+                 encoder_name: str = "sequence", num_layers: int = 0):
+        self.dirpath = dirpath
+        self.monitor = monitor
+        self.encoder_name = encoder_name
+        self.num_layers = num_layers
+        self.best: Optional[float] = None
+
+    def on_validation_end(self, module,
+                          metrics: Dict[str, Any]) -> Optional[str]:
+        from oneprot_tpu_torch.models.hf_convert import export_peft_lora
+
+        value = metrics.get(self.monitor)
+        if value is None or (self.best is not None and value >= self.best):
+            return None
+        self.best = float(value)
+        enc = module.encoders.get(self.encoder_name)
+        if enc is None:
+            return None
+        adapter = export_peft_lora(enc.transformer.state_dict(),
+                                   self.num_layers)
+        if not adapter:
+            return None
+        os.makedirs(self.dirpath, exist_ok=True)
+        out = os.path.join(self.dirpath, "adapter_model.npz")
+        np.savez(out, **adapter)
+        return out

@@ -38,15 +38,20 @@ in eval mode without autograd and return (seq_feats, mod_feats, loss). The
 several processes, change nothing in one. A loss name other than CLIP or
 SigLIP raises; the JAX module takes any other name for SigLIP.
 
+`load_pretrained` puts a local HF directory's weights into each encoder
+that names one (`pretrained_dir`), and checks an int8 hub loaded so
+against its float twin (the int8 canary).
+
 Not ported here: sharding over several cards and SigLIP's ring of
-negatives (ROADMAP.md Queue 1 item 6), pretrained loading and the int8
-canary (item 8).
+negatives (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
@@ -55,8 +60,24 @@ from oneprot_tpu_torch.models.encoders import OneProtModel
 from oneprot_tpu_torch.models.esm2 import Int8Dense, set_lora_dropout_seed
 from oneprot_tpu_torch.models.pronet import set_graph_noise_seed
 from oneprot_tpu_torch.train import optim as optim_lib
+from oneprot_tpu_torch.utils.loggers import get_pylogger
 
 Pack = Mapping[str, Any]  # {"ids": [R, L], "segment_ids": [R, L]}
+
+
+def _graft(module: torch.nn.Module,
+           converted: Mapping[str, torch.Tensor]) -> None:
+    """Load `converted`'s tensors into `module` (each cast to its
+    parameter's dtype); the module's other leaves keep their values, keys
+    the module lacks are ignored, and a shape that differs raises."""
+    state = module.state_dict()
+    for k, v in converted.items():
+        if k in state:
+            if tuple(v.shape) != tuple(state[k].shape):
+                raise ValueError(f"pretrained shape {tuple(v.shape)} != model "
+                                 f"shape {tuple(state[k].shape)} at {k}")
+            state[k] = v
+    module.load_state_dict(state)
 
 
 class OneProtModule:
@@ -100,6 +121,7 @@ class OneProtModule:
         self.step = 0
         self.opt: Optional[optim_lib.ClippedOptimizer] = None
         self.mask: Optional[Dict[str, bool]] = None
+        self.int8_canaries: Dict[str, Optional[Dict[str, float]]] = {}
 
     @property
     def device(self) -> torch.device:
@@ -129,6 +151,147 @@ class OneProtModule:
                                              self.gradient_clip_val)
         self.step = 0
         return self
+
+    # -- pretrained weights ---------------------------------------------------
+
+    def load_pretrained(self) -> Dict[str, Optional[Dict[str, float]]]:
+        """Put converted HF weights into the `transformer` of every encoder
+        built from a local checkpoint directory (`pretrained_dir`), as the
+        JAX module's `_load_pretrained` does: leaves the checkpoint does
+        not cover (LoRA factors) keep their values, each tensor is cast to
+        the parameter's dtype, and a shape that differs raises. An int8 hub
+        is quantized from the float weights, then checked against its float
+        twin by `int8_canary` (unless ONEPROT_INT8_CANARY=0). Returns each
+        int8 hub's canary numbers by encoder name, also kept as
+        `int8_canaries`."""
+        from oneprot_tpu_torch.models import encoders as enc_lib
+        from oneprot_tpu_torch.models.esm2 import quantize_esm2_int8_tree
+        from oneprot_tpu_torch.models.hf_convert import (
+            convert_bert_state_dict,
+            convert_esm2_state_dict,
+            load_torch_state_dict,
+        )
+
+        canaries = {}
+        for name, enc in self.encoders.items():
+            hf_dir = getattr(enc, "pretrained_dir", None)
+            if not hf_dir:
+                continue
+            sd = load_torch_state_dict(hf_dir)
+            float_state = None
+            if isinstance(enc, enc_lib.TextEncoder):
+                converted = convert_bert_state_dict(sd, enc.config.num_layers)
+            elif isinstance(enc, (enc_lib.SequenceEncoder,
+                                  enc_lib.StructTokenEncoder)):
+                converted = convert_esm2_state_dict(
+                    sd, enc.config.num_layers,
+                    extra_vocab_rows=max(enc.config.vocab_size - 33, 0),
+                    seed=self.seed)
+                if enc.quant_int8:
+                    float_state = converted
+                    converted = quantize_esm2_int8_tree(converted)
+            else:
+                continue
+            _graft(enc.transformer, converted)
+            if float_state is not None and os.environ.get(
+                    "ONEPROT_INT8_CANARY", "1") != "0":
+                canaries[name] = self.int8_canary(name, enc, float_state)
+        self.int8_canaries = canaries
+        return canaries
+
+    # Swiss-Prot amino-acid frequencies (%) in ESM2 alphabet order for
+    # token ids 4..23 (L A G V S E R T I D P K Q N F Y M H W C)
+    _ESM2_AA_FREQ = np.array([
+        9.66, 8.25, 7.07, 6.87, 6.56, 6.75, 5.53, 5.34, 5.96, 5.45,
+        4.70, 5.84, 3.93, 4.06, 3.86, 2.92, 2.42, 2.27, 1.08, 1.38])
+
+    def _canary_probe_ids(self, vocab_size: int) -> np.ndarray:
+        """The JAX module's probe: ONEPROT_INT8_CANARY_ROWS (16) rows of
+        Swiss-Prot-frequency amino acids from RandomState(0), true lengths
+        log-spaced from 32 to ONEPROT_INT8_CANARY_LEN (512), cls/eos
+        framed, pad-tailed."""
+        rows = max(int(os.environ.get("ONEPROT_INT8_CANARY_ROWS", "16")), 2)
+        max_len = max(
+            int(os.environ.get("ONEPROT_INT8_CANARY_LEN", "512")), 16)
+        probe_rng = np.random.RandomState(0)
+        lens = np.round(
+            np.geomspace(min(32, max_len), max_len, rows)).astype(int)
+        if vocab_size >= 24:
+            p = self._ESM2_AA_FREQ / self._ESM2_AA_FREQ.sum()
+            aa = probe_rng.choice(np.arange(4, 24, dtype=np.int32),
+                                  size=(rows, max_len), p=p)
+        else:  # tiny test vocabularies
+            aa = probe_rng.randint(4, vocab_size, size=(rows, max_len))
+        ids = np.full((rows, max_len), 1, np.int32)  # pad
+        for i, li in enumerate(lens):
+            ids[i, 0] = 0  # cls
+            ids[i, 1:li - 1] = aa[i, 1:li - 1]
+            ids[i, li - 1] = 2  # eos
+        return ids
+
+    @torch.no_grad()
+    def int8_canary(self, name: str, enc,
+                    float_state: Mapping[str, torch.Tensor]
+                    ) -> Optional[Dict[str, float]]:
+        """Compare an int8 hub's pooled embeddings of the probe batch with
+        its float twin's (the same config and compute dtype, the float
+        weights; bf16 on the card): the centered cosine per row (min and
+        mean) and the two-way cross-retrieval R@1, logged as the JAX module
+        logs them, with a warning below ONEPROT_INT8_CANARY_MIN (0.98) or
+        ONEPROT_INT8_CANARY_R1 (1.0). Returns {"cos_min", "cos_mean", "r1",
+        "rows"}, or None (with a warning) when the float weights do not
+        cover every leaf of the twin. Unlike the JAX canary, which warns on
+        any exception, an error here (a CUDA or kernel error) propagates."""
+        from oneprot_tpu_torch.models.esm2 import Esm2
+
+        log = get_pylogger("int8_canary")
+        threshold = float(os.environ.get("ONEPROT_INT8_CANARY_MIN", "0.98"))
+        r1_threshold = float(os.environ.get("ONEPROT_INT8_CANARY_R1", "1.0"))
+        device = enc.transformer.embed_tokens.weight.device
+        twin = Esm2(enc.config, device=device,
+                    dtype=enc.transformer.embed_tokens.compute_dtype).eval()
+        missing = set(twin.state_dict()) - set(float_state)
+        if missing:
+            log.warning(f"int8 canary for '{name}' skipped: float checkpoint "
+                        "does not cover every transformer leaf")
+            return None
+        _graft(twin, float_state)
+        ids = torch.from_numpy(self._canary_probe_ids(
+            enc.config.vocab_size)).to(device, torch.long)
+        mask = ids != enc.config.pad_token_id
+        was_training = enc.training
+        enc.eval()
+        f_q = enc.backbone_pooled(ids).float().cpu().numpy()
+        f_b = enc.head.pool(twin(ids), mask).float().cpu().numpy()
+        enc.train(was_training)
+        del twin
+        # centred across the probe's rows: a component all rows share (an
+        # outlier channel of the residual stream) would dominate the raw
+        # cosine and hide damage in the dimensions retrieval reads
+        cq = f_q - f_q.mean(0)
+        cb = f_b - f_b.mean(0)
+        cos = (cq * cb).sum(-1) / (np.linalg.norm(cq, axis=-1)
+                                   * np.linalg.norm(cb, axis=-1) + 1e-12)
+        fq = cq / (np.linalg.norm(cq, axis=-1, keepdims=True) + 1e-12)
+        fb = cb / (np.linalg.norm(cb, axis=-1, keepdims=True) + 1e-12)
+        sim = fq @ fb.T
+        n = sim.shape[0]
+        r1 = 0.5 * (float((sim.argmax(1) == np.arange(n)).mean())
+                    + float((sim.argmax(0) == np.arange(n)).mean()))
+        msg = (f"int8 canary '{name}': bf16-vs-int8 pooled-embedding "
+               f"centered cosine min={cos.min():.4f} "
+               f"mean={cos.mean():.4f} (threshold {threshold}), "
+               f"cross-retrieval R@1={r1:.4f} over {n} rows "
+               f"(threshold {r1_threshold})")
+        if cos.min() < threshold or r1 < r1_threshold:
+            log.warning(
+                msg + " — int8 quantization degrades this checkpoint's "
+                "embeddings; re-run with model.components."
+                f"{name}.quantize=null and compare retrieval quality")
+        else:
+            log.info(msg)
+        return {"cos_min": float(cos.min()), "cos_mean": float(cos.mean()),
+                "r1": r1, "rows": n}
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         """A numpy array or tensor on the model's device."""

@@ -29,8 +29,10 @@ raise without a CUDA device, and a module whose parameters sit on another
 device than the trainer's is refused. One difference from the JAX
 trainer: a resumed run takes the checkpoint callback's best value from the
 sidecar's `checkpoint/best_value`, not from the last monitored value.
+`callbacks=peft_checkpoint` writes the hub's LoRA adapter in peft's layout
+on each val/loss improvement (`checkpoint.PeftCheckpoint`).
 Not ported: profiling, several devices and model sharding (ROADMAP.md
-Queue 1 item 6), the LoRA adapter export (item 8).
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -231,7 +233,12 @@ class Trainer:
         ckpt_cfg.pop("auto_insert_metric_name", None)
         self.callbacks["checkpoint"] = CheckpointManager(dirpath, **ckpt_cfg)
         if "peft_checkpoint" in cb_cfg:
-            self.callbacks["peft"] = PeftCheckpoint()
+            seq_enc = module.encoders.get("sequence")
+            self.callbacks["peft"] = PeftCheckpoint(
+                dirpath=(cb_cfg["peft_checkpoint"] or {}).get(
+                    "dirpath", os.path.join(dirpath, "peft")),
+                num_layers=seq_enc.config.num_layers if seq_enc is not None
+                else 0)
         if "early_stopping" in cb_cfg:
             self.callbacks["early_stopping"] = EarlyStopping(
                 **dict(cb_cfg["early_stopping"]))
@@ -416,6 +423,8 @@ class Trainer:
             self.callbacks["checkpoint"].on_validation_end(
                 module, {**metrics, "trainer/epoch": float(epoch),
                          "trainer/epoch_complete": float(epoch_end)})
+        if "peft" in self.callbacks:
+            self.callbacks["peft"].on_validation_end(module, metrics)
         if "scheduler" in self.callbacks:
             new_lr = self.callbacks["scheduler"].on_validation_end(
                 module, metrics)

@@ -358,17 +358,22 @@ def test_unported_logger_refused_naming_item(data_dir, tmp_path):
 
 
 def test_pretrained_weights_refused_naming_item(tmp_path):
+    """A local HF directory is no longer refused: a directory with weights
+    becomes the encoder's `pretrained_dir` (loaded by
+    `OneProtModule.load_pretrained`), one without stays a config."""
     hub = tmp_path / "esm2_local"
     hub.mkdir()
     (hub / "config.json").write_text(json.dumps({
         "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
         "intermediate_size": 64}))
-    assert encoders.create_sequence_encoder(str(hub), device="cpu") is not None
+    assert encoders.create_sequence_encoder(
+        str(hub), device="cpu").pretrained_dir is None
     (hub / "model.safetensors").write_bytes(b"")
     for factory in (encoders.create_sequence_encoder,
                     encoders.create_struct_token_encoder):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            factory(str(hub), device="cpu")
+        assert factory(str(hub), device="cpu").pretrained_dir == str(hub)
+    assert encoders.create_sequence_encoder(
+        str(hub), pretrained=False, device="cpu").pretrained_dir is None
 
 
 def test_cli_process_without_yaml_or_jax(data_dir, tmp_path):

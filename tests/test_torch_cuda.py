@@ -877,3 +877,93 @@ def test_float32_bert_is_refused_when_built(card):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         bert.Bert(bert.BERT_SIZES["bert_tiny"], dtype=torch.float16,
                   device=card)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint interop and the eval entry point
+
+
+@pytest.mark.gpu
+def test_int8_canary_launches_on_the_card(card, tmp_path):
+    """An int8 hub from a local HF directory (esm2_tiny's widths, a
+    `pytorch_model.bin` written here): `load_pretrained` quantizes it and
+    the canary runs its bf16 twin through #1 and the int8 hub through #1
+    and #4, once a layer each, on the 16 x 512 probe; finite numbers."""
+    import json
+
+    from chip_smoke import hf_name
+    from oneprot_tpu_torch.train.module import OneProtModule
+
+    cfg = esm2.ESM2_SIZES["esm2_tiny"]
+    hub = tmp_path / "esm2_tiny_hf"
+    hub.mkdir()
+    (hub / "config.json").write_text(json.dumps({
+        "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size}))
+    gen = torch.Generator().manual_seed(0)
+    torch.save({hf_name(k): torch.randn(v.shape, generator=gen) * 0.1
+                + float(k.endswith("ln.weight"))
+                for k, v in esm2.Esm2(cfg, device="meta").state_dict().items()},
+               hub / "pytorch_model.bin")
+    module = OneProtModule({"sequence": encoders.create_sequence_encoder(
+        str(hub), output_dim=32, proj_type="mlp", quantize="int8")})
+    before = (flash_mha.flash_mha_cuda.launches,
+              gelu_quant.gelu_quant_cuda.launches)
+    canary = module.load_pretrained()["sequence"]
+    torch.cuda.synchronize()
+    assert (flash_mha.flash_mha_cuda.launches - before[0],
+            gelu_quant.gelu_quant_cuda.launches - before[1]) == (
+                2 * cfg.num_layers, cfg.num_layers)
+    assert canary["rows"] == 16
+    assert all(np.isfinite(canary[k]) for k in ("cos_min", "cos_mean", "r1"))
+
+
+@pytest.mark.gpu
+def test_cli_eval_on_a_tiny_bf16_run(card, tmp_path, monkeypatch):
+    """`cli.eval.main` on a run dir of experiment=train_packed at
+    esm2_tiny's widths in bf16 (its `best` written from the seeded
+    weights), structures served from memory: one pair, both directions,
+    finite, and #1 launched once a tower a batch."""
+    from oneprot_tpu_torch.cli import default_config_dir
+    from oneprot_tpu_torch.cli import eval as cli_eval
+    from oneprot_tpu_torch.data import structure_io, synthetic
+    from oneprot_tpu_torch.evaluation import retrieval_eval
+    from oneprot_tpu_torch.train.checkpoint import CheckpointManager
+
+    run = tmp_path / "run"
+    cfg = config.prepare_run_dir(config.load_config(default_config_dir(), "train", [
+        "experiment=train_packed", "trainer=gpu", "data=struct_token_only",
+        "extras.print_config=false",
+        *[f"model.components.{m}.{k}={v}" for m in ("sequence", "struct_token")
+          for k, v in (("model_name_or_path", "esm2_tiny"),
+                       ("dtype", "bfloat16"))]]), output_dir=str(run))
+    module = cli_train.build_model(cfg["model"], card, 0)
+    module.init()
+    CheckpointManager(str(run / "checkpoints")).on_validation_end(
+        module, {"val/loss_best": 1.0})
+    rng = np.random.RandomState(1)
+    structures, rows = {}, ["ids,msa,text,st,sg,seq,pocket"]
+    for i in range(6):
+        seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), 30 + 17 * i))
+        path = tmp_path / f"p{i}.pdb"
+        path.write_text(synthetic.backbone_pdb(seq, rng))
+        chain = structure_io.parse_structure_file(str(path))["A"]
+        structures[f"p{i}"] = (chain.seq1, chain.atom_names,
+                               chain.atom_amino_id, chain.xyz.astype(np.float64))
+        tdi = "".join(rng.choice(list("pynwrqhgdlvtmfsaeikc"), len(seq)))
+        rows.append(f"p{i},x.a3m,a protein,{tdi},p{i},p{i},p{i}")
+    (tmp_path / "combined.csv").write_text("\n".join(rows) + "\n")
+    monkeypatch.setattr(retrieval_eval.CombinedDataset, "read_structure",
+                        lambda self, h5, pid: structures[pid])
+    before = flash_mha.flash_mha_cuda.launches
+    results = cli_eval.main([
+        f"run_dir={run}", f"csv_file={tmp_path / 'combined.csv'}",
+        f"paths.data_dir={tmp_path}", f"paths.log_dir={tmp_path / 'logs'}",
+        "batch_size=4"])
+    torch.cuda.synchronize()
+    layers = esm2.ESM2_SIZES["esm2_tiny"].num_layers
+    assert flash_mha.flash_mha_cuda.launches - before == 2 * 2 * layers
+    assert list(results) == ["sequence-struct_token"]
+    assert all(np.isfinite(v) for v in results["sequence-struct_token"].values())
+    assert len((run / "retrieval_results.csv").read_text().splitlines()) == 3

@@ -179,6 +179,33 @@ def test_esm2_refuses_float32_on_the_card():
         assert esm2.Esm2(cfg, dtype=torch.float32, device="cpu") is not None
 
 
+def test_embed_struct_tokens_matches_jax_embedder():
+    """3Di strings through the struct-token tower (esm2_tiny + 21 rows),
+    both embedders batching and bucketing alike."""
+    jtower = jenc.OneProtModel(encoders={
+        "struct_token": jenc.create_struct_token_encoder(
+            "esm2_tiny", output_dim=32)})
+    params = jtower.init(jax.random.PRNGKey(3), jnp.ones((2, 16), jnp.int32),
+                         "struct_token")["params"]
+    port = encoders.OneProtModel({"struct_token": encoders.
+                                  create_struct_token_encoder(
+                                      "esm2_tiny", output_dim=32,
+                                      dtype="float32", device="cpu")})
+    port.load_state_dict(convert.oneprot_state_dict(
+        jax.tree_util.tree_map(np.asarray, params)))
+    rng = np.random.RandomState(4)
+    tdi = ["".join(rng.choice(list("acdefghiklmnpqrstvwy"), n))
+           for n in (5, 40, 90, 200)]
+    jax_module = types.SimpleNamespace(
+        model=jtower, state=types.SimpleNamespace(params=params))
+    ref = JaxEmbedder(jax_module, buckets=(64, 128)).embed_struct_tokens(
+        tdi, max_length=128, batch_size=3)
+    out = OneProtEmbedder(port, buckets=(64, 128)).embed_struct_tokens(
+        tdi, max_length=128, batch_size=3)
+    assert out.shape == (4, 32)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
 # ---------------------------------------------------------------------------
 # import boundary: the port and its on-card scripts import no JAX
 
