@@ -214,7 +214,34 @@ the elapsed seconds:
    `experiment=debug_all_modalities` through `cli.train.main`, each to
    its end (train and test), with the f32 instances of #1-#3 launched and
    no bf16 flash-MHA; debug_all_modalities' MSA tower through #8 on heads
-   of 16.
+   of 16;
+24. data-parallel (a): the CLI phase's run (train_packed, bf16, full
+   width, 2 epochs) again in three child processes at once, two alone and
+   one with `trainer=ddp` in torchrun's environment (a world of one over
+   NCCL: `init_distributed`, the gather, the gradient all-reduce, rank-0
+   checkpoints), all under torch's deterministic algorithms (the tower's
+   embedding backward adds with atomics otherwise; the kernels are
+   deterministic either way); the two single runs show whether the run is
+   reproducible bit for bit, and the NCCL run's logged losses and val
+   metrics must equal the first single run's bit for bit, or, where the
+   single runs differ, lie within their spread key by key (printed); the
+   in-process run of the CLI phase is compared too (printed);
+25. data-parallel (b): two ranks over gloo on the one card (NCCL refuses
+   a card twice), each building the full-width model (650M hub, 35M
+   tower) from the seed and taking its half (8 rows) of two packed
+   batches of 16 rows of 1024 tokens: 4 `train_step_packed`, 4
+   `train_step_packed_cached` and 2 cached SigLIP steps (the ring, W=2);
+   this process runs the same steps on the whole rows (its SigLIP the
+   ring's function: each half normalised by its own valid slots). Each
+   step's loss within rel 1e-2 (the margin printed), the change of the
+   trainable parameters over the steps (final minus seeded) with cosine
+   >= GLOO_DELTA_COS against this process's change, the final parameters
+   bit-identical across the ranks, #1-#3 exactly as many times on each
+   rank as the steps need and no plain version. A control must fail the
+   change gate: each rank runs the steps again from the seed with the
+   CLIP gather's backward cut to its own loss (`local_only_gather`). The
+   step ms per rank and the gradient all-reduce's ms are printed with the
+   card's name and power limit.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -228,6 +255,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -235,11 +263,21 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from oneprot_tpu_torch.cli import collect_embeddings as cli_collect
 from oneprot_tpu_torch.cli import default_config_dir
 from oneprot_tpu_torch.cli import eval as cli_eval
 from oneprot_tpu_torch.cli import train as cli_train
+from oneprot_tpu_torch.core.collectives import (
+    all_gather_with_grad,
+    all_reduce_mean_,
+)
+from oneprot_tpu_torch.core.mesh import (
+    init_distributed,
+    shutdown_distributed,
+    world,
+)
 from oneprot_tpu_torch.core.config import (
     TARGET_ALIASES,
     load_config,
@@ -262,6 +300,8 @@ from oneprot_tpu_torch.data.tokenizers import (
 from oneprot_tpu_torch.kernels import _build, flash_mha, gelu_quant
 from oneprot_tpu_torch.kernels import flash_attention as fa
 from oneprot_tpu_torch.kernels import tied_row_attention as tra
+from oneprot_tpu_torch.losses import clip as clip_lib
+from oneprot_tpu_torch.losses import siglip as siglip_lib
 from oneprot_tpu_torch.models import bert, esm2, msa_transformer
 from oneprot_tpu_torch.models.encoders import (
     OneProtModel,
@@ -277,6 +317,7 @@ from oneprot_tpu_torch.models.encoders import (
 from oneprot_tpu_torch.evaluation import retrieval_eval
 from oneprot_tpu_torch.serving import DEFAULT_BUCKETS, OneProtEmbedder
 from oneprot_tpu_torch.train import checkpoint as checkpoint_lib
+from oneprot_tpu_torch.train import module as module_lib
 from oneprot_tpu_torch.train.feature_cache import FrozenFeatureCache
 from oneprot_tpu_torch.train.module import OneProtModule
 from oneprot_tpu_torch.train.optim import adam
@@ -359,6 +400,14 @@ CLI_MODEL = (
     "model.components.struct_token.dtype=bfloat16",
     "model.use_l1_regularization=true")
 CLI_TEST_BATCH = 64  # configs/data/modalities/struct_token.yaml's test batch
+# the data-parallel phases: each world's children under one time limit;
+# phase (b)'s batches, weights and steps, and its gates
+DDP_TIMEOUT_S = 420
+GLOO_SEED, GLOO_HUB_SEED, GLOO_TOWER_SEED = 19, 23, 29
+GLOO_WORLD, GLOO_PACKED, GLOO_CACHED, GLOO_SIGLIP = 2, 4, 4, 2
+# (the change cosine's limit lies between the clean runs' readings and the
+# local-only-gather control's, both in PERF.md)
+GLOO_LOSS_REL, GLOO_DELTA_COS = 1e-2, 0.999
 CLI_DATA_TARGET = "oneprot_tpu.data.datamodule.OneProtDataModule"
 # the text path: BiomedBERT-base (12 x 768, 12 heads of 64), bf16, random
 # weights from TEXT_SEED; texts of one-token words of the tiny WordPiece
@@ -1927,6 +1976,7 @@ def cli_phase(smi: str, launches: dict) -> dict:
             TARGET_ALIASES.pop(CLI_DATA_TARGET, None)
             CliDataModule.RECORDS = {}
         out["struct_tokens"] = serve_struct_tokens(run_dir, launches)
+        out["_rows"] = logged_rows(run_dir)
     first, second = probe.runs
     require(not any(plain.values()), f"cli: plain versions ran on the card: "
             f"{plain}")
@@ -1988,6 +2038,404 @@ def cli_phase(smi: str, launches: dict) -> dict:
               second["build_s"], second["test_s"], rel, out["val_loss"],
               out["test_loss"], launches["cli"], smi),
           flush=True)
+    return out
+
+
+def logged_rows(run_dir: str) -> list:
+    """A run dir's metrics rows without their wall-clock time and without
+    the test split's row."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [{k: v for k, v in r.items() if k != "time"} for r in rows
+            if not any(k.startswith("test/") for k in r)]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(commands: list, timeout: float) -> list:
+    """Start every (argv, env) at once; wait for all under `timeout`
+    seconds, killing every one still running when it passes or when this
+    process fails. Returns each one's (exit code, output)."""
+    procs = [subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv, env in commands]
+    deadline = time.time() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append((p.wait(timeout=max(deadline - time.time(), 1)),
+                             p.stdout.read()))
+            except subprocess.TimeoutExpired:
+                outs.append((None, "timed out"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def child_env(**extra) -> dict:
+    """This process's environment without a launcher's variables, plus
+    `extra`."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                        "MASTER_ADDR", "MASTER_PORT", "ONEPROT_NUM_PROCESSES")}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def cli_child(mode: str, root: str, run_dir: str) -> int:
+    """The CLI phase's first run (train_packed, bf16, full width, 2 epochs,
+    no test split) in this process: `mode` "single", or "ddp" with
+    `trainer=ddp` in the torchrun environment the parent gave, under
+    torch's deterministic algorithms (the tower's embedding backward, a
+    torch op, adds with atomics otherwise: scripts/probe_determinism.py;
+    the port's kernels are deterministic either way). Writes the launches,
+    the plain calls and the process group to run_dir/child.json."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    count_plain_calls()
+    CliDataModule.RECORDS = {"struct_token": struct_token_records(
+        root, np.random.RandomState(TRAINER_SEED))}
+    register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+    base = [("trainer=ddp" if mode == "ddp" and a == "trainer=gpu" else a)
+            for a in CLI_BASE]
+    argv = base + list(CLI_MODEL) + [f"paths.data_dir={root}",
+                                     "trainer.max_epochs=2", "test=false",
+                                     f"hydra.run.dir={run_dir}"]
+    reset_launches()
+    cli_train.main(argv)
+    torch.cuda.synchronize()
+    group = ({"backend": dist.get_backend(), "world": dist.get_world_size()}
+             if dist.is_initialized() else None)
+    with open(os.path.join(run_dir, "child.json"), "w") as f:
+        json.dump({"launches": read_launches(), "plain": PLAIN_CALLS,
+                   "group": group}, f)
+    shutdown_distributed()
+    return 0
+
+
+def row_diffs(a: list, b: list) -> dict:
+    """{key: (largest relative difference, a's value, b's value)} over two
+    runs' logged rows, for the keys that differ."""
+    require([sorted(r) for r in a] == [sorted(r) for r in b],
+            "the runs logged different rows")
+    out = {}
+    for x, y in zip(a, b):
+        for k in y:
+            if x[k] != y[k]:
+                rel = abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                if rel > out.get(k, (0.0,))[0]:
+                    out[k] = (rel, x[k], y[k])
+    return out
+
+
+def ddp_world_of_one_phase(smi: str, launches: dict, cli_rows: list) -> dict:
+    """Phase (a): the CLI phase's run in three children at once (torch's
+    deterministic algorithms on), two alone and one in a torchrun world of
+    one over NCCL; the two single runs say whether the run is reproducible
+    bit for bit, and the NCCL run must equal the first exactly, or lie
+    within the single runs' spread, key by key. The in-process run (the
+    default algorithms) is compared too, printed. Fills
+    launches["ddp world of 1"]."""
+    out = {}
+    modes = ("single", "single again", "ddp")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        commands, dirs = [], {}
+        for i, mode in enumerate(modes):
+            root = os.path.join(tmp, str(i))
+            os.makedirs(root)
+            dirs[mode] = os.path.join(root, "run")
+            # cuBLAS's reproducible workspace, as deterministic torch wants
+            env = child_env(CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            if mode == "ddp":
+                env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                           MASTER_PORT=str(free_port()))
+            commands.append(([sys.executable, os.path.abspath(__file__),
+                              "--cli-child", mode.split()[0], root,
+                              dirs[mode]], env))
+        t = time.time()
+        results = run_children(commands, DDP_TIMEOUT_S)
+        out["children_s"] = time.time() - t
+        for (rc, log), mode in zip(results, modes):
+            require(rc == 0, f"ddp phase: the {mode} child failed ({rc}):\n"
+                    + log[-6000:])
+        rows, child = {}, {}
+        for mode, run_dir in dirs.items():
+            rows[mode] = logged_rows(run_dir)
+            with open(os.path.join(run_dir, "child.json")) as f:
+                child[mode] = json.load(f)
+        files = [os.path.exists(os.path.join(dirs["ddp"], name)) for name in (
+            "resolved_config.yaml", "metrics.jsonl", "checkpoints/last",
+            "checkpoints/best")]
+    require(child["ddp"]["group"] == {"backend": "nccl", "world": 1},
+            f"ddp child's process group {child['ddp']['group']}")
+    require(child["single"]["group"] is None, "the single child made a group")
+    require(all(files), f"ddp run dir: {files}")
+    for mode in modes:
+        require(not any(child[mode]["plain"].values()),
+                f"ddp phase {mode}: plain versions ran: {child[mode]['plain']}")
+        require(child[mode]["launches"] == child["single"]["launches"]
+                and child[mode]["launches"]["flash_mha_bwd_dq"] > 0,
+                f"ddp phase {mode} launches {child[mode]['launches']}")
+    launches["ddp world of 1"] = child["ddp"]["launches"]
+    spread = row_diffs(rows["single again"], rows["single"])
+    got = row_diffs(rows["ddp"], rows["single"])
+    out.update(rows=len(cli_rows), reproducible=not spread,
+               single_spread={k: v[0] for k, v in spread.items()},
+               ddp_vs_single={k: v[0] for k, v in got.items()},
+               in_process_vs_single={
+                   k: v[0] for k, v in row_diffs(cli_rows,
+                                                 rows["single"]).items()})
+    beyond = {k: v for k, v in got.items()
+              if v[0] > spread.get(k, (0.0,))[0]}
+    print(f"  three children at once in {out['children_s']:.1f} s, "
+          f"{len(cli_rows)} logged rows each (train losses, val metrics, "
+          f"cache stats): two single-process runs "
+          + ("agree bit for bit" if not spread else
+             "differ at " + ", ".join(f"{k} {v[1]} / {v[2]} (rel {v[0]:.2e})"
+                                      for k, v in spread.items()))
+          + "; the NCCL world of 1 (torchrun env, trainer=ddp) against the "
+          "first: " + ("bit for bit" if not got else ", ".join(
+              f"{k} {v[1]} / {v[2]} (rel {v[0]:.2e})" for k, v in got.items()))
+          + f"; the in-process run against it: {out['in_process_vs_single']}"
+          f"; launches {launches['ddp world of 1']}; {smi}", flush=True)
+    require(not beyond, f"NCCL world of 1 beyond the single runs' spread: "
+            f"{beyond}")
+    return out
+
+
+def gloo_setup():
+    """Phase (b)'s model (the 650M hub with its mlp head and the 35M tower,
+    from their seeds, CLIP + L1, Adam at SMOKE_LR) and its two packed
+    batches of ROWS rows."""
+    hub = create_sequence_encoder(proj_type="mlp")
+    esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(
+        GLOO_HUB_SEED))
+    tower = create_struct_token_encoder()
+    esm2.init_esm2_weights_(tower, torch.Generator(device="cuda").manual_seed(
+        GLOO_TOWER_SEED))
+    rng = np.random.RandomState(GLOO_SEED)
+    return build_module(hub, tower), [make_packed_batch(rng) for _ in range(2)]
+
+
+def rows_of(batch: dict, rows: slice) -> dict:
+    return {"seq": {k: v[rows] for k, v in batch["seq"].items()},
+            "mod": {k: v[rows] for k, v in batch["mod"].items()},
+            "valid": batch["valid"][rows]}
+
+
+def gloo_steps(module: OneProtModule, batches: list):
+    """GLOO_PACKED packed, GLOO_CACHED cached and GLOO_SIGLIP cached
+    SigLIP steps, the batches in turn; returns (losses, step seconds)."""
+    losses, secs = [], []
+
+    def step(fn, *args):
+        t = time.time()
+        loss, _ = fn("struct_token", *args)
+        losses.append(loss.item())
+        secs.append(time.time() - t)
+
+    for i in range(GLOO_PACKED):
+        b = batches[i % 2]
+        step(module.train_step_packed, b["seq"], b["mod"], b["valid"])
+    pooled = [module.encode_packed_pooled("sequence", b["seq"]["ids"],
+                                          b["seq"]["segment_ids"], SLOTS)
+              for b in batches]
+    for i in range(GLOO_CACHED + GLOO_SIGLIP):
+        if i == GLOO_CACHED:
+            module.loss_name = "SIGLIP"
+        b = batches[i % 2]
+        step(module.train_step_packed_cached, pooled[i % 2], b["mod"],
+             b["valid"])
+    return losses, secs
+
+
+def gloo_launches() -> dict:
+    """#1-#3 per rank over gloo_steps: a packed step runs the hub and the
+    tower forward and the tower backward, the two pooled encodes the hub,
+    a cached step the tower both ways."""
+    steps, cached = GLOO_PACKED + GLOO_CACHED + GLOO_SIGLIP, \
+        GLOO_CACHED + GLOO_SIGLIP
+    return {**{name: 0 for name in LAUNCHERS},
+            "flash_mha_fwd": GLOO_PACKED * (N_LAYERS + TOWER_LAYERS)
+            + 2 * N_LAYERS + cached * TOWER_LAYERS,
+            "flash_mha_bwd_dq": steps * TOWER_LAYERS,
+            "flash_mha_bwd_dkv": steps * TOWER_LAYERS}
+
+
+def trainable_state(module: OneProtModule) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in
+            module.model.named_parameters() if p.requires_grad}
+
+
+def local_only_gather(x: torch.Tensor) -> torch.Tensor:
+    """Phase (b)'s control fault: the CLIP gather's forward, with a
+    backward that keeps only this rank's own loss's gradient of its rows
+    (the other ranks' part is dropped: no all-reduce)."""
+    rank, b = world()[1], x.shape[0]
+    full = all_gather_with_grad(x.detach())
+    return torch.cat([full[:rank * b], x, full[(rank + 1) * b:]])
+
+
+def gloo_child(rank: int, tmp: str) -> int:
+    """One rank of phase (b): its half of the rows through gloo_steps;
+    writes its losses, step and all-reduce times, launches and final
+    trainable parameters to `tmp`. Then the control: the same steps from
+    the same weights with the CLIP gather's backward made local-only
+    (`local_only_gather`), whose final parameters the gate must refuse."""
+    count_plain_calls()
+    init_distributed(f"file://{tmp}/rendezvous", num_processes=GLOO_WORLD,
+                     process_id=rank, backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    module, batches = gloo_setup()
+    half = ROWS // GLOO_WORLD
+    mine = [rows_of(b, slice(rank * half, (rank + 1) * half)) for b in batches]
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, secs = gloo_steps(module, mine)
+    torch.cuda.synchronize()
+    counts, plain = read_launches(), dict(PLAIN_CALLS)
+    grads = [p.grad for p in module.opt.params]
+    reduce_ms = []
+    for _ in range(3):  # the gradient all-reduce alone, as the step makes it
+        torch.cuda.synchronize()
+        t = time.time()
+        all_reduce_mean_(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.time() - t) * 1e3)
+    torch.save(trainable_state(module), os.path.join(tmp, f"params{rank}.pt"))
+    grad_numel = sum(g.numel() for g in grads)
+    del module, grads
+    torch.cuda.empty_cache()
+    clip_lib.all_gather_with_grad = local_only_gather
+    module, _ = gloo_setup()
+    control_losses, _ = gloo_steps(module, mine)
+    torch.save(trainable_state(module), os.path.join(tmp, f"control{rank}.pt"))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "control_losses": control_losses,
+                   "step_ms": [x * 1e3 for x in secs],
+                   "allreduce_ms": reduce_ms, "launches": counts,
+                   "plain": plain, "pairs": int(sum(b["valid"].sum()
+                                                    for b in mine)),
+                   "grad_numel": grad_numel}, f)
+    shutdown_distributed()
+    return 0
+
+
+def ring_siglip_one_process(mod, seq, valid, axis_name=None):
+    """The W = GLOO_WORLD ring's SigLIP in one process: each block of rows
+    against its own columns (positives) and every other block's
+    (negatives), normalised by its own valid rows, then the mean over the
+    blocks, as each rank computes it and as the JAX module's shard_map
+    does."""
+    n = mod.shape[0] // GLOO_WORLD
+    blocks = [slice(r * n, (r + 1) * n) for r in range(GLOO_WORLD)]
+    total = 0.0
+    for r in blocks:
+        for c in blocks:
+            total = total + siglip_lib._pair_loss_masked(
+                mod[r], seq[c], valid[r], valid[c], 1.0, None,
+                negative_only=c != r)
+    return total / GLOO_WORLD
+
+
+def gloo_two_ranks_phase(smi: str, launches: dict) -> dict:
+    """Phase (b): the steps in this process on the whole rows, then two
+    gloo ranks on their halves; fills launches["gloo rank 0"], ["gloo rank
+    1"]."""
+    module, batches = gloo_setup()
+    start = trainable_state(module)
+    module_lib.siglip_loss_masked = ring_siglip_one_process
+    try:
+        want, want_secs = gloo_steps(module, batches)
+    finally:
+        module_lib.siglip_loss_masked = siglip_lib.siglip_loss_masked
+    want_params = trainable_state(module)
+    del module
+    torch.cuda.empty_cache()
+    out = {"one_process_losses": want,
+           "one_process_step_ms": [x * 1e3 for x in want_secs]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        t = time.time()
+        results = run_children(
+            [([sys.executable, os.path.abspath(__file__), "--gloo-child",
+               str(rank), tmp], child_env()) for rank in range(GLOO_WORLD)],
+            DDP_TIMEOUT_S)
+        out["children_s"] = time.time() - t
+        for rank, (rc, log) in enumerate(results):
+            require(rc == 0, f"gloo rank {rank} failed ({rc}):\n" + log[-6000:])
+        ranks, params = [], []
+        for rank in range(GLOO_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+            params.append(torch.load(os.path.join(tmp, f"params{rank}.pt"),
+                                     weights_only=True))
+        control = torch.load(os.path.join(tmp, "control0.pt"),
+                             weights_only=True)
+    want_counts = gloo_launches()
+    for rank, r in enumerate(ranks):
+        launches[f"gloo rank {rank}"] = r["launches"]
+        require(r["launches"] == want_counts, f"gloo rank {rank} launches "
+                f"{r['launches']}, want {want_counts}")
+        require(not any(r["plain"].values()),
+                f"gloo rank {rank}: plain versions ran: {r['plain']}")
+    require(ranks[0]["losses"] == ranks[1]["losses"],
+            "the ranks report different losses")
+    got = np.array(ranks[0]["losses"])
+    rel = np.abs(got - want) / np.abs(want)
+    same = all(torch.equal(params[0][n], params[1][n]) for n in params[0])
+
+    def change(state):  # what the steps did to the seeded weights
+        return flat(state[n] - start[n] for n in start)
+
+    want_change = change(want_params)
+    cos = cosine(change(params[0]), want_change)
+    control_cos = cosine(change(control), want_change)
+    control_losses = np.array(ranks[0]["control_losses"])
+    control_rel = float(np.max(np.abs(control_losses - want) / np.abs(want)))
+    out.update({
+        "losses": got.tolist(), "loss_rel": rel.tolist(),
+        "loss_margin": GLOO_LOSS_REL - float(rel.max()),
+        "change_cosine": cos, "control_change_cosine": control_cos,
+        "control_losses": control_losses.tolist(),
+        "control_loss_rel": control_rel, "ranks_bit_identical": same,
+        "pairs": [r["pairs"] for r in ranks],
+        "step_ms": [r["step_ms"] for r in ranks],
+        "median_step_ms": [float(np.median(r["step_ms"])) for r in ranks],
+        "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+        "allreduce_mb": ranks[0]["grad_numel"] * 4 / 2**20,
+        "launches": want_counts})
+    print(f"  gloo, 2 ranks on one card ({out['children_s']:.1f} s with "
+          f"start-up and build): pairs per rank {out['pairs']}; losses "
+          + ", ".join(f"{x:.4f}" for x in got) + f" against one process "
+          + ", ".join(f"{x:.4f}" for x in want)
+          + f"; max rel {rel.max():.2e} (gate {GLOO_LOSS_REL}, margin "
+          f"{out['loss_margin']:.2e}); the trainable parameters' change "
+          f"against one process's: cosine {cos:.6f} (gate >= "
+          f"{GLOO_DELTA_COS}), the control with a local-only gather "
+          f"backward {control_cos:.6f} (must fall below the gate; its "
+          "losses " + ", ".join(f"{x:.4f}" for x in control_losses)
+          + f", max rel {control_rel:.2e}); ranks bit-identical {same}; "
+          "median step ms "
+          + ", ".join(f"rank {i} {m:.1f}" for i, m in
+                      enumerate(out["median_step_ms"]))
+          + f" (one process on both halves {np.median(want_secs) * 1e3:.1f}); "
+          f"gradient all-reduce ({out['allreduce_mb']:.1f} MiB f32, through "
+          f"host memory) ms " + ", ".join(
+              f"rank {i} " + "/".join(f"{x:.1f}" for x in r)
+              for i, r in enumerate(out["allreduce_ms"]))
+          + f"; launches per rank {want_counts}; {smi}", flush=True)
+    require(float(rel.max()) <= GLOO_LOSS_REL, f"gloo losses {out}")
+    require(cos >= GLOO_DELTA_COS, f"gloo parameter change cosine {cos}")
+    require(control_cos < GLOO_DELTA_COS, "the gate passed the control, a "
+            f"local-only gather backward: change cosine {control_cos}")
+    require(same, "the ranks' parameters differ")
     return out
 
 
@@ -4209,12 +4657,17 @@ def f32_experiments_phase(smi: str, launches: dict) -> dict:
     return out
 
 
+def exact_f32() -> None:
+    """No TF32 in f32 products, in this process and in its children."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_f32()
 
     phase("device")
     kind = torch.cuda.get_device_name(0)
@@ -4372,6 +4825,20 @@ def main() -> int:
           "+ ESM2-35M tower in bf16, 2 epochs and the test split, then a "
           "test-only run from last")
     cli = cli_phase(smi, launches)
+    cli_rows = cli.pop("_rows")
+    torch.cuda.empty_cache()
+
+    phase("data-parallel (a): the cli run again in three children at once, "
+          "two alone and one in a torchrun world of one over NCCL "
+          "(trainer=ddp), deterministic algorithms on")
+    data_parallel = {"world_of_one": ddp_world_of_one_phase(smi, launches,
+                                                            cli_rows)}
+
+    phase("data-parallel (b): two ranks over gloo on the one card, 650M hub "
+          "+ 35M tower, halves of two packed batches of 16 x 1024: packed, "
+          "cached and SigLIP-ring steps against this process on the whole "
+          "rows")
+    data_parallel["gloo"] = gloo_two_ranks_phase(smi, launches)
     torch.cuda.empty_cache()
 
     phase("text serving: embed_texts, BiomedBERT-base width (12 x 768), "
@@ -4445,6 +4912,7 @@ def main() -> int:
         "trainer": trainer,
         "lora_training": lora,
         "cli": cli,
+        "data_parallel": data_parallel,
         "text": text,
         "graph": graph,
         "msa_seqsim_training": msa_train,
@@ -4461,4 +4929,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-child"]:  # the data-parallel phases' children
+        exact_f32()
+        sys.exit(cli_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--gloo-child"]:
+        exact_f32()
+        sys.exit(gloo_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -4,6 +4,8 @@
         trainer=cpu paths.data_dir=data/synthetic
     python -m oneprot_tpu_torch.cli.train experiment=train_packed trainer=gpu \\
         data=struct_token_only model.components.sequence.dtype=bfloat16 ...
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m oneprot_tpu_torch.cli.train trainer=ddp experiment=train_packed ...
     python -m oneprot_tpu_torch.cli.train -m seed=1,2 ...          # multirun
     python -m oneprot_tpu_torch.cli.train -m hydra/sweeper=optuna \\
         hydra.sweeper.n_trials=4 \\
@@ -26,8 +28,11 @@ from the JAX package's `train()` in these ways:
   over it (ROADMAP.md Queue 3).
 - The run dir's CsvLogger is made once: the JAX CLI makes it again for
   `logger: csv` and writes every metrics row twice.
-- No compilation cache and no distributed bootstrap: one process
-  (several are ROADMAP.md Queue 1 item 6).
+- No compilation cache. Several processes (one per card, launched by
+  torchrun, `core/mesh.py:init_distributed` before the run dir is made)
+  train data-parallel: `data.batch_size` is each process's batch (the
+  reference's Lightning DDP reading), and every rank draws the same
+  seeded weights.
 """
 
 from __future__ import annotations
@@ -44,6 +49,12 @@ from oneprot_tpu_torch.core.config import (
     load_config,
     prepare_run_dir,
     to_plain,
+)
+from oneprot_tpu_torch.core.collectives import barrier, broadcast_object
+from oneprot_tpu_torch.core.mesh import (
+    init_distributed,
+    is_main_process,
+    shutdown_distributed,
 )
 from oneprot_tpu_torch.utils.loggers import CsvLogger, MultiLogger, get_pylogger
 from oneprot_tpu_torch.utils.utils import extras, task_wrapper
@@ -85,17 +96,22 @@ def train(cfg) -> dict:
     from oneprot_tpu_torch.train.checkpoint import CheckpointManager
     from oneprot_tpu_torch.train.trainer import select_device
 
+    init_distributed(accelerator=str(cfg["trainer"].get("accelerator",
+                                                        "auto")))
     seed = int(cfg.get("seed", 0))
     output_dir = cfg["paths"]["output_dir"]
     log.info(f"output_dir: {output_dir}")
 
     data_dir = str(cfg["paths"]["data_dir"])
-    if data_dir.endswith("synthetic") or not (
-            os.path.isdir(data_dir) and os.listdir(data_dir)):
+    # rank 0 decides and writes; the others wait for the files
+    if broadcast_object(data_dir.endswith("synthetic") or not (
+            os.path.isdir(data_dir) and os.listdir(data_dir))):
         from oneprot_tpu_torch.data.synthetic import ensure_fixtures
 
-        log.info(f"generating synthetic fixtures in {data_dir}")
-        ensure_fixtures(data_dir)
+        if is_main_process():
+            log.info(f"generating synthetic fixtures in {data_dir}")
+            ensure_fixtures(data_dir)
+        barrier()
 
     log.info("Instantiating datamodule")
     datamodule = instantiate({**dict(cfg["data"]), "seed": seed})
@@ -204,7 +220,7 @@ def run_search(sweeper_name, options, params, base_overrides, config_dir):
             break
         combo = base_overrides + [f"{k}={v}" for k, v in trial.items()]
         log.info(f"search trial {trial_idx} ({sweeper_name}): {trial}")
-        cfg = prepare_run_dir(load_config(config_dir, "train", overrides=combo))
+        cfg = prepare(config_dir, combo)
         extras(cfg)
         metrics = dict(train(cfg))
         value = float(metrics.get(objective, float("nan")))
@@ -217,6 +233,16 @@ def run_search(sweeper_name, options, params, base_overrides, config_dir):
         trial_idx += 1
     log.info(f"search best {objective}={sign * best[0]:.6f} params={best[1]}")
     return all_metrics
+
+
+def prepare(config_dir, overrides):
+    """Compose `train` with `overrides`, join the process group (on the
+    accelerator the trainer names) and make the run dir, whose stamp then
+    is rank 0's."""
+    cfg = load_config(config_dir, "train", overrides=overrides)
+    init_distributed(accelerator=str((cfg.get("trainer") or {}).get(
+        "accelerator", "auto")))
+    return prepare_run_dir(cfg)
 
 
 def main(argv=None):
@@ -234,12 +260,11 @@ def main(argv=None):
         all_metrics = []
         for i, combo in enumerate(expand_multirun(rest)):
             log.info(f"multirun job {i}: {combo}")
-            cfg = prepare_run_dir(load_config(config_dir, "train",
-                                              overrides=combo))
+            cfg = prepare(config_dir, combo)
             extras(cfg)
             all_metrics.append(train(cfg))
         return all_metrics
-    cfg = prepare_run_dir(load_config(config_dir, "train", overrides=argv))
+    cfg = prepare(config_dir, argv)
     extras(cfg)
     return train(cfg)
 
@@ -250,3 +275,4 @@ if __name__ == "__main__":
         printable = {k: round(float(v), 4) for k, v in m.items()
                      if isinstance(v, (int, float))}
         log.info(f"final metrics: {printable}")
+    shutdown_distributed()

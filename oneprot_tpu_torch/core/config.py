@@ -18,8 +18,8 @@ The committed configs name the JAX package's targets. `_locate` applies
 `oneprot_tpu_torch.` before any import, so the JAX package is never
 imported; a target the port has no counterpart for yet raises
 NotImplementedError naming its ROADMAP.md item (`UNPORTED_TARGETS`).
-The run stamp and the snapshot are one process's: a torch.distributed
-world of several processes raises (ROADMAP.md Queue 1 item 6).
+Under a torch.distributed process group every rank takes rank 0's run
+stamp (one run dir) and rank 0 alone writes the snapshot.
 """
 
 from __future__ import annotations
@@ -512,15 +512,6 @@ def instantiate(cfg: Any, *args: Any, **kwargs: Any) -> Any:
 # Run dir and config snapshot
 
 
-def _single_process(what: str) -> None:
-    from oneprot_tpu_torch.data.datamodule import world
-
-    if world()[0] > 1:
-        raise NotImplementedError(
-            f"{what} over several processes is not ported yet: ROADMAP.md "
-            "Queue 1 item 6 (distributed)")
-
-
 def prepare_run_dir(cfg: ConfigNode, output_dir: Optional[str] = None) -> ConfigNode:
     """Resolve the config with a concrete output dir and snapshot it to disk."""
     if output_dir is None:
@@ -562,15 +553,21 @@ def prepare_run_dir(cfg: ConfigNode, output_dir: Optional[str] = None) -> Config
 
 
 def _sync_stamp(stamp: str) -> str:
-    """The run stamp; the JAX package broadcasts process 0's across a pod.
-    One process here (several raise)."""
-    _single_process("agreeing on the run stamp")
-    return stamp
+    """The run stamp, rank 0's on every rank of a process group (clocks
+    that straddle a second would split one run over two directories).
+    Call `core.mesh.init_distributed` first: the CLIs do."""
+    from oneprot_tpu_torch.core.collectives import broadcast_str
+
+    return broadcast_str(stamp)
 
 
 def snapshot_config(cfg: ConfigNode, output_dir: str) -> None:
-    """Write the resolved config as resolved_config.yaml and .json."""
-    _single_process("writing the config snapshot")
+    """Write the resolved config as resolved_config.yaml and .json, on
+    rank 0 only (every rank holds the same config)."""
+    from oneprot_tpu_torch.core.mesh import is_main_process
+
+    if not is_main_process():
+        return
     plain = to_plain(cfg)
     with open(os.path.join(output_dir, "resolved_config.yaml"), "w") as f:
         f.write(yaml_io.dump(plain))

@@ -10,8 +10,12 @@ windows of 16 batches by item length, collates in a thread pool with
 in-order delivery, or streams items through the first-fit packer
 (`packing.pack_stream`) for packed training. Across several processes the
 order is sharded rank::world (rank and world size from torch.distributed
-when it is initialised); packed loaders then keep every process to the
-same batch count.
+when it is initialised), and every process yields the same number of
+batches of each modality, so that the processes run the same modality at
+every step and meet at every collective: a packed loader the lockstep
+cap, an unpacked one the count of the smallest shard (len // world rows),
+the larger shards' surplus batch left out (the JAX package's
+`make_array_from_process_local_data` would wait on ragged shards).
 
 Every modality of the JAX package is served: struct_token, text, msa,
 seqsim, and struct_graph and pocket (one dataset class, the `pocket` flag
@@ -21,10 +25,11 @@ in its config).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from oneprot_tpu_torch.core.mesh import world
 from oneprot_tpu_torch.data.datasets.msa_dataset import MSADataset
 from oneprot_tpu_torch.data.datasets.seqsim_dataset import SequenceSimDataset
 from oneprot_tpu_torch.data.datasets.struct_graph_dataset import StructDataset
@@ -45,16 +50,6 @@ DATASET_CLASSES = {
     "struct_token": StructTokenDataset,
     "seqsim": SequenceSimDataset,
 }
-
-
-def world() -> Tuple[int, int]:
-    """(processes, this process's rank): torch.distributed's when it is
-    initialised, else (1, 0)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 class DataLoader:
@@ -81,12 +76,12 @@ class DataLoader:
         self._lengths = None
 
     def __len__(self) -> int:
-        """Batches on THIS process; packed: the lockstep cap."""
-        nproc, rank = world()
+        """Batches on every process; packed: the lockstep cap, unpacked:
+        the smallest shard's count."""
+        nproc, _ = world()
         if self.pack_rows:
             return self._packed_lockstep_cap(nproc)
-        n = len(self.dataset)
-        n_local = len(range(rank, n, nproc)) if nproc > 1 else n
+        n_local = len(self.dataset) // nproc  # the smallest shard
         if self.drop_last:
             return n_local // self.batch_size
         return -(-n_local // self.batch_size)
@@ -128,9 +123,9 @@ class DataLoader:
         else:
             batches = [order[s:s + self.batch_size]
                        for s in range(0, len(order), self.batch_size)]
-        for idxs in batches:
-            if self.drop_last and len(idxs) < self.batch_size:
-                continue
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        for idxs in batches[:len(self)]:
             yield [self.dataset[int(i)] for i in idxs]
 
     def _packed_lockstep_cap(self, nproc: int) -> int:

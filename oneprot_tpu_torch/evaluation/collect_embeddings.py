@@ -18,10 +18,15 @@ It differs from the JAX package in these ways:
 
 - The CSVs are read with `csv` (no pandas).
 - Everything runs on `device` (the card unless the caller asks for the
-  CPU), in one process: several raise (ROADMAP.md Queue 1 item 6).
-- Before a split is embedded, every `embeddings_rank*_batch*.npz` in its
-  directory is removed; the JAX package removes only its own rank's, so a
-  stale shard of another rank is merged into the combined file.
+  CPU). Under a process group each rank embeds rows rank::world into its
+  own shards, `embeddings_rank{r}_batch{b}.npz`, and rank 0 alone
+  combines them after a barrier (the rows come out grouped by rank, as
+  in the JAX package).
+- Before a split is embedded, rank 0 removes every
+  `embeddings_rank*_batch*.npz` in its directory, and the other ranks wait
+  for it before they write; the JAX package has each rank remove only its
+  own, so a stale shard of a rank that no longer runs is merged into the
+  combined file.
 - A `oneprot` run without `checkpoints/best` raises FileNotFoundError;
   the JAX package embeds random weights.
 """
@@ -37,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core.collectives import barrier
+from oneprot_tpu_torch.core.mesh import is_main_process, world
 from oneprot_tpu_torch.data.common import pick_bucket
 from oneprot_tpu_torch.data.tokenizers import (
     esm2_tokenizer,
@@ -173,18 +180,18 @@ def generate_embeddings(
     batch_size: int = 32,
     buckets: Optional[List[int]] = None,
 ) -> None:
-    """Embed one split CSV into shard files
-    `embeddings_rank0_batch{b}.npz`, after removing every stale shard of
-    the directory."""
-    from oneprot_tpu_torch.core.config import _single_process
-
-    _single_process("collecting embeddings")
-    os.makedirs(output_dir, exist_ok=True)
+    """Embed this rank's rows (rank::world) of one split CSV into shard
+    files `embeddings_rank{rank}_batch{b}.npz`, after rank 0 removed every
+    stale shard of the directory."""
+    nproc, rank = world()
     ds = SequenceDataset(csv_file, label_type)
-    for stale in glob.glob(os.path.join(output_dir,
-                                        "embeddings_rank*_batch*.npz")):
-        os.remove(stale)
-    idxs = np.arange(len(ds))
+    if rank == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        for stale in glob.glob(os.path.join(output_dir,
+                                            "embeddings_rank*_batch*.npz")):
+            os.remove(stale)
+    barrier()
+    idxs = np.arange(len(ds))[rank::nproc]
     for b, start in enumerate(range(0, len(idxs), batch_size)):
         seqs, seqs2, labels = ds.batch(idxs[start:start + batch_size])
         pad = pick_bucket(max(len(s) + 2 for s in seqs), buckets,
@@ -194,7 +201,8 @@ def generate_embeddings(
             pad2 = pick_bucket(max(len(s) + 2 for s in seqs2), buckets,
                                backbone.max_length)
             emb = np.concatenate([emb, backbone(seqs2, pad2)], axis=1)
-        np.savez(os.path.join(output_dir, f"embeddings_rank0_batch{b}.npz"),
+        np.savez(os.path.join(output_dir,
+                              f"embeddings_rank{rank}_batch{b}.npz"),
                  embeddings=emb, labels_fitness=labels)
 
 
@@ -246,7 +254,9 @@ def run_collection(cfg: Dict[str, Any], device=None) -> List[str]:
                     buckets=_bucket_list(cfg))
                 out = os.path.join(out_root, model_name,
                                    f"{task}_{split}_embeddings_labels.npz")
-                combine_embeddings_for_split(shard_dir, out)
+                barrier()  # every rank's shards are on disk
+                if is_main_process():
+                    combine_embeddings_for_split(shard_dir, out)
                 outputs.append(out)
         del backbone
     return outputs

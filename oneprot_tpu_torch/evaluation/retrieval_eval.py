@@ -23,6 +23,9 @@ ways:
   tower alone. The embeddings are the same.
 - A checkpoint that is not there raises FileNotFoundError; the JAX
   package warns and evaluates random weights.
+
+Under a process group every rank evaluates every row, as the JAX eval
+does (it shards nothing), and rank 0 alone writes the CSV.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core.mesh import is_main_process
 from oneprot_tpu_torch.data.common import H5, pick_bucket
 from oneprot_tpu_torch.data.graphs import protein_to_padded_graph, stack_graphs
 from oneprot_tpu_torch.data.tokenizers import (
@@ -262,6 +266,7 @@ def run_eval(cfg, device: Optional[torch.device] = None
     results = calculate_retrieval_metrics(embeddings, ks)
     out_csv = os.path.join(run_dir, str(cfg.get("output_csv",
                                                 "retrieval_results.csv")))
-    write_results_to_csv(results, out_csv, ks)
-    log.info(f"retrieval results written to {out_csv}")
+    if is_main_process():
+        write_results_to_csv(results, out_csv, ks)
+        log.info(f"retrieval results written to {out_csv}")
     return results

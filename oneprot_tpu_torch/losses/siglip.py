@@ -1,23 +1,33 @@
-"""SigLIP (pairwise sigmoid) losses, single process (counterpart of
+"""SigLIP (pairwise sigmoid) losses (counterpart of
 oneprot_tpu/losses/siglip.py: `_pair_loss`, `siglip_loss`,
-`_pair_loss_masked`, `siglip_loss_masked` without an axis name).
+`_pair_loss_masked`, `siglip_loss_masked`).
 
 Every pair of a batch is a binary problem: label +1 on the diagonal, -1
 off it, loss -sum(log_sigmoid(label * logit)) / B over f32 logits from the
 clip module's `_f32_logits`. The logit scale defaults to 1.0 and the bias
-to None: the towers' heads scale their features already. The ring of
-negatives over several processes (each process's features meet every
-other's once) is ROADMAP.md Queue 1 item 6: under an initialised
-torch.distributed group of more than one process the losses raise.
+to None: the towers' heads scale their features already.
+
+With `axis_name` set, the negatives ring over the ranks of the default
+torch.distributed group: the local block (positives and negatives), then
+world - 1 negative-only blocks, one per other rank's sequence features,
+passed along by `ring_shift` (the JAX `ppermute`). `bidir=True` runs two
+counter-rotating chains and a last hop for an odd remainder;
+`bidir=False` one chain. Each hop of the masked variant carries a rank's
+features and valid flags together (one tensor). A rank returns its own
+sum, normalised by its own (valid) rows as in the JAX function; the JAX
+`pmean` over ranks is the gradient all-reduce-mean of `ClippedOptimizer`
+and the trainer's mean of the logged value.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from oneprot_tpu_torch.core.collectives import ring_shift
+from oneprot_tpu_torch.core.mesh import world
 from oneprot_tpu_torch.losses.clip import Scale, _f32_logits
 
 
@@ -62,33 +72,65 @@ def _pair_loss_masked(modality_features: torch.Tensor,
             / valid_rows.sum().clamp_min(1.0))
 
 
-def _one_process() -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        world = dist.get_world_size()
-        if world > 1:
-            raise NotImplementedError(
-                f"SigLIP over {world} processes (the ring of negatives) is "
-                "not ported yet: ROADMAP.md Queue 1 item 6 (several cards)")
+def _ring(loss: torch.Tensor, carried: torch.Tensor,
+          negatives: Callable[[torch.Tensor], torch.Tensor],
+          bidir: bool) -> torch.Tensor:
+    """Add the negative-only block of every other rank's `carried` tensor,
+    in the JAX function's schedule."""
+    n, _ = world()
+    if bidir:
+        to_left = to_right = carried
+        num_bidir, remainder = divmod(n - 1, 2)
+        for _ in range(num_bidir):
+            from_right = ring_shift(to_left, -1)   # the left-moving chain
+            from_left = ring_shift(to_right, +1)   # the right-moving chain
+            loss = loss + negatives(from_right) + negatives(from_left)
+            to_left, to_right = from_right, from_left
+        if remainder:
+            loss = loss + negatives(ring_shift(to_right, +1))
+    else:
+        for _ in range(n - 1):
+            carried = ring_shift(carried, +1)
+            loss = loss + negatives(carried)
+    return loss
 
 
 def siglip_loss(modality_features: torch.Tensor,
                 sequence_features: torch.Tensor, logit_scale: Scale = 1.0,
-                logit_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SigLIP over one process's batch: features [B, D]."""
-    _one_process()
-    return _pair_loss(modality_features, sequence_features, logit_scale,
+                logit_bias: Optional[torch.Tensor] = None,
+                axis_name: Optional[str] = None,
+                bidir: bool = True) -> torch.Tensor:
+    """SigLIP over a batch, features [B, D]; with `axis_name`, this rank's
+    rows against every rank's sequence features (the ring)."""
+    loss = _pair_loss(modality_features, sequence_features, logit_scale,
                       logit_bias)
+    if axis_name is None or world()[0] == 1:
+        return loss
+    return _ring(loss, sequence_features,
+                 lambda f: _pair_loss(modality_features, f, logit_scale,
+                                      logit_bias, negative_only=True), bidir)
 
 
 def siglip_loss_masked(modality_features: torch.Tensor,
                        sequence_features: torch.Tensor, valid: torch.Tensor,
                        logit_scale: Scale = 1.0,
-                       logit_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       logit_bias: Optional[torch.Tensor] = None,
+                       axis_name: Optional[str] = None,
+                       bidir: bool = True) -> torch.Tensor:
     """SigLIP over a PACKED batch's slots (valid [N], 1 = a real pair):
     empty slots are neither rows nor columns. With every slot valid this
     equals `siglip_loss`."""
-    _one_process()
-    return _pair_loss_masked(modality_features, sequence_features, valid,
+    loss = _pair_loss_masked(modality_features, sequence_features, valid,
                              valid, logit_scale, logit_bias)
+    if axis_name is None or world()[0] == 1:
+        return loss
+    d = sequence_features.shape[-1]
+
+    def negatives(pair: torch.Tensor) -> torch.Tensor:
+        return _pair_loss_masked(modality_features, pair[:, :d], valid,
+                                 pair[:, d], logit_scale, logit_bias,
+                                 negative_only=True)
+
+    pair = torch.cat([sequence_features,
+                      valid.to(sequence_features.dtype)[:, None]], 1)
+    return _ring(loss, pair, negatives, bidir)

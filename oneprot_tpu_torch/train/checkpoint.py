@@ -10,6 +10,13 @@ epoch had completed, and `checkpoint/best_value`, the best monitored value
 so far, which a resumed run takes up. When `best` is saved with `last` it
 is a hard link to the same file (a copy where links are refused).
 
+Under a process group rank 0 alone writes (`state.pt`, the link, the
+sidecar, the peft adapter), then every rank waits at a barrier, so that a
+rank that restores next reads a whole file; every rank restores the same
+file. The ranks hold the same weights (`OneProtModule.init` and the
+gradient all-reduce keep them so), as the JAX package's process 0
+coordinates one save of replicated arrays.
+
 `restore_any` takes such a checkpoint or a reference-trained Lightning
 `.ckpt`; an Orbax directory written by the JAX package is refused (the
 port has no Orbax reader: convert its params with
@@ -26,6 +33,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from oneprot_tpu_torch.core.collectives import barrier
+from oneprot_tpu_torch.core.mesh import is_main_process
 
 STATE_FILE = "state.pt"
 BEST_VALUE_KEY = "checkpoint/best_value"
@@ -61,7 +71,8 @@ class CheckpointManager:
     ):
         del save_top_k  # one best checkpoint, as in the JAX package
         self.dirpath = os.path.abspath(dirpath)
-        os.makedirs(self.dirpath, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.dirpath, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.save_last = save_last
@@ -95,7 +106,8 @@ class CheckpointManager:
         return path
 
     def on_validation_end(self, module, metrics: Dict[str, float]) -> Dict[str, str]:
-        """Save 'last' (always) and 'best' (on monitored improvement)."""
+        """Save 'last' (always) and 'best' (on monitored improvement); on
+        rank 0, then a barrier. Returns the paths (on every rank)."""
         value = metrics.get(self.monitor)
         improved = value is not None and self._improved(float(value))
         if improved:
@@ -103,13 +115,19 @@ class CheckpointManager:
         if self.best_value is not None:
             metrics = {**metrics, BEST_VALUE_KEY: self.best_value}
         saved = {}
-        state = state_of(module)
         if self.save_last:
-            saved["last"] = self._write("last", state, None, metrics)
+            saved["last"] = os.path.join(self.dirpath, "last")
         if improved:
-            link = (os.path.join(saved["last"], STATE_FILE) if "last" in saved
-                    else None)
-            saved["best"] = self._write("best", state, link, metrics)
+            saved["best"] = os.path.join(self.dirpath, "best")
+        if is_main_process():
+            state = state_of(module)
+            if self.save_last:
+                self._write("last", state, None, metrics)
+            if improved:
+                link = (os.path.join(saved["last"], STATE_FILE)
+                        if "last" in saved else None)
+                self._write("best", state, link, metrics)
+        barrier()
         return saved
 
     def restore(self, module, name: str = "last") -> None:
@@ -182,7 +200,9 @@ class PeftCheckpoint:
                                    self.num_layers)
         if not adapter:
             return None
-        os.makedirs(self.dirpath, exist_ok=True)
         out = os.path.join(self.dirpath, "adapter_model.npz")
-        np.savez(out, **adapter)
+        if is_main_process():
+            os.makedirs(self.dirpath, exist_ok=True)
+            np.savez(out, **adapter)
+        barrier()
         return out

@@ -4,7 +4,9 @@ oneprot_tpu/train/metrics.py: `gather_features`, `RetrievalMetric`,
 
 Validation features are ranked on the host with numpy: R@k and the median
 rank, sequence -> modality and back. Val and test pools are capped at 1000
-rows, where a [1k, 1k] argsort takes microseconds.
+rows, where a [1k, 1k] argsort takes microseconds. Across processes the
+features are gathered first (`gather_features`), so every rank computes
+the same metrics.
 """
 
 from __future__ import annotations
@@ -14,19 +16,16 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core.collectives import gather_rows
+
 
 def gather_features(x) -> np.ndarray:
-    """Eval features as an f32 host array. One process only: gathering
-    across processes is ROADMAP.md Queue 1 item 6."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "gathering eval features across processes is not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
-    return np.asarray(x, np.float32)
+    """Eval features as an f32 host array: under a process group, every
+    rank's rows in rank order (their counts may differ), so that every
+    rank ranks the same global pool."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x, np.float32))
+    return gather_rows(x.detach()).float().cpu().numpy()
 
 
 class RetrievalMetric:

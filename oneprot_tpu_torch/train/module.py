@@ -2,7 +2,8 @@
 oneprot_tpu/train/module.py for `train_step`, `train_step_cached`,
 `train_step_fully_cached`, `train_step_packed`, `train_step_packed_cached`,
 `eval_step`, `eval_step_cached`, `eval_step_fully_cached`, `encode_pooled`,
-`encode_packed_pooled`, CLIP and SigLIP losses, one process).
+`encode_packed_pooled`, CLIP and SigLIP losses, data-parallel over
+several processes).
 
     module = OneProtModule({"sequence": hub, "struct_token": tower},
                            optimizer=lambda: adam(1e-3),
@@ -30,20 +31,35 @@ heads run. `loss_fn` is "CLIP" (symmetric InfoNCE) or "SigLIP" (pairwise
 sigmoid, `losses/siglip.py`) at logit scale 1 with no bias, as the JAX
 module calls them: the heads scale the features. Every step runs the
 model in training mode with LoRA dropout and the graph towers' noise
-and dropout seeded from (seed, step), the counterpart of the JAX step's
-fold_in(key(seed), step) (not its numbers). The eval steps run
+and dropout seeded from (seed, step, rank), the counterpart of the JAX
+step's fold_in(key(seed), step) (not its numbers; rank 0's seed is
+(seed, step)'s, and the other ranks draw other masks). The eval steps run
 in eval mode without autograd and return (seq_feats, mod_feats, loss). The
-`scheduler` config is read by the trainer (`train/scheduler.py`);
-`local_loss` and `gather_with_grad`, how CLIP gathers the features of
-several processes, change nothing in one. A loss name other than CLIP or
-SigLIP raises; the JAX module takes any other name for SigLIP.
+`scheduler` config is read by the trainer (`train/scheduler.py`). A loss
+name other than CLIP or SigLIP raises; the JAX module takes any other
+name for SigLIP.
+
+Across several processes (`core/mesh.py:init_distributed`; one replica a
+process, each with its own share of every batch, the same count of rows
+on every rank) the module is the JAX module under a `data` mesh on the
+concatenated batch: `init` broadcasts rank 0's trainable parameters and
+checks that every rank holds the same frozen ones; the training losses
+take the global batch's negatives (CLIP's gather with gradient, by
+`local_loss`; SigLIP's ring), each rank's share scaled so that the
+gradient all-reduce-mean of `ClippedOptimizer` gives the global loss's
+gradient; a packed batch's masked losses and L1 are normalised by the
+global valid count. A step returns the global loss (the mean of the
+shares); an eval step returns this rank's features and the loss of the
+global batch, computed on the gathered features. `gather_with_grad` is
+taken for the config's sake and changes nothing (the gather always
+carries the gradient, as in the JAX package).
 
 `load_pretrained` puts a local HF directory's weights into each encoder
 that names one (`pretrained_dir`), and checks an int8 hub loaded so
 against its float twin (the int8 canary).
 
-Not ported here: sharding over several cards and SigLIP's ring of
-negatives (ROADMAP.md Queue 1 item 6).
+Not ported here: tensor parallelism (`mesh.model` > 1; ROADMAP.md
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -54,6 +70,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core import collectives
+from oneprot_tpu_torch.core.mesh import DATA_AXIS, check_mesh, distributed, world
 from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
 from oneprot_tpu_torch.losses.siglip import siglip_loss, siglip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
@@ -100,7 +118,7 @@ class OneProtModule:
         if loss_fn.upper() not in ("CLIP", "SIGLIP"):
             raise ValueError(f"loss_fn={loss_fn!r}: CLIP or SigLIP")
         if mesh is not None:
-            raise NotImplementedError("sharding over a mesh is not ported")
+            check_mesh(mesh)
         if frozen_param_dtype not in (None, "bfloat16", "bf16"):
             raise ValueError(f"frozen_param_dtype={frozen_param_dtype!r}")
         self.loss_name = loss_fn.upper()
@@ -108,9 +126,9 @@ class OneProtModule:
         self.model = OneProtModel(self.encoders)
         self.optimizer_fn = optimizer
         self.scheduler_cfg = scheduler
-        # how CLIP gathers features across processes (ROADMAP.md Queue 1
-        # item 6): there is nothing to gather in one
-        del local_loss, gather_with_grad
+        # the gather always carries the gradient, as in the JAX package
+        del mesh, gather_with_grad
+        self.local_loss = local_loss
         self.use_l1_regularization = use_l1_regularization
         self.use_seqsim = use_seqsim
         self.train_on_all_modalities_after_step = int(
@@ -134,7 +152,9 @@ class OneProtModule:
         trainable ones. As in the JAX package, the int8 hub's biases go to
         bf16 as well, while its int8 weights and f32 dequantization scales
         keep their dtypes. The weights are the modules' own: load a
-        state_dict first."""
+        state_dict first. Under a process group every rank then takes rank
+        0's trainable parameters, and a rank whose frozen parameters differ
+        from another's (their digest) raises on every rank."""
         self.mask = optim_lib.trainable_mask(self.encoders)
         trainable = []
         for name, p in self.model.named_parameters():
@@ -150,7 +170,29 @@ class OneProtModule:
         self.opt = optim_lib.build_optimizer(trainable, self.optimizer_fn,
                                              self.gradient_clip_val)
         self.step = 0
+        if distributed():
+            self._agree_on_weights(trainable)
         return self
+
+    def frozen_digest(self) -> str:
+        """The frozen state's digest (`feature_cache.params_fingerprint`:
+        every entry's name, shape, dtype and first values)."""
+        from oneprot_tpu_torch.train.feature_cache import params_fingerprint
+
+        return params_fingerprint({k: v for k, v in
+                                   self.model.state_dict().items()
+                                   if not self.mask.get(k, False)})
+
+    def _agree_on_weights(self, trainable) -> None:
+        """Rank 0's trainable parameters on every rank; the frozen ones
+        must match already (each rank built or loaded them)."""
+        collectives.broadcast_([p.data for p in trainable])
+        digests = collectives.gather_objects(self.frozen_digest())
+        if len(set(digests)) > 1:
+            raise ValueError(
+                "the ranks hold different frozen weights (digests "
+                f"{digests}): build every rank's model from the same seed "
+                "and checkpoint")
 
     # -- pretrained weights ---------------------------------------------------
 
@@ -305,12 +347,20 @@ class OneProtModule:
             return {k: self._tensor(v) for k, v in x.items()}
         return self._tensor(x, torch.long)
 
-    def _loss_value(self, mod_feats: torch.Tensor,
-                    seq_feats: torch.Tensor) -> torch.Tensor:
+    def _axis(self) -> Optional[str]:
+        """The data axis under a process group, else None."""
+        return DATA_AXIS if distributed() else None
+
+    def _loss_value(self, mod_feats: torch.Tensor, seq_feats: torch.Tensor,
+                    axis_name: Optional[str] = None) -> torch.Tensor:
         """CLIP or SigLIP over the batch, + 0.01 * the mean L1 of both
-        sides' features."""
-        loss = (clip_loss if self.loss_name == "CLIP" else siglip_loss)(
-            mod_feats, seq_feats)
+        sides' features; with `axis_name`, this rank's share (its rows
+        against the global batch, the same row count on every rank)."""
+        if self.loss_name == "CLIP":
+            loss = clip_loss(mod_feats, seq_feats, axis_name=axis_name,
+                             local_loss=self.local_loss)
+        else:
+            loss = siglip_loss(mod_feats, seq_feats, axis_name=axis_name)
         if self.use_l1_regularization:
             loss = loss + 0.01 * (seq_feats.float().abs().mean()
                                   + mod_feats.float().abs().mean())
@@ -320,31 +370,45 @@ class OneProtModule:
                            seq_feats: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
         """CLIP or SigLIP over the packed batch's slots, + 0.01 * the masked
-        L1 of both sides' features (mean over the real pairs' elements)."""
+        L1 of both sides' features (mean over the real pairs' elements of
+        every rank's pack); across processes, this rank's share."""
+        axis = self._axis()
         loss = (clip_loss_masked if self.loss_name == "CLIP"
-                else siglip_loss_masked)(mod_feats, seq_feats, valid)
+                else siglip_loss_masked)(mod_feats, seq_feats, valid,
+                                         axis_name=axis)
         if self.use_l1_regularization:
             v = valid.float()[:, None]
-            n = v.sum().clamp_min(1.0) * seq_feats.shape[-1]
+            count = collectives.sum_across(v.sum()) if axis else v.sum()
+            n = count.clamp_min(1.0) * seq_feats.shape[-1] / world()[0]
             loss = loss + 0.01 * (
                 (seq_feats.float().abs() * v).sum() / n
                 + (mod_feats.float().abs() * v).sum() / n)
         return loss
 
+    def _eval_loss(self, mod_feats: torch.Tensor,
+                   seq_feats: torch.Tensor) -> torch.Tensor:
+        """The loss of the global batch: every rank's features gathered
+        (their row counts may differ), then the loss of one process."""
+        return self._loss_value(collectives.gather_rows(mod_feats),
+                                collectives.gather_rows(seq_feats))
+
     def _begin_step(self) -> None:
         """Training mode, and this step's seed for LoRA dropout and for the
-        graph towers' noise and dropout."""
+        graph towers' noise and dropout: (seed, step), with the rank in
+        the high bits, so that ranks draw different masks."""
         self.model.train()
-        seed = self.seed * 1_000_003 + self.step
+        seed = self.seed * 1_000_003 + self.step + (world()[1] << 40)
         set_lora_dropout_seed(self.model, seed)
         set_graph_noise_seed(self.model, seed)
 
     def _update(self, loss: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """Backward, the optimizer's step; returns the global loss (the
+        mean of the ranks' shares) and the step count."""
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
         self.step += 1
-        return loss.detach(), self.step
+        return collectives.mean_across(loss.detach()), self.step
 
     def train_step(self, modality: str, seq_ids,
                    mod_ids) -> Tuple[torch.Tensor, int]:
@@ -355,7 +419,8 @@ class OneProtModule:
         self._begin_step()
         seq_feats = self.model(self._inputs(seq_ids), "sequence")
         mod_feats = self.model(self._inputs(mod_ids), modality)
-        return self._update(self._loss_value(mod_feats, seq_feats))
+        return self._update(self._loss_value(mod_feats, seq_feats,
+                                              self._axis()))
 
     def train_step_cached(self, modality: str, seq_pooled,
                           mod_ids) -> Tuple[torch.Tensor, int]:
@@ -367,7 +432,8 @@ class OneProtModule:
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
                                                 "sequence")
         mod_feats = self.model(self._inputs(mod_ids), modality)
-        return self._update(self._loss_value(mod_feats, seq_feats))
+        return self._update(self._loss_value(mod_feats, seq_feats,
+                                              self._axis()))
 
     def train_step_fully_cached(self, modality: str, seq_pooled,
                                 mod_pooled) -> Tuple[torch.Tensor, int]:
@@ -377,7 +443,8 @@ class OneProtModule:
         two heads run."""
         self._begin_step()
         seq_feats, mod_feats = self._heads(modality, seq_pooled, mod_pooled)
-        return self._update(self._loss_value(mod_feats, seq_feats))
+        return self._update(self._loss_value(mod_feats, seq_feats,
+                                              self._axis()))
 
     def _heads(self, modality: str, seq_pooled, mod_pooled
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -467,7 +534,7 @@ class OneProtModule:
         self.model.eval()
         seq_feats = self.model(self._inputs(seq_ids), "sequence")
         mod_feats = self.model(self._inputs(mod_ids), modality)
-        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+        return seq_feats, mod_feats, self._eval_loss(mod_feats, seq_feats)
 
     @torch.no_grad()
     def eval_step_cached(self, modality: str, seq_pooled, mod_ids
@@ -477,7 +544,7 @@ class OneProtModule:
         seq_feats = self.model.head_from_pooled(self._tensor(seq_pooled),
                                                 "sequence")
         mod_feats = self.model(self._inputs(mod_ids), modality)
-        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+        return seq_feats, mod_feats, self._eval_loss(mod_feats, seq_feats)
 
     @torch.no_grad()
     def eval_step_fully_cached(self, modality: str, seq_pooled, mod_pooled
@@ -486,7 +553,7 @@ class OneProtModule:
         """`eval_step` on both towers' pooled features."""
         self.model.eval()
         seq_feats, mod_feats = self._heads(modality, seq_pooled, mod_pooled)
-        return seq_feats, mod_feats, self._loss_value(mod_feats, seq_feats)
+        return seq_feats, mod_feats, self._eval_loss(mod_feats, seq_feats)
 
     def modalities_to_train(self, step: int, batch_keys) -> list:
         """Curriculum gate: struct_token alone before

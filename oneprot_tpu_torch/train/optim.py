@@ -4,6 +4,10 @@ oneprot_tpu/train/optim.py: `adam`, `build_optimizer`, `trainable_mask`).
 `build_optimizer` clips the gradients by their global norm with optax's
 formula (g * max_norm / norm when norm >= max_norm, no epsilon; torch's
 `clip_grad_norm_` adds 1e-6 to the norm) and then steps the base optimizer.
+Across several processes the trainable gradients are first replaced by
+their mean over the ranks, in one flat all-reduce (after the zero fill,
+before the clip): the clip then sees the global gradient, as optax does
+under GSPMD, and every rank steps Adam on the same numbers.
 Trainability is `requires_grad`: the JAX package's partition into trainable
 and frozen trees is not needed.
 """
@@ -15,6 +19,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import torch
 import torch.nn as nn
 
+from oneprot_tpu_torch.core.collectives import all_reduce_mean_
 from oneprot_tpu_torch.models.esm2 import LORA_TRAINABLE_LEAVES
 
 OptimizerFn = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
@@ -44,7 +49,9 @@ class ClippedOptimizer:
     parameters. Every parameter steps every time, as optax updates every
     trainable leaf: one that got no gradient (a tower the step's modality
     does not run) steps on zeros, so Adam's moments decay and carry it
-    on, and every parameter's step count is the global one."""
+    on, and every parameter's step count is the global one. Every rank
+    all-reduces the same gradients whatever the step ran, so the ranks
+    meet in one collective of one size."""
 
     def __init__(self, params: Iterable[nn.Parameter], base: OptimizerFn,
                  max_norm: Optional[float]):
@@ -56,10 +63,11 @@ class ClippedOptimizer:
         self.base.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        """Clip, then update."""
+        """Average over the ranks, clip, then update."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_mean_([p.grad for p in self.params])
         if self.max_norm:
             clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
         self.base.step()

@@ -31,8 +31,17 @@ trainer: a resumed run takes the checkpoint callback's best value from the
 sidecar's `checkpoint/best_value`, not from the last monitored value.
 `callbacks=peft_checkpoint` writes the hub's LoRA adapter in peft's layout
 on each val/loss improvement (`checkpoint.PeftCheckpoint`).
-Not ported: profiling, several devices and model sharding (ROADMAP.md
-Queue 1 item 6).
+`profiler="jax"` writes a torch.profiler trace of `fit` to
+`<run>/profile/trace_rank<r>.json`.
+
+Data-parallel over a process group (`core/mesh.py:init_distributed`, one
+process per card): `devices: auto` is this process's card, an int must
+equal the world size, `mesh.data` -1 or the world size, and `mesh.model`
+> 1 (tensor parallelism, ROADMAP.md Queue 1 item 12) raises. Each rank
+steps on its own share of every batch; validation gathers the features
+and rank 0's metrics reach every rank, so that early stopping, the
+scheduler and the checkpoint callback decide alike; rank 0 alone writes
+the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core import collectives
+from oneprot_tpu_torch.core.mesh import check_mesh, world
 from oneprot_tpu_torch.train.checkpoint import (
     BEST_VALUE_KEY,
     CheckpointManager,
@@ -138,15 +149,17 @@ class Trainer:
         cache_persist_dir: Optional[str] = None,
         **unused: Any,
     ):
-        mesh_cfg = mesh or {}
-        if (devices not in ("auto", 1, None) or profiler
-                or int(mesh_cfg.get("model", 1)) != 1
-                or int(mesh_cfg.get("data", -1)) not in (-1, 1)):
-            raise NotImplementedError(
-                f"devices={devices!r}, mesh={mesh_cfg}, profiler={profiler!r}: "
-                "the port trains on one device without a profiler; several "
-                "devices, model sharding and profiling are ROADMAP.md "
-                "Queue 1 item 6")
+        check_mesh(mesh)
+        n = world()[0]
+        if devices not in ("auto", None) and int(devices) != n:
+            raise ValueError(
+                f"devices={devices!r} but this world has {n} process(es): "
+                "the port runs one process per device; launch them with "
+                f"`python -m torch.distributed.run --nproc_per_node "
+                f"{devices} -m oneprot_tpu_torch.cli.train ...`")
+        if profiler not in (None, "jax"):
+            raise ValueError(f"profiler={profiler!r}: 'jax' (a torch.profiler "
+                             "trace), or null")
         self.device = select_device(accelerator)
         if detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
@@ -180,16 +193,11 @@ class Trainer:
         cache_persist_dir its disk store is guarded by a digest of the
         module's frozen weights."""
         if self._feature_cache is None:
-            from oneprot_tpu_torch.train.feature_cache import (
-                FrozenFeatureCache,
-                params_fingerprint,
-            )
+            from oneprot_tpu_torch.train.feature_cache import FrozenFeatureCache
 
             fp = None
             if self.cache_persist_dir and module.mask is not None:
-                state = module.model.state_dict()
-                fp = params_fingerprint({k: v for k, v in state.items()
-                                         if not module.mask.get(k, False)})
+                fp = module.frozen_digest()
             self._feature_cache = FrozenFeatureCache(
                 self.cache_max_entries, persist_dir=self.cache_persist_dir,
                 fingerprint=fp)
@@ -330,6 +338,7 @@ class Trainer:
             self._sanity_validation(module, datamodule)
         pending = []  # (step, modality, loss on the device)
         stop = False
+        profile = self._start_profile()
         try:
             # `epoch` is the GLOBAL index: a resumed run continues at the
             # sidecar's epoch and stops at max_epochs in total
@@ -400,16 +409,42 @@ class Trainer:
                     f"train/loss={train_loss.compute():.4f} "
                     f"({time.time() - t_epoch:.1f}s)")
         finally:
+            if profile is not None:
+                self._stop_profile(profile)
             if self._feature_cache is not None:
                 # persist write-behind rows even when fit raises
                 self._feature_cache.flush()
         self.metrics_history["train/steps"] = float(self.global_step)
         return self.metrics_history
 
+    def _start_profile(self):
+        """A started torch.profiler (CPU, and the card's activity on one),
+        or None without `profiler`."""
+        if not self.profiler:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        prof.stop()
+        out = os.path.join(self.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_rank{world()[1]}.json")
+        prof.export_chrome_trace(path)
+        log.info(f"profile trace written to {path}")
+
     # ------------------------------------------------------------------
     def _run_validation(self, module, datamodule, val_loss_best: MinMetric,
                         epoch: int, epoch_end: bool = False):
-        metrics = self.validate(module, datamodule, split="val")
+        # rank 0's metrics on every rank: every rank's callbacks decide alike
+        metrics = collectives.broadcast_object(
+            self.validate(module, datamodule, split="val"))
         if "val/loss" in metrics:
             val_loss_best.update(metrics["val/loss"])
             metrics["val/loss_best"] = val_loss_best.compute()

@@ -3,7 +3,8 @@
 
 `CsvLogger` appends every metrics row to `metrics.jsonl` and `metrics.csv`
 in the run directory, with the JAX package's file names and columns (step,
-time, then the metrics). wandb is not ported.
+time, then the metrics), on rank 0 only: the other ranks of a process
+group hold the same metrics and write nothing. wandb is not ported.
 """
 
 from __future__ import annotations
@@ -17,17 +18,17 @@ import time
 from typing import Any, Dict, Optional
 
 
+def _main_process() -> bool:
+    from oneprot_tpu_torch.core.mesh import is_main_process
+
+    return is_main_process()
+
+
 class _NonZeroRankFilter(logging.Filter):
     """Demote INFO on every rank but 0 of an initialised process group."""
 
     def filter(self, record: logging.LogRecord) -> bool:
-        if record.levelno >= logging.WARNING:
-            return True
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_rank() == 0
-        return True
+        return record.levelno >= logging.WARNING or _main_process()
 
 
 def get_pylogger(name: str = __name__) -> logging.Logger:
@@ -58,9 +59,12 @@ class CsvLogger:
         self.csv_path = os.path.join(save_dir, f"{name}.csv")
         self.jsonl_path = os.path.join(save_dir, f"{name}.jsonl")
         self._fieldnames: Optional[list] = None
-        os.makedirs(save_dir, exist_ok=True)
+        if _main_process():
+            os.makedirs(save_dir, exist_ok=True)
 
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        if not _main_process():
+            return
         row = {"step": step, "time": time.time()}
         row.update({k: _to_float(v) for k, v in metrics.items()})
         with open(self.jsonl_path, "a") as f:
@@ -87,6 +91,8 @@ class CsvLogger:
             w.writerows(rows)
 
     def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        if not _main_process():
+            return
         with open(os.path.join(self.save_dir, "hparams.json"), "w") as f:
             json.dump(params, f, indent=2, default=str)
 

@@ -442,15 +442,26 @@ sys.exit(1 if bad else 0)
     assert res.stdout.split()[0] == str(len(PORTED))
 
 
-def test_world_of_several_processes_refused(monkeypatch, tmp_path):
-    from oneprot_tpu_torch.data import datamodule
+def test_stamp_broadcast_and_rank0_snapshot(monkeypatch, tmp_path):
+    """Under a process group the run stamp goes through the broadcast
+    (rank 0's on every rank: two ranks in tests/test_torch_distributed.py)
+    and rank 0 writes the snapshot; another rank writes nothing."""
+    from oneprot_tpu_torch.core import collectives, mesh
+    from tests.helpers.torch_dist_child import group_of_one
 
-    monkeypatch.setattr(datamodule, "world", lambda: (2, 0))
-    cfg = load_config(CONFIG_DIR, "train", ["experiment=debug_struct_token"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        config.prepare_run_dir(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        config.snapshot_config(cfg, str(tmp_path))
+    cfg = load_config(CONFIG_DIR, "train", ["experiment=debug_struct_token",
+                                            f"paths.log_dir={tmp_path}/logs"])
+    sent = []
+    monkeypatch.setattr(collectives, "broadcast_object",
+                        lambda obj, src=0: sent.append(obj) or obj)
+    with group_of_one(tmp_path):
+        resolved = config.prepare_run_dir(cfg)
+    out = resolved["paths"]["output_dir"]
+    assert len(sent) == 1 and sent[0] in out
+    assert os.path.isfile(os.path.join(out, "resolved_config.yaml"))
+    monkeypatch.setattr(mesh, "world", lambda: (2, 1))
+    config.snapshot_config(resolved, str(tmp_path / "rank1"))
+    assert not os.path.exists(tmp_path / "rank1" / "resolved_config.yaml")
 
 
 def test_store_refuses_missing_dir(tmp_path):

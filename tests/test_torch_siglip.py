@@ -3,8 +3,8 @@ the CPU in f32.
 
 `siglip_loss` and `siglip_loss_masked` (values and gradients, with and
 without a logit scale and bias; the masked form equals the plain one when
-every slot is valid; an all-invalid block stays finite; a world of several
-processes is refused), then whole `OneProtModule` steps of a seq<->text
+every slot is valid; an all-invalid block stays finite; a process group
+of one is the plain loss), then whole `OneProtModule` steps of a seq<->text
 model (tiny ESM2 hub, frozen; `bert_tiny` text tower over the tiny
 WordPiece vocabulary) step for step against the JAX module: SigLIP
 `train_step_cached` with a LoRA text tower, `train_step_fully_cached` and
@@ -106,22 +106,24 @@ def test_siglip_all_invalid_stays_finite():
     assert float(ref) == 0.0
 
 
-@pytest.mark.parametrize("world", [1, 4])
-def test_siglip_refuses_several_processes_naming_item(monkeypatch, world):
-    """Under a process group of several processes the losses raise (the
-    ring of negatives is not ported); in a group of one they run."""
-    import torch.distributed as dist
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_siglip_ring_in_a_group_of_one_is_the_plain_loss(tmp_path, masked):
+    """In a process group of one the ring makes no hop: with `axis_name`
+    the losses and their gradients are the plain ones, bit for bit (the
+    ring itself, over 2-4 processes: tests/test_torch_distributed.py)."""
+    from tests.helpers.torch_dist_child import group_of_one
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: world)
-    m = torch.from_numpy(_feats(8))
-    for fn, args in ((siglip.siglip_loss, ()),
-                     (siglip.siglip_loss_masked, (torch.ones(6),))):
-        if world > 1:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-                fn(m, m, *args)
-        else:
-            assert torch.isfinite(fn(m, m, *args))
+    args = (torch.tensor([1.0, 1.0, 0.0, 1.0, 0.0, 1.0]),) if masked else ()
+    fn = siglip.siglip_loss_masked if masked else siglip.siglip_loss
+    out = []
+    for axis in (None, "data"):
+        m, s = (torch.tensor(_feats(i), requires_grad=True) for i in (8, 9))
+        with group_of_one(tmp_path / str(axis)):
+            loss = fn(m, s, *args, axis_name=axis)
+            loss.backward()
+        out.append((loss.detach(), m.grad, s.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 def test_module_refuses_an_unknown_loss():

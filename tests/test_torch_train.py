@@ -537,10 +537,11 @@ def test_module_refuses_what_is_not_ported():
         "esm2_tiny", device="cpu", dtype="float32")}
     # SigLIP, the text tower and the graph towers are ported
     # (tests/test_torch_siglip.py, test_torch_text.py, test_torch_graph.py);
-    # sharding is not, nor is a modality the JAX package does not know
+    # tensor parallelism is not, nor is a modality the JAX package does not
+    # know
     assert OneProtModule(enc, loss_fn="SIGLIP").loss_name == "SIGLIP"
-    with pytest.raises(NotImplementedError):
-        OneProtModule(enc, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        OneProtModule(enc, mesh={"data": -1, "model": 2})
     with pytest.raises(NotImplementedError):
         encoders.OneProtModel({"no_such": torch.nn.Linear(2, 2)})
     with pytest.raises(NotImplementedError):

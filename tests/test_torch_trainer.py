@@ -362,6 +362,16 @@ def test_module_scheduler_config_reaches_the_trainer(data_dir, init, tmp_path):
     assert [r["lr"] for r in rows(tmp_path) if "lr" in r] == [pytest.approx(LR * 0.1)]
 
 
+def test_profiler_writes_a_trace(data_dir, init, tmp_path):
+    """`profiler: jax` (configs/debug/profiler.yaml) traces `fit` with
+    torch.profiler into <run>/profile, as the JAX trainer's jax.profiler
+    does."""
+    port_fit(data_dir, init, tmp_path, limit_train_batches=1, profiler="jax")
+    with open(tmp_path / "profile" / "trace_rank0.json") as f:
+        trace = json.load(f)
+    assert any("aten::" in str(e.get("name")) for e in trace["traceEvents"])
+
+
 # ---------------------------------------------------------------------------
 # refusals
 
@@ -371,10 +381,13 @@ def test_refusals(init, monkeypatch):
     for acc in ("auto", "gpu"):
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(accelerator=acc)
-    for kw in (dict(devices=2), dict(mesh={"data": 1, "model": 2}),
-               dict(profiler="torch")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Trainer(accelerator="cpu", **kw)
+    # one process a device: a world of one has one; no tensor parallelism
+    with pytest.raises(ValueError, match="torch.distributed.run"):
+        Trainer(accelerator="cpu", devices=2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(accelerator="cpu", mesh={"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="profiler"):
+        Trainer(accelerator="cpu", profiler="simple")
     # a module on the CPU for a trainer on the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
