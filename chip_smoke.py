@@ -242,6 +242,32 @@ the elapsed seconds:
    CLIP gather's backward cut to its own loss (`local_only_gather`). The
    step ms per rank and the gradient all-reduce's ms are printed with the
    card's name and power limit.
+26. tensor parallel (A): `experiment=train_3b_tp trainer=gpu
+   trainer.mesh.model=2` through `cli.train.main` in four children of this
+   script, gloo ranks on the one card laid out data 2 x model 2: the
+   ESM2-3B hub at full width and depth (36 x 2560, 20 of its 40 heads a
+   rank), BiomedBERT-base (6 of 12 heads a rank) and the ProNet towers
+   (whole), random weights from the config's seed with biases drawn too
+   (`draw_biases`), on synthetic pocket, struct_graph, text and seqsim
+   data; cut to 4 packed rows of 512 a process, graph batches of 4, 2
+   batches, no validation or test, the graph towers' noise and dropout
+   off. This process then replays both data ranks' recorded batches,
+   merged, at mesh.model 1. Gated: each step's loss within TP_LOSS_REL,
+   the trainable parameters' change at cosine >= TP_DELTA_COS against
+   this process's while a control run with the row-parallel bias added on
+   every model rank falls below it, the ranks' trainable parameters and
+   losses bit-identical and their seeded weights this process's, #1
+   launched on every rank as often as here, each forward on half the
+   heads, no plain version, a rank's hub bytes <= TP_HUB_BYTES of this
+   process's; the step ms and the row-parallel all-reduces' ms printed;
+27. tensor parallel (B): `experiment=train_packed data=struct_token_only
+   trainer.mesh.model=2` at the CLI phase's widths on two gloo ranks (data
+   1 x model 2): the trainable 35M tower split, #1-#3 on 10 of its 20
+   heads; 4 packed rows of 1024, 3 batches and a validation batch; the
+   same gates against the CLI at mesh.model 1 in this process, the control
+   dropping `copy_to_model_group`'s backward all-reduce, and the
+   checkpoint the ranks wrote restored at model 1 equal to the file and
+   to the ranks' joined parameters bit for bit.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -2439,6 +2465,469 @@ def gloo_two_ranks_phase(smi: str, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the shipped train_3b_tp recipe's model axis, as gloo
+# ranks on the one card (NCCL refuses a card twice)
+
+TP_OFF_NOISE = tuple(
+    f"model.components.{tower}.encoder.{key}={value}"
+    for tower in ("struct_graph", "pocket")
+    for key, value in (("dropout", 0.0), ("euler_noise", "false"),
+                       ("data_augment_eachlayer", "false")))
+# phase A: configs/experiment/train_3b_tp.yaml at mesh.model 2 over four
+# ranks (data 2 x model 2), the ESM2-3B hub at full width and depth (36 x
+# 2560, 40 heads: 20 a rank); cut: 4 packed rows of 512 a process (the
+# recipe's 32), graph batches of 4 (16), 2 batches of one epoch, no
+# validation or test; the graph towers' noise and dropout off, so that one
+# process on both data ranks' rows computes the same function (their
+# per-data-rank seeds are tests/test_torch_tensor_parallel.py's)
+TP_A = ("experiment=train_3b_tp", "trainer=gpu", "extras.print_config=false",
+        "data.pack_rows=4", "data.modalities.struct_graph.batch_size.train=4",
+        "data.modalities.pocket.batch_size.train=4", "trainer.max_epochs=1",
+        "trainer.limit_train_batches=2", "trainer.check_val_every_n_epoch=2",
+        "test=false") + TP_OFF_NOISE
+# phase B: configs/experiment/train_packed.yaml with data=struct_token_only
+# at the CLI phase's widths (650M hub, trainable 35M tower: 20 heads of 24,
+# 10 a rank) over two ranks (data 1 x model 2); cut: 4 packed rows of 1024
+# (16), 3 batches and one validation batch, no test
+TP_B = CLI_BASE + CLI_MODEL + (
+    "data.pack_rows=4", "trainer.max_epochs=1",
+    "trainer.limit_train_batches=3", "trainer.limit_val_batches=1",
+    "test=false")
+# B32: phase B with both towers in f32 (the f32 instances of #1-#3), where
+# the model axis changes no rounding that Adam could amplify
+# (scripts/tp_f32_check.py)
+TP_B32 = tuple(a for a in TP_B if not a.endswith("dtype=bfloat16")) + (
+    "model.components.sequence.dtype=float32",
+    "model.components.struct_token.dtype=float32")
+TP_PHASES = {"A": (TP_A, 4), "B": (TP_B, 2), "B32": (TP_B32, 2)}
+TP_ITEMS = {"train": 64, "val": 8, "test": 8}  # phase A's synthetic ids
+TP_LONGEST = 510
+TP_SEED = 31
+# the change cosine's limit lies between the clean bf16 readings (0.9944-
+# 0.9949: bf16 rounding at other places than one process's, which Adam's
+# near-sign first updates turn into flips of small elements; the same
+# phase in f32 reads 1.000000, scripts/tp_f32_check.py) and the controls'
+# (0.933, 0.610), all in PERF.md
+TP_LOSS_REL, TP_DELTA_COS, TP_HUB_BYTES = 1e-2, 0.99, 0.55
+
+
+def draw_biases(on: bool = True) -> None:
+    """Random weights with biases N(0, 0.02) (a shard draws the full bias
+    and keeps its block): the seeded init leaves them zero, under which a
+    row-parallel bias added on every rank would change nothing."""
+    from oneprot_tpu_torch.models.layers import draw_
+
+    init = esm2.__dict__.setdefault("_init_dense", esm2.init_dense_)
+    if not on:
+        esm2.init_dense_ = bert.init_dense_ = init
+        return
+
+    def init_dense(mod, generator):
+        init(mod, generator)
+        if mod.bias is not None:
+            draw_(mod.bias, lambda b: b.normal_(0.0, 0.02,
+                                                generator=generator))
+
+    esm2.init_dense_ = bert.init_dense_ = init_dense
+
+
+class TpRecorder:
+    """Reads a CLI run from outside: the module `cli.train.build_model`
+    made (and its trainable state then), each step's (modality, batch),
+    loss and wall (to a synchronize), the heads of each attention forward
+    (`_FlashMHA.apply`) and the row-parallel all-reduces' walls."""
+
+    def __init__(self, keep_batches: bool):
+        from oneprot_tpu_torch.core import collectives
+
+        self.keep_batches = keep_batches
+        self.steps, self.losses, self.step_ms = [], [], []
+        self.heads, self.reduce_ms = {}, []
+        self.module = self.initial = None
+        self.saved = (cli_train.build_model, Trainer._train_one,
+                      flash_mha._FlashMHA.apply,
+                      collectives._ReduceFromModelGroup.forward)
+        build0, step0, apply0, reduce0 = self.saved
+
+        def build(*a, **k):
+            self.module = build0(*a, **k)
+            return self.module
+
+        def step(trainer, module, modality, batch):
+            if self.initial is None:  # after init's broadcast
+                self.initial = tp_trainable(module)
+            torch.cuda.synchronize()
+            t = time.time()
+            loss = step0(trainer, module, modality, batch)
+            self.losses.append(float(loss))
+            self.step_ms.append((time.time() - t) * 1e3)
+            self.steps.append((modality, batch if self.keep_batches else None))
+            return loss
+
+        def apply(q, k, v, num_heads, *rest):
+            self.heads[num_heads] = self.heads.get(num_heads, 0) + 1
+            return apply0(q, k, v, num_heads, *rest)
+
+        def reduce(ctx, x):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = reduce0(ctx, x)
+            self.reduce_ms.append((time.time() - t) * 1e3)
+            return out
+
+        cli_train.build_model, Trainer._train_one = build, step
+        flash_mha._FlashMHA.apply = apply
+        collectives._ReduceFromModelGroup.forward = staticmethod(reduce)
+
+    def close(self) -> None:
+        from oneprot_tpu_torch.core import collectives
+
+        cli_train.build_model, Trainer._train_one = self.saved[:2]
+        del flash_mha._FlashMHA.apply  # torch.autograd.Function's again
+        collectives._ReduceFromModelGroup.forward = staticmethod(self.saved[3])
+
+
+def tp_trainable(module) -> dict:
+    """The trainable parameters as full tensors on the host (a shard's
+    blocks joined over its model group: a collective of the group)."""
+    from oneprot_tpu_torch.core import partitioning
+
+    params = {n: p.detach() for n, p in module.model.named_parameters()
+              if p.requires_grad}
+    layout = {n: d for n, d in partitioning.layout_of(module.model).items()
+              if n in params}
+    return {n: t.cpu().clone() for n, t in
+            partitioning.gather_state_dict(params, layout).items()}
+
+
+def hub_bytes(module) -> int:
+    """Bytes the hub's transformer holds on this rank (parameters and
+    buffers)."""
+    hub = module.encoders["sequence"].transformer
+    return sum(t.numel() * t.element_size()
+               for t in list(hub.parameters()) + list(hub.buffers()))
+
+
+def tp_argv(name: str, root: str, run_dir: str, model: int,
+            store: bool = False) -> list:
+    """The phase's CLI overrides; with `store`, the feature cache's disk
+    store under root (written by model rank 0, read by both)."""
+    return list(TP_PHASES[name][0]) + [
+        f"paths.data_dir={root}", f"hydra.run.dir={run_dir}",
+        f"trainer.mesh.model={model}"] + (
+        [f"trainer.cache_persist_dir={root}/{name}_store"] if store else [])
+
+
+def tp_data(name: str, root: str) -> None:
+    """The phase's synthetic data: records for CliDataModule (written to
+    root/records.pt for the children) and the files read from disk."""
+    rng = np.random.RandomState(TP_SEED)
+    if name != "A":
+        records = {"struct_token": struct_token_records(root, rng)}
+    else:
+        # chains of at most TP_LONGEST residues: the recipe packs the text
+        # pairs into rows of 512 tokens, and `pack_stream` (the JAX
+        # package's too) refuses a longer item
+        records = graph_records(root, rng, TP_ITEMS, POCKET_RESIDUES,
+                                longest=TP_LONGEST)
+        records["text"] = {}
+        for split, n in TP_ITEMS.items():
+            ids = [f"{split}_{i:05d}" for i in range(n)]
+            for sid in ids:
+                records["text"][sid] = records["struct_graph"][sid][0]
+            with open(os.path.join(root, f"{split}_text.csv"), "w") as f:
+                f.write("".join(f"{sid},{x}\n" for sid, x in
+                                zip(ids, sample_texts(n, rng))))
+        seqsim_files(root, rng, TP_ITEMS)
+    torch.save(records, os.path.join(root, "records.pt"))
+
+
+def use_records(root: str) -> None:
+    CliDataModule.RECORDS = torch.load(os.path.join(root, "records.pt"),
+                                       weights_only=False)
+    register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
+
+
+def tp_child(name: str, rank: int, root: str) -> int:
+    """One rank of a tensor-parallel phase: the CLI run at mesh.model 2,
+    then its control (phase A: the row-parallel bias added on every model
+    rank; phase B: copy_to_model_group's backward without its all-reduce,
+    its hub features read from the disk store the first run wrote, as the
+    fault is in the tower's backward).
+    Writes root/<name>_rank<r>.json and .pt (and the batches on model rank
+    0 of each data rank). Under torch's deterministic algorithms: the
+    ranks of a model group compute its replicated parts each, and the
+    towers' embedding and scatter backwards add with atomics otherwise
+    (phase 24), so their replicas would part by a few ulps."""
+    from oneprot_tpu_torch.core import collectives
+    from oneprot_tpu_torch.core.mesh import data_world, model_world
+    from oneprot_tpu_torch.models.layers import RowParallelDense
+
+    world_n = TP_PHASES[name][1]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    count_plain_calls()
+    init_distributed(f"file://{root}/rendezvous_{name}",
+                     num_processes=world_n, process_id=rank, backend="gloo",
+                     timeout_s=DDP_TIMEOUT_S)
+    use_records(root)
+    draw_biases(name == "A")
+    out, state = {}, {}
+    for run in ("run", "control"):
+        if run == "control" and name == "A":
+            def bias_everywhere(self, x):  # the classic fault
+                dt = self.compute_dtype
+                y = torch.nn.functional.linear(x.to(dt), self.weight.to(dt),
+                                               self.bias.to(dt))
+                return collectives.reduce_from_model_group(y).to(dt)
+            RowParallelDense.forward = bias_everywhere
+        elif run == "control":
+            collectives._CopyToModelGroup.backward = staticmethod(
+                lambda ctx, grad: grad)
+        rec = TpRecorder(keep_batches=run == "run"
+                         and model_world()[1] == 0)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.time()
+            metrics = cli_train.main(tp_argv(
+                name, root, f"{root}/{name}_{run}", 2, store=name != "A"))
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            out[f"{run}_disk_hits"] = metrics.get("cache/disk_hits")
+        finally:
+            rec.close()
+        state[run] = tp_trainable(rec.module)
+        if run == "run":
+            state["initial"] = rec.initial
+            out.update(
+                tp=list(model_world()), data=list(data_world()), wall_s=wall,
+                losses=rec.losses, step_ms=rec.step_ms,
+                modalities=[m for m, _ in rec.steps],
+                launches=read_launches(), plain=dict(PLAIN_CALLS),
+                heads={str(k): v for k, v in rec.heads.items()},
+                reduce_ms=rec.reduce_ms, hub_bytes=hub_bytes(rec.module),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                # the replicated trainable parameters as this rank holds them
+                held={n: p.detach().cpu().clone() for n, p in
+                      rec.module.model.named_parameters() if p.requires_grad
+                      and getattr(p, "tp_dim", None) is None})
+            if rec.keep_batches:
+                torch.save(rec.steps, f"{root}/{name}_batches{rank}.pt")
+        else:
+            out["control_losses"] = rec.losses
+        rec.module = None
+        torch.cuda.empty_cache()
+    torch.save({**state, "held": out.pop("held")},
+               f"{root}/{name}_rank{rank}.pt")
+    with open(f"{root}/{name}_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    shutdown_distributed()
+    return 0
+
+
+def merge_batches(parts: list):
+    """The data ranks' batches of one step as one process's batch: packed
+    rows stacked, padded rows padded to the longest (pad id 1) and
+    stacked, graph arrays stacked."""
+    seqs, mods, modality, extras = zip(*parts)
+
+    def stack(xs, pad=None):
+        if pad is not None:
+            width = max(x.shape[1] for x in xs)
+            xs = [np.pad(x, ((0, 0), (0, width - x.shape[1])),
+                         constant_values=pad) for x in xs]
+        return np.concatenate(xs)
+
+    if isinstance(seqs[0], dict):  # packed pairs
+        return ({k: stack([s[k] for s in seqs]) for k in seqs[0]},
+                {k: stack([m[k] for m in mods]) for k in mods[0]},
+                modality[0], stack(extras))
+    return (stack(seqs, 1), {k: stack([m[k] for m in mods]) for k in mods[0]},
+            modality[0], [e for x in extras for e in x])
+
+
+def tp_reference(name: str, root: str) -> dict:
+    """The phase at mesh.model 1 in this process on both data ranks' rows
+    together: phase A replays the data ranks' recorded batches merged
+    (`merge_batches`) through the trainer's step, phase B (one data rank)
+    runs the CLI itself. Returns its losses, initial and final trainable
+    parameters, launches, heads, hub bytes."""
+    from oneprot_tpu_torch.core.config import instantiate
+    from oneprot_tpu_torch.train.trainer import select_device
+
+    use_records(root)
+    draw_biases(name == "A")
+    rec = TpRecorder(keep_batches=False)
+    try:
+        reset_launches()
+        argv = tp_argv(name, root, f"{root}/{name}_one", 1)
+        if name != "A":
+            cli_train.main(argv)
+        else:
+            cfg = cli_train.prepare(default_config_dir(), argv)
+            module = cli_train.build_model(
+                cfg["model"], select_device(cfg["trainer"]["accelerator"]),
+                int(cfg["seed"]))
+            trainer = instantiate(cfg["trainer"])
+            module.gradient_clip_val = trainer.gradient_clip_val
+            module.init()
+            ranks = [torch.load(f"{root}/A_batches{r}.pt", weights_only=False)
+                     for r in (0, 2)]
+            for steps in zip(*ranks):
+                trainer._train_one(module, steps[0][0],
+                                   merge_batches([b for _, b in steps]))
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+        draw_biases(False)
+    return {"losses": rec.losses, "initial": rec.initial,
+            "final": tp_trainable(rec.module), "launches": read_launches(),
+            "plain": dict(PLAIN_CALLS), "heads": rec.heads,
+            "hub_bytes": hub_bytes(rec.module), "module": rec.module,
+            "step_ms": rec.step_ms}
+
+
+def tensor_parallel_phase(name: str, smi: str, launches: dict,
+                          min_cos: float = TP_DELTA_COS) -> dict:
+    """Phase A or B: the ranks (children of this script) at mesh.model 2,
+    then this process at model 1 on the same rows. Gated: each step's loss
+    within TP_LOSS_REL, the trainable parameters' change (final minus
+    seeded) at cosine >= TP_DELTA_COS against this process's and the
+    control's below it (`min_cos`), every rank's trainable parameters and
+    losses
+    bit-identical (all replicated here, or joined), the seeded ones equal
+    to this process's, #1 (and #2, #3) launched on each rank as often as
+    here, each forward on the rank's half of the heads, no plain version;
+    phase A: a rank's hub bytes <= TP_HUB_BYTES of this process's; phase
+    B: its checkpoint restored at model 1 equals the file and the ranks'
+    parameters exactly. Fills launches[f"tp {name} rank r"]."""
+    world_n = TP_PHASES[name][1]
+    out = {"world": world_n, "argv": list(TP_PHASES[name][0])}
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_tp{name}_") as root:
+        t = time.time()
+        tp_data(name, root)
+        out["data_s"] = time.time() - t
+        t = time.time()
+        results = run_children(
+            [([sys.executable, os.path.abspath(__file__), "--tp-child", name,
+               str(rank), root], child_env(CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+             for rank in range(world_n)],
+            DDP_TIMEOUT_S)
+        out["children_s"] = time.time() - t
+        for rank, (rc, log) in enumerate(results):
+            require(rc == 0, f"tp {name} rank {rank} failed ({rc}):\n"
+                    + log[-6000:])
+        ranks, states = [], []
+        for rank in range(world_n):
+            with open(f"{root}/{name}_rank{rank}.json") as f:
+                ranks.append(json.load(f))
+            states.append(torch.load(f"{root}/{name}_rank{rank}.pt",
+                                     weights_only=True))
+        t = time.time()
+        ref = tp_reference(name, root)
+        out["reference_s"] = time.time() - t
+        if name != "A":
+            path = f"{root}/{name}_run/checkpoints/last"
+            module = ref["module"]
+            checkpoint_lib.load_state(module, path)
+            file = torch.load(os.path.join(path, checkpoint_lib.STATE_FILE),
+                              weights_only=True)["model"]
+            got = module.model.state_dict()
+            restored = (set(got) == set(file) and all(
+                torch.equal(got[k].cpu(), file[k]) for k in file) and all(
+                torch.equal(file[k], states[0]["run"][k].to(file[k].dtype))
+                for k in states[0]["run"]))
+            out["checkpoint_restores_at_model_1"] = restored
+        ref.pop("module")
+        torch.cuda.empty_cache()
+    want = np.array(ref["losses"])
+    got = np.array(ranks[0]["losses"])
+    rel = np.abs(got - want) / np.abs(want)
+    start = ref["initial"]
+
+    def change(state):
+        return flat(state[n] - start[n] for n in start)
+
+    want_change = change(ref["final"])
+    cos = cosine(change(states[0]["run"]), want_change)
+    control_cos = cosine(change(states[0]["control"]), want_change)
+    same = all(r["losses"] == ranks[0]["losses"] for r in ranks) and all(
+        torch.equal(s[k][n], states[0][k][n]) for s in states
+        for k in ("run", "held") for n in states[0][k])
+    seeded = all(torch.equal(states[0]["initial"][n], start[n]) for n in start)
+    half = {str(h // 2): n for h, n in ref["heads"].items() if h % 2 == 0}
+    for rank, r in enumerate(ranks):
+        launches[f"tp {name} rank {rank}"] = r["launches"]
+    per_forward = [float(np.sum(r["reduce_ms"])) for r in ranks]
+    out.update({
+        "losses": got.tolist(), "one_process_losses": want.tolist(),
+        "loss_rel": rel.tolist(),
+        "loss_margin": TP_LOSS_REL - float(rel.max()),
+        "change_cosine": cos, "control_change_cosine": control_cos,
+        "control_losses": ranks[0]["control_losses"],
+        "ranks_bit_identical": same, "seeded_equal": seeded,
+        "modalities": ranks[0]["modalities"],
+        "heads_per_rank": ranks[0]["heads"],
+        "one_process_heads": {str(k): v for k, v in ref["heads"].items()},
+        "hub_bytes": [r["hub_bytes"] for r in ranks],
+        "one_process_hub_bytes": ref["hub_bytes"],
+        "step_ms": [r["step_ms"] for r in ranks],
+        "one_process_step_ms": ref["step_ms"],
+        "row_parallel_reduces": len(ranks[0]["reduce_ms"]),
+        "row_parallel_reduce_ms": per_forward,
+        "wall_s": [r["wall_s"] for r in ranks],
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "launches": ranks[0]["launches"],
+        "one_process_launches": ref["launches"]})
+    print(f"  tp {name}: {world_n} gloo ranks (data {world_n // 2} x model "
+          f"2) in {out['children_s']:.1f} s with start-up, build and the "
+          f"control; steps {out['modalities']}; losses "
+          + ", ".join(f"{x:.4f}" for x in got) + " against one process "
+          + ", ".join(f"{x:.4f}" for x in want)
+          + f"; max rel {rel.max():.2e} (gate {TP_LOSS_REL}, margin "
+          f"{out['loss_margin']:.2e}); change cosine {cos:.6f} (gate >= "
+          f"{min_cos}), control {control_cos:.6f} (its losses "
+          + ", ".join(f"{x:.4f}" for x in out["control_losses"])
+          + f"); ranks bit-identical "
+          f"{same}, seeded weights equal {seeded}; heads per forward "
+          f"{out['heads_per_rank']} (one process {out['one_process_heads']});"
+          f" hub bytes per rank {out['hub_bytes']} (one process "
+          f"{ref['hub_bytes']}); median step ms "
+          + ", ".join(f"rank {i} {np.median(r['step_ms']):.1f}"
+                      for i, r in enumerate(ranks))
+          + f" (one process {np.median(ref['step_ms']):.1f}); "
+          f"{out['row_parallel_reduces']} row-parallel all-reduces a rank, "
+          + ", ".join(f"{x:.1f}" for x in per_forward)
+          + f" ms in all; disk-store hits {ranks[0].get('run_disk_hits')} / "
+          f"control {ranks[0].get('control_disk_hits')}; launches per rank "
+          f"{out['launches']}; {smi}",
+          flush=True)
+    for rank, r in enumerate(ranks):
+        require(r["launches"] == ref["launches"], f"tp {name} rank {rank} "
+                f"launches {r['launches']}, want {ref['launches']}")
+        require(r["heads"] == half, f"tp {name} rank {rank} heads "
+                f"{r['heads']}, want half of {ref['heads']}")
+        require(not any(r["plain"].values()),
+                f"tp {name} rank {rank}: plain versions ran: {r['plain']}")
+    require(sum(ref["launches"].values()) > 0 and not any(
+        ref["plain"].values()), f"tp {name} one process: launches "
+        f"{ref['launches']}, plain {ref['plain']}")
+    require(float(rel.max()) <= TP_LOSS_REL, f"tp {name} losses {out}")
+    require(cos >= min_cos, f"tp {name} change cosine {cos}")
+    require(control_cos < min_cos, f"tp {name}: the gate passed the "
+            f"control: change cosine {control_cos}")
+    require(same and seeded, f"tp {name}: ranks bit-identical {same}, "
+            f"seeded equal {seeded}")
+    if name == "A":
+        require(max(out["hub_bytes"]) <= TP_HUB_BYTES * ref["hub_bytes"],
+                f"tp A hub bytes {out['hub_bytes']} vs {ref['hub_bytes']}")
+    else:
+        require(out["checkpoint_restores_at_model_1"],
+                "tp B: the model-2 checkpoint does not restore at model 1")
+    return out
+
+
 def serve_struct_tokens(run_dir: str, launches: dict) -> dict:
     """`OneProtEmbedder.from_run_dir(run_dir).embed_struct_tokens` on one
     request of 32 3Di strings (log-normal lengths): finite embeddings of
@@ -3981,9 +4470,9 @@ class MemoryStructs(StructDataset):
 
 
 def graph_records(root: str, rng, counts: dict, pocket_residues: int,
-                  median: float = 290.0) -> dict:
+                  median: float = 290.0, longest: int = 1022) -> dict:
     """{"struct_graph": records, "pocket": records} for `counts` ids a
-    split: a chain of log-normal length (clipped to [30, 1022]) and a
+    split: a chain of log-normal length (clipped to [30, longest]) and a
     pocket cut-out of its first `pocket_residues` residues, each written
     as PDB text and parsed by structure_io; `{split}_seqstruc.csv` and
     `{split}_pocket.csv` list the ids."""
@@ -3992,7 +4481,7 @@ def graph_records(root: str, rng, counts: dict, pocket_residues: int,
     os.makedirs(pdb_dir, exist_ok=True)
     for split, n in counts.items():
         ids = [f"{split}_{i:05d}" for i in range(n)]
-        lens = np.clip(rng.lognormal(np.log(median), 0.65, n), 30, 1022)
+        lens = np.clip(rng.lognormal(np.log(median), 0.65, n), 30, longest)
         for sid, n_res in zip(ids, lens.astype(int)):
             seq = "".join(rng.choice(list(AAS), n_res))
             for kind, part in (("struct_graph", seq),
@@ -4841,6 +5330,19 @@ def main() -> int:
     data_parallel["gloo"] = gloo_two_ranks_phase(smi, launches)
     torch.cuda.empty_cache()
 
+    phase("tensor parallel (A): experiment=train_3b_tp at mesh.model 2 "
+          "through cli.train.main, four gloo ranks on the one card (data 2 "
+          "x model 2), the ESM2-3B hub at full width and depth; then one "
+          "process at model 1 on both data ranks' rows")
+    tensor_parallel = {"A": tensor_parallel_phase("A", smi, launches)}
+    torch.cuda.empty_cache()
+
+    phase("tensor parallel (B): experiment=train_packed "
+          "data=struct_token_only at mesh.model 2, two gloo ranks, the "
+          "trainable 35M tower split; its checkpoint restored at model 1")
+    tensor_parallel["B"] = tensor_parallel_phase("B", smi, launches)
+    torch.cuda.empty_cache()
+
     phase("text serving: embed_texts, BiomedBERT-base width (12 x 768), "
           "bf16, 3 requests of 32 texts; then 2 layers card vs CPU")
     text = {"kernels": text_kernels, "serving": text_serving(smi, launches)}
@@ -4913,6 +5415,7 @@ def main() -> int:
         "lora_training": lora,
         "cli": cli,
         "data_parallel": data_parallel,
+        "tensor_parallel": tensor_parallel,
         "text": text,
         "graph": graph,
         "msa_seqsim_training": msa_train,
@@ -4935,4 +5438,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-child"]:
         exact_f32()
         sys.exit(gloo_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        exact_f32()
+        sys.exit(tp_child(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -6,6 +6,8 @@
         data=struct_token_only model.components.sequence.dtype=bfloat16 ...
     python -m torch.distributed.run --nproc_per_node 4 \
         -m oneprot_tpu_torch.cli.train trainer=ddp experiment=train_packed ...
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m oneprot_tpu_torch.cli.train experiment=train_3b_tp trainer=gpu
     python -m oneprot_tpu_torch.cli.train -m seed=1,2 ...          # multirun
     python -m oneprot_tpu_torch.cli.train -m hydra/sweeper=optuna \\
         hydra.sweeper.n_trials=4 \\
@@ -30,9 +32,14 @@ from the JAX package's `train()` in these ways:
   `logger: csv` and writes every metrics row twice.
 - No compilation cache. Several processes (one per card, launched by
   torchrun, `core/mesh.py:init_distributed` before the run dir is made)
-  train data-parallel: `data.batch_size` is each process's batch (the
-  reference's Lightning DDP reading), and every rank draws the same
-  seeded weights.
+  train laid out as `trainer.mesh` says (`check_mesh`, before the model
+  is built): `mesh.model` ranks hold one replica between them, tensor
+  parallel, and the data ranks split the data: `data.batch_size` is each
+  data rank's batch (the reference's Lightning DDP reading). Every rank
+  draws the seeded weights of the whole model and keeps its shard of
+  each split one. The pod recipes (`experiment=train_pod`,
+  `train_pod_packed`, `train_3b_tp`) name `trainer=tpu`: the port runs
+  them with `trainer=gpu`.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from oneprot_tpu_torch.core.config import (
 )
 from oneprot_tpu_torch.core.collectives import barrier, broadcast_object
 from oneprot_tpu_torch.core.mesh import (
+    check_mesh,
     init_distributed,
     is_main_process,
     shutdown_distributed,
@@ -117,6 +125,8 @@ def train(cfg) -> dict:
     datamodule = instantiate({**dict(cfg["data"]), "seed": seed})
 
     device = select_device(str(cfg["trainer"].get("accelerator", "auto")))
+    # the mesh's groups first: the encoders are built as their shards
+    check_mesh(cfg["trainer"].get("mesh"))
     log.info(f"Instantiating model on {device}")
     module = build_model(cfg["model"], device, seed)
 

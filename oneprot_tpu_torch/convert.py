@@ -24,15 +24,19 @@ numpy arrays converts here with no JAX installed. Mappings:
   msa, text, struct_graph, pocket).
 
 Values are copied as float32 (int8 codes as int8); load the result with
-`module.load_state_dict(...)`, which casts to the module's dtype.
+`module.load_state_dict(...)`, which casts to the module's dtype. A model
+built as one model rank's shard (tensor parallelism) loads
+`oneprot_shard_state_dict`'s cut of it (`core/partitioning.py`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from oneprot_tpu_torch.core import partitioning
 
 Tree = Mapping[str, Any]
 
@@ -208,3 +212,15 @@ def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
         out.update(_ENCODERS[key](
             tree[key], "encoders." + key[len("encoders_"):] + "."))
     return out
+
+
+def oneprot_shard_state_dict(tree: Tree, model_rank: int, model: int,
+                             layout: Optional[Mapping[str, int]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """`oneprot_state_dict` cut to model rank `model_rank`'s shard of a
+    model axis of `model` ranks: each split entry its block
+    (`partitioning.shard_state_dict`; `layout` as there, the built
+    module's `partitioning.layout_of` where its placement differs from the
+    rules)."""
+    return partitioning.shard_state_dict(oneprot_state_dict(tree),
+                                         model_rank, model, layout)

@@ -2,10 +2,17 @@
 oneprot_tpu/core/mesh.py: `init_distributed`, `process_index`,
 `is_main_process`, `local_batch_size`, the (data, model) mesh).
 
-One process per card over `torch.distributed`: the "data" axis of the JAX
-mesh is the world of processes, each holding a whole replica of the
-model and its own share of every batch. The "model" axis (tensor
-parallelism) is not ported: `check_mesh` refuses it.
+One process per card over `torch.distributed`, laid out as the JAX
+`make_mesh` lays out its devices: a (data, model) grid with the model
+axis innermost. Rank r is data rank r // model and model rank r % model;
+a model group is `model` consecutive ranks (on one host, the cards of
+one NVLink island), a data group the ranks of one model rank. The ranks
+of a model group hold one replica between them, each weight of the
+`core/partitioning.py` rules as its shard (tensor parallelism, the
+Megatron layers of `models/layers.py`), and step on the same batches;
+the data groups split every batch. `check_mesh` builds both kinds of
+group (`dist.new_group`, in one order on every rank); without a model
+axis (model 1) the data group is the whole world and no group is made.
 
     init_distributed()            # torchrun's environment, or a no-op
     init_distributed("tcp://localhost:29500", num_processes=2, process_id=1)
@@ -18,6 +25,7 @@ and makes it the current device before NCCL starts.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Mapping, Optional, Tuple
@@ -27,7 +35,24 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-TENSOR_PARALLEL_ITEM = "ROADMAP.md Queue 1 item 12 (tensor parallelism)"
+INT8_TENSOR_PARALLEL_ITEM = ("ROADMAP.md Queue 1 item 13 (the int8 hub under "
+                             "tensor parallelism)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The groups of a (data, model) layout of the world: `model` ranks a
+    model group; `data_group` and `model_group` are this rank's (None: the
+    default group, for the data group of a mesh without a model axis)."""
+
+    model: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+
+# the mesh of the process group, as the process group itself is one per
+# process; `check_mesh` sets it, `shutdown_distributed` clears it
+_MESH = Mesh()
 
 
 def distributed() -> bool:
@@ -42,6 +67,31 @@ def world() -> Tuple[int, int]:
     if distributed():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def model_world() -> Tuple[int, int]:
+    """(model ranks a group, this rank's model rank): (1, 0) without a
+    model axis."""
+    m = _MESH.model
+    return m, world()[1] % m
+
+
+def data_world() -> Tuple[int, int]:
+    """(data ranks, this rank's data rank): the world's ranks over the
+    model axis; `world()` without one."""
+    n, rank = world()
+    m = _MESH.model
+    return n // m, rank // m
+
+
+def data_group() -> Optional[dist.ProcessGroup]:
+    """This rank's data group (None: the default group)."""
+    return _MESH.data_group
+
+
+def model_group() -> Optional[dist.ProcessGroup]:
+    """This rank's model group (None without a model axis)."""
+    return _MESH.model_group
 
 
 def world_size() -> int:
@@ -137,23 +187,52 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group, if one is up."""
+    """Leave the process group, if one is up, and forget its mesh."""
+    global _MESH
+    _MESH = Mesh()
     if distributed():
         dist.destroy_process_group()
 
 
+def _groups(n: int, model: int) -> Tuple[dist.ProcessGroup,
+                                          dist.ProcessGroup]:
+    """(this rank's data group, its model group), after every group of
+    the layout is made on every rank in one order (`new_group` is a
+    collective of the whole world)."""
+    rank = world()[1]
+    data_groups = [dist.new_group(list(range(j, n, model)))
+                   for j in range(model)]
+    model_groups = [dist.new_group(list(range(i * model, (i + 1) * model)))
+                    for i in range(n // model)]
+    return data_groups[rank % model], model_groups[rank // model]
+
+
 def check_mesh(mesh: Optional[Mapping[str, int]]) -> None:
-    """The trainer's `mesh` config against the world: `data` must be -1
-    (every process) or the world size; a `model` axis above 1 (tensor
-    parallelism) is not ported and raises NotImplementedError."""
+    """The trainer's `mesh` config against the world, and its groups:
+    `model` must divide the world (a world of one takes model 1 only) and
+    `data` must be -1 (world / model) or world / model, else ValueError.
+    With model > 1 the first call builds the groups and later calls with
+    the same layout reuse them; another model size while a mesh is up
+    raises."""
+    global _MESH
     mesh = dict(mesh or {})
+    n = world_size()
     model = int(mesh.get(MODEL_AXIS, 1))
-    if model > 1:
-        raise NotImplementedError(
-            f"mesh.model={model}: tensor parallelism is not ported; the "
-            f"port is data-parallel only ({TENSOR_PARALLEL_ITEM})")
-    data = int(mesh.get(DATA_AXIS, -1))
-    if data not in (-1, world_size()):
+    if model < 1 or n % model:
         raise ValueError(
-            f"mesh.data={data} but the world has {world_size()} processes: "
-            "set -1 (every process) or launch that many processes")
+            f"mesh.model={model} does not divide the world of {n} "
+            "process(es): launch a multiple of mesh.model processes, one "
+            "per card (`python -m torch.distributed.run --nproc_per_node "
+            f"{max(model, 1)} ...`)")
+    data = int(mesh.get(DATA_AXIS, -1))
+    if data not in (-1, n // model):
+        raise ValueError(
+            f"mesh.data={data} but the world has {n} processes over "
+            f"mesh.model={model}: set -1 (world / model) or launch "
+            f"{max(data, 1) * model} processes")
+    if model == _MESH.model:
+        return
+    if _MESH.model > 1:
+        raise ValueError(f"mesh.model={model} but this process group's "
+                         f"mesh has model={_MESH.model}")
+    _MESH = Mesh(model, *_groups(n, model))

@@ -9,8 +9,11 @@ shuffles with a numpy RandomState seeded by (seed + epoch), groups shuffled
 windows of 16 batches by item length, collates in a thread pool with
 in-order delivery, or streams items through the first-fit packer
 (`packing.pack_stream`) for packed training. Across several processes the
-order is sharded rank::world (rank and world size from torch.distributed
-when it is initialised), and every process yields the same number of
+order is sharded by the DATA rank, rank::data ranks (`mesh.data_world()`:
+the world's rank and size without a model axis), so that the ranks of one
+model group, which compute one replica between them, see the same
+batches; the JAX package shards by `jax.process_index()`, a host, where a
+process here is a card. Every process yields the same number of
 batches of each modality, so that the processes run the same modality at
 every step and meet at every collective: a packed loader the lockstep
 cap, an unpacked one the count of the smallest shard (len // world rows),
@@ -29,7 +32,7 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from oneprot_tpu_torch.core.mesh import world
+from oneprot_tpu_torch.core.mesh import data_world
 from oneprot_tpu_torch.data.datasets.msa_dataset import MSADataset
 from oneprot_tpu_torch.data.datasets.seqsim_dataset import SequenceSimDataset
 from oneprot_tpu_torch.data.datasets.struct_graph_dataset import StructDataset
@@ -78,7 +81,7 @@ class DataLoader:
     def __len__(self) -> int:
         """Batches on every process; packed: the lockstep cap, unpacked:
         the smallest shard's count."""
-        nproc, _ = world()
+        nproc, _ = data_world()
         if self.pack_rows:
             return self._packed_lockstep_cap(nproc)
         n_local = len(self.dataset) // nproc  # the smallest shard
@@ -95,12 +98,12 @@ class DataLoader:
         return self._lengths if self._lengths is not False else None
 
     def _order(self, epoch: int) -> np.ndarray:
-        """Seeded shuffle (the same on every process), then this process's
-        interleaved shard."""
+        """Seeded shuffle (the same on every process), then this data
+        rank's interleaved shard."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
-        nproc, rank = world()
+        nproc, rank = data_world()
         if nproc > 1:
             order = order[rank::nproc]
         return order
@@ -160,7 +163,7 @@ class DataLoader:
                        {"ids": p["ids_b"], "segment_ids": p["seg_b"]},
                        modality, p["valid"])
 
-        nproc, _ = world()
+        nproc, _ = data_world()
         if nproc <= 1:
             yield from packed()
             return

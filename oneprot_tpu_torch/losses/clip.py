@@ -1,8 +1,9 @@
 """Symmetric InfoNCE (CLIP) losses (counterpart of
 oneprot_tpu/losses/clip.py: `clip_loss`, `clip_loss_masked`).
 
-With `axis_name` set (the JAX functions' "data" axis: here the default
-torch.distributed group) the negatives are the global batch's: each rank
+With `axis_name` set (the JAX functions' "data" axis: here the mesh's data
+group, the whole world without a model axis) the negatives are the global
+batch's: each rank
 gathers every rank's features with `all_gather_with_grad`. A rank then
 returns its share of the global loss: the mean of the shares over the
 ranks is the loss of the JAX function on the concatenated batch, and the
@@ -29,7 +30,7 @@ from typing import Optional, Union
 import torch
 
 from oneprot_tpu_torch.core.collectives import all_gather_with_grad
-from oneprot_tpu_torch.core.mesh import world
+from oneprot_tpu_torch.core.mesh import data_world
 
 Scale = Union[float, torch.Tensor]
 
@@ -40,13 +41,14 @@ def _f32_logits(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 
 
 def _gathered(axis_name: Optional[str]):
-    """(this rank, the gather) of the loss: with an axis, the rank and
-    `all_gather_with_grad`; without, rank 0 and an identity node in its
+    """(this rank, the gather) of the loss: with an axis, the data rank and
+    `all_gather_with_grad` over the data group; without, rank 0 and an
+    identity node in its
     place, so that both build one graph (a world of one then computes,
     and accumulates its gradients, exactly as one process does)."""
     if axis_name is None:
         return 0, lambda x: x.view_as(x)
-    return world()[1], all_gather_with_grad
+    return data_world()[1], all_gather_with_grad
 
 
 def clip_loss(modality_features: torch.Tensor, sequence_features: torch.Tensor,
@@ -80,7 +82,7 @@ def clip_loss_masked(modality_features: torch.Tensor,
     (each rank holds the same number of slots)."""
     valid = valid.float()
     rank, gather = _gathered(axis_name)
-    n = world()[0] if axis_name else 1
+    n = data_world()[0] if axis_name else 1
     all_mod, all_seq = gather(modality_features), gather(sequence_features)
     all_valid = gather(valid)
     b = valid.shape[0]

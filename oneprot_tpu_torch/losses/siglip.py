@@ -7,9 +7,10 @@ off it, loss -sum(log_sigmoid(label * logit)) / B over f32 logits from the
 clip module's `_f32_logits`. The logit scale defaults to 1.0 and the bias
 to None: the towers' heads scale their features already.
 
-With `axis_name` set, the negatives ring over the ranks of the default
-torch.distributed group: the local block (positives and negatives), then
-world - 1 negative-only blocks, one per other rank's sequence features,
+With `axis_name` set, the negatives ring over the ranks of the mesh's data
+group (the whole world without a model axis): the local block (positives
+and negatives), then ranks - 1 negative-only blocks, one per other rank's
+sequence features,
 passed along by `ring_shift` (the JAX `ppermute`). `bidir=True` runs two
 counter-rotating chains and a last hop for an odd remainder;
 `bidir=False` one chain. Each hop of the masked variant carries a rank's
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from oneprot_tpu_torch.core.collectives import ring_shift
-from oneprot_tpu_torch.core.mesh import world
+from oneprot_tpu_torch.core.mesh import data_world
 from oneprot_tpu_torch.losses.clip import Scale, _f32_logits
 
 
@@ -77,7 +78,7 @@ def _ring(loss: torch.Tensor, carried: torch.Tensor,
           bidir: bool) -> torch.Tensor:
     """Add the negative-only block of every other rank's `carried` tensor,
     in the JAX function's schedule."""
-    n, _ = world()
+    n, _ = data_world()
     if bidir:
         to_left = to_right = carried
         num_bidir, remainder = divmod(n - 1, 2)
@@ -104,7 +105,7 @@ def siglip_loss(modality_features: torch.Tensor,
     rows against every rank's sequence features (the ring)."""
     loss = _pair_loss(modality_features, sequence_features, logit_scale,
                       logit_bias)
-    if axis_name is None or world()[0] == 1:
+    if axis_name is None or data_world()[0] == 1:
         return loss
     return _ring(loss, sequence_features,
                  lambda f: _pair_loss(modality_features, f, logit_scale,
@@ -122,7 +123,7 @@ def siglip_loss_masked(modality_features: torch.Tensor,
     equals `siglip_loss`."""
     loss = _pair_loss_masked(modality_features, sequence_features, valid,
                              valid, logit_scale, logit_bias)
-    if axis_name is None or world()[0] == 1:
+    if axis_name is None or data_world()[0] == 1:
         return loss
     d = sequence_features.shape[-1]
 

@@ -20,10 +20,16 @@ text encoded alone.
 
 With `lora`, q, k and v are `LoraDense` layers (streams 3 * layer + 0..2);
 with `remat`, each layer runs under `torch.utils.checkpoint` when autograd
-records. Modules are built on the card in bf16 unless the caller names
-another device and dtype; the card takes bf16, or f32 with heads of at
-most 64 (the attention kernels' f32 instances), and `Bert` refuses any
-other compute dtype there when it is built.
+records. With `tp = (ranks, rank)` the layers are split as ESM2's are
+(`models/esm2.py`, the JAX rules of `core/partitioning.py`, which split
+BERT's q/k/v too: they are LoRA-ready Dense layers in both packages): q,
+k, v and fc1 column-parallel, o and fc2 row-parallel, this rank's
+`num_heads / ranks` heads into the attention kernel; heads that the ranks
+do not divide keep q, k and v whole. Modules are built on the card in
+bf16 unless the caller names another device and dtype; the card takes
+bf16, or f32 with heads of at most 64 (the attention kernels' f32
+instances), and `Bert` refuses any other compute dtype there when it is
+built.
 """
 
 from __future__ import annotations
@@ -38,9 +44,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from oneprot_tpu_torch.core import collectives
 from oneprot_tpu_torch.kernels.flash_mha import check_card_dtype, mha_attention
-from oneprot_tpu_torch.models.esm2 import LoraConfig, LoraDense
-from oneprot_tpu_torch.models.layers import Dense, LayerNorm
+from oneprot_tpu_torch.models.esm2 import (
+    LoraConfig,
+    init_dense_,
+    qkv_projections,
+    split_heads,
+)
+from oneprot_tpu_torch.models.layers import (
+    TP,
+    LayerNorm,
+    tensor_parallel_dense,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,25 +113,28 @@ def resolve_bert_config(name_or_path: str,
 
 class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig, lora: Optional[LoraConfig] = None,
-                 layer_index: int = 0, *, device="cuda",
+                 layer_index: int = 0, *, tp: TP = (1, 0), device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         H = config.hidden_size
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        if lora is None:
-            self.q, self.k, self.v = (Dense(H, H, **kw) for _ in range(3))
-        else:
-            self.q, self.k, self.v = (
-                LoraDense(H, H, lora, 3 * layer_index + i, **kw)
-                for i in range(3))
-        self.o = Dense(H, H, **kw)
+        qkv_tp = split_heads(config.num_heads, tp)
+        self.heads_split = qkv_tp[0] > 1
+        self.local_heads = config.num_heads // qkv_tp[0]
+        self.q, self.k, self.v = qkv_projections(config, lora, layer_index,
+                                                 qkv_tp, **kw)
+        self.o = tensor_parallel_dense("row", H, H, tp,
+                                       input_is_parallel=self.heads_split,
+                                       **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.heads_split:
+            x = collectives.copy_to_model_group(x)
         ctx, _ = mha_attention(self.q(x), self.k(x), self.v(x),
-                               self.config.num_heads, bias=bias,
+                               self.local_heads, bias=bias,
                                segment_ids=segment_ids)
         return self.o(ctx)
 
@@ -124,16 +143,18 @@ class BertLayer(nn.Module):
     """Post-LN: x = LN(x + attn(x)); LN(x + fc2(gelu(fc1(x))))."""
 
     def __init__(self, config: BertConfig, lora: Optional[LoraConfig] = None,
-                 layer_index: int = 0, *, device="cuda",
+                 layer_index: int = 0, *, tp: TP = (1, 0), device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         H, eps = config.hidden_size, config.layer_norm_eps
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.attn = BertSelfAttention(config, lora, layer_index, **kw)
+        self.attn = BertSelfAttention(config, lora, layer_index, tp=tp, **kw)
         self.attn_ln = LayerNorm(H, eps=eps, **kw)
-        self.fc1 = Dense(H, config.intermediate_size, **kw)
-        self.fc2 = Dense(config.intermediate_size, H, **kw)
+        self.fc1 = tensor_parallel_dense("column", H, config.intermediate_size,
+                                         tp, **kw)
+        self.fc2 = tensor_parallel_dense("row", config.intermediate_size, H,
+                                         tp, **kw)
         self.ffn_ln = LayerNorm(H, eps=eps, **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
@@ -160,7 +181,7 @@ class Bert(nn.Module):
     """Returns last_hidden_state [B, L, H] (like HF BertModel w/o pooler)."""
 
     def __init__(self, config: BertConfig, lora: Optional[LoraConfig] = None,
-                 remat: bool = False, *, device="cuda",
+                 remat: bool = False, *, tp: TP = (1, 0), device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -179,7 +200,8 @@ class Bert(nn.Module):
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.emb_ln = LayerNorm(H, eps=config.layer_norm_eps, **kw)
         self.layers = nn.ModuleList(
-            BertLayer(config, lora, i, **kw) for i in range(config.num_layers))
+            BertLayer(config, lora, i, tp=tp, **kw)
+            for i in range(config.num_layers))
 
     def forward(self, input_ids: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -223,14 +245,7 @@ def init_bert_weights_(model: nn.Module, generator: torch.Generator) -> None:
                           mod.token_type_embeddings):
                     t.normal_(0.0, 0.02, generator=generator)
             elif isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, mod.in_features ** -0.5,
-                                   generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-                if isinstance(mod, LoraDense):
-                    bound = mod.in_features ** -0.5
-                    mod.lora_A.uniform_(-bound, bound, generator=generator)
-                    mod.lora_B.zero_()
+                init_dense_(mod, generator)
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)

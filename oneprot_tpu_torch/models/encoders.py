@@ -11,6 +11,12 @@ float32 too, and has no gradient barrier: the adapters train through it.
 'struct_token', 'msa', 'text', 'struct_graph' and 'pocket' to theirs. The
 graph towers (`StructGraphEncoder`: ProNet, dropout, head) take a dict of
 padded graph arrays rather than token ids, and compute in float32.
+
+Under a mesh with a model axis (`core/mesh.py:check_mesh`, before the
+model is built) each factory builds its transformer as this rank's shard
+over the model group (`tp`, default `mesh.model_world()`): ESM2, BERT and
+the MSA Transformer split as `core/partitioning.py`'s rules say, so that
+no rank ever holds a whole tower; the heads and ProNet are whole.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from oneprot_tpu_torch.core.mesh import model_world
 from oneprot_tpu_torch.models.bert import Bert, BertConfig, resolve_bert_config
 from oneprot_tpu_torch.models.esm2 import (
     LORA_TRAINABLE_LEAVES,
@@ -31,6 +38,7 @@ from oneprot_tpu_torch.models.esm2 import (
     resolve_esm2_config,
 )
 from oneprot_tpu_torch.models.heads import EncoderHead, segment_pool
+from oneprot_tpu_torch.models.layers import TP
 from oneprot_tpu_torch.models.msa_transformer import (
     MsaTransformer,
     MsaTransformerConfig,
@@ -75,11 +83,12 @@ class _TokenEncoder(nn.Module):
                  proj_type: Optional[str], use_logit_scale: bool,
                  learnable_logit_scale: bool, frozen: bool,
                  quant_int8: bool = False, lora: Optional[LoraConfig] = None,
-                 remat: bool = False, *, device="cuda",
+                 remat: bool = False, *, tp: TP = (1, 0), device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  pretrained_dir: Optional[str] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         self.frozen = frozen
         self.quant_int8 = quant_int8
         self.lora_rank = 0 if lora is None else lora.rank
@@ -88,8 +97,8 @@ class _TokenEncoder(nn.Module):
         # `OneProtModule.load_pretrained` puts into the transformer
         self.pretrained_dir = pretrained_dir
         self.transformer = self._transformer(
-            config, quant_int8, lora, remat, device=device, dtype=dtype,
-            param_dtype=dtype if frozen else torch.float32)
+            config, quant_int8, lora, remat, tp=tp, device=device,
+            dtype=dtype, param_dtype=dtype if frozen else torch.float32)
         self.head = EncoderHead(config.hidden_size, output_dim, proj_type,
                                 pooling_type, use_logit_scale,
                                 learnable_logit_scale, device=device,
@@ -157,13 +166,13 @@ class SequenceEncoder(_TokenEncoder):
                  use_logit_scale: bool = False,
                  learnable_logit_scale: bool = False, frozen: bool = True,
                  quant_int8: bool = False, lora: Optional[LoraConfig] = None,
-                 remat: bool = False, *, device="cuda",
+                 remat: bool = False, *, tp: TP = (1, 0), device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen,
-                         quant_int8, lora, remat, device=device, dtype=dtype,
-                         pretrained_dir=pretrained_dir)
+                         quant_int8, lora, remat, tp=tp, device=device,
+                         dtype=dtype, pretrained_dir=pretrained_dir)
 
 
 class StructTokenEncoder(_TokenEncoder):
@@ -173,12 +182,12 @@ class StructTokenEncoder(_TokenEncoder):
     def __init__(self, config: Esm2Config, output_dim: int,
                  pooling_type: str = "mean", proj_type: Optional[str] = "linear",
                  use_logit_scale: bool = True,
-                 learnable_logit_scale: bool = False, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16,
+                 learnable_logit_scale: bool = False, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
                  pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen=False,
-                         device=device, dtype=dtype,
+                         tp=tp, device=device, dtype=dtype,
                          pretrained_dir=pretrained_dir)
 
 
@@ -192,12 +201,13 @@ class TextEncoder(_TokenEncoder):
                  use_logit_scale: bool = True,
                  learnable_logit_scale: bool = False, frozen: bool = True,
                  lora: Optional[LoraConfig] = None, remat: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 tp: TP = (1, 0), device="cuda",
+                 dtype: torch.dtype = torch.bfloat16,
                  pretrained_dir: Optional[str] = None):
         super().__init__(config, output_dim, pooling_type, proj_type,
                          use_logit_scale, learnable_logit_scale, frozen,
-                         lora=lora, remat=remat, device=device, dtype=dtype,
-                         pretrained_dir=pretrained_dir)
+                         lora=lora, remat=remat, tp=tp, device=device,
+                         dtype=dtype, pretrained_dir=pretrained_dir)
 
     @staticmethod
     def _transformer(config, quant_int8, lora, remat, **kw) -> nn.Module:
@@ -245,12 +255,14 @@ class MsaEncoder(nn.Module):
 
     def __init__(self, config: MsaTransformerConfig, output_dim: int,
                  proj_type: Optional[str] = "mlp", use_logit_scale: bool = True,
-                 learnable_logit_scale: bool = False, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+                 learnable_logit_scale: bool = False, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.config = config
         self.frozen = True  # always frozen, as in the reference
-        self.transformer = MsaTransformer(config, device=device, dtype=dtype)
+        self.tp = tp
+        self.transformer = MsaTransformer(config, tp=tp, device=device,
+                                          dtype=dtype)
         self.transformer.requires_grad_(False)
         self.head = EncoderHead(
             config.hidden_size, output_dim, proj_type, "identity",
@@ -309,6 +321,7 @@ def create_sequence_encoder(
     remat: bool = False,
     quantize: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
+    tp: Optional[TP] = None,
 ) -> SequenceEncoder:
     """Build a SequenceEncoder from the config keys of
     configs/model/components/sequence.yaml. `dtype` defaults to that
@@ -320,7 +333,10 @@ def create_sequence_encoder(
     are PyTorch's default init: load a state_dict (see `convert`) or call
     `esm2.init_esm2_weights_`. A local HF directory with weights sets
     `pretrained_dir` (unless `pretrained` is false), and
-    `OneProtModule.load_pretrained` loads them."""
+    `OneProtModule.load_pretrained` loads them. `tp` (model ranks, rank)
+    defaults to the mesh's model group (`mesh.model_world()`); an int8 hub
+    over several raises NotImplementedError (ROADMAP.md Queue 1 item
+    13)."""
     del lora_target_modules  # q/k/v is the only supported target set
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' is supported")
@@ -336,8 +352,8 @@ def create_sequence_encoder(
         pooling_type=pooling_type, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen,
-        quant_int8=quant_int8, lora=lora, remat=remat, device=device,
-        dtype=_dtype(dtype),
+        quant_int8=quant_int8, lora=lora, remat=remat,
+        tp=tp or model_world(), device=device, dtype=_dtype(dtype),
         pretrained_dir=_local_hf_dir(model_name_or_path) if pretrained
         else None)
 
@@ -351,6 +367,7 @@ def create_struct_token_encoder(
     learnable_logit_scale: bool = False,
     dtype: Union[str, torch.dtype] = "bfloat16",
     device: Union[str, torch.device] = "cuda",
+    tp: Optional[TP] = None,
 ) -> StructTokenEncoder:
     """Build a StructTokenEncoder from the config keys of
     configs/model/components/struct_token.yaml: the named ESM2 with 21
@@ -362,8 +379,9 @@ def create_struct_token_encoder(
     return StructTokenEncoder(
         cfg, output_dim=output_dim, pooling_type=pooling_type,
         proj_type=proj_type, use_logit_scale=use_logit_scale,
-        learnable_logit_scale=learnable_logit_scale, device=device,
-        dtype=_dtype(dtype), pretrained_dir=_local_hf_dir(model_name_or_path))
+        learnable_logit_scale=learnable_logit_scale, tp=tp or model_world(),
+        device=device, dtype=_dtype(dtype),
+        pretrained_dir=_local_hf_dir(model_name_or_path))
 
 
 def create_text_encoder(
@@ -383,6 +401,7 @@ def create_text_encoder(
     dtype: Union[str, torch.dtype] = "bfloat16",
     remat: bool = False,
     device: Union[str, torch.device] = "cuda",
+    tp: Optional[TP] = None,
 ) -> TextEncoder:
     """Build a TextEncoder from the config keys of
     configs/model/components/text.yaml: the BERT size the name resolves to
@@ -404,8 +423,8 @@ def create_text_encoder(
         output_dim=output_dim, pooling_type=pooling_type, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
         learnable_logit_scale=learnable_logit_scale, frozen=frozen, lora=lora,
-        remat=remat, device=device, dtype=_dtype(dtype),
-        pretrained_dir=_local_hf_dir(model_name_or_path))
+        remat=remat, tp=tp or model_world(), device=device,
+        dtype=_dtype(dtype), pretrained_dir=_local_hf_dir(model_name_or_path))
 
 
 def create_struct_graph_encoder(
@@ -457,6 +476,7 @@ def create_msa_encoder(
     use_all_msa: bool = True,
     dtype: Union[str, torch.dtype] = "bfloat16",
     device: Union[str, torch.device] = "cuda",
+    tp: Optional[TP] = None,
 ) -> MsaEncoder:
     """Build an MsaEncoder with the settings of
     configs/model/components/msa.yaml: esm_msa1b at its published widths
@@ -477,8 +497,8 @@ def create_msa_encoder(
     return MsaEncoder(
         cfg, output_dim=output_dim, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
-        learnable_logit_scale=learnable_logit_scale, device=device,
-        dtype=_dtype(dtype))
+        learnable_logit_scale=learnable_logit_scale, tp=tp or model_world(),
+        device=device, dtype=_dtype(dtype))
 
 
 def _route(modality: str) -> str:

@@ -29,6 +29,20 @@ so `Esm2` refuses any other compute dtype there when it is built
 the compute dtype) is the dtype the parameters are stored in: float32 for a
 trainable bf16 tower, as flax keeps them (see `layers`).
 
+With `tp = (ranks, rank)` above one rank (tensor parallelism over the
+mesh's model group, `core/partitioning.py`), each layer holds its model
+rank's shard: q, k and v column-parallel (this rank's `num_heads / ranks`
+heads, a contiguous block of whole heads, so that [B, L, (H/m) D] goes
+into the attention kernels as it is), o row-parallel (its partial sums
+reduced over the group, the bias added once after), fc1 column- and fc2
+row-parallel, a LoRA `lora_B` split with its q/k/v and `lora_A` whole
+(its gradient is a sum of the ranks' parts: `tp_partial_grad`). Where
+the model axis does not divide the heads (the JAX rules split q/k/v
+wherever it divides H, across heads), q, k and v stay whole and o takes
+its block of their whole output: a documented placement difference with
+the same function. An int8 hub is not split (ROADMAP.md Queue 1 item 13:
+its GELU -> int8 rows need the whole row's absmax).
+
 With `segment_ids` (packed rows: several proteins per row, padding -1), the
 token-dropout rescale is taken per protein and attention is block-diagonal
 per segment. Packed rows with heads wider than 64 run on the CPU only (the
@@ -58,8 +72,19 @@ from oneprot_tpu_torch.kernels.flash_mha import (  # noqa: F401  (re-exported)
     mha_attention,
     rotate_half,
 )
+from oneprot_tpu_torch.core import collectives
+from oneprot_tpu_torch.core.mesh import INT8_TENSOR_PARALLEL_ITEM
 from oneprot_tpu_torch.kernels.gelu_quant import fused_gelu_quant
-from oneprot_tpu_torch.models.layers import Dense, Embedding, LayerNorm
+from oneprot_tpu_torch.models.layers import (
+    TP,
+    ColumnParallelDense,
+    Dense,
+    Embedding,
+    LayerNorm,
+    draw_,
+    mark_shard,
+    tensor_parallel_dense,
+)
 
 MASK_RATIO_TRAIN = 0.15 * 0.8  # ESM2 pretraining mask rate (token dropout)
 # HF config.json files of published ESM2 sizes with no preset name (widths
@@ -230,10 +255,13 @@ class Int8Dense(nn.Module):
         return y.reshape(*lead, self.out_features).to(self.dtype)
 
 
-def _dense(quant_int8: bool, n_in: int, n_out: int, **kw) -> nn.Module:
+def _dense(quant_int8: bool, n_in: int, n_out: int, kind: str = "column",
+           tp: TP = (1, 0), **kw) -> nn.Module:
+    """Int8Dense, or a Dense split as `kind` ("column" / "row") over the
+    model ranks of `tp` (`layers.tensor_parallel_dense`)."""
     if quant_int8:
         return Int8Dense(n_in, n_out, device=kw["device"], dtype=kw["dtype"])
-    return Dense(n_in, n_out, **kw)
+    return tensor_parallel_dense(kind, n_in, n_out, tp, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,7 +272,7 @@ class LoraConfig:
     dropout: float = 0.0
 
 
-class LoraDense(Dense):
+class LoraDense(ColumnParallelDense):
     """Dense with LoRA factors (counterpart of the JAX `LoraDense`, peft's
     math): y = x W^T + b + (alpha / r) * dropout(x) A^T B^T, with `lora_A`
     [r, in] drawn from U(+-sqrt(1/in)) (peft's kaiming_uniform(a=sqrt(5)))
@@ -258,21 +286,31 @@ class LoraDense(Dense):
     `stream`): the step's seed (`set_lora_dropout_seed`) and this layer's
     own number. So a layer that runs again under activation checkpointing
     draws the mask it drew the first time; a shared generator would have
-    moved on and made the gradients silently wrong."""
+    moved on and made the gradients silently wrong.
+
+    Split over `tp` model ranks (column-parallel, as q/k/v are), a rank
+    holds its block of the weight, the bias and `lora_B`, and the whole
+    `lora_A`; the branch runs on the input the dense part sees (the model
+    group's copy), so each rank's `lora_A` gradient is its part of the sum
+    (`tp_partial_grad`: the optimizer sums it over the group)."""
 
     def __init__(self, in_features: int, out_features: int, lora: LoraConfig,
-                 stream: int, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16,
+                 stream: int, *, tp: TP = (1, 0), copy_input: bool = True,
+                 device="cuda", dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features, device=device,
-                         dtype=dtype, param_dtype=param_dtype)
+        super().__init__(in_features, out_features, tp=tp,
+                         copy_input=copy_input, device=device, dtype=dtype,
+                         param_dtype=param_dtype)
         pdt = param_dtype or dtype
         self.lora_A = nn.Parameter(torch.empty(lora.rank, in_features,
                                                device=device, dtype=pdt))
-        self.lora_B = nn.Parameter(torch.zeros(out_features, lora.rank,
+        self.lora_B = nn.Parameter(torch.zeros(self.out_features, lora.rank,
                                                device=device, dtype=pdt))
         bound = in_features ** -0.5
         nn.init.uniform_(self.lora_A, -bound, bound)
+        mark_shard(self.lora_B, 0, tp)
+        if tp[0] > 1:
+            self.lora_A.tp_partial_grad = True
         self.lora_scale = lora.alpha / lora.rank
         self.lora_dropout = lora.dropout
         self.stream = stream
@@ -280,7 +318,9 @@ class LoraDense(Dense):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = super().forward(x)
+        if self.copy_input and self.ranks > 1:
+            x = collectives.copy_to_model_group(x)
+        y = Dense.forward(self, x)
         xl = x.to(dt)
         if self.training and self.lora_dropout > 0.0:
             keep = 1.0 - self.lora_dropout
@@ -300,10 +340,32 @@ def set_lora_dropout_seed(model: nn.Module, seed: int) -> None:
             mod.dropout_seed = seed
 
 
+def split_heads(num_heads: int, tp: TP) -> TP:
+    """The model ranks that q, k and v of an attention of `num_heads` heads
+    split over: `tp` where its ranks divide the heads (each rank whole
+    heads), else (1, 0) (q, k and v whole)."""
+    return tp if tp[0] > 1 and num_heads % tp[0] == 0 else (1, 0)
+
+
+def qkv_projections(config, lora: Optional[LoraConfig], layer_index: int,
+                    tp: TP, quant_int8: bool = False, **kw):
+    """q, k and v of an ESM2 or BERT attention over model ranks `tp` (from
+    `split_heads`): column-parallel Dense or LoraDense layers whose input
+    the attention copies to the model group once; with LoRA, streams
+    3 * layer_index + 0..2."""
+    H = config.hidden_size
+    if lora is None:
+        return tuple(_dense(quant_int8, H, H, "column", tp, copy_input=False,
+                            **kw) for _ in range(3))
+    return tuple(LoraDense(H, H, lora, 3 * layer_index + i, tp=tp,
+                           copy_input=False, **kw) for i in range(3))
+
+
 class Esm2SelfAttention(nn.Module):
     def __init__(self, config: Esm2Config, quant_int8: bool = False,
                  lora: Optional[LoraConfig] = None, layer_index: int = 0, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 tp: TP = (1, 0), device="cuda",
+                 dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if quant_int8 and lora is not None:
@@ -311,19 +373,20 @@ class Esm2SelfAttention(nn.Module):
         self.config = config
         H = config.hidden_size
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        if lora is None:
-            self.q, self.k, self.v = (
-                _dense(quant_int8, H, H, **kw) for _ in range(3))
-        else:
-            self.q, self.k, self.v = (
-                LoraDense(H, H, lora, 3 * layer_index + i, **kw)
-                for i in range(3))
-        self.o = _dense(quant_int8, H, H, **kw)
+        qkv_tp = split_heads(config.num_heads, tp)
+        self.heads_split = qkv_tp[0] > 1
+        self.local_heads = config.num_heads // qkv_tp[0]
+        self.q, self.k, self.v = qkv_projections(config, lora, layer_index,
+                                                 qkv_tp, quant_int8, **kw)
+        self.o = _dense(quant_int8, H, H, "row", tp,
+                        input_is_parallel=self.heads_split, **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        nh = self.config.num_heads
+        nh = self.local_heads
+        if self.heads_split:
+            x = collectives.copy_to_model_group(x)
         q2d, k2d, v2d = self.q(x), self.k(x), self.v(x)
         B, L, hd = q2d.shape
         D = hd // nh
@@ -349,7 +412,8 @@ class Esm2SelfAttention(nn.Module):
 class Esm2Layer(nn.Module):
     def __init__(self, config: Esm2Config, quant_int8: bool = False,
                  lora: Optional[LoraConfig] = None, layer_index: int = 0, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 tp: TP = (1, 0), device="cuda",
+                 dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         H, eps = config.hidden_size, config.layer_norm_eps
@@ -357,10 +421,12 @@ class Esm2Layer(nn.Module):
         self.quant_int8 = quant_int8
         self.attn_ln = LayerNorm(H, eps=eps, **kw)
         self.attn = Esm2SelfAttention(config, quant_int8, lora, layer_index,
-                                      **kw)
+                                      tp=tp, **kw)
         self.ffn_ln = LayerNorm(H, eps=eps, **kw)
-        self.fc1 = _dense(quant_int8, H, config.intermediate_size, **kw)
-        self.fc2 = _dense(quant_int8, config.intermediate_size, H, **kw)
+        self.fc1 = _dense(quant_int8, H, config.intermediate_size, "column",
+                          tp, **kw)
+        self.fc2 = _dense(quant_int8, config.intermediate_size, H, "row", tp,
+                          **kw)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor,
@@ -378,9 +444,16 @@ class Esm2(nn.Module):
 
     def __init__(self, config: Esm2Config, quant_int8: bool = False,
                  lora: Optional[LoraConfig] = None, remat: bool = False, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16,
+                 tp: TP = (1, 0), device="cuda",
+                 dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if quant_int8 and tp[0] > 1:
+            raise NotImplementedError(
+                f"an int8 hub over {tp[0]} model ranks: the GELU -> int8 "
+                "kernel scales each fc1 row by its whole absmax, which a "
+                "column-parallel fc1 splits; run the int8 hub at "
+                f"trainer.mesh.model=1 ({INT8_TENSOR_PARALLEL_ITEM})")
         check_card_dtype(device, dtype,
                          config.hidden_size // config.num_heads)
         self.config = config
@@ -389,7 +462,7 @@ class Esm2(nn.Module):
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       **kw)
         self.layers = nn.ModuleList(
-            Esm2Layer(config, quant_int8, lora, i, **kw)
+            Esm2Layer(config, quant_int8, lora, i, tp=tp, **kw)
             for i in range(config.num_layers))
         self.final_ln = LayerNorm(config.hidden_size,
                                   eps=config.layer_norm_eps, **kw)
@@ -446,22 +519,31 @@ def _segment_dropout_scale(attention_mask: torch.Tensor, is_mask: torch.Tensor,
     return (1.0 - MASK_RATIO_TRAIN) / (1.0 - per_token[1] / seg_len)
 
 
+def init_dense_(mod: nn.Linear, generator: torch.Generator) -> None:
+    """A Linear's random weights: lecun-normal over its full fan-in, bias
+    zero, LoRA factors as LoraDense makes them (A uniform, B zero); a
+    shard draws the full weight and keeps its block (`layers.draw_`)."""
+    fan_in = getattr(mod, "full_in", mod.in_features)
+    draw_(mod.weight, lambda w: w.normal_(0.0, fan_in ** -0.5,
+                                          generator=generator))
+    if mod.bias is not None:
+        mod.bias.zero_()
+    if isinstance(mod, LoraDense):
+        bound = fan_in ** -0.5
+        mod.lora_A.uniform_(-bound, bound, generator=generator)
+        mod.lora_B.zero_()
+
+
 def init_esm2_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`, made where the parameters live:
-    Linear weights lecun-normal and biases zero, embeddings N(0, 0.02),
+    Linear weights lecun-normal and biases zero (`init_dense_`: a shard
+    draws the unsharded model's numbers), embeddings N(0, 0.02),
     LayerNorms identity, LoRA factors as LoraDense makes them (A uniform,
     B zero). Used where no checkpoint is available."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, mod.in_features ** -0.5,
-                                   generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-                if isinstance(mod, LoraDense):
-                    bound = mod.in_features ** -0.5
-                    mod.lora_A.uniform_(-bound, bound, generator=generator)
-                    mod.lora_B.zero_()
+                init_dense_(mod, generator)
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
             elif isinstance(mod, nn.LayerNorm):

@@ -16,6 +16,12 @@ LayerNorm, row 0 decides which columns are keys (col bias -1e9), a row with
 no token decides which rows are keys of column attention, and q of the row
 attention is zeroed at padded positions before the tied sum.
 
+With `tp = (ranks, rank)` the JAX rules of `core/partitioning.py` split
+the MLP (fc1 column-, fc2 row-parallel) and both attentions' `o` by rows;
+their q, k and v are plain Dense layers the rules leave whole, so each `o`
+takes its block of a whole input (`RowParallelDense(input_is_parallel=
+False)`).
+
 The tower is frozen wherever it is used, so its parameters are stored in
 the compute dtype (bf16 on the card, where the tied-row kernel takes bf16
 only) and modules are built on the card unless told otherwise.
@@ -32,7 +38,13 @@ import torch.nn.functional as F
 from oneprot_tpu_torch.kernels.attention import fused_tied_row
 from oneprot_tpu_torch.kernels.tied_row_attention import tied_scale
 from oneprot_tpu_torch.models.esm2 import init_esm2_weights_
-from oneprot_tpu_torch.models.layers import Dense, Embedding, LayerNorm
+from oneprot_tpu_torch.models.layers import (
+    TP,
+    Dense,
+    Embedding,
+    LayerNorm,
+    tensor_parallel_dense,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +62,21 @@ class MsaTransformerConfig:
     layer_norm_eps: float = 1e-5
 
 
-def _projections(cfg: MsaTransformerConfig, **kw):
+def _projections(cfg: MsaTransformerConfig, tp: TP, **kw):
+    """q, k, v whole and o row-parallel over `tp` on their whole output."""
     H = cfg.hidden_size
-    return (Dense(H, H, **kw) for _ in range(4))
+    return (*(Dense(H, H, **kw) for _ in range(3)),
+            tensor_parallel_dense("row", H, H, tp, input_is_parallel=False,
+                                  **kw))
 
 
 class TiedRowAttention(nn.Module):
-    def __init__(self, config: MsaTransformerConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, config: MsaTransformerConfig, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.config = config
-        self.q, self.k, self.v, self.o = _projections(config, device=device,
+        self.q, self.k, self.v, self.o = _projections(config, tp,
+                                                      device=device,
                                                       dtype=dtype)
 
     def forward(self, x: torch.Tensor, col_bias: torch.Tensor,
@@ -78,11 +94,12 @@ class TiedRowAttention(nn.Module):
 
 
 class ColumnAttention(nn.Module):
-    def __init__(self, config: MsaTransformerConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, config: MsaTransformerConfig, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.config = config
-        self.q, self.k, self.v, self.o = _projections(config, device=device,
+        self.q, self.k, self.v, self.o = _projections(config, tp,
+                                                      device=device,
                                                       dtype=dtype)
 
     def forward(self, x: torch.Tensor, row_bias: torch.Tensor) -> torch.Tensor:
@@ -103,18 +120,20 @@ class ColumnAttention(nn.Module):
 
 
 class MsaLayer(nn.Module):
-    def __init__(self, config: MsaTransformerConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, config: MsaTransformerConfig, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         H, eps = config.hidden_size, config.layer_norm_eps
         kw = dict(device=device, dtype=dtype)
         self.row_ln = LayerNorm(H, eps=eps, **kw)
-        self.row_attn = TiedRowAttention(config, **kw)
+        self.row_attn = TiedRowAttention(config, tp=tp, **kw)
         self.col_ln = LayerNorm(H, eps=eps, **kw)
-        self.col_attn = ColumnAttention(config, **kw)
+        self.col_attn = ColumnAttention(config, tp=tp, **kw)
         self.ffn_ln = LayerNorm(H, eps=eps, **kw)
-        self.fc1 = Dense(H, config.intermediate_size, **kw)
-        self.fc2 = Dense(config.intermediate_size, H, **kw)
+        self.fc1 = tensor_parallel_dense("column", H, config.intermediate_size,
+                                         tp, **kw)
+        self.fc2 = tensor_parallel_dense("row", config.intermediate_size, H,
+                                         tp, **kw)
 
     def forward(self, x, col_bias, row_bias, pad_mask):
         x = x + self.row_attn(self.row_ln(x), col_bias, pad_mask)
@@ -126,8 +145,8 @@ class MsaLayer(nn.Module):
 class MsaTransformer(nn.Module):
     """Tokens [B, R, L] -> representations [B, R, L, H]."""
 
-    def __init__(self, config: MsaTransformerConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, config: MsaTransformerConfig, *, tp: TP = (1, 0),
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"dtype {dtype} on the card: the tied-row "
@@ -143,7 +162,7 @@ class MsaTransformer(nn.Module):
             torch.zeros(config.max_rows, 1, H, **kw))
         self.emb_ln_before = LayerNorm(H, eps=config.layer_norm_eps, **kw)
         self.layers = nn.ModuleList(
-            MsaLayer(config, **kw) for _ in range(config.num_layers))
+            MsaLayer(config, tp=tp, **kw) for _ in range(config.num_layers))
         self.emb_ln_after = LayerNorm(H, eps=config.layer_norm_eps, **kw)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,15 @@ is a hard link to the same file (a copy where links are refused).
 Under a process group rank 0 alone writes (`state.pt`, the link, the
 sidecar, the peft adapter), then every rank waits at a barrier, so that a
 rank that restores next reads a whole file; every rank restores the same
-file. The ranks hold the same weights (`OneProtModule.init` and the
+file. The data groups hold the same weights (`OneProtModule.init` and the
 gradient all-reduce keep them so), as the JAX package's process 0
-coordinates one save of replicated arrays.
+coordinates one save of replicated arrays. Under a model axis a
+checkpoint still holds full tensors, the parameters' and the Adam
+moments': rank 0's model group joins its shards, one tensor at a time
+(`partitioning.gather_state_dict`), and a restore cuts each rank's block
+out of them. A checkpoint is so the same at any layout: written at
+model 2 it restores at model 1 and back, and `restore_any` and
+`from_run_dir` read it as any other.
 
 `restore_any` takes such a checkpoint or a reference-trained Lightning
 `.ckpt`; an Orbax directory written by the JAX package is refused (the
@@ -34,27 +40,75 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core import partitioning
 from oneprot_tpu_torch.core.collectives import barrier
-from oneprot_tpu_torch.core.mesh import is_main_process
+from oneprot_tpu_torch.core.mesh import (
+    data_world,
+    is_main_process,
+    model_world,
+)
 
 STATE_FILE = "state.pt"
 BEST_VALUE_KEY = "checkpoint/best_value"
+MOMENTS = ("exp_avg", "exp_avg_sq")  # Adam's per-element state
+
+
+def _optimizer_layout(module) -> Dict[int, int]:
+    """{optimizer state index: split dimension} of the split parameters
+    (the state is indexed by the order `ClippedOptimizer` holds them)."""
+    return {i: p.tp_dim for i, p in enumerate(module.opt.params)
+            if getattr(p, "tp_dim", None) is not None}
+
+
+def _map_moments(opt_state: dict, layout: Dict[int, int], fn) -> dict:
+    """`opt_state` with each split parameter's moments passed through
+    fn(tensor, dim)."""
+    state = {i: dict(s) for i, s in opt_state["state"].items()}
+    for i, dim in layout.items():
+        for key in MOMENTS:
+            if key in state.get(i, {}):
+                state[i][key] = fn(state[i][key], dim)
+    return {**opt_state, "state": state}
 
 
 def state_of(module) -> dict:
-    return {"model": module.model.state_dict(),
-            "optimizer": module.opt.base.state_dict(),
-            "step": int(module.step)}
+    """The module's whole checkpoint state, with full tensors: under a
+    model axis a collective of the model group (its blocks joined, each
+    tensor brought to the host as it comes)."""
+    state = {"model": module.model.state_dict(),
+             "optimizer": module.opt.base.state_dict(),
+             "step": int(module.step)}
+    if model_world()[0] == 1:
+        return state
+    from oneprot_tpu_torch.core.collectives import gather_from_model_group
+
+    state["model"] = {k: v.cpu() for k, v in partitioning.gather_state_dict(
+        state["model"], partitioning.layout_of(module.model)).items()}
+    state["optimizer"] = _map_moments(
+        state["optimizer"], _optimizer_layout(module),
+        lambda t, dim: gather_from_model_group(t, dim).cpu())
+    return state
 
 
 def load_state(module, path: str, state: Optional[dict] = None) -> None:
     """Restore a checkpoint directory (or its state file, or that file's
-    loaded `state`) into an initialised module, on the module's device."""
+    loaded `state`) into an initialised module, on the module's device;
+    under a model axis each split tensor's block of this model rank."""
+    m, rank = model_world()
     if state is None:
         path = os.path.abspath(path)
         if os.path.isdir(path):
             path = os.path.join(path, STATE_FILE)
-        state = torch.load(path, map_location=module.device, weights_only=True)
+        state = torch.load(path, map_location="cpu" if m > 1
+                           else module.device, weights_only=True)
+    if m > 1:
+        state = {
+            **state,
+            "model": partitioning.shard_state_dict(
+                state["model"], rank, m, partitioning.layout_of(module.model)),
+            "optimizer": _map_moments(
+                state["optimizer"], _optimizer_layout(module),
+                lambda t, dim: t.chunk(m, dim)[rank].contiguous())}
     module.model.load_state_dict(state["model"])
     module.opt.base.load_state_dict(state["optimizer"])
     module.step = int(state["step"])
@@ -119,8 +173,9 @@ class CheckpointManager:
             saved["last"] = os.path.join(self.dirpath, "last")
         if improved:
             saved["best"] = os.path.join(self.dirpath, "best")
+        # rank 0's model group (data rank 0) joins the shards
+        state = state_of(module) if saved and data_world()[1] == 0 else None
         if is_main_process():
-            state = state_of(module)
             if self.save_last:
                 self._write("last", state, None, metrics)
             if improved:
@@ -196,8 +251,15 @@ class PeftCheckpoint:
         enc = module.encoders.get(self.encoder_name)
         if enc is None:
             return None
-        adapter = export_peft_lora(enc.transformer.state_dict(),
-                                   self.num_layers)
+        # a split lora_B joined over the model group, as the JAX export
+        # gathers it (every model group alike: the factors are small)
+        factors = {k: v for k, v in enc.transformer.state_dict().items()
+                   if k.rsplit(".", 1)[-1] in ("lora_A", "lora_B")}
+        layout = {k: d for k, d in
+                  partitioning.layout_of(enc.transformer).items()
+                  if k in factors}
+        adapter = export_peft_lora(
+            partitioning.gather_state_dict(factors, layout), self.num_layers)
         if not adapter:
             return None
         out = os.path.join(self.dirpath, "adapter_model.npz")

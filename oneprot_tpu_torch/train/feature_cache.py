@@ -21,6 +21,14 @@ store in the JAX package's byte format, and RAM misses look there before
 recomputing. The store is guarded by a digest of the frozen weights; the
 port's digest is its own (state-dict names), so a store the JAX package
 fingerprinted is refused, while one it wrote without a fingerprint reads.
+
+Under a model axis the ranks of a model group compute the pooled rows of
+the same batches together (the hub's forward is a collective of the
+group): they decide a batch's hit or miss together (all hit, or all
+compute), and one of them, model rank 0, writes the disk store for its
+data group; the others read it. Across data groups
+each model rank 0 writes its own shard files, as every rank does without
+a model axis.
 """
 
 from __future__ import annotations
@@ -34,18 +42,22 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from oneprot_tpu_torch.core.collectives import all_agree
+from oneprot_tpu_torch.core.mesh import model_group, model_world
 from oneprot_tpu_torch.models.heads import empty_slot_filler
 
 
-def params_fingerprint(state: Dict[str, torch.Tensor]) -> str:
+def params_fingerprint(state: Dict[str, torch.Tensor],
+                       shapes: Optional[Dict[str, tuple]] = None) -> str:
     """Digest of (frozen) state-dict entries: per entry in name order, its
-    name, shape, dtype and first 4 values as f32; only those 4 values leave
-    the card."""
+    name, shape (`shapes[name]` where given: a shard's full shape), dtype
+    and first 4 values as f32; only those 4 values leave the card."""
     h = hashlib.sha256()
+    shapes = shapes or {}
     for name in sorted(state):
         t = state[name]
         h.update(name.encode())
-        h.update(str(tuple(t.shape)).encode())
+        h.update(str(tuple(shapes.get(name, t.shape))).encode())
         h.update(str(t.dtype).encode())
         head = t.detach().reshape(-1)[:4].float().cpu().numpy()
         h.update(np.asarray(head, np.float32).tobytes())
@@ -67,8 +79,9 @@ class DiskFeatureStore:
     MAGIC = b"OPFC1\n"
 
     def __init__(self, directory: str, flush_every: int = 256,
-                 fingerprint: Optional[str] = None):
+                 fingerprint: Optional[str] = None, read_only: bool = False):
         self.dir = directory
+        self.read_only = read_only
         os.makedirs(directory, exist_ok=True)
         self._check_fingerprint(fingerprint)
         self._index: dict = {}  # key -> (bin_path, offset, dim)
@@ -100,7 +113,7 @@ class DiskFeatureStore:
                     f"{fingerprint[:12]}...): serving it would train on "
                     "stale features. Delete the directory, or point "
                     "cache_persist_dir at a store built with these weights.")
-        else:
+        elif not self.read_only:
             with open(path, "w") as f:
                 f.write(fingerprint + "\n")
 
@@ -166,7 +179,7 @@ class DiskFeatureStore:
         return np.array(mm[off:off + dim])
 
     def append(self, key: bytes, row: np.ndarray) -> None:
-        if key in self._index:
+        if key in self._index or self.read_only:
             return
         if self._own_bin is None:
             self._open_own_shard()
@@ -213,7 +226,10 @@ class FrozenFeatureCache:
                  fingerprint: Optional[str] = None):
         self._store: "OrderedDict[bytes, np.ndarray]" = OrderedDict()
         self.max_entries = max_entries
-        self._disk = (DiskFeatureStore(persist_dir, fingerprint=fingerprint)
+        # model rank 0 appends computed rows to the disk store, the other
+        # ranks of its model group only read it
+        self._disk = (DiskFeatureStore(persist_dir, fingerprint=fingerprint,
+                                       read_only=model_world()[1] != 0)
                       if persist_dir else None)
         self.hits = 0
         self.misses = 0
@@ -271,6 +287,11 @@ class FrozenFeatureCache:
             self._store.popitem(last=False)  # the least recently used
         self._store[key] = row
 
+    @staticmethod
+    def _agree(hit: bool) -> bool:
+        """A hit only where every rank of the model group hits."""
+        return hit if model_world()[0] == 1 else all_agree(hit, model_group())
+
     def _insert(self, key: bytes, row: np.ndarray) -> None:
         self._insert_ram(key, row)
         if self._disk is not None:
@@ -287,7 +308,7 @@ class FrozenFeatureCache:
         seq_np = np.ascontiguousarray(_host(seq_inputs))
         keys = [ns + row.tobytes() for row in seq_np]
         rows = [self._lookup(k) for k in keys]
-        if all(r is not None for r in rows):
+        if self._agree(all(r is not None for r in rows)):
             self.hits += len(keys)
             return np.stack(rows)
         self.misses += len(keys)
@@ -318,7 +339,8 @@ class FrozenFeatureCache:
                     keys[r * P + s] = ns + ids_np[r][seg_r == s].tobytes()
         n_valid = sum(1 for k in keys if k is not None)
         rows = [None if k is None else self._lookup(k) for k in keys]
-        if all(r is not None for k, r in zip(keys, rows) if k is not None):
+        if self._agree(all(r is not None for k, r in zip(keys, rows)
+                            if k is not None)):
             self.hits += n_valid
             d = next(r for r in rows if r is not None).shape[-1]
             filler = empty_slot_filler(d).numpy()

@@ -5,8 +5,9 @@ oneprot_tpu/train/metrics.py: `gather_features`, `RetrievalMetric`,
 Validation features are ranked on the host with numpy: R@k and the median
 rank, sequence -> modality and back. Val and test pools are capped at 1000
 rows, where a [1k, 1k] argsort takes microseconds. Across processes the
-features are gathered first (`gather_features`), so every rank computes
-the same metrics.
+features are gathered over the data group first (`gather_features`; the
+ranks of a model group hold the same rows), so every rank computes the
+same metrics.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from oneprot_tpu_torch.core.collectives import gather_rows
 
 def gather_features(x) -> np.ndarray:
     """Eval features as an f32 host array: under a process group, every
-    rank's rows in rank order (their counts may differ), so that every
-    rank ranks the same global pool."""
+    data rank's rows in rank order (their counts may differ), so that every
+    rank ranks the same global pool, each row once."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x, np.float32))
     return gather_rows(x.detach()).float().cpu().numpy()

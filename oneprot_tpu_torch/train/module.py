@@ -32,34 +32,41 @@ sigmoid, `losses/siglip.py`) at logit scale 1 with no bias, as the JAX
 module calls them: the heads scale the features. Every step runs the
 model in training mode with LoRA dropout and the graph towers' noise
 and dropout seeded from (seed, step, rank), the counterpart of the JAX
-step's fold_in(key(seed), step) (not its numbers; rank 0's seed is
-(seed, step)'s, and the other ranks draw other masks). The eval steps run
-in eval mode without autograd and return (seq_feats, mod_feats, loss). The
+step's fold_in(key(seed), step) (not its numbers; data rank 0's seed is
+(seed, step)'s, and the other data ranks draw other masks; the ranks of a
+model group draw one mask, as their activations are one replica's). The
+eval steps run in eval mode without autograd and return (seq_feats,
+mod_feats, loss). The
 `scheduler` config is read by the trainer (`train/scheduler.py`). A loss
 name other than CLIP or SigLIP raises; the JAX module takes any other
 name for SigLIP.
 
-Across several processes (`core/mesh.py:init_distributed`; one replica a
-process, each with its own share of every batch, the same count of rows
-on every rank) the module is the JAX module under a `data` mesh on the
-concatenated batch: `init` broadcasts rank 0's trainable parameters and
-checks that every rank holds the same frozen ones; the training losses
-take the global batch's negatives (CLIP's gather with gradient, by
-`local_loss`; SigLIP's ring), each rank's share scaled so that the
-gradient all-reduce-mean of `ClippedOptimizer` gives the global loss's
-gradient; a packed batch's masked losses and L1 are normalised by the
-global valid count. A step returns the global loss (the mean of the
-shares); an eval step returns this rank's features and the loss of the
-global batch, computed on the gathered features. `gather_with_grad` is
-taken for the config's sake and changes nothing (the gather always
-carries the gradient, as in the JAX package).
+Across several processes (`core/mesh.py:init_distributed`; one process a
+card, laid out as the `mesh` config's data x model grid, `check_mesh`)
+the module is the JAX module under that mesh on the concatenated batch.
+A model group holds one replica between them, each transformer weight
+the rules of `core/partitioning.py` split as its shard (the encoders are
+built so: `models/encoders.py`), and steps on the same rows; the data
+groups split every batch, the same count of rows on every data rank.
+`init` broadcasts rank 0's replicated trainable parameters to every rank
+and each shard from its model rank of data group 0 over its data group,
+and checks that the ranks of each data group hold the same frozen
+shards; the training losses take the global batch's negatives over the
+data group (CLIP's gather with gradient, by `local_loss`; SigLIP's ring),
+each data rank's share scaled so that the gradient all-reduce-mean of
+`ClippedOptimizer` gives the global loss's gradient; a packed batch's
+masked losses and L1 are normalised by the global valid count. A step
+returns the global loss (the mean of the data ranks' shares); an eval
+step returns this rank's features and the loss of the global batch,
+computed on the features gathered over the data group.
+`gather_with_grad` is taken for the config's sake and changes nothing
+(the gather always carries the gradient, as in the JAX package).
 
 `load_pretrained` puts a local HF directory's weights into each encoder
-that names one (`pretrained_dir`), and checks an int8 hub loaded so
-against its float twin (the int8 canary).
-
-Not ported here: tensor parallelism (`mesh.model` > 1; ROADMAP.md
-Queue 1 item 12).
+that names one (`pretrained_dir`; a shard takes its block), and checks an
+int8 hub loaded so against its float twin (the int8 canary). An int8 hub
+under a model axis is refused where it is built (ROADMAP.md Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -70,8 +77,16 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from oneprot_tpu_torch.core import collectives
-from oneprot_tpu_torch.core.mesh import DATA_AXIS, check_mesh, distributed, world
+from oneprot_tpu_torch.core import collectives, partitioning
+from oneprot_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    check_mesh,
+    data_group,
+    data_world,
+    distributed,
+    model_group,
+    model_world,
+)
 from oneprot_tpu_torch.losses.clip import clip_loss, clip_loss_masked
 from oneprot_tpu_torch.losses.siglip import siglip_loss, siglip_loss_masked
 from oneprot_tpu_torch.models.encoders import OneProtModel
@@ -85,9 +100,13 @@ Pack = Mapping[str, Any]  # {"ids": [R, L], "segment_ids": [R, L]}
 
 def _graft(module: torch.nn.Module,
            converted: Mapping[str, torch.Tensor]) -> None:
-    """Load `converted`'s tensors into `module` (each cast to its
+    """Load `converted`'s full tensors into `module` (each cut to the
+    block a shard holds, `partitioning.layout_of`, and cast to its
     parameter's dtype); the module's other leaves keep their values, keys
     the module lacks are ignored, and a shape that differs raises."""
+    m, rank = model_world()
+    converted = partitioning.shard_state_dict(
+        converted, rank, m, partitioning.layout_of(module))
     state = module.state_dict()
     for k, v in converted.items():
         if k in state:
@@ -96,6 +115,14 @@ def _graft(module: torch.nn.Module,
                                  f"shape {tuple(state[k].shape)} at {k}")
             state[k] = v
     module.load_state_dict(state)
+
+
+def _full_shape(shape, dim: int, m: int) -> tuple:
+    """The shape of the full tensor whose dimension `dim` a shard of
+    `shape` holds one of `m` blocks of."""
+    full = list(shape)
+    full[dim] *= m
+    return tuple(full)
 
 
 class OneProtModule:
@@ -153,8 +180,10 @@ class OneProtModule:
         bf16 as well, while its int8 weights and f32 dequantization scales
         keep their dtypes. The weights are the modules' own: load a
         state_dict first. Under a process group every rank then takes rank
-        0's trainable parameters, and a rank whose frozen parameters differ
-        from another's (their digest) raises on every rank."""
+        0's replicated trainable parameters and data group 0's shards of
+        its model rank, and a rank whose frozen parameters differ from
+        those of another rank of its data group (their digest) raises on
+        every rank."""
         self.mask = optim_lib.trainable_mask(self.encoders)
         trainable = []
         for name, p in self.model.named_parameters():
@@ -174,20 +203,45 @@ class OneProtModule:
             self._agree_on_weights(trainable)
         return self
 
+    def _frozen_state(self) -> Dict[str, torch.Tensor]:
+        return {k: v for k, v in self.model.state_dict().items()
+                if not self.mask.get(k, False)}
+
     def frozen_digest(self) -> str:
         """The frozen state's digest (`feature_cache.params_fingerprint`:
-        every entry's name, shape, dtype and first values)."""
+        every entry's name, shape, dtype and first values), the same at
+        any model-axis size: model rank 0 digests its shards under their
+        full shapes (their first values are the full tensors') and the
+        model group takes its digest."""
         from oneprot_tpu_torch.train.feature_cache import params_fingerprint
 
-        return params_fingerprint({k: v for k, v in
-                                   self.model.state_dict().items()
-                                   if not self.mask.get(k, False)})
+        m, rank = model_world()
+        state = self._frozen_state()
+        if m == 1:
+            return params_fingerprint(state)
+        layout = partitioning.layout_of(self.model)
+        digest = None
+        if rank == 0:
+            digest = params_fingerprint(state, {
+                k: _full_shape(v.shape, layout[k], m)
+                for k, v in state.items() if k in layout})
+        return collectives.broadcast_object(digest, group=model_group())
 
     def _agree_on_weights(self, trainable) -> None:
-        """Rank 0's trainable parameters on every rank; the frozen ones
-        must match already (each rank built or loaded them)."""
-        collectives.broadcast_([p.data for p in trainable])
-        digests = collectives.gather_objects(self.frozen_digest())
+        """Rank 0's replicated trainable parameters on every rank, each
+        shard from its model rank of data group 0 over its data group; the
+        frozen ones must match already within each data group (each rank
+        built or loaded them)."""
+        from oneprot_tpu_torch.train.feature_cache import params_fingerprint
+
+        sharded = [p.data for p in trainable
+                   if getattr(p, "tp_dim", None) is not None]
+        collectives.broadcast_([p.data for p in trainable
+                                if getattr(p, "tp_dim", None) is None])
+        if model_world()[0] > 1:
+            collectives.broadcast_(sharded, group=data_group())
+        digests = collectives.gather_objects(
+            params_fingerprint(self._frozen_state()), group=data_group())
         if len(set(digests)) > 1:
             raise ValueError(
                 "the ranks hold different frozen weights (digests "
@@ -286,6 +340,8 @@ class OneProtModule:
         any exception, an error here (a CUDA or kernel error) propagates."""
         from oneprot_tpu_torch.models.esm2 import Esm2
 
+        # an int8 hub is never split (esm2.Esm2 refuses it over a model
+        # axis), so its twin is built whole here
         log = get_pylogger("int8_canary")
         threshold = float(os.environ.get("ONEPROT_INT8_CANARY_MIN", "0.98"))
         r1_threshold = float(os.environ.get("ONEPROT_INT8_CANARY_R1", "1.0"))
@@ -379,7 +435,7 @@ class OneProtModule:
         if self.use_l1_regularization:
             v = valid.float()[:, None]
             count = collectives.sum_across(v.sum()) if axis else v.sum()
-            n = count.clamp_min(1.0) * seq_feats.shape[-1] / world()[0]
+            n = count.clamp_min(1.0) * seq_feats.shape[-1] / data_world()[0]
             loss = loss + 0.01 * (
                 (seq_feats.float().abs() * v).sum() / n
                 + (mod_feats.float().abs() * v).sum() / n)
@@ -394,10 +450,12 @@ class OneProtModule:
 
     def _begin_step(self) -> None:
         """Training mode, and this step's seed for LoRA dropout and for the
-        graph towers' noise and dropout: (seed, step), with the rank in
-        the high bits, so that ranks draw different masks."""
+        graph towers' noise and dropout: (seed, step), with the data rank
+        in the high bits, so that data ranks draw different masks and the
+        ranks of a model group, whose activations are one replica's, the
+        same one."""
         self.model.train()
-        seed = self.seed * 1_000_003 + self.step + (world()[1] << 40)
+        seed = self.seed * 1_000_003 + self.step + (data_world()[1] << 40)
         set_lora_dropout_seed(self.model, seed)
         set_graph_noise_seed(self.model, seed)
 

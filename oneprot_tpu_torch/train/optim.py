@@ -5,21 +5,32 @@ oneprot_tpu/train/optim.py: `adam`, `build_optimizer`, `trainable_mask`).
 formula (g * max_norm / norm when norm >= max_norm, no epsilon; torch's
 `clip_grad_norm_` adds 1e-6 to the norm) and then steps the base optimizer.
 Across several processes the trainable gradients are first replaced by
-their mean over the ranks, in one flat all-reduce (after the zero fill,
-before the clip): the clip then sees the global gradient, as optax does
-under GSPMD, and every rank steps Adam on the same numbers.
+their mean over the data group, in one flat all-reduce (after the zero
+fill, before the clip): the clip then sees the global gradient, as optax
+does under GSPMD, and every rank of a data group steps Adam on the same
+numbers. Under a model axis a shard's gradient is its block of the full
+gradient and Adam, elementwise, steps the block; a replicated parameter
+whose gradient each rank holds a part of (LoRA's `lora_A` beside
+column-parallel q/k/v, `tp_partial_grad`) is summed over the model group
+first, and the global norm counts each shard's block once over the group
+and each replicated gradient once.
 Trainability is `requires_grad`: the JAX package's partition into trainable
 and frozen trees is not needed.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
-from oneprot_tpu_torch.core.collectives import all_reduce_mean_
+from oneprot_tpu_torch.core.collectives import (
+    all_reduce_mean_,
+    model_sum_,
+    sum_across,
+)
+from oneprot_tpu_torch.core.mesh import model_group, model_world
 from oneprot_tpu_torch.models.esm2 import LORA_TRAINABLE_LEAVES
 
 OptimizerFn = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
@@ -36,10 +47,20 @@ def adam(lr: float = 1e-3, weight_decay: float = 0.0) -> OptimizerFn:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Sequence[bool] = ()) -> torch.Tensor:
     """In place: scale every gradient by min(1, max_norm / global norm), on
-    the device (no host sync). Returns the global norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    the device (no host sync). `sharded[i]` marks a model rank's block of
+    a split gradient: its squared norm is summed over the model group.
+    Returns the global norm before clipping."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_world()[0] > 1 and any(sharded):
+        split = torch.tensor(list(sharded), device=norms.device)
+        sq = norms.float().square()
+        blocks = sum_across(torch.where(split, sq, 0.0).sum(), model_group())
+        norm = torch.sqrt(torch.where(split, 0.0, sq).sum() + blocks)
+    else:
+        norm = torch.linalg.vector_norm(norms)
     torch._foreach_mul_(grads, (max_norm / norm).clamp(max=1.0))
     return norm
 
@@ -58,18 +79,25 @@ class ClippedOptimizer:
         self.params = list(params)
         self.base = base(self.params)
         self.max_norm = max_norm
+        self.sharded = [getattr(p, "tp_dim", None) is not None
+                        for p in self.params]
+        self.partial = [p for p in self.params
+                        if getattr(p, "tp_partial_grad", False)]
 
     def zero_grad(self) -> None:
         self.base.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        """Average over the ranks, clip, then update."""
+        """Sum the partial gradients over the model group, average over
+        the data group, clip, then update."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        model_sum_([p.grad for p in self.partial])
         all_reduce_mean_([p.grad for p in self.params])
         if self.max_norm:
-            clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
+            clip_by_global_norm_([p.grad for p in self.params], self.max_norm,
+                                 self.sharded)
         self.base.step()
 
 

@@ -34,14 +34,16 @@ on each val/loss improvement (`checkpoint.PeftCheckpoint`).
 `profiler="jax"` writes a torch.profiler trace of `fit` to
 `<run>/profile/trace_rank<r>.json`.
 
-Data-parallel over a process group (`core/mesh.py:init_distributed`, one
-process per card): `devices: auto` is this process's card, an int must
-equal the world size, `mesh.data` -1 or the world size, and `mesh.model`
-> 1 (tensor parallelism, ROADMAP.md Queue 1 item 12) raises. Each rank
-steps on its own share of every batch; validation gathers the features
-and rank 0's metrics reach every rank, so that early stopping, the
+Over a process group (`core/mesh.py:init_distributed`, one process per
+card) laid out as `mesh` says (`check_mesh`: `model` ranks a model group,
+tensor parallelism; `data` -1 or world / model): `devices: auto` is this
+process's card and an int must equal the world size. The ranks of a model
+group step together on the same rows; each data group's rank on its own
+share of every batch; validation gathers the features over the data
+group and rank 0's metrics reach every rank, so that early stopping, the
 scheduler and the checkpoint callback decide alike; rank 0 alone writes
-the logs and checkpoints.
+the logs, the trace and the checkpoints (full tensors, gathered over its
+model group).
 """
 
 from __future__ import annotations
@@ -115,7 +117,10 @@ def select_device(accelerator: str) -> torch.device:
     if accelerator == "cpu":
         return torch.device("cpu")
     if accelerator not in ("auto", "gpu", "cuda"):
-        raise ValueError(f"accelerator={accelerator!r}: 'auto', 'gpu' or 'cpu'")
+        raise ValueError(
+            f"accelerator={accelerator!r}: 'auto', 'gpu' or 'cpu' (the pod "
+            "recipes, experiment=train_pod, train_pod_packed and "
+            "train_3b_tp, name trainer=tpu: run them with trainer=gpu)")
     if not torch.cuda.is_available():
         raise RuntimeError(f"accelerator={accelerator!r} needs a CUDA device "
                            "and none is available; pass accelerator='cpu' "

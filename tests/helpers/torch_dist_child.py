@@ -1,4 +1,5 @@
-"""One rank of a gloo world on the CPU, for tests/test_torch_distributed.py.
+"""One rank of a gloo world on the CPU, for tests/test_torch_distributed.py
+and tests/test_torch_tensor_parallel.py.
 
     python -m tests.helpers.torch_dist_child CASE RANK WORLD RENDEZVOUS IN OUT
 
@@ -220,7 +221,208 @@ def case_fit(rank: int, world: int, inp) -> dict:
     return out
 
 
-CASES = {"losses": case_losses, "steps": case_steps, "fit": case_fit}
+# -- tensor parallelism: a model axis of 2 ----------------------------------
+
+TP_WIDTH = 16
+TP_LORA = dict(rank=4, alpha=8.0, dropout=0.0)
+
+
+def tp_module(saved: dict, tp, lr: float = 1e-4):
+    """tests/test_torch_tensor_parallel.py's module (a frozen LoRA hub, a
+    trainable struct-token tower and a frozen text tower, f32, L1 on) as
+    model rank tp[1]'s shard of tp[0], from the full converted JAX state
+    `saved` holds."""
+    from oneprot_tpu_torch.core import partitioning
+    from oneprot_tpu_torch.models import bert, encoders, esm2
+    from oneprot_tpu_torch.train import optim
+    from oneprot_tpu_torch.train.module import OneProtModule
+
+    cfg = saved["configs"]
+    kw = dict(tp=tuple(tp), device="cpu", dtype=torch.float32)
+    hub = encoders.SequenceEncoder(
+        esm2.Esm2Config(**cfg["sequence"]), TP_WIDTH, proj_type="mlp",
+        frozen=True, lora=esm2.LoraConfig(**TP_LORA), **kw)
+    tower = encoders.StructTokenEncoder(
+        esm2.Esm2Config(**cfg["struct_token"]), TP_WIDTH, **kw)
+    text = encoders.TextEncoder(bert.BertConfig(**cfg["text"]), TP_WIDTH,
+                                frozen=True, **kw)
+    module = OneProtModule(
+        {"sequence": hub, "struct_token": tower, "text": text},
+        optimizer=lambda: optim.adam(lr), use_l1_regularization=True,
+        frozen_param_dtype=None)
+    module.model.load_state_dict(partitioning.shard_state_dict(
+        saved["state"], tp[1], tp[0], partitioning.layout_of(module.model)))
+    return module
+
+
+def tp_steps(module, inp, rank: int, world: int) -> list:
+    """Two packed struct_token steps and one unpacked text step on this
+    data rank's block of the global batches; the global losses."""
+    losses = []
+    for i in range(inp["ids"].shape[0]):
+        seq, mod = ({"ids": _block(inp[a][i], rank, world),
+                     "segment_ids": _block(inp[b][i], rank, world)}
+                    for a, b in (("ids", "seg"), ("st_ids", "st_seg")))
+        loss, _ = module.train_step_packed(
+            "struct_token", seq, mod, _block(inp["valid"][i], rank, world))
+        losses.append(float(loss))
+    loss, _ = module.train_step("text", _block(inp["text_seq"], rank, world),
+                                _block(inp["text_ids"], rank, world))
+    return losses + [float(loss)]
+
+
+def _tp_layers(inp) -> dict:
+    """Column- and row-parallel layers (and LoRA's) against one unsharded
+    Dense pair, forward and backward, on this model rank."""
+    import torch.nn.functional as F
+
+    from oneprot_tpu_torch.models import esm2
+    from oneprot_tpu_torch.models.layers import (
+        ColumnParallelDense,
+        Dense,
+        RowParallelDense,
+    )
+
+    m, r = mesh.model_world()
+    kw = dict(device="cpu", dtype=torch.float32)
+    w1, b1, w2, b2 = (torch.from_numpy(inp[k]) for k in ("w1", "b1", "w2",
+                                                          "b2"))
+    F_, H = w1.shape
+    out = {}
+
+    def run(fc1, fc2, lora=None):
+        x = torch.from_numpy(inp["x"]).requires_grad_(True)
+        y = fc2(F.gelu(fc1(x)))
+        (y * torch.from_numpy(inp["dy"])).sum().backward()
+        return y, x.grad
+
+    full1, full2 = Dense(H, F_, **kw), Dense(F_, H, **kw)
+    col = ColumnParallelDense(H, F_, tp=(m, r), **kw)
+    row = RowParallelDense(F_, H, tp=(m, r), **kw)
+    with torch.no_grad():
+        for mod, w, b in ((full1, w1, b1), (full2, w2, b2)):
+            mod.weight.copy_(w)
+            mod.bias.copy_(b)
+        col.weight.copy_(w1.chunk(m, 0)[r])
+        col.bias.copy_(b1.chunk(m, 0)[r])
+        row.weight.copy_(w2.chunk(m, 1)[r])
+        row.bias.copy_(b2)
+    for name, (a, b) in (("full", (full1, full2)), ("tp", (col, row))):
+        y, gx = run(a, b)
+        out[f"layers/{name}/y"], out[f"layers/{name}/gx"] = (
+            y.detach().numpy(), gx.numpy())
+        for tag, mod in (("fc1", a), ("fc2", b)):
+            out[f"layers/{name}/{tag}_gw"] = mod.weight.grad.numpy()
+            out[f"layers/{name}/{tag}_gb"] = mod.bias.grad.numpy()
+    # a row-parallel layer on a whole input takes its block of it
+    whole = RowParallelDense(H, H, tp=(m, r), input_is_parallel=False, **kw)
+    with torch.no_grad():
+        whole.weight.copy_(w2[:, :H].chunk(m, 1)[r])
+        whole.bias.copy_(b2)
+    x = torch.from_numpy(inp["x"]).requires_grad_(True)
+    y = whole(x)
+    (y * torch.from_numpy(inp["dy"])).sum().backward()
+    out["layers/scatter/y"], out["layers/scatter/gx"] = (y.detach().numpy(),
+                                                         x.grad.numpy())
+    # LoRA column-parallel: lora_B split, lora_A's gradient a partial sum
+    lora = esm2.LoraConfig(**TP_LORA)
+    parts = {}
+    for name, tp in (("full", (1, 0)), ("tp", (m, r))):
+        layer = esm2.LoraDense(H, F_, lora, 0, tp=tp, **kw)
+        with torch.no_grad():
+            layer.weight.copy_(w1.chunk(tp[0], 0)[tp[1]])
+            layer.bias.copy_(b1.chunk(tp[0], 0)[tp[1]])
+            layer.lora_A.copy_(torch.from_numpy(inp["lora_a"]))
+            layer.lora_B.copy_(torch.from_numpy(inp["lora_b"]).chunk(
+                tp[0], 0)[tp[1]])
+        x = torch.from_numpy(inp["x"]).requires_grad_(True)
+        y = layer(x)
+        (y * torch.from_numpy(inp["dy1"]).chunk(tp[0], -1)[tp[1]]).sum(
+        ).backward()
+        grad_a = layer.lora_A.grad.clone()
+        if tp[0] > 1:
+            collectives.model_sum_([grad_a])
+        parts[name] = (y.detach(), x.grad, grad_a, layer.lora_B.grad)
+    for i, key in enumerate(("y", "gx", "ga", "gb")):
+        out[f"lora/full/{key}"] = parts["full"][i].numpy()
+        out[f"lora/tp/{key}"] = parts["tp"][i].numpy()
+    # Megatron's f and g
+    x = torch.full((3,), float(r + 1), requires_grad=True)
+    collectives.copy_to_model_group(x).mul(float(r + 1)).sum().backward()
+    out["f/grad"] = x.grad.numpy()
+    out["g/value"] = collectives.reduce_from_model_group(
+        torch.full((3,), float(r + 1))).numpy()
+    return out
+
+
+def case_tp(rank: int, world: int, inp) -> dict:
+    """A model axis of 2 over `world` ranks (data world / 2): the layers
+    (at data 1), the module's steps on this data rank's block, the full
+    trainable parameters and the replicated ones as held, the gathered
+    eval features, the loaders' first batches and the step seed; at data
+    2 also `case_losses` over the data group; at data 1 the checkpoints
+    both ways and the peft export."""
+    from oneprot_tpu_torch.core import partitioning
+    from oneprot_tpu_torch.data.datamodule import OneProtDataModule
+    from oneprot_tpu_torch.models.esm2 import LoraDense
+    from oneprot_tpu_torch.train import checkpoint as ckpt
+    from oneprot_tpu_torch.train.metrics import gather_features
+
+    mesh.check_mesh({"data": -1, "model": 2})
+    tp = mesh.model_world()
+    n, dr = mesh.data_world()
+    out = {"tp": np.array(tp), "data": np.array((n, dr))}
+    if n == 1:
+        out.update(_tp_layers(inp))
+    else:
+        losses = case_losses(dr, n, {k[len("loss_"):]: v for k, v in
+                                     inp.items() if k.startswith("loss_")})
+        out.update({f"dloss/{k}": v for k, v in losses.items()})
+    saved = torch.load(str(inp["state"]), weights_only=False)
+    module = tp_module(saved, tp).init()
+    out["losses"] = np.array(tp_steps(module, inp, dr, n))
+    out["seed"] = np.array(next(
+        mod.dropout_seed for mod in module.model.modules()
+        if isinstance(mod, LoraDense)))
+    layout = partitioning.layout_of(module.model)
+    full = partitioning.gather_state_dict(module.model.state_dict(), layout)
+    for name, p in module.model.named_parameters():
+        if module.mask[name]:
+            out[f"param/{name}"] = full[name].numpy().copy()
+            if name not in layout:
+                out[f"held/{name}"] = p.detach().numpy().copy()
+    seq_f, mod_f, loss = module.eval_step("text",
+                                          _block(inp["eval_seq"], dr, n),
+                                          _block(inp["eval_text"], dr, n))
+    out["eval/seq"], out["eval/mod"] = gather_features(seq_f), gather_features(
+        mod_f)
+    out["eval/loss"] = np.array(float(loss))
+    dm = OneProtDataModule(**json.loads(str(inp["dm"])))
+    dm.setup()
+    out["loader"] = next(iter(dm.train_dataloader()))["struct_token"][0]
+    if n == 1:
+        root = str(inp["ckpt_dir"])
+        ckpt.CheckpointManager(os.path.join(root, "tp2")).on_validation_end(
+            module, {"val/loss_best": 1.0})
+        ckpt.PeftCheckpoint(os.path.join(root, "tp2", "peft"),
+                            num_layers=2).on_validation_end(
+            module, {"val/loss": 1.0})
+        # the one-process checkpoint, restored as this rank's shard
+        other = tp_module(saved, tp).init()
+        ckpt.load_state(other, os.path.join(root, "tp1", "last"))
+        out["restored/step"] = np.array(other.step)
+        # copies: the step below moves the parameters in place
+        for k, v in other.model.state_dict().items():
+            out[f"restored/{k}"] = v.numpy().copy()
+        for i, s in other.opt.base.state_dict()["state"].items():
+            for key in ckpt.MOMENTS:
+                out[f"restored_opt/{i}/{key}"] = s[key].numpy().copy()
+        out["restored/losses"] = np.array(tp_steps(other, inp, dr, n))
+    return out
+
+
+CASES = {"losses": case_losses, "steps": case_steps, "fit": case_fit,
+         "tp": case_tp}
 
 
 def main() -> int:

@@ -170,7 +170,8 @@ def test_unported_modality_raises(data_dir):
 
 
 def test_world_without_process_group():
-    assert datamodule.world() == (1, 0)
+    # the loaders shard by the data rank (the world's without a mesh)
+    assert datamodule.data_world() == (1, 0)
 
 
 def test_csv_logger_files_match_jax(tmp_path):

@@ -576,13 +576,23 @@ def test_collect_embeddings_two_ranks_equal_one(runs, tmp_path):
 
 
 def test_mesh_model_axis_names_its_item():
+    """A model axis that does not divide the world (one process here) is
+    refused, naming how to launch; the int8 hub over a model axis is
+    refused naming ROADMAP item 13 (tests/test_torch_tensor_parallel.py
+    runs the axis on gloo worlds)."""
+    from oneprot_tpu_torch.models import encoders
+
     for make in (lambda: Trainer(accelerator="cpu",
                                  mesh={"data": -1, "model": 2}),
                  lambda: mesh_lib.check_mesh({"model": 4})):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="does not divide the world"):
             make()
     with pytest.raises(ValueError, match="mesh.data=2"):
         mesh_lib.check_mesh({"data": 2})
+    with pytest.raises(NotImplementedError, match="item 13"):
+        encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
+                                         device="cpu", dtype="float32",
+                                         tp=(2, 0))
 
 
 def test_devices_beyond_the_world_say_how_to_launch():
@@ -621,7 +631,7 @@ def test_loader_batch_counts_agree_across_ranks(monkeypatch, tmp_path):
     generate_fixtures(data, n_train=17, n_eval=9, modalities=["struct_token"])
     counts = {}
     for rank in (0, 1):
-        monkeypatch.setattr(dm_lib, "world", lambda rank=rank: (2, rank))
+        monkeypatch.setattr(dm_lib, "data_world", lambda rank=rank: (2, rank))
         dm = dm_lib.OneProtDataModule(**dm_kwargs(data))
         dm.setup()
         train = [b["struct_token"][0].shape[0] for b in dm.train_dataloader()]

@@ -381,10 +381,11 @@ def test_refusals(init, monkeypatch):
     for acc in ("auto", "gpu"):
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(accelerator=acc)
-    # one process a device: a world of one has one; no tensor parallelism
+    # one process a device: a world of one has one, and a model axis of
+    # one rank
     with pytest.raises(ValueError, match="torch.distributed.run"):
         Trainer(accelerator="cpu", devices=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="does not divide the world"):
         Trainer(accelerator="cpu", mesh={"data": 1, "model": 2})
     with pytest.raises(ValueError, match="profiler"):
         Trainer(accelerator="cpu", profiler="simple")
