@@ -82,7 +82,7 @@ the elapsed seconds:
    and cached == uncached on the card;
 11. trainer: `Trainer.fit` over `OneProtDataModule` (train_packed.yaml's
    packing: 16 rows of 1024 tokens, 16 slots; the default buckets; val
-   batches of 16) on 1024 train and 128 val synthetic seq <-> 3Di pairs
+   batches of 16) on 512 train and 128 val synthetic seq <-> 3Di pairs
    (bench.py's log-normal lengths, their own numpy seed) held in memory by
    a subclass of the package's `StructTokenDataset`; the same model as 9,
    fresh random weights, Adam at bench.py's 1e-3, the plateau scheduler:
@@ -101,7 +101,7 @@ the elapsed seconds:
    the plateau scheduler, driven with patience 0 on a metric that does
    not improve, must halve the learning rate once;
 12. trainer parity: the trainer (packed + cache) at 2 hub + 2 tower layers
-   of the same initial weights, 4 steps (2 epochs of 2 batches of 4 rows,
+   of the same initial weights, 4 steps (2 epochs of 2 batches of 2 rows,
    the second epoch from the cache) at Adam 1e-3, and again at 1e-4,
    card (bf16, kernels) against CPU (f32, plain versions): each step's
    loss within 2e-2 relative, the final trainable parameters' cosine >=
@@ -110,13 +110,13 @@ the elapsed seconds:
    committed config.json with LoRA (r 16, alpha 16, dropout 0.1 on q, k,
    v), frozen bf16 weights and per-layer remat, the mlp head, the
    trainable ESM2-35M struct-token tower, CLIP + 0.01 L1 and clipped Adam
-   at SMOKE_LR, takes 4 unpacked `train_step`s, each on a fresh batch of
+   at SMOKE_LR, takes 3 unpacked `train_step`s, each on a fresh batch of
    16 pairs bucketed to at most 1024 tokens; the counters show the exact
    launches per step (the FlashAttention-2 forward twice a hub layer,
    forward and remat recompute; its dq and dk/dv kernels once a hub
    layer; flash-MHA once a tower layer each way; no plain version), a
-   fifth step is split into forward, backward and clip + Adam by CUDA
-   events, and a sixth, on the same batch, is profiled (torch.profiler:
+   fourth step is split into forward, backward and clip + Adam by CUDA
+   events, and a fifth, on the same batch, is profiled (torch.profiler:
    device time by kernel group); the hub's LoRA factors go through
    `hf_convert.export_peft_lora` (peft's layout) and back through
    `import_peft_lora` bit for bit;
@@ -148,7 +148,7 @@ the elapsed seconds:
    cosine >= 0.999);
 17. text cli: `experiment=seq_text` through `cli.train.main` with the
    ESM2-650M hub and BiomedBERT-base (names, resolved to sizes; bf16;
-   weights from the config's seed) on 1024 / 128 / 128 synthetic pairs
+   weights from the config's seed) on 512 / 128 / 128 synthetic pairs
    from memory (`MemoryTexts` through the data-module alias): CLIP 2
    epochs and the test split (the frozen text tower: the fully cached
    steps; epoch 2's validation hits in full and launches nothing, and
@@ -161,7 +161,7 @@ the elapsed seconds:
    finite losses and
    metrics, no plain version, no yaml/h5py/jax/pandas module loaded;
 18. text parity: 2 hub + 2 BERT layers of full width, LoRA text, SigLIP,
-   4 `train_step_cached` steps at Adam 1e-3, card (bf16, kernels) vs CPU
+   2 `train_step_cached` steps at Adam 1e-3, card (bf16, kernels) vs CPU
    (f32, plain): loss within 2e-2 a step, trainable parameters' cosine
    >= 0.99;
 19. graph tower: `create_struct_graph_encoder` at struct_graph.yaml's
@@ -208,7 +208,22 @@ the elapsed seconds:
    identical; and `cli.collect_embeddings.main` with the hub checkpoint
    of 21 as `esm2` and the run as `oneprot` on ToyCls splits of 64: rows,
    labels, #1 33 a batch of either model, the `esm2` embeddings equal to
-   the hub's masked mean computed here;
+   the hub's masked mean computed here; then the downstream probes
+   (`probe_phase`): `cli.saprot_fit_mlp.main` in config form on those
+   `esm2` files and in flag form on the `oneprot` ones (the results CSVs'
+   columns, finite values), then `fit_mlp_probe` at saprot_mlp.yaml's
+   defaults on 16384 / 2048 / 2048 rows of 1280 from a numpy seed with a
+   planted low-rank teacher each, for EC (585, multi-label), GO-BP (1943),
+   DeepLoc10 and ThermoStability: on the card, each task's test metric at
+   or above chance + a quarter of the teacher's gap over chance, card vs
+   CPU at dropout 0 for 3 epochs of 2048 train rows (val_loss rel 1e-4,
+   test-logit cosine >= 0.99999, the same epochs), f1_max against a
+   float64 recomputation
+   on the card, no kernel, no plain version and no sklearn, xgboost, lmdb
+   or wandb loaded; epochs, steps/s, rows/s, epoch, validation and test
+   ms, f1_max's host ms and the peak printed; `cli.saprot_fit_cls.main`
+   last (an ImportError naming xgboost and scikit-learn on the card's
+   host);
 23. the f32 experiments as shipped: `experiment=debug_struct_token`,
    `experiment=train_packed` (`data=struct_token_only`, 1 epoch) and
    `experiment=debug_all_modalities` through `cli.train.main`, each to
@@ -382,6 +397,9 @@ ROWS, ROW_LEN, SLOTS = 16, 1024, 16
 PACKED_SEG_SEED = 3  # the kernels phase's packed batch (segment ids only)
 STEPS = 6
 PARITY_ROWS = 4
+# the 15B-width parities (serving and the LoRA step) on 2 rows: their CPU
+# halves compute 5120-wide f32 layers
+WIDE_PARITY_ROWS = 2
 # MSA serving: 3 requests of 4 MSAs, 64 homologs of one query each, through
 # embed_msas's defaults (depth 16, batch 4, up to 1024 columns)
 MSA_REQUESTS, MSAS_PER_REQUEST, HOMOLOGS = 3, 4, 64
@@ -398,16 +416,17 @@ MSA_TOKEN_COS = 0.999
 SMOKE_LR = 1e-4
 # the LoRA-15B step: 16 pairs a step, LoRA as configs/model/components/
 # sequence.yaml sets it (use_lora: r 16, alpha 16, dropout 0.1 on q/k/v)
-LORA_BATCH, LORA_STEPS = 16, 4
+LORA_BATCH, LORA_STEPS = 16, 3
 LORA = dict(use_lora=True, lora_r=16, lora_alpha=16, lora_dropout=0.1)
 # the trainer phase: synthetic seq <-> 3Di pairs (their own numpy seed) at
 # configs/data/default.yaml's buckets, a val batch of 16, Adam at bench.py's
 # 1e-3 (no loss-falls gate there), a loss read every 10 steps
-TRAINER_PAIRS, TRAINER_VAL_PAIRS, TRAINER_VAL_BATCH = 1024, 128, 16
+TRAINER_PAIRS, TRAINER_VAL_PAIRS, TRAINER_VAL_BATCH = 512, 128, 16
 TRAINER_SEED, TRAINER_LR, TRAINER_LOG_EVERY = 11, 1e-3, 10
 DATA_BUCKETS = (128, 256, 384, 512, 768, 1024)
 FOLDSEEK = "pynwrqhgdlvtmfsaeikc"  # the 3Di letters
-PARITY_TRAIN_PAIRS, TRAINER_PARITY_STEPS = 16, 4
+# the trainer parity: 8 pairs in 2 batches of 2 packed rows, 2 epochs
+PARITY_TRAIN_PAIRS, TRAINER_PARITY_ROWS, TRAINER_PARITY_STEPS = 8, 2, 4
 # the CLI phase: configs/experiment/train_packed.yaml at bench.py:1212-1224's
 # widths in bf16 (the shipped struct_token_debug model is ESM2-8M in f32,
 # which Esm2 refuses on the card: its attention kernels take bf16 only);
@@ -456,7 +475,7 @@ TEXT_LORA_SIGLIP = ("model.components.text.use_lora=true",
                     "model.loss_fn=SigLIP")
 TEXT_VAL_BATCH, TEXT_TEST_BATCH = 16, 64  # configs/data/modalities/text.yaml
 TEXT_PACKED_BATCHES, TEXT_PACKED_VAL = 4, 2
-TEXT_PARITY_STEPS, TEXT_PARITY_BATCH = 4, 8
+TEXT_PARITY_STEPS, TEXT_PARITY_BATCH = 2, 8
 
 
 def phase(name: str) -> None:
@@ -1820,7 +1839,7 @@ def trainer_phase(smi: str, launches: dict, cached_step_ms: float):
 
 def trainer_parity(initial, records: dict, lr: float = TRAINER_LR) -> dict:
     """Trainer.fit (packed + cache) at 2 hub + 2 tower layers from the
-    same weights, PARITY_ROWS rows a batch, 2 batches an epoch, 2 epochs,
+    same weights, TRAINER_PARITY_ROWS rows a batch, 2 batches an epoch, 2 epochs,
     Adam at `lr` (bench.py's 1e-3, and 1e-4 beside it): card (bf16,
     kernels) against CPU (f32, plain versions), loss by loss and on the
     final trainable parameters."""
@@ -1830,7 +1849,8 @@ def trainer_parity(initial, records: dict, lr: float = TRAINER_LR) -> dict:
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_parity_") as root:
         # the trainer phase's records; PARITY_TRAIN_PAIRS of them to train
-        # on (two batches of PARITY_ROWS rows), so epoch 2 hits the cache
+        # on (two batches of TRAINER_PARITY_ROWS rows), so epoch 2 hits the
+        # cache
         ids = {s: sorted(k for k in records if k.startswith(s + "_"))
                for s in ("train", "val", "test")}
         ids["train"] = ids["train"][:PARITY_TRAIN_PAIRS]
@@ -1854,7 +1874,7 @@ def trainer_parity(initial, records: dict, lr: float = TRAINER_LR) -> dict:
                               check_val_every_n_epoch=3, log_every_n_steps=1,
                               default_root_dir=run_dir)
             trainer.fit(module, struct_token_datamodule(root, records,
-                                                        rows=PARITY_ROWS))
+                                                        rows=TRAINER_PARITY_ROWS))
             with open(os.path.join(run_dir, "metrics.jsonl")) as f:
                 losses = [json.loads(line)["train/loss_struct_token"]
                           for line in f if "train/loss_struct_token" in line]
@@ -3166,7 +3186,7 @@ def train_lora_hub(smi: str, launches: dict):
 
 def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
     """Two unpacked steps at 2 hub + 2 tower layers from the LoRA step's
-    initial weights (B = 0), LoRA dropout 0, on PARITY_ROWS pairs up to 254
+    initial weights (B = 0), LoRA dropout 0, on WIDE_PARITY_ROWS pairs up to 254
     residues: card (bf16, kernels, remat) vs CPU (f32, plain versions). On
     step 1 B = 0 gives A no gradient: each layer's q, k, v lora_B gradients
     are held. Step 2 starts both from the CPU's weights after step 1 (Adam's
@@ -3175,7 +3195,7 @@ def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
     that out of the comparison): each layer's lora_A gradients are held.
     The hub's bias gradients (all biases of its transformer, as one vector)
     are held at both steps."""
-    ids, st_ids = lora_batch(np.random.RandomState(9), PARITY_ROWS, 254)
+    ids, st_ids = lora_batch(np.random.RandomState(9), WIDE_PARITY_ROWS, 254)
     cfg_h = dataclasses.replace(hub_cfg, num_layers=2)
     cfg_t = dataclasses.replace(tower_cfg, num_layers=2)
     state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
@@ -3423,12 +3443,12 @@ def serve_wide_hub(smi: str, launches: dict):
 
 def wide_hub_parity(state: dict, cfg) -> dict:
     """The 15B-width hub's first 2 layers and its head, card (bf16, kernels)
-    against CPU (f32, plain versions), on PARITY_ROWS sequences through
+    against CPU (f32, plain versions), on WIDE_PARITY_ROWS sequences through
     embed_sequences, as it is and through `quantize_esm2_int8_tree` (the
     int8 hub: its fc1 rows, 20480 wide, go through the GELU->int8 kernel):
     mean embedding cosine of each."""
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    seqs = sample_seqs(PARITY_ROWS, np.random.RandomState(4))
+    seqs = sample_seqs(WIDE_PARITY_ROWS, np.random.RandomState(4))
     parity = {}
     for name, quant, tol in (("bf16", False, 0.999), ("int8", True, 0.99)):
         weights = esm2.quantize_esm2_int8_tree(state) if quant else state
@@ -3441,7 +3461,7 @@ def wide_hub_parity(state: dict, cfg) -> dict:
                                         buckets=BUCKETS).embed_sequences(seqs))
             del model
         parity[name] = mean_cosine(*outs)
-        print(f"  15B-width {name} hub at 2 layers, card vs CPU, {PARITY_ROWS} "
+        print(f"  15B-width {name} hub at 2 layers, card vs CPU, {WIDE_PARITY_ROWS} "
               f"sequences: mean cosine {parity[name]:.6f} (gate >= {tol})",
               flush=True)
         require(parity[name] >= tol, f"15B-width {name} parity {parity[name]} < {tol}")
@@ -3887,7 +3907,8 @@ def text_cli_phase(smi: str, launches: dict) -> dict:
 
 def text_parity() -> dict:
     """2 hub + 2 BERT layers of full width, LoRA text tower (dropout 0),
-    SigLIP + L1, 4 `train_step_cached` steps at Adam 1e-3 on fresh batches
+    SigLIP + L1, TEXT_PARITY_STEPS `train_step_cached` steps at Adam 1e-3
+    on fresh batches
     of TEXT_PARITY_BATCH pairs, each side's hub pooled features its own:
     card (bf16, kernels) against CPU (f32, plain versions)."""
     gen = torch.Generator(device="cpu").manual_seed(TEXT_SEED)
@@ -4291,8 +4312,8 @@ def graph_phase(smi: str, launches: dict) -> dict:
 # esm_msa1b, one bucket of 1024 so a protein's padded row (the cache's key)
 # is the same in every batch
 MSA_TRAIN_DEPTH, MSA_TRAIN_HOMOLOGS = 50, 64
-MSA_TRAIN_ITEMS, MSA_EVAL_ITEMS = 128, 32
-SEQSIM_ITEMS, SEQSIM_EVAL_ITEMS = 128, 32
+MSA_TRAIN_ITEMS, MSA_EVAL_ITEMS = 64, 32
+SEQSIM_ITEMS, SEQSIM_EVAL_ITEMS = 64, 32
 MSA_TRAIN_SEED = 19
 
 
@@ -4554,6 +4575,12 @@ def default_cli_phase(smi: str, launches: dict, hub_dir: str) -> dict:
               "checkpoint as esm2 and the train.yaml run as oneprot")
         collect = collect_phase(root, hub_dir, os.path.join(root, "run"),
                                 launches, smi)
+        phase("downstream probes: cli.saprot_fit_mlp on the collected "
+              "embeddings, then the MLP probe at SaProt's widths (1280 in, "
+              "EC, GO-BP, DeepLoc10, ThermoStability; 16384 / 2048 / 2048 "
+              "rows), card vs CPU")
+        probes = probe_phase(root, os.path.join(root, "embeddings"),
+                             launches, smi)
     require(not any(plain.values()), f"default cli: plain versions ran on the "
             f"card: {plain}")
     run = probe.runs[0]
@@ -4597,7 +4624,7 @@ def default_cli_phase(smi: str, launches: dict, hub_dir: str) -> dict:
            "val_loss": metrics["val/loss"], "test_loss": metrics["test/loss"],
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches["default_cli"], "eval": evaluation,
-           "collect": collect}
+           "collect": collect, "probes": probes}
     for e in epochs:
         print(f"  train.yaml epoch {e['epoch']}: {e['batches']} steps, "
               f"{e['pairs_per_s']:.1f} pairs/s (" + ", ".join(
@@ -5055,6 +5082,286 @@ def collect_phase(root: str, hub_dir: str, run_dir: str, launches: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# downstream probes: the collected ToyCls embeddings through the probe entry
+# points, then the MLP probe at SaProt's widths on planted teachers
+
+# SaProt's tasks of each family, their splits' order of size, the ESM2-650M
+# hub's 1280-wide embeddings (saprot_mlp.yaml's probe defaults)
+PROBE_TASKS = ("EC", "GO-BP", "DeepLoc10", "ThermoStability")
+PROBE_ROWS = {"train": 16384, "valid": 2048, "test": 2048}
+PROBE_DIM, PROBE_RANK, PROBE_NOISE, PROBE_SEED = 1280, 64, 0.5, 43
+PROBE_LABEL_T = 2.5      # multi-label positives: z + noise > 2.5 (~1.3%)
+PROBE_GAP_SHARE = 0.25   # the probe must close a quarter of the chance -> teacher gap
+# card vs CPU: 3 epochs on the first 2048 train rows (16 steps an epoch)
+PROBE_PARITY_EPOCHS, PROBE_PARITY_ROWS = 3, 2048
+PROBE_VAL_REL, PROBE_LOGIT_COS, F1_MAX_REL = 1e-4, 0.99999, 1e-9
+PROBE_MODULES = ("sklearn", "xgboost", "lmdb", "wandb")
+
+
+def probe_teacher(rng, task: str, x: dict) -> dict:
+    """{split: (labels, the teacher's noiseless scores)} of `task` for the
+    embeddings `x[split]`: z = x A B, A [1280, 64] and B [64, out] drawn
+    N(0, 1/fan-in) once for all splits (z about unit variance), the labels
+    from z + N(0, 0.5^2): multi-label z + noise > 2.5 (about 1.3% of the
+    labels positive), classification its argmax, regression column 0."""
+    from oneprot_tpu_torch.downstream.mlp_probe import TASK_REGISTRY
+
+    info = TASK_REGISTRY[task]
+    a = rng.randn(PROBE_DIM, PROBE_RANK).astype(np.float32) / np.sqrt(PROBE_DIM)
+    b = rng.randn(PROBE_RANK, info["output_dim"]).astype(np.float32) / np.sqrt(
+        PROBE_RANK)
+    out = {}
+    for split, xs in x.items():
+        z = (xs @ a) @ b
+        noisy = z + PROBE_NOISE * rng.randn(*z.shape).astype(np.float32)
+        if info["type"] == "multi-label":
+            out[split] = (noisy > PROBE_LABEL_T).astype(np.int32), z
+        elif info["type"] == "regression":
+            out[split] = noisy[:, 0], z[:, :1]
+        else:
+            out[split] = noisy.argmax(1).astype(np.int64), z
+    return out
+
+
+def probe_chance_and_teacher(task_type: str, z: np.ndarray, y: np.ndarray,
+                             rng) -> tuple:
+    """The test metric that decides the gate (f1_max, accuracy, spearman),
+    at chance (random scores; the majority class; 0) and for the teacher's
+    noiseless scores."""
+    from oneprot_tpu_torch.downstream import utils as probe_utils
+
+    if task_type == "multi-label":
+        return ("f1_max", probe_utils.count_f1_max(rng.rand(*y.shape), y),
+                probe_utils.count_f1_max(z, y))
+    if task_type == "regression":
+        return "spearman", 0.0, probe_utils.spearman(z[:, 0], y)
+    return ("accuracy", float(np.bincount(y).max() / len(y)),
+            probe_utils.accuracy(y, z.argmax(1)))
+
+
+def f1_max_float64(pred: torch.Tensor, target: torch.Tensor) -> float:
+    """TorchDrug's f1_max, recomputed in float64 on the card (stable sorts,
+    as the port's numpy version ranks ties)."""
+    pred, target = pred.double(), target.double()
+    b, n = pred.shape
+    order = torch.sort(pred, dim=1, descending=True, stable=True).indices
+    target_sorted = target.gather(1, order)
+    cum = target_sorted.cumsum(1)
+    precision = cum / torch.arange(1, n + 1, device=pred.device)
+    recall = cum / (target.sum(1, keepdim=True) + 1e-10)
+    is_start = torch.zeros_like(target_sorted, dtype=torch.bool)
+    is_start[:, 0] = True
+    is_start = torch.zeros_like(is_start).scatter(1, order, is_start)
+    all_order = torch.sort(pred.flatten(), descending=True, stable=True).indices
+    flat_order = (order + torch.arange(b, device=pred.device)[:, None] * n
+                  ).flatten()
+    inv = torch.empty_like(flat_order)
+    inv[flat_order] = torch.arange(b * n, device=pred.device)
+    is_start = is_start.flatten()[all_order]
+    all_order = inv[all_order]
+    precision, recall = precision.flatten(), recall.flatten()
+    zero = torch.zeros((), dtype=torch.float64, device=pred.device)
+    all_p = precision[all_order] - torch.where(is_start, zero,
+                                               precision[all_order - 1])
+    all_p = all_p.cumsum(0) / is_start.cumsum(0)
+    all_r = recall[all_order] - torch.where(is_start, zero,
+                                            recall[all_order - 1])
+    all_r = all_r.cumsum(0) / b
+    return float((2 * all_p * all_r / (all_p + all_r + 1e-10)).max())
+
+
+def read_results(path: str) -> list:
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header = [h.strip() for h in rows[0]]
+    return [dict(zip(header, (v.strip() for v in r))) for r in rows[1:]]
+
+
+def probe_entry_points(root: str, emb_dir: str) -> dict:
+    """`cli.saprot_fit_mlp.main` on the collected ToyCls files, config form
+    on the `esm2` ones and flag form on the `oneprot` ones, on the card:
+    the results CSVs' columns and finite values."""
+    from oneprot_tpu_torch.cli import saprot_fit_mlp
+
+    out = {}
+    t = time.time()
+    config_rows = saprot_fit_mlp.main([
+        f"emb_dir={emb_dir}/esm2", "task_name=ToyCls", "model_type=esm2",
+        f"results_dir={root}/probe_results"])
+    flag_rows = saprot_fit_mlp.main([
+        "--embeddings-dir", f"{emb_dir}/oneprot", "--task", "ToyCls",
+        "--output-csv", f"{root}/probe_results/flags.csv"])
+    out["mlp_s"] = time.time() - t
+    config_csv = read_results(f"{root}/probe_results/ToyCls_mlp_results.csv")
+    flag_csv = read_results(f"{root}/probe_results/flags.csv")
+    keys = ["accuracy", "f1", "auc", "val_loss"]
+    require([list(r) for r in config_csv] == [keys + ["task", "model_type"]]
+            and [list(r) for r in flag_csv] == [keys + ["task"]]
+            and config_csv[0]["model_type"] == "esm2"
+            and all(r["task"] == "ToyCls" for r in config_csv + flag_csv)
+            and np.isfinite([float(r[k]) for r in config_csv + flag_csv
+                             for k in keys]).all(),
+            f"probe CSVs {config_csv} {flag_csv}")
+    out["config_form"], out["flag_form"] = config_rows[0], flag_rows[0]
+    print(f"  saprot_fit_mlp on the collected ToyCls embeddings (64 rows a "
+          f"split), config form (esm2, 1280 wide): {out['config_form']}; "
+          f"flag form (oneprot, 1024 wide): {out['flag_form']}; both in "
+          f"{out['mlp_s']:.2f} s", flush=True)
+    return out
+
+
+def probe_booster(root: str, emb_dir: str):
+    """`cli.saprot_fit_cls.main` on the collected `esm2` ToyCls files: an
+    ImportError naming xgboost and scikit-learn where neither is installed
+    (the card's host), else the booster's metrics."""
+    from oneprot_tpu_torch.cli import saprot_fit_cls
+
+    try:
+        out = saprot_fit_cls.main([
+            f"emb_dir={emb_dir}/esm2", "task_name=ToyCls",
+            f"results_dir={root}/probe_results"])
+    except ImportError as e:
+        require("xgboost" in str(e) and "scikit-learn" in str(e),
+                f"saprot_fit_cls's ImportError: {e}")
+        out = f"ImportError: {e}"
+    print(f"  saprot_fit_cls on the collected ToyCls embeddings: {out}",
+          flush=True)
+    return out
+
+
+def probe_phase(root: str, emb_dir: str, launches: dict, smi: str) -> dict:
+    """The downstream probes. (a) `probe_entry_points` on the files of
+    `collect_phase`. (b) `fit_mlp_probe` with saprot_mlp.yaml's defaults
+    (hidden 512, dropout 0.2, lr 1e-3, batch 128, up to 50 epochs, patience
+    5) on 1280-wide embeddings (the 650M hub's) drawn from PROBE_SEED,
+    16384 / 2048 / 2048 rows, for EC (585, multi-label), GO-BP (1943,
+    multi-label), DeepLoc10 (10 classes) and ThermoStability (regression),
+    each with its planted teacher (`probe_teacher`). Gated: the probe's
+    parameters and batches on the card; each task's test metric (f1_max,
+    accuracy, spearman) at or above chance + PROBE_GAP_SHARE x (teacher -
+    chance), the teacher's metric being that of its noiseless scores; card
+    vs CPU from the same seeded weights at dropout 0 for
+    PROBE_PARITY_EPOCHS epochs of the first PROBE_PARITY_ROWS train rows
+    (the CPU half's cost): the best validation loss within rel 1e-4,
+    the test logits' cosine >= 0.99999, the same epochs; the port's
+    count_f1_max on the card's GO-BP test scores (compute_metrics', timed
+    there) equal to `f1_max_float64` on the card (rel 1e-9); no kernel and
+    no plain version launched; none of sklearn, xgboost, lmdb and wandb
+    loaded. (c) `probe_booster`, last. Fills launches["probe"]."""
+    from oneprot_tpu_torch.downstream import mlp_probe
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = {"entry_points": probe_entry_points(root, emb_dir)}
+    rng = np.random.RandomState(PROBE_SEED)
+    t = time.time()
+    x = {s: rng.randn(n, PROBE_DIM).astype(np.float32)
+         for s, n in PROBE_ROWS.items()}
+    out["data_s"] = time.time() - t
+    cfg = mlp_probe.MLPProbeConfig()  # saprot_mlp.yaml's model defaults
+    out["tasks"] = {}
+    go_logits = go_labels = go_f1 = None
+    for task in PROBE_TASKS:
+        task_type = mlp_probe.TASK_REGISTRY[task]["type"]
+        teacher = probe_teacher(np.random.RandomState(
+            [PROBE_SEED, PROBE_TASKS.index(task)]), task, x)
+        splits = {split: (x[split], teacher[split][0]) for split in x}
+        z_test = teacher["test"][1]
+        stats = {}
+        metrics = mlp_probe.fit_mlp_probe(
+            splits["train"], splits["valid"], splits["test"], task, cfg,
+            stats=stats)
+        name, chance, best = probe_chance_and_teacher(
+            task_type, z_test, splits["test"][1], np.random.RandomState(0))
+        need = chance + PROBE_GAP_SHARE * (best - chance)
+        steps_s = stats["steps"] / stats["train_s"]
+        row = {"metrics": metrics, "gate_metric": name, "chance": chance,
+               "teacher": best, "need": need, "epochs": stats["epochs"],
+               "best_epoch": stats["best_epoch"], "steps": stats["steps"],
+               "steps_per_s": steps_s,
+               "rows_per_s": stats["epochs"] * PROBE_ROWS["train"]
+               / stats["train_s"],
+               "epoch_ms": 1e3 * stats["train_s"] / stats["epochs"],
+               "val_ms": 1e3 * stats["val_s"] / stats["epochs"],
+               "test_ms": 1e3 * stats["test_s"],
+               "metrics_ms": 1e3 * stats["metrics_s"],
+               "positive_share": float(np.mean(splits["train"][1]))
+               if task_type == "multi-label" else None}
+        out["tasks"][task] = row
+        print(f"  {task} ({task_type}, {mlp_probe.TASK_REGISTRY[task]['output_dim']}"
+              f" outputs): {stats['epochs']} epochs (best {stats['best_epoch']}),"
+              f" {stats['steps']} steps, {steps_s:.1f} steps/s, "
+              f"{row['rows_per_s']:.0f} rows/s, {row['epoch_ms']:.1f} ms an "
+              f"epoch, validation {row['val_ms']:.2f} ms, test "
+              f"{row['test_ms']:.2f} ms; {name} {metrics[name]:.4f} (chance "
+              f"{chance:.4f}, teacher {best:.4f}, gate >= {need:.4f}); "
+              f"{metrics}; on {stats['params_device']} / "
+              f"{stats['data_device']}", flush=True)
+        require(stats["params_device"].startswith("cuda")
+                and stats["data_device"].startswith("cuda"),
+                f"{task}: the probe is not on the card: {stats}")
+        require(metrics[name] >= need, f"{task}: {name} {metrics[name]} under "
+                f"{need} (chance {chance}, teacher {best})")
+        if task == "GO-BP":
+            go_logits, go_labels = stats["test_logits"], splits["test"][1]
+            go_f1 = metrics["f1_max"], 1e3 * stats["metrics_s"]
+        # card vs CPU from the same seeded weights, dropout 0
+        short = dataclasses.replace(cfg, dropout=0.0,
+                                    max_epochs=PROBE_PARITY_EPOCHS)
+        runs, head = {}, tuple(a[:PROBE_PARITY_ROWS] for a in splits["train"])
+        for device in ("cuda", "cpu"):
+            st = {}
+            m = mlp_probe.fit_mlp_probe(head, splits["valid"], splits["test"],
+                                        task, short, device=device, stats=st)
+            runs[device] = (m, st)
+        (mc, sc), (mh, sh) = runs["cuda"], runs["cpu"]
+        val_rel = abs(mc["val_loss"] - mh["val_loss"]) / abs(mh["val_loss"])
+        logit_cos = cosine(torch.from_numpy(sc["test_logits"]).flatten(),
+                           torch.from_numpy(sh["test_logits"]).flatten())
+        row["parity"] = {"val_loss_card": mc["val_loss"],
+                         "val_loss_cpu": mh["val_loss"], "val_rel": val_rel,
+                         "test_logit_cosine": logit_cos,
+                         "epochs": [sc["epochs"], sh["epochs"]],
+                         "cpu_epoch_ms": 1e3 * sh["train_s"] / sh["epochs"]}
+        print(f"    card vs CPU, dropout 0, {PROBE_PARITY_EPOCHS} epochs of "
+              f"{PROBE_PARITY_ROWS} rows: "
+              f"val_loss {mc['val_loss']:.7f} / {mh['val_loss']:.7f} (rel "
+              f"{val_rel:.2e}, gate <= {PROBE_VAL_REL}), test-logit cosine "
+              f"{logit_cos:.8f} (gate >= {PROBE_LOGIT_COS}), epochs "
+              f"{sc['epochs']} / {sh['epochs']}; CPU "
+              f"{row['parity']['cpu_epoch_ms']:.0f} ms an epoch", flush=True)
+        require(val_rel <= PROBE_VAL_REL and logit_cos >= PROBE_LOGIT_COS
+                and sc["epochs"] == sh["epochs"] == PROBE_PARITY_EPOCHS,
+                f"{task}: card vs CPU {row['parity']}")
+    # compute_metrics' scores; its f1_max, timed in the fit, is the host's
+    probs = 1.0 / (1.0 + np.exp(-go_logits))
+    host, f1_ms = go_f1
+    card = f1_max_float64(torch.from_numpy(probs).cuda(),
+                          torch.from_numpy(go_labels).cuda())
+    out["f1_max"] = {"host": host, "card_float64": card, "host_ms": f1_ms,
+                     "shape": list(probs.shape)}
+    launches["probe"] = read_launches()
+    loaded = [m for m in PROBE_MODULES if m in sys.modules]
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               plain=dict(PLAIN_CALLS), loaded=loaded, s=time.time() - t0)
+    print(f"  f1_max at GO-BP's test size {list(probs.shape)}: host (numpy "
+          f"float64) {host:.12f} in {f1_ms:.1f} ms, card float64 "
+          f"{card:.12f}; peak {out['peak_gib']:.2f} GiB; launches "
+          f"{launches['probe']}; loaded of {PROBE_MODULES}: {loaded}; phase "
+          f"{out['s']:.1f} s; {smi}", flush=True)
+    require(abs(host - card) <= F1_MAX_REL * abs(card),
+            f"f1_max {host} against the float64 recomputation {card}")
+    require(not any(launches["probe"].values())
+            and not any(PLAIN_CALLS.values()),
+            f"probe: launches {launches['probe']}, plain {PLAIN_CALLS}")
+    require(not loaded, f"probe: {loaded} loaded")
+    out["entry_points"]["booster"] = probe_booster(root, emb_dir)
+    return out
+
+
 # the f32 debug experiments as shipped (ESM2-8M towers, bert_tiny, ProNet
 # 32 x 2, the 64-wide MSA tower with heads of 16), on the card
 F32_EXPERIMENTS = (
@@ -5355,7 +5662,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("text parity: 2 hub + 2 BERT layers at full width, LoRA text, "
-          "SigLIP, 4 steps, card (bf16, kernels) vs CPU (f32, plain)")
+          "SigLIP, 2 steps, card (bf16, kernels) vs CPU (f32, plain)")
     text["parity"] = text_parity()
     torch.cuda.empty_cache()
 
@@ -5421,6 +5728,7 @@ def main() -> int:
         "msa_seqsim_training": msa_train,
         "pretrained_hub": pretrained,
         "default_train_yaml": default_cli,
+        "probes": default_cli.pop("probes"),
         "f32_experiments": f32_runs,
         "wall_s": time.time() - T0}), flush=True)
     print(smi, flush=True)

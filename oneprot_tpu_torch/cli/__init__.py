@@ -1,7 +1,9 @@
 """Command-line entry points (counterpart of oneprot_tpu/cli/ and the root
-collect_embeddings.py): the console scripts `train_command_torch`,
-`eval_command_torch` and `collect_embeddings_command_torch`, and
-`python -m oneprot_tpu_torch.cli.{train,eval,collect_embeddings}`."""
+collect_embeddings.py, saprot_fit_*.py and lmdb_csv_converter.py): the
+console scripts `train_command_torch`, `eval_command_torch`,
+`collect_embeddings_command_torch`, `saprot_fit_{mlp,cls,reg}_command_torch`
+and `lmdb_csv_converter_command_torch`, and `python -m
+oneprot_tpu_torch.cli.<name>`."""
 
 import os
 

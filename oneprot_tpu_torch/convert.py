@@ -21,7 +21,9 @@ numpy arrays converts here with no JAX installed. Mappings:
 - a head's attention pooling `attention1d/attn` Dense ->
   `attention1d.attn`;
 - `encoders_<modality>` -> `encoders.<modality>` (sequence, struct_token,
-  msa, text, struct_graph, pocket).
+  msa, text, struct_graph, pocket);
+- the MLP probe's list of `{"w": [in, out], "b"}` -> `layers.{i}.weight`
+  [out, in] and `layers.{i}.bias`.
 
 Values are copied as float32 (int8 codes as int8); load the result with
 `module.load_state_dict(...)`, which casts to the module's dtype. A model
@@ -211,6 +213,17 @@ def oneprot_state_dict(tree: Tree) -> Dict[str, torch.Tensor]:
     for key in sorted(tree):
         out.update(_ENCODERS[key](
             tree[key], "encoders." + key[len("encoders_"):] + "."))
+    return out
+
+
+def mlp_probe_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The JAX MLP probe's params (`downstream/mlp_probe.py:_init_mlp`: a
+    list of `{"w": [in, out], "b": [out]}`) -> the port's `MLPProbe`
+    state."""
+    out = {}
+    for i, layer in enumerate(params):
+        out[f"layers.{i}.weight"] = _t(layer["w"]).T.contiguous()
+        out[f"layers.{i}.bias"] = _t(layer["b"])
     return out
 
 

@@ -16,8 +16,7 @@ read by `yaml_io` (the same YAML 1.1 scalars as PyYAML's safe_load).
 The committed configs name the JAX package's targets. `_locate` applies
 `TARGET_ALIASES` first, then rewrites the `oneprot_tpu.` prefix to
 `oneprot_tpu_torch.` before any import, so the JAX package is never
-imported; a target the port has no counterpart for yet raises
-NotImplementedError naming its ROADMAP.md item (`UNPORTED_TARGETS`).
+imported; every committed target has its counterpart in the port.
 Under a torch.distributed process group every rank takes rank 0's run
 stamp (one run dir) and rank 0 alone writes the snapshot.
 """
@@ -438,13 +437,6 @@ TARGET_ALIASES: Dict[str, str] = {
         ("text_encoder.TextEncoder", "create_text_encoder"),
         ("struct_graph_encoder.StructEncoder", "create_struct_graph_encoder"),
         ("msa_encoder.MsaEncoder", "create_msa_encoder"))}
-# targets (or module prefixes) of the configs with no counterpart in the
-# port yet, after the rewrite, and the ROADMAP.md item that ports each
-UNPORTED_TARGETS: Dict[str, str] = {
-    "oneprot_tpu_torch.downstream": "Queue 1 item 10 (downstream probes)",
-    "oneprot_tpu_torch.utils.loggers.WandbLogger":
-        "Queue 1 item 11 (the wandb logger)",
-}
 _JAX_PREFIX, _PORT_PREFIX = "oneprot_tpu.", "oneprot_tpu_torch."
 
 
@@ -463,10 +455,6 @@ def port_target(target: str) -> str:
 
 def _locate(target: str) -> Any:
     target = port_target(target)
-    for prefix, item in UNPORTED_TARGETS.items():
-        if target == prefix or target.startswith(prefix + "."):
-            raise NotImplementedError(
-                f"target {target!r} is not ported yet: ROADMAP.md {item}")
     module_name = target.rpartition(".")[0]
     last_err: Optional[Exception] = None
     while module_name:

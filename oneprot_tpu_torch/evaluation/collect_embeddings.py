@@ -49,26 +49,10 @@ from oneprot_tpu_torch.data.tokenizers import (
     esm2_tokenizer,
     struct_token_tokenizer,
 )
+from oneprot_tpu_torch.downstream.mlp_probe import TASK_REGISTRY
 from oneprot_tpu_torch.utils.loggers import get_pylogger
 
 log = get_pylogger(__name__)
-
-# the SaProt task registry (reference saprot_fit_mlp.py:135-150), copied
-# from oneprot_tpu/downstream/mlp_probe.py until the probes are ported
-TASK_REGISTRY: Dict[str, Dict[str, Any]] = {
-    "EC": {"output_dim": 585, "type": "multi-label"},
-    "GO-BP": {"output_dim": 1943, "type": "multi-label"},
-    "GO-MF": {"output_dim": 489, "type": "multi-label"},
-    "GO-CC": {"output_dim": 320, "type": "multi-label"},
-    "DeepLoc10": {"output_dim": 10, "type": "classification"},
-    "DeepLoc2": {"output_dim": 2, "type": "classification"},
-    "TopEnzyme": {"output_dim": 826, "type": "classification"},
-    "MetalIonBinding": {"output_dim": 2, "type": "classification"},
-    "ThermoStability": {"output_dim": 1, "type": "regression"},
-    "HumanPPI": {"output_dim": 2, "type": "ppi"},
-    "ToyCls": {"output_dim": 3, "type": "classification"},
-    "ToyReg": {"output_dim": 1, "type": "regression"},
-}
 
 
 class SequenceDataset:

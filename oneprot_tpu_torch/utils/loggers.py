@@ -1,10 +1,15 @@
 """Experiment loggers (counterpart of oneprot_tpu/utils/loggers.py:
-`get_pylogger`, `CsvLogger`, `MultiLogger`).
+`get_pylogger`, `CsvLogger`, `WandbLogger`, `MultiLogger`).
 
 `CsvLogger` appends every metrics row to `metrics.jsonl` and `metrics.csv`
 in the run directory, with the JAX package's file names and columns (step,
 time, then the metrics), on rank 0 only: the other ranks of a process
-group hold the same metrics and write nothing. wandb is not ported.
+group hold the same metrics and write nothing. `WandbLogger` imports
+`wandb` when it is built (offline by default, as configs/logger/wandb.yaml
+says) and, where wandb is not installed, writes `wandb_fallback.csv` and
+`wandb_fallback.jsonl` through a `CsvLogger`, as the JAX package does;
+it too logs on rank 0 only (the JAX one starts a wandb run in every
+process).
 """
 
 from __future__ import annotations
@@ -98,6 +103,41 @@ class CsvLogger:
 
     def finalize(self) -> None:
         pass
+
+
+class WandbLogger:
+    """wandb's run where wandb is importable, else a CsvLogger named
+    `wandb_fallback` in `save_dir`; on rank 0 only, as CsvLogger."""
+
+    def __init__(self, save_dir: str, project: str = "oneprot",
+                 offline: bool = True, **kwargs: Any):
+        wandb = None
+        if _main_process():
+            try:
+                import wandb
+            except ImportError:
+                pass
+        if wandb is None:
+            self._run = None
+            self._fallback = CsvLogger(save_dir, name="wandb_fallback")
+            return
+        mode = "offline" if offline else "online"
+        self._run = wandb.init(project=project, dir=save_dir, mode=mode, **kwargs)
+        self._fallback = None
+
+    def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        if self._run is None:
+            self._fallback.log_metrics(metrics, step)
+        else:
+            self._run.log({k: _to_float(v) for k, v in metrics.items()}, step=step)
+
+    def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        if self._run is not None:
+            self._run.config.update(params, allow_val_change=True)
+
+    def finalize(self) -> None:
+        if self._run is not None:
+            self._run.finish()
 
 
 class MultiLogger:

@@ -12,8 +12,8 @@ agree at 1e-4, train/steps, the checkpoint names and resolved_config.json
 are equal. Then the port's own seeded init (two runs, identical losses),
 the test-only `ckpt_path` divergence in both packages, multirun, the
 sweeper search end to end and its trials against the JAX sweepers, the
-refusals (`trainer=default` without CUDA, an unported modality or logger,
-pretrained weights), `experiment=seq_text` (the fully cached steps of a
+refusal of `trainer=default` without CUDA, `logger=wandb` (its CSV fallback
+against the JAX CLI's), pretrained weights, `experiment=seq_text` (the fully cached steps of a
 frozen text tower) against the JAX CLI, and one
 `python -m oneprot_tpu_torch.cli.train` process with `yaml` blocked that
 imports neither jax nor oneprot_tpu.
@@ -288,13 +288,17 @@ def test_default_trainer_without_cuda_names_the_accelerator(data_dir, tmp_path):
         run_port(ovs, tmp_path / "run")
 
 
-def test_unported_modality_refused_naming_item(data_dir, tmp_path):
-    """Every modality is ported; a config naming a target the port still
-    lacks (here the wandb logger) raises naming its ROADMAP.md item."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        run_port(["experiment=debug_struct_token", "trainer=cpu",
-                  "logger=wandb", f"paths.data_dir={data_dir}",
-                  "extras.print_config=false"], tmp_path / "run")
+def test_unported_modality_refused_naming_item(data_dir, tmp_path,
+                                              monkeypatch):
+    """Every modality and every committed target is ported: the shipped
+    debug_struct_token with `logger=wandb` and wandb absent trains to its
+    end through the logger's CSV fallback, as the JAX CLI does."""
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    met = run_port(overrides(data_dir, "logger=wandb", "test=False"),
+                   tmp_path / "run")
+    assert met["train/steps"] == 4
+    for name in ("metrics.jsonl", "wandb_fallback.csv", "wandb_fallback.jsonl"):
+        assert os.path.isfile(tmp_path / "run" / name), name
 
 
 # seq_text.yaml's towers (ESM2-35M hub, bert_small text tower) shrunk in
@@ -350,11 +354,33 @@ def test_cli_seq_text_matches_jax(data_dir, tmp_path, monkeypatch):
     assert pmet["cache/hit_rate"] == jmet["cache/hit_rate"] > 0
 
 
-def test_unported_logger_refused_naming_item(data_dir, tmp_path):
-    """`logger=wandb` names its item; the run does not go on without it."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        run_port(overrides(data_dir, "logger=wandb"), tmp_path / "run")
-    assert not os.path.exists(tmp_path / "run" / "metrics.jsonl")
+def test_unported_logger_refused_naming_item(data_dir, tmp_path, monkeypatch):
+    """`logger=wandb` without wandb in both CLIs from the JAX init: the
+    port's `wandb_fallback` rows equal the JAX CLI's at 1e-4, and both
+    write them beside metrics.jsonl."""
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    ovs = overrides(data_dir, "logger=wandb")
+    run_jax(ovs, tmp_path / "jax")
+    monkeypatch.setitem(INITIAL, "params", jax_initial_params(ovs))
+    monkeypatch.setitem(config.TARGET_ALIASES, MODULE_TARGET,
+                        f"{__name__}.JaxInitModule")
+    run_port(ovs, tmp_path / "port")
+
+    def fallback(run_dir):
+        with open(os.path.join(run_dir, "wandb_fallback.jsonl")) as f:
+            return [{k: v for k, v in json.loads(line).items() if k != "time"}
+                    for line in f if line.strip()]
+
+    jrows, prows = fallback(tmp_path / "jax"), fallback(tmp_path / "port")
+    assert [list(r) for r in prows] == [list(r) for r in jrows] and prows
+    for p, j in zip(prows, jrows):
+        for k in j:
+            np.testing.assert_allclose(p[k], j[k], rtol=RTOL, err_msg=k)
+    with open(tmp_path / "jax" / "wandb_fallback.csv") as f:
+        jheader = f.readline()
+    with open(tmp_path / "port" / "wandb_fallback.csv") as f:
+        assert f.readline() == jheader
+    assert rows(tmp_path / "port") == prows
 
 
 def test_pretrained_weights_refused_naming_item(tmp_path):

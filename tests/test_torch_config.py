@@ -6,9 +6,8 @@ read back by PyYAML, and the subset's refusals; the port's `load_config`
 against the JAX one on every top-level config, experiment, debug preset
 and trainer, before and after interpolation at a fixed stamp and fixed
 environment values; the cases of tests/test_config.py, ported; the probes
-of the verify recipe; and `_target_` rewriting, with a refusal naming its
-ROADMAP.md item for every committed target the port has no counterpart
-for. PyYAML is imported by this test only; a subprocess with `yaml`
+of the verify recipe; and `_target_` rewriting, every committed target
+located in the port. PyYAML is imported by this test only; a subprocess with `yaml`
 blocked composes every config and imports neither `yaml` nor the JAX
 package.
 """
@@ -316,8 +315,11 @@ def test_reference_target_alias():
         "encoder": {"hidden_size": 16, "num_layers": 1, "out_channels": 32},
         "output_dim": 32, "device": "cpu"})
     assert type(graph).__name__ == "StructGraphEncoder"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        instantiate({"_target_": "oneprot_tpu.downstream.mlp_probe.MLPProbeConfig"})
+    probe = instantiate({
+        "_target_": "oneprot_tpu.downstream.mlp_probe.MLPProbeConfig",
+        "hidden_dims": [16], "dropout": 0.0})
+    assert type(probe).__module__ == "oneprot_tpu_torch.downstream.mlp_probe"
+    assert (list(probe.hidden_dims), probe.dropout, probe.lr) == ([16], 0.0, 1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +363,7 @@ def _committed_targets():
 
 
 TARGETS = _committed_targets()
-# the committed targets the port has: each rewritten to oneprot_tpu_torch
+# the committed targets: every one has its port, rewritten to oneprot_tpu_torch
 PORTED = {
     "oneprot_tpu.data.datamodule.OneProtDataModule",
     "oneprot_tpu.data.datasets.msa_dataset.MSADataset",
@@ -369,6 +371,9 @@ PORTED = {
     "oneprot_tpu.data.datasets.struct_graph_dataset.StructDataset",
     "oneprot_tpu.data.datasets.struct_token_dataset.StructTokenDataset",
     "oneprot_tpu.data.datasets.text_dataset.TextDataset",
+    "oneprot_tpu.downstream.boosters.make_classifier",
+    "oneprot_tpu.downstream.boosters.make_regressor",
+    "oneprot_tpu.downstream.mlp_probe.MLPProbeConfig",
     "oneprot_tpu.models.encoders.create_msa_encoder",
     "oneprot_tpu.models.encoders.create_struct_graph_encoder",
     "oneprot_tpu.models.encoders.create_sequence_encoder",
@@ -378,29 +383,24 @@ PORTED = {
     "oneprot_tpu.train.optim.adam",
     "oneprot_tpu.train.trainer.Trainer",
     "oneprot_tpu.utils.loggers.CsvLogger",
+    "oneprot_tpu.utils.loggers.WandbLogger",
 }
-ITEMS = {"downstream": 10, "WandbLogger": 11}
 
 
 def test_committed_targets_are_known():
-    assert len(TARGETS) == 19 and PORTED <= set(TARGETS)
-    for target in set(TARGETS) - PORTED:
-        assert any(part in target for part in ITEMS), target
+    assert len(TARGETS) == 19 and PORTED == set(TARGETS)
 
 
 @pytest.mark.parametrize("target", TARGETS)
 def test_target_rewritten_or_refused_naming_item(target):
+    """Every committed target is rewritten and located in the port (the
+    downstream probes and the wandb logger, the last refused, are
+    ported)."""
     assert config.port_target(target) == "oneprot_tpu_torch" + target[len(
         "oneprot_tpu"):]
-    if target in PORTED:
-        obj = config._locate(target)
-        assert obj.__module__.startswith("oneprot_tpu_torch.")
-        assert obj.__qualname__ == target.rsplit(".", 1)[1]
-    else:
-        item = next(n for part, n in ITEMS.items() if part in target)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item} "):
-            config._locate(target)
+    obj = config._locate(target)
+    assert obj.__module__.startswith("oneprot_tpu_torch.")
+    assert obj.__qualname__ == target.rsplit(".", 1)[1]
 
 
 def test_alias_applies_before_the_rewrite(monkeypatch):
@@ -412,8 +412,10 @@ def test_alias_applies_before_the_rewrite(monkeypatch):
 
 def test_composes_and_locates_without_yaml_or_the_jax_package():
     """In a fresh process with `yaml` blocked: every config composes and
-    resolves, every committed target is located or refused, and neither
-    yaml, jax nor oneprot_tpu is imported."""
+    resolves, every committed target is located, the probes' entry points
+    import, and neither yaml, jax nor oneprot_tpu is imported, nor what
+    only the boosters, the LMDB converter and the wandb logger use when
+    called (sklearn, xgboost, lmdb, wandb; nor scipy)."""
     cases = [[name, ovs] for name, ovs in COMPOSE_CASES[:-3]]
     code = f"""
 import sys
@@ -424,12 +426,14 @@ for name, ovs in {cases!r}:
     config.resolve(cfg, resolvers={{"hydra": lambda a: "/o", "now": lambda a: "s"}})
 located = 0
 for target in {TARGETS!r}:
-    try:
-        config._locate(target)
-        located += 1
-    except NotImplementedError:
-        pass
-bad = [m for m in sys.modules if m.split(".")[0] in ("yaml", "jax", "oneprot_tpu")
+    config._locate(target)
+    located += 1
+import oneprot_tpu_torch.cli.lmdb_csv_converter
+import oneprot_tpu_torch.cli.saprot_fit_mlp
+import oneprot_tpu_torch.cli.saprot_fit_reg
+banned = ("yaml", "jax", "oneprot_tpu", "sklearn", "xgboost", "lmdb", "wandb",
+          "scipy")
+bad = [m for m in sys.modules if m.split(".")[0] in banned
        and sys.modules[m] is not None]
 print(located, bad)
 sys.exit(1 if bad else 0)

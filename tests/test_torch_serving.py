@@ -219,7 +219,8 @@ PORT_FILES = sorted((ROOT / "oneprot_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "time_fa_backward.py",
     ROOT / "scripts" / "time_mha_backward.py",
     ROOT / "scripts" / "time_attention_forward.py",
-    ROOT / "scripts" / "time_tied_row_gelu.py"]
+    ROOT / "scripts" / "time_tied_row_gelu.py",
+    ROOT / "scripts" / "probe_host_cpu.py"]
 
 
 def _imported_roots(path):
