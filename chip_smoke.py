@@ -40,9 +40,14 @@ the elapsed seconds:
    packed rows (B=16 L=1024 H=20 D=16, 16 segments a row) and at
    bert_tiny's heads of 64 (key bias, no rotary), one launch each,
    against their f32 plain versions (max rel err <= 1e-4, lse within
-   1e-5), timed beside SDPA in f32 and their f32 bound; and #8 on heads
+   1e-5), timed beside SDPA in f32 and their f32 bound; #8 on heads
    of 16 (the debug MSA tower's, zero-padded to 64 around the launch)
-   at the bf16 gate;
+   at the bf16 gate; and #5, #6 and #7 with segment ids on
+   train_packed's real packed batch at the ESM2-15B width's heads (B=16
+   H=40 L=1024 D=128), each against its plain version on the same ids
+   (padded rows finite), timed beside it, SDPA with the dense mask, the
+   share of tiles it visits and its needed-work and dense bounds, and #5
+   at D=256 with ids (its mma.sync instance masks, visits every tile);
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -67,7 +72,10 @@ the elapsed seconds:
    attention runs through the tied-row kernel;
 8. MSA parity: the same weights at 2 layers, card (bf16, kernel) against
    CPU (f32, plain version), on the tower's output token by token and on
-   the embeddings;
+   the embeddings; then the same weights with `use_all_msa=False` (the
+   query row pooled, mean) answer the first request through #8 (12
+   launches a batch) and match the CPU at 2 layers (mean cosine >=
+   0.999);
 9. training: bench.py's model at full width (frozen ESM2-650M hub with its
    mlp head, trainable ESM2-35M struct-token tower, CLIP + 0.01 L1, clipped
    Adam at SMOKE_LR), built by `create_sequence_encoder`,
@@ -110,20 +118,25 @@ the elapsed seconds:
    committed config.json with LoRA (r 16, alpha 16, dropout 0.1 on q, k,
    v), frozen bf16 weights and per-layer remat, the mlp head, the
    trainable ESM2-35M struct-token tower, CLIP + 0.01 L1 and clipped Adam
-   at SMOKE_LR, takes 3 unpacked `train_step`s, each on a fresh batch of
-   16 pairs bucketed to at most 1024 tokens; the counters show the exact
-   launches per step (the FlashAttention-2 forward twice a hub layer,
-   forward and remat recompute; its dq and dk/dv kernels once a hub
-   layer; flash-MHA once a tower layer each way; no plain version), a
-   fourth step is split into forward, backward and clip + Adam by CUDA
-   events, and a fifth, on the same batch, is profiled (torch.profiler:
-   device time by kernel group); the hub's LoRA factors go through
+   at SMOKE_LR, takes 2 unpacked `train_step`s, each on a fresh batch of
+   16 pairs bucketed to at most 1024 tokens, then 3 `train_step_packed`s
+   on fresh batches at train_packed.yaml's packing (16 rows of 1024
+   tokens, 16 slots: the hub's heads of 128 through #5-#7 with segment
+   ids); the counters show the exact launches per step of either kind
+   (the FlashAttention-2 forward twice a hub layer, forward and remat
+   recompute; its dq and dk/dv kernels once a hub layer; flash-MHA once a
+   tower layer each way; no plain version), another unpacked step is
+   split into forward, backward and clip + Adam by CUDA events, and one
+   more, on the same batch, is profiled (torch.profiler: device time by
+   kernel group); the hub's LoRA factors go through
    `hf_convert.export_peft_lora` (peft's layout) and back through
    `import_peft_lora` bit for bit;
 14. LoRA training parity: the same initial weights at 2 hub + 2 tower
    layers, LoRA dropout 0, two unpacked steps on the card (bf16, kernels)
    against the CPU (f32, plain versions); the second step starts both
-   from the CPU's weights after the first (see `lora_parity`);
+   from the CPU's weights after the first (see `lora_parity`); then the
+   same on 2 packed rows of 256 tokens (#5-#7 with segment ids on the
+   card, the JAX layer's dense mask on the CPU);
 15. cli: `oneprot_tpu_torch.cli.train.main`, in process, on the checkout's
    configs/: `experiment=train_packed` with
    `data=struct_token_only` and bench.py's widths in bf16 (`CLI_MODEL`),
@@ -275,6 +288,12 @@ the elapsed seconds:
    launched on every rank as often as here, each forward on half the
    heads, no plain version, a rank's hub bytes <= TP_HUB_BYTES of this
    process's; the step ms and the row-parallel all-reduces' ms printed;
+   then each rank runs the recipe again with the int8 hub
+   (`model.components.sequence.quantize=int8`, one batch), held whole
+   on every model rank as the JAX rules place its int8 leaves: its
+   pooled features on a fixed batch must equal this process's whole int8
+   hub's on the same seeded weights bit for bit, #4 launched on every
+   rank; the ranks' resident hub bytes are printed beside one process's;
 27. tensor parallel (B): `experiment=train_packed data=struct_token_only
    trainer.mesh.model=2` at the CLI phase's widths on two gloo ranks (data
    1 x model 2): the trainable 35M tower split, #1-#3 on 10 of its 20
@@ -282,7 +301,11 @@ the elapsed seconds:
    same gates against the CLI at mesh.model 1 in this process, the control
    dropping `copy_to_model_group`'s backward all-reduce, and the
    checkpoint the ranks wrote restored at model 1 equal to the file and
-   to the ranks' joined parameters bit for bit.
+   to the ranks' joined parameters bit for bit. Its ranks run without
+   torch's deterministic algorithms, as a CLI run does by default: the
+   replicas' bit-identity is then the model group's gradient sync's
+   doing; each step's largest difference between the two ranks' own
+   gradients of the replicated parameters, before the sync, is printed.
 
 Every check raises on failure, so the exit code is non-zero. The last line
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -415,8 +438,13 @@ MSA_TOKEN_COS = 0.999
 # rate changes no work done in a step.
 SMOKE_LR = 1e-4
 # the LoRA-15B step: 16 pairs a step, LoRA as configs/model/components/
-# sequence.yaml sets it (use_lora: r 16, alpha 16, dropout 0.1 on q/k/v)
-LORA_BATCH, LORA_STEPS = 16, 3
+# sequence.yaml sets it (use_lora: r 16, alpha 16, dropout 0.1 on q/k/v);
+# unpacked steps (2 since the packed ones also run #5-#7), then packed
+# steps at train_packed.yaml's packing (ROWS x ROW_LEN, SLOTS slots)
+LORA_BATCH, LORA_STEPS, LORA_PACKED_STEPS = 16, 2, 3
+# the packed LoRA parity's batch: 2 rows of 256 tokens, 4 slots a row
+# (its CPU half computes 5120-wide f32 layers)
+LORA_PARITY_ROW_LEN, LORA_PARITY_SLOTS = 256, 4
 LORA = dict(use_lora=True, lora_r=16, lora_alpha=16, lora_dropout=0.1)
 # the trainer phase: synthetic seq <-> 3Di pairs (their own numpy seed) at
 # configs/data/default.yaml's buckets, a val batch of 16, Adam at bench.py's
@@ -563,7 +591,7 @@ def ptxas_report(log: str) -> list:
     out, instance, spills = [], "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            instance = "<" + ",".join(re.findall(r"Li(\d+)E", line)) + ">"
+            instance = "<" + ",".join(re.findall(r"L[ib](\d+)E", line)) + ">"
         elif re.search(r"\(C75\d\d\)", line):
             out.append(("note", line.strip()))
         elif "spill" in line:
@@ -977,6 +1005,186 @@ def check_flash_attention_bwd(gen) -> list:
     return rows
 
 
+def check_flash_attention_segments(gen, rows: list) -> dict:
+    """#5, #6 and #7 with segment ids on train_packed's real packed batch
+    (`make_packed_batch` from PACKED_SEG_SEED: the hub's ids, 16 rows of
+    1024, 16 slots) at the ESM2-15B width's heads (B=16 H=40 L=1024 D=128,
+    bf16, the key-padding bias beside the ids), each against its plain
+    version on the same ids (bf16 rel 1.5e-2; lse 5e-2 on the real rows;
+    the padded rows finite), then timed beside its plain version, the
+    share of tiles it visits (`segment_tile_hits` at its tile shapes), the
+    needed-work bound over the pairs of equal ids and the dense one, and
+    SDPA with the dense mask (the forward; the backward as forward +
+    backward minus forward). And #5 at D = 256 (its mma.sync instance,
+    which masks by the ids and visits every tile) on the batch's first 4
+    rows, 16 heads. Folds the errors into `rows` and returns the numbers,
+    which the rows of #5-#7 carry as `segment_ids`."""
+    B, H, L, D = ROWS, 40, ROW_LEN, 128
+    seg = torch.from_numpy(make_packed_batch(np.random.RandomState(
+        PACKED_SEG_SEED))["seq"]["segment_ids"]).cuda()
+    valid = seg >= 0
+    bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
+    q, k, v, _, _ = fa_inputs(B, H, L, D, gen)
+    dout = (torch.randn(B, L, H, D, device="cuda", generator=gen)
+            * valid[:, :, None, None]).to(torch.bfloat16).transpose(1, 2)
+    by_name = {r["name"]: r for r in rows}
+
+    def worse(name, key, value):
+        row = by_name[name]
+        if isinstance(row[key], dict):
+            return
+        row[key] = max(row[key], value)
+
+    def rel_err(got, want):
+        diff = (got.float() - want.float()).abs().max().item()
+        return diff / max(want.float().abs().max().item(), 1e-6), diff
+
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias, seg)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias, seg)
+    dq, qs, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse,
+                                                   dout, seg)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(qs, k, v, bias, dout, lse, delta,
+                                             seg)
+    torch.cuda.synchronize()
+    require(torch.isfinite(out.float()).all().item()
+            and torch.isfinite(lse).all().item(),
+            "flash-attention with segment ids: non-finite out or lse (the "
+            "padded rows included)")
+    errs = {}
+    errs["out"], abs_out = rel_err(out, ref)
+    real = valid[:, None, :].expand_as(lse)
+    errs["lse"] = (lse - ref_lse).abs()[real].max().item()
+    require(errs["out"] <= FLASH_REL_TOL, f"#5 with segment ids: rel err "
+            f"{errs['out']}")
+    require(errs["lse"] <= 5e-2, f"#5 with segment ids: lse err {errs['lse']}")
+    worse("flash_attention_fwd", "max_rel_err", errs["out"])
+    worse("flash_attention_fwd", "max_abs_err", abs_out)
+    worse("flash_attention_fwd", "lse_max_abs_err", errs["lse"])
+    del ref, ref_lse
+    own_dq, own_qs, own_delta = fa.flash_attention_bwd_dq_plain(
+        q, k, v, bias, out, lse, dout, seg)
+    require(torch.equal(qs, own_qs), "#6 with segment ids: q_s")
+    errs["delta"] = rel_err(delta, own_delta)[0]
+    del own_qs, own_delta
+    own_dk, own_dv = fa.flash_attention_bwd_dkv_plain(qs, k, v, bias, dout,
+                                                      lse, delta, seg)
+    whole = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout, seg)
+    torch.cuda.synchronize()
+    for name, got, wants, kernel in (
+            ("dq", dq, (own_dq, whole[0]), "flash_attention_bwd_dq"),
+            ("dk", dk, (own_dk, whole[1]), "flash_attention_bwd_dkv"),
+            ("dv", dv, (own_dv, whole[2]), "flash_attention_bwd_dkv")):
+        require(torch.isfinite(got.float()).all().item(),
+                f"{kernel} with segment ids: non-finite {name}")
+        for want in wants:
+            rel, diff = rel_err(got, want)
+            require(rel <= FLASH_REL_TOL, f"{kernel} with segment ids: {name} "
+                    f"rel err {rel}")
+            errs[name] = max(errs.get(name, 0.0), rel)
+            worse(kernel, "max_abs_err", diff)
+    require(errs["delta"] <= FLASH_REL_TOL, f"#6 with segment ids: delta rel "
+            f"err {errs['delta']}")
+    del own_dq, own_dk, own_dv, whole, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    fwd_ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, bias, seg))
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, bias, out, lse, dout, seg))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        qs, k, v, bias, dout, lse, delta, seg))
+    plain = {"fwd": time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, bias, seg), iters=3),
+        "dq": time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+            q, k, v, bias, out, lse, dout, seg), iters=3),
+        "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+            qs, k, v, bias, dout, lse, delta, seg), iters=3)}
+    mask = flash_mha.packed_segment_bias(seg, bias, mask_value=-1e30).to(
+        torch.bfloat16)
+    leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
+    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, dout.contiguous()))
+    del leaves, mask
+    tiles = {"fwd": flash_mha.segment_tile_hits(
+        seg, fa.fwd_key_tile(D), fa.BLOCK).float().mean().item(),
+        "dq": flash_mha.segment_tile_hits(seg, fa.TILE,
+                                          fa.BLOCK).float().mean().item()}
+    tiles["dkv"] = tiles["dq"]  # the same table read key block first
+    pairs = needed_pairs(seg, B, L) * H
+    dense = B * H * L * L
+    qkvo = B * H * L * D * 2
+    row = B * H * L * 4
+    side = B * L * 4 * 2  # the bias and the ids
+    out_ = {"shape": f"B={B} H={H} L={L} D={D} bf16, the real packed batch "
+                     f"(PACKED_SEG_SEED), {SLOTS} slots a row",
+            "max_rel_err": errs, "pairs_needed": pairs / dense,
+            "sdpa_forward_ms": sdpa_fwd,
+            "sdpa_backward_ms": sdpa_fwd_bwd - sdpa_fwd, "kernels": {}}
+    for name, ms, gemms, nbytes in (
+            ("flash_attention_fwd", fwd_ms, 2, 4 * qkvo + row + side),
+            ("flash_attention_bwd_dq", dq_ms, 3, 7 * qkvo + 2 * row + side),
+            ("flash_attention_bwd_dkv", dkv_ms, 4, 6 * qkvo + 2 * row + side)):
+        part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+                "flash_attention_bwd_dkv": "dkv"}[name]
+        b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * pairs * D, BF16_FLOPS)
+        dense_ms = bound_ms(nbytes, 2.0 * gemms * dense * D, BF16_FLOPS)[0]
+        out_["kernels"][name] = {
+            "ms": ms, "plain_ms": plain[part], "tiles_visited": tiles[part],
+            "bound_ms": b_ms, "bound_by": b_by, "dense_bound_ms": dense_ms,
+            "library_ms": sdpa_fwd if part == "fwd" else
+            sdpa_fwd_bwd - sdpa_fwd}
+        print(f"  {name} with segment ids, {out_['shape']}: {ms:.4f} ms "
+              f"(plain {plain[part]:.4f} ms); tiles visited "
+              f"{tiles[part]:.3f}, pairs needed {pairs / dense:.3f}; bound "
+              f"(needed / dense) {b_ms:.4f} / {dense_ms:.4f} ms ({b_by}); "
+              f"SDPA with the dense mask "
+              + (f"forward {sdpa_fwd:.4f} ms" if part == "fwd" else
+                 f"backward {sdpa_fwd_bwd - sdpa_fwd:.4f} ms (both passes)"),
+              flush=True)
+    print(f"  FA-2 with segment ids: max rel err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + "; #6 + #7 "
+        f"{dq_ms + dkv_ms:.4f} ms against SDPA's backward "
+        f"{sdpa_fwd_bwd - sdpa_fwd:.4f} ms", flush=True)
+    del q, k, v, out, lse, qs, delta, dout
+    torch.cuda.empty_cache()
+
+    # D = 256: the mma.sync instance takes the ids as a mask
+    b4, h4 = 4, 16
+    seg4, bias4 = seg[:b4].contiguous(), bias[:b4].contiguous()
+    q, k, v, _, _ = fa_inputs(b4, h4, L, 256, gen)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias4, seg4)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias4, seg4)
+    torch.cuda.synchronize()
+    rel, diff = rel_err(out, ref)
+    lse_err = (lse - ref_lse).abs()[valid[:b4, None, :].expand_as(lse)].max(
+    ).item()
+    require(torch.isfinite(out.float()).all().item() and rel <= FLASH_REL_TOL
+            and lse_err <= 5e-2, f"#5 D=256 with segment ids: rel err {rel}, "
+            f"lse err {lse_err}")
+    worse("flash_attention_fwd", "max_rel_err", rel)
+    worse("flash_attention_fwd", "max_abs_err", diff)
+    ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, bias4, seg4))
+    pairs4 = needed_pairs(seg4, b4, L) * h4
+    b_ms, b_by = bound_ms(4 * b4 * h4 * L * 256 * 2 + b4 * h4 * L * 4
+                          + b4 * L * 8, 4.0 * pairs4 * 256, BF16_FLOPS)
+    out_["d256_forward"] = {"shape": f"B={b4} H={h4} L={L} D=256 bf16",
+                            "ms": ms, "max_rel_err": rel,
+                            "lse_max_abs_err": lse_err, "bound_ms": b_ms,
+                            "bound_by": b_by}
+    print(f"  flash_attention_fwd D=256 with segment ids (mma.sync, every "
+          f"tile), B={b4} H={h4} L={L}: max rel err {rel:.3e}, lse {lse_err:.3e};"
+          f" {ms:.4f} ms, needed-work bound {b_ms:.4f} ms ({b_by})", flush=True)
+    del q, k, v, out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
+    common = {k: out_[k] for k in ("shape", "max_rel_err", "pairs_needed")}
+    for name, numbers in out_["kernels"].items():
+        by_name[name]["segment_ids"] = {**common, **numbers}
+    by_name["flash_attention_fwd"]["segment_ids"]["d256"] = out_[
+        "d256_forward"]
+    return out_
+
+
 def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
     """The forward kernel's out and lse at a training shape against
     mha_attention_plain on the same inputs; folds the errors into the
@@ -1248,16 +1456,18 @@ def time_flash_bwd(what, q, k, v, out, lse, dout, H, side, q_r, delta) -> dict:
     return res
 
 
-def make_packed_batch(rng):
-    """ROWS rows of ROW_LEN tokens, SLOTS slots a row, as bench.py packs
-    them: log-normal lengths around 290 residues clipped to [30, 1024],
-    proteins added while they fit (a protein that does not is skipped; 20
-    misses in a row end the batch). Hub tokens 4..23 and struct tokens
-    20..52 between <cls> and <eos>, the same proteins in the same slots."""
+def make_packed_batch(rng, rows: int = ROWS, row_len: int = ROW_LEN,
+                      slots: int = SLOTS, median: float = 290.0):
+    """`rows` rows of `row_len` tokens, `slots` slots a row, as bench.py
+    packs them (ROWS x ROW_LEN, SLOTS by default): log-normal lengths
+    around `median` residues clipped to [30, row_len], proteins added while
+    they fit (a protein that does not is skipped; 20 misses in a row end
+    the batch). Hub tokens 4..23 and struct tokens 20..52 between <cls>
+    and <eos>, the same proteins in the same slots."""
     lengths, misses = [], 0
     while misses < 20:
-        n = int(np.clip(rng.lognormal(np.log(290.0), 0.65), 30, ROW_LEN))
-        if len(packing.pack_lengths(lengths + [n], ROW_LEN, SLOTS)) > ROWS:
+        n = int(np.clip(rng.lognormal(np.log(median), 0.65), 30, row_len))
+        if len(packing.pack_lengths(lengths + [n], row_len, slots)) > rows:
             misses += 1
             continue
         lengths.append(n)
@@ -1270,17 +1480,18 @@ def make_packed_batch(rng):
         t[-1] = t2[-1] = 2
         seq_tok.append(t)
         st_tok.append(t2)
-    ids, seg, valid, rows = packing.pack_token_rows(seq_tok, ROW_LEN, SLOTS)
+    ids, seg, valid, members_of = packing.pack_token_rows(seq_tok, row_len,
+                                                          slots)
     st_ids = np.full_like(ids, 1)
     st_seg = np.full_like(seg, -1)
-    for r, members in enumerate(rows):
+    for r, members in enumerate(members_of):
         off = 0
         for slot, idx in enumerate(members):
             n = len(st_tok[idx])
             st_ids[r, off:off + n] = st_tok[idx]
             st_seg[r, off:off + n] = slot
             off += n
-    require(ids.shape == (ROWS, ROW_LEN), f"packed batch {ids.shape}")
+    require(ids.shape == (rows, row_len), f"packed batch {ids.shape}")
     return {"seq": {"ids": ids, "segment_ids": seg},
             "mod": {"ids": st_ids, "segment_ids": st_seg}, "valid": valid}
 
@@ -2521,6 +2732,10 @@ TP_B32 = tuple(a for a in TP_B if not a.endswith("dtype=bfloat16")) + (
     "model.components.sequence.dtype=float32",
     "model.components.struct_token.dtype=float32")
 TP_PHASES = {"A": (TP_A, 4), "B": (TP_B, 2), "B32": (TP_B32, 2)}
+# phase A's third run: the recipe with the int8 hub (held whole on every
+# model rank, as the JAX rules place its int8 leaves), one batch
+TP_A_INT8 = ("model.components.sequence.quantize=int8",
+             "trainer.limit_train_batches=1")
 TP_ITEMS = {"train": 64, "val": 8, "test": 8}  # phase A's synthetic ids
 TP_LONGEST = 510
 TP_SEED = 31
@@ -2669,23 +2884,47 @@ def use_records(root: str) -> None:
     register_target_alias(CLI_DATA_TARGET, f"{__name__}.CliDataModule")
 
 
+def tp_int8_rows() -> torch.Tensor:
+    """The rows phase A's int8 hubs embed: 4 proteins of 100-254 residues
+    in a batch of 256 tokens, from their own numpy seed."""
+    rng = np.random.RandomState(TP_SEED + 1)
+    ids = np.full((4, 256), 1, np.int64)
+    for r, n in enumerate((254, 181, 130, 100)):
+        ids[r, 1:n + 1] = rng.randint(4, 24, size=n)
+        ids[r, 0], ids[r, n + 1] = 0, 2
+    return torch.from_numpy(ids).cuda()
+
+
 def tp_child(name: str, rank: int, root: str) -> int:
     """One rank of a tensor-parallel phase: the CLI run at mesh.model 2,
     then its control (phase A: the row-parallel bias added on every model
     rank; phase B: copy_to_model_group's backward without its all-reduce,
     its hub features read from the disk store the first run wrote, as the
-    fault is in the tower's backward).
+    fault is in the tower's backward); phase A then runs the recipe with
+    the int8 hub (TP_A_INT8) and pools `tp_int8_rows` through it.
     Writes root/<name>_rank<r>.json and .pt (and the batches on model rank
-    0 of each data rank). Under torch's deterministic algorithms: the
-    ranks of a model group compute its replicated parts each, and the
-    towers' embedding and scatter backwards add with atomics otherwise
-    (phase 24), so their replicas would part by a few ulps."""
+    0 of each data rank). Phase A runs under torch's deterministic
+    algorithms; phase B without them, as a CLI run does by default: the
+    ranks of a model group compute its replicated parts' gradients each,
+    the towers' embedding and scatter backwards add with atomics, and the
+    model group's sync (`optim.ClippedOptimizer`) must keep one replica.
+    Phases B (and B32) record each step's gradients of the replicated
+    parameters as the rank computed them, before that sync."""
     from oneprot_tpu_torch.core import collectives
     from oneprot_tpu_torch.core.mesh import data_world, model_world
     from oneprot_tpu_torch.models.layers import RowParallelDense
+    from oneprot_tpu_torch.train.optim import ClippedOptimizer
 
     world_n = TP_PHASES[name][1]
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    if name != "B":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    raw_grads = []
+    sync_step = ClippedOptimizer.step
+
+    def recording_step(opt):
+        raw_grads.append([torch.zeros_like(p) if p.grad is None
+                          else p.grad.detach().clone() for p in opt.replicated])
+        sync_step(opt)
     count_plain_calls()
     init_distributed(f"file://{root}/rendezvous_{name}",
                      num_processes=world_n, process_id=rank, backend="gloo",
@@ -2706,6 +2945,8 @@ def tp_child(name: str, rank: int, root: str) -> int:
                 lambda ctx, grad: grad)
         rec = TpRecorder(keep_batches=run == "run"
                          and model_world()[1] == 0)
+        if name != "A" and run == "run":
+            ClippedOptimizer.step = recording_step
         try:
             torch.cuda.synchronize()
             reset_launches()
@@ -2717,6 +2958,7 @@ def tp_child(name: str, rank: int, root: str) -> int:
             out[f"{run}_disk_hits"] = metrics.get("cache/disk_hits")
         finally:
             rec.close()
+            ClippedOptimizer.step = sync_step
         state[run] = tp_trainable(rec.module)
         if run == "run":
             state["initial"] = rec.initial
@@ -2738,6 +2980,27 @@ def tp_child(name: str, rank: int, root: str) -> int:
             out["control_losses"] = rec.losses
         rec.module = None
         torch.cuda.empty_cache()
+    if name == "A":
+        rec = TpRecorder(keep_batches=False)
+        try:
+            reset_launches()
+            cli_train.main(tp_argv(name, root, f"{root}/A_int8", 2)
+                           + list(TP_A_INT8))
+            torch.cuda.synchronize()
+        finally:
+            rec.close()
+        hub = rec.module.encoders["sequence"].eval()
+        with torch.no_grad():
+            state["int8_pooled"] = hub.backbone_pooled(
+                tp_int8_rows()).float().cpu()
+        out["int8"] = {"launches": read_launches(), "losses": rec.losses,
+                       "plain": dict(PLAIN_CALLS),
+                       "hub_bytes": hub_bytes(rec.module),
+                       "heads_split": any(layer.attn.heads_split for layer in
+                                          hub.transformer.layers)}
+        rec.module = hub = None
+        torch.cuda.empty_cache()
+    state["raw_grads"] = [[g.cpu() for g in step] for step in raw_grads]
     torch.save({**state, "held": out.pop("held")},
                f"{root}/{name}_rank{rank}.pt")
     with open(f"{root}/{name}_rank{rank}.json", "w") as f:
@@ -2808,6 +3071,33 @@ def tp_reference(name: str, root: str) -> dict:
             "step_ms": rec.step_ms}
 
 
+def tp_int8_reference(root: str):
+    """Phase A's int8 hub in this process, whole at model 1: the recipe's
+    sequence component with TP_A_INT8, its weights drawn as
+    `cli.train.build_model` draws them (the seed's generator, the hub
+    first) and stored as `OneProtModule.init` stores them, pooling
+    `tp_int8_rows`. Returns (pooled, hub bytes)."""
+    from oneprot_tpu_torch.core.config import instantiate
+
+    cfg = cli_train.prepare(default_config_dir(), tp_argv(
+        "A", root, f"{root}/A_int8_one", 1) + list(TP_A_INT8))
+    components = cfg["model"]["components"]
+    require(next(iter(components)) == "sequence",
+            f"train_3b_tp draws {list(components)}: the hub must come first")
+    draw_biases(True)
+    try:
+        hub = instantiate({**dict(components["sequence"]), "device": "cuda"})
+        esm2.init_esm2_weights_(hub, torch.Generator(device="cuda").manual_seed(
+            int(cfg["seed"])))
+    finally:
+        draw_biases(False)
+    module = OneProtModule({"sequence": hub}).init()
+    hub.eval()
+    with torch.no_grad():
+        pooled = hub.backbone_pooled(tp_int8_rows()).float().cpu()
+    return pooled, hub_bytes(module)
+
+
 def tensor_parallel_phase(name: str, smi: str, launches: dict,
                           min_cos: float = TP_DELTA_COS) -> dict:
     """Phase A or B: the ranks (children of this script) at mesh.model 2,
@@ -2847,6 +3137,8 @@ def tensor_parallel_phase(name: str, smi: str, launches: dict,
         t = time.time()
         ref = tp_reference(name, root)
         out["reference_s"] = time.time() - t
+        if name == "A":
+            int8_one, int8_bytes = tp_int8_reference(root)
         if name != "A":
             path = f"{root}/{name}_run/checkpoints/last"
             module = ref["module"]
@@ -2942,10 +3234,75 @@ def tensor_parallel_phase(name: str, smi: str, launches: dict,
     if name == "A":
         require(max(out["hub_bytes"]) <= TP_HUB_BYTES * ref["hub_bytes"],
                 f"tp A hub bytes {out['hub_bytes']} vs {ref['hub_bytes']}")
+        out["int8"] = tp_int8_gates(ranks, states, int8_one, int8_bytes, smi,
+                                    launches)
     else:
+        out["raw_replicated_grads"] = raw_grad_parting(states, smi)
         require(out["checkpoint_restores_at_model_1"],
                 "tp B: the model-2 checkpoint does not restore at model 1")
     return out
+
+
+def tp_int8_gates(ranks: list, states: list, one: torch.Tensor,
+                  one_bytes: int, smi: str, launches: dict) -> dict:
+    """Phase A's int8 run: each rank's pooled hub features equal to this
+    process's whole int8 hub's bit for bit, #4 launched on every rank, no
+    split heads, no plain version; each rank's resident hub bytes against
+    one process's. Fills launches["tp A int8 rank r"]."""
+    equal = [torch.equal(s["int8_pooled"], one) for s in states]
+    diffs = [float((s["int8_pooled"] - one).abs().max()) for s in states]
+    res = {"bit_identical_to_one_process": equal, "max_abs_diff": diffs,
+           "hub_bytes": [r["int8"]["hub_bytes"] for r in ranks],
+           "one_process_hub_bytes": one_bytes,
+           "gelu_quant_launches": [r["int8"]["launches"]["gelu_quant"]
+                                   for r in ranks],
+           "losses": [r["int8"]["losses"] for r in ranks]}
+    res["hub_bytes_ratio"] = [b / one_bytes for b in res["hub_bytes"]]
+    for rank, r in enumerate(ranks):
+        launches[f"tp A int8 rank {rank}"] = r["int8"]["launches"]
+    print(f"  tp A with the int8 hub ({' '.join(TP_A_INT8)}): pooled hub "
+          f"features equal to one process's whole int8 hub bit for bit on "
+          f"ranks {equal} (max abs diff {max(diffs):.3e}); #4 launches per "
+          f"rank {res['gelu_quant_launches']}; resident hub bytes per rank "
+          f"{res['hub_bytes']} against one process's {one_bytes} ("
+          + ", ".join(f"{x:.4f}x" for x in res["hub_bytes_ratio"])
+          + f"); losses {res['losses']}; {smi}", flush=True)
+    require(all(equal), f"tp A int8: pooled features differ from one "
+            f"process's: {diffs}")
+    require(all(n > 0 for n in res["gelu_quant_launches"]),
+            f"tp A int8: #4 not launched on every rank: "
+            f"{res['gelu_quant_launches']}")
+    require(not any(r["int8"]["heads_split"] for r in ranks),
+            "tp A int8: the int8 hub split its heads")
+    require(not any(any(r["int8"]["plain"].values()) for r in ranks),
+            "tp A int8: plain versions ran on the card")
+    require(all(np.isfinite(r["int8"]["losses"]).all() for r in ranks),
+            f"tp A int8: losses {res['losses']}")
+    return res
+
+
+def raw_grad_parting(states: list, smi: str) -> dict:
+    """Phase B ran without deterministic algorithms: the two model ranks'
+    gradients of the replicated parameters as each computed them, before
+    the model group's sync, step by step: the largest difference and the
+    share of parameters that differ at all (printed, not gated; the gate
+    is that the replicas after the steps are bit-identical)."""
+    a, b = (s["raw_grads"] for s in states[:2])
+    require(len(a) == len(b) > 0, f"tp B: {len(a)} and {len(b)} recorded "
+            "optimizer steps")
+    steps = []
+    for ga, gb in zip(a, b):
+        diffs = [float((x.float() - y.float()).abs().max()) if x.numel()
+                 else 0.0 for x, y in zip(ga, gb)]
+        steps.append({"max_abs_diff": max(diffs),
+                      "params_differing": sum(d > 0 for d in diffs),
+                      "params": len(diffs)})
+    print("  tp B, deterministic algorithms off: the model ranks' raw "
+          "replicated gradients before the sync, per step: " + "; ".join(
+              f"max |rank 0 - rank 1| {x['max_abs_diff']:.3e} in "
+              f"{x['params_differing']} of {x['params']} parameters"
+              for x in steps) + f"; {smi}", flush=True)
+    return {"steps": steps}
 
 
 def serve_struct_tokens(run_dir: str, launches: dict) -> dict:
@@ -3127,6 +3484,7 @@ def train_lora_hub(smi: str, launches: dict):
     require(all(torch.isfinite(p).all().item() for p in module.opt.params),
             "LoRA-15B: non-finite parameters after the steps")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    packed = lora_packed_steps(module, per_step, launches, smi)
     # the adapters through peft's layout and back, bit for bit
     from oneprot_tpu_torch.models.hf_convert import (
         export_peft_lora,
@@ -3177,17 +3535,71 @@ def train_lora_hub(smi: str, launches: dict):
                                                   batches[:LORA_STEPS]],
               "trainable_params": n_train, "hub_trainable_params": n_hub_train,
               "peak_gib": peak, "launches_per_step": per_step,
-              "split": split, "profile": prof,
+              "split": split, "profile": prof, "packed": packed,
               "peft_round_trip": {"tensors": len(adapters), "s": peft_s}}
     print(f"  LoRA-15B adapters: peft export + import of {len(adapters)} "
           f"tensors in {peft_s:.3f} s, bit for bit", flush=True)
     return result, initial
 
 
-def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
-    """Two unpacked steps at 2 hub + 2 tower layers from the LoRA step's
-    initial weights (B = 0), LoRA dropout 0, on WIDE_PARITY_ROWS pairs up to 254
-    residues: card (bf16, kernels, remat) vs CPU (f32, plain versions). On
+def lora_packed_steps(module: OneProtModule, per_step: dict, launches: dict,
+                      smi: str) -> dict:
+    """LORA_PACKED_STEPS `train_step_packed`s of the LoRA-15B module on
+    fresh batches at train_packed.yaml's packing: the hub's heads of 128
+    through #5-#7 with segment ids, the tower's through #1-#3. Gated: the
+    launches of `per_step` each step, no plain version, finite losses and
+    parameters. Fills launches["LoRA-15B packed step"]."""
+    rng = np.random.RandomState(12)
+    batches = [make_packed_batch(rng) for _ in range(LORA_PACKED_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for b in batches:
+        t = time.time()
+        loss, _ = module.train_step_packed("struct_token", b["seq"], b["mod"],
+                                           b["valid"])
+        losses.append(loss.item())  # waits for the step
+        secs.append(time.time() - t)
+    launches["LoRA-15B packed step"] = read_launches()
+    want = {k: LORA_PACKED_STEPS * n for k, n in per_step.items()}
+    require(launches["LoRA-15B packed step"] == want,
+            f"LoRA-15B packed launches {launches['LoRA-15B packed step']}, "
+            f"want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"LoRA-15B packed: plain versions ran on the card: {PLAIN_CALLS}")
+    require(bool(np.isfinite(losses).all()), f"LoRA-15B packed losses {losses}")
+    require(all(torch.isfinite(p).all().item() for p in module.opt.params),
+            "LoRA-15B packed: non-finite parameters after the steps")
+    pairs = [int(b["valid"].sum()) for b in batches]
+    seg = torch.from_numpy(np.concatenate([b["seq"]["segment_ids"]
+                                           for b in batches])).cuda()
+    tiles = {"#5": flash_mha.segment_tile_hits(
+        seg, fa.fwd_key_tile(128), fa.BLOCK).float().mean().item(),
+        "#6 and #7": flash_mha.segment_tile_hits(
+            seg, fa.TILE, fa.BLOCK).float().mean().item()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  LoRA-15B packed ({ROWS} rows of {ROW_LEN}, {SLOTS} slots): "
+          f"proteins {pairs}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; step ms " + ", ".join(f"{x * 1e3:.1f}" for x in secs)
+          + "; pairs/s " + ", ".join(f"{n / x:.2f}" for n, x in
+                                      zip(pairs, secs))
+          + f"; FA-2 tiles visited {tiles}; peak device memory {peak:.2f} "
+          f"GiB; launches per step as unpacked; {smi}", flush=True)
+    return {"losses": losses, "step_ms": [x * 1e3 for x in secs],
+            "pairs": pairs, "pairs_per_s": [n / x for n, x in zip(pairs, secs)],
+            "tiles_visited": tiles, "peak_gib": peak,
+            "launches_per_step": per_step}
+
+
+def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg,
+                packed: bool = False) -> dict:
+    """Two steps at 2 hub + 2 tower layers from the LoRA step's
+    initial weights (B = 0), LoRA dropout 0, card (bf16, kernels, remat)
+    vs CPU (f32, plain versions): unpacked on WIDE_PARITY_ROWS pairs up to
+    254 residues, or `packed` on WIDE_PARITY_ROWS rows of
+    LORA_PARITY_ROW_LEN tokens (the hub's heads of 128 through #5-#7 with
+    segment ids on the card, the dense mask on the CPU). On
     step 1 B = 0 gives A no gradient: each layer's q, k, v lora_B gradients
     are held. Step 2 starts both from the CPU's weights after step 1 (Adam's
     first update is lr * sign(g) wherever |g| >> eps, so a gradient that
@@ -3195,7 +3607,17 @@ def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
     that out of the comparison): each layer's lora_A gradients are held.
     The hub's bias gradients (all biases of its transformer, as one vector)
     are held at both steps."""
-    ids, st_ids = lora_batch(np.random.RandomState(9), WIDE_PARITY_ROWS, 254)
+    if packed:
+        batch = make_packed_batch(np.random.RandomState(10), WIDE_PARITY_ROWS,
+                                  LORA_PARITY_ROW_LEN, LORA_PARITY_SLOTS,
+                                  median=60.0)
+        step = lambda m: m.train_step_packed("struct_token", batch["seq"],
+                                             batch["mod"], batch["valid"])
+    else:
+        ids, st_ids = lora_batch(np.random.RandomState(9), WIDE_PARITY_ROWS,
+                                 254)
+        step = lambda m: m.train_step("struct_token", ids, st_ids)
+    what = "packed " if packed else ""
     cfg_h = dataclasses.replace(hub_cfg, num_layers=2)
     cfg_t = dataclasses.replace(tower_cfg, num_layers=2)
     state = {**{"encoders.sequence." + k: v for k, v in hub_state.items()},
@@ -3205,14 +3627,14 @@ def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
     for m in mods.values():
         m.model.load_state_dict(state)
     out = {"steps": []}
-    for step, factor in ((1, "lora_B"), (2, "lora_A")):
-        if step == 2:
+    for n_step, factor in ((1, "lora_B"), (2, "lora_A")):
+        if n_step == 2:
             with torch.no_grad():
                 for pc, pg in zip(mods["cpu"].opt.params, mods["cuda"].opt.params):
                     pg.copy_(pc)
         runs = {}
         for device, m in mods.items():
-            loss, _ = m.train_step("struct_token", ids, st_ids)
+            loss, _ = step(m)
             runs[device] = {"loss": loss.item(), "grad": {
                 n: p.grad for n, p in m.model.named_parameters()
                 if p.grad is not None}}
@@ -3223,25 +3645,25 @@ def lora_parity(hub_state: dict, tower_state: dict, hub_cfg, tower_cfg) -> dict:
                    for n in card["grad"] if n.startswith(hub) and n.endswith(factor)}
         require(len(factors) == 2 * 3, f"{factor} gradient leaves: {sorted(factors)}")
         biases = [n for n in card["grad"] if n.startswith(hub) and n.endswith("bias")]
-        row = {"step": step, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        row = {"step": n_step, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
                "loss_rel_diff": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
                f"{factor}_grad_cosine": factors,
                "hub_bias_grad_cosine": cosine(
                    flat(card["grad"][n] for n in biases),
                    flat(cpu["grad"][n] for n in biases)),
                "hub_bias_leaves": len(biases)}
-        print(f"  LoRA step {step}, card vs CPU: loss {card['loss']:.6f} vs "
+        print(f"  LoRA {what}step {n_step}, card vs CPU: loss {card['loss']:.6f} vs "
               f"{cpu['loss']:.6f} (rel diff {row['loss_rel_diff']:.2e}, gate <= "
               f"2e-2); {factor} gradient cosine per layer and projection, least "
               f"{min(factors.values()):.5f} (gate >= 0.99); the hub's "
               f"{len(biases)} bias gradients as one vector: cosine "
               f"{row['hub_bias_grad_cosine']:.5f} (gate >= 0.99)", flush=True)
         require(row["loss_rel_diff"] <= 2e-2,
-                f"LoRA step {step} loss parity {row['loss_rel_diff']}")
+                f"LoRA {what}step {n_step} loss parity {row['loss_rel_diff']}")
         require(min(factors.values()) >= 0.99,
-                f"LoRA step {step} {factor} gradient parity {factors}")
+                f"LoRA {what}step {n_step} {factor} gradient parity {factors}")
         require(row["hub_bias_grad_cosine"] >= 0.99,
-                f"LoRA step {step} hub bias gradient parity "
+                f"LoRA {what}step {n_step} hub bias gradient parity "
                 f"{row['hub_bias_grad_cosine']}")
         out["steps"].append(row)
     return out
@@ -3396,6 +3818,56 @@ def msa_parity(state: dict, paths: list) -> dict:
     require(result["embedding_mean_cosine"] >= 0.999,
             f"MSA parity {result['embedding_mean_cosine']} < 0.999")
     return result
+
+
+def serve_msas_query_row(state: dict, requests: list, smi: str,
+                         launches: dict) -> dict:
+    """MSA-1b serving with `use_all_msa=False` (msa.yaml's pooling_type
+    'identity' becomes 'mean' over the query row, as `create_msa_encoder`
+    has it) on the serving phase's weights and first request: #8 exactly
+    12 launches a batch and nothing else, finite embeddings of norm 1/0.07;
+    then its first 2 layers card (bf16, kernel) vs CPU (f32, plain) on the
+    request's first 2 MSAs at the MSA parity's embedding bar. Fills
+    launches["MSA-1b query row"]."""
+    enc = create_msa_encoder(use_all_msa=False)
+    require(enc.pooling_type == "mean" and not enc.use_all_msa,
+            f"query-row pooling: {enc.pooling_type}")
+    enc.load_state_dict(state)
+    embedder = OneProtEmbedder(OneProtModel({"msa": enc}))
+    reset_launches()
+    t = time.time()
+    feats = embedder.embed_msas(requests[0])
+    secs = time.time() - t
+    launches["MSA-1b query row"] = read_launches()
+    want = {name: 0 for name in LAUNCHERS}
+    want["tied_row_attention"] = MSA_LAYERS * -(-len(requests[0]) // 4)
+    require(launches["MSA-1b query row"] == want,
+            f"MSA-1b query row launches {launches['MSA-1b query row']}, "
+            f"want {want}")
+    require(not any(PLAIN_CALLS.values()),
+            f"MSA query row: plain versions ran on the card: {PLAIN_CALLS}")
+    norms = np.linalg.norm(feats, axis=-1)
+    require(feats.shape == (len(requests[0]), 1024)
+            and bool(np.isfinite(feats).all())
+            and bool(np.all(np.abs(norms * 0.07 - 1.0) <= 1e-3)),
+            f"MSA-1b query row: shape {feats.shape}, norms {norms}")
+    del embedder, enc
+    outs = []
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        enc = create_msa_encoder(num_layers=2, use_all_msa=False,
+                                 device=device, dtype=dtype)
+        enc.load_state_dict(first_layers(state, 2))
+        outs.append(OneProtEmbedder(OneProtModel({"msa": enc})).embed_msas(
+            requests[0][:2]))
+    cos = mean_cosine(*outs)
+    print(f"  MSA-1b, the query row pooled (use_all_msa=False, mean): "
+          f"{len(requests[0])} MSAs in {secs * 1e3:.1f} ms = "
+          f"{len(requests[0]) / secs:.2f} MSAs/s; launches "
+          f"{launches['MSA-1b query row']}; 2 layers card vs CPU: embeddings "
+          f"mean cosine {cos:.6f} (gate >= 0.999); {smi}", flush=True)
+    require(cos >= 0.999, f"MSA query-row parity {cos} < 0.999")
+    return {"msas": len(requests[0]), "request_ms": secs * 1e3,
+            "msas_per_s": len(requests[0]) / secs, "parity_mean_cosine": cos}
 
 
 def serve_wide_hub(smi: str, launches: dict):
@@ -5488,6 +5960,7 @@ def main() -> int:
     rows = [fwd_row, *check_flash_bwd(gen, fwd_row), check_gelu_quant(gen),
             check_tied_row(gen), check_flash_attention(gen),
             *check_flash_attention_bwd(gen)]
+    check_flash_attention_segments(gen, rows)
     text_kernels = check_flash_text(gen, rows[:3])
     rows += check_flash_f32(gen)
     tied_row = next(r for r in rows if r["name"] == "tied_row_attention")
@@ -5575,6 +6048,11 @@ def main() -> int:
         phase("MSA parity: 2 layers at full width, card (bf16, kernel) vs CPU "
               "(f32, plain)")
         msa["parity"] = msa_parity(msa_state, msa_requests[0])
+
+        phase("MSA-1b with use_all_msa=False: the query row pooled (mean), "
+              "one request, then 2 layers card vs CPU")
+        msa["query_row"] = serve_msas_query_row(msa_state, msa_requests, smi,
+                                                launches)
     del msa_state
 
     phase("training: ESM2-650M hub + ESM2-35M struct-token tower, packed "
@@ -5607,13 +6085,15 @@ def main() -> int:
     del trainer_initial, records
 
     phase("training: LoRA-15B (48 x 5120 frozen bf16, LoRA r 16 on q/k/v, "
-          "remat) + ESM2-35M struct-token tower, unpacked steps")
+          "remat) + ESM2-35M struct-token tower, unpacked steps, then packed "
+          "steps (16 x 1024, 16 slots: #5-#7 with segment ids)")
     lora, lora_initial = train_lora_hub(smi, launches)
     torch.cuda.empty_cache()
 
     phase("LoRA training parity: 2 + 2 layers at full width, two steps, card "
-          "(bf16, kernels) vs CPU (f32, plain)")
+          "(bf16, kernels) vs CPU (f32, plain), unpacked, then packed")
     lora["parity"] = lora_parity(*lora_initial)
+    lora["packed_parity"] = lora_parity(*lora_initial, packed=True)
     del lora_initial
     torch.cuda.empty_cache()
 

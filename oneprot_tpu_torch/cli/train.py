@@ -37,7 +37,10 @@ from the JAX package's `train()` in these ways:
   parallel, and the data ranks split the data: `data.batch_size` is each
   data rank's batch (the reference's Lightning DDP reading). Every rank
   draws the seeded weights of the whole model and keeps its shard of
-  each split one. The pod recipes (`experiment=train_pod`,
+  each split one; a model group's ranks step its replicated parameters on
+  its first rank's gradients (`train/optim.py`), so they stay one replica
+  with or without `trainer.deterministic`, which runs the fit and the test
+  under torch's deterministic algorithms. The pod recipes (`experiment=train_pod`,
   `train_pod_packed`, `train_3b_tp`) name `trainer=tpu`: the port runs
   them with `trainer=gpu`.
 """

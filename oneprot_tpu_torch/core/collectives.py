@@ -16,7 +16,10 @@ model axis. Ranks are counted within the group. The model group's:
   row-parallel layer whose input is whole);
 - `gather_from_model_group(x, dim)`: the ranks' blocks joined along
   `dim`, no gradient (a checkpoint's or an export's full tensor);
-- `model_sum_(tensors)`: in place, the sum over the model group.
+- `model_sum_(tensors)`: in place, the sum over the model group;
+- `model_broadcast_(tensors)`: in place, the model group's first rank's
+  values on every rank of the group (one replica of what each rank
+  computed for itself).
 
 - `all_gather_with_grad(x)`: the ranks' [b, ...] blocks stacked in rank
   order; backward: all_reduce(SUM) of the whole gradient, then this
@@ -246,6 +249,13 @@ def model_sum_(tensors: Sequence[torch.Tensor]) -> None:
         group = model_group()
         _in_place(tensors, lambda flat: dist.all_reduce(flat, group=group),
                   group)
+
+
+def model_broadcast_(tensors: Sequence[torch.Tensor]) -> None:
+    """In place: each tensor as the model group's first rank holds it, on
+    every rank of the group (one flat broadcast per dtype)."""
+    if _model_ranks() > 1 and tensors:
+        broadcast_(tensors, 0, model_group())
 
 
 @torch.no_grad()

@@ -35,8 +35,6 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-INT8_TENSOR_PARALLEL_ITEM = ("ROADMAP.md Queue 1 item 13 (the int8 hub under "
-                             "tensor parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,9 +26,14 @@ The port applies them to its own state-dict names through the inverse of
 dimension it splits (`shard_dim`): `nn.Linear` stores [out, in], so a
 kernel's P(None, "model") splits the port's dimension 0 and P("model",
 None) its dimension 1. The layers of `models/layers.py` hold their shard
-as built (`layout_of` reads it back); they differ from the rules in one
-place, documented there: an attention whose heads the model axis does not
-divide keeps q, k and v whole.
+as built (`layout_of` reads it back); they differ from the rules in two
+places: an attention whose heads the model axis does not divide keeps q,
+k and v whole (documented in `models/layers.py`), and an int8 layer
+(`Int8Dense`: `weight_q`, `weight_scale`, `bias`) is held whole. The JAX
+rules leave its codes and scales replicated too (they split only leaves
+named `kernel`) but split its q/k/v and fc1 biases; the port keeps those
+biases whole beside their codes, with the same numbers, and so does
+`rule_layout`.
 
 A model rank's block of a split dimension is the rank's contiguous
 chunk: `shard_state_dict` cuts a full state dict so, and
@@ -140,9 +145,12 @@ def shard_dim(name: str, shape: Sequence[int], model: int) -> Optional[int]:
 
 def rule_layout(state: Mapping[str, torch.Tensor],
                 model: int) -> Dict[str, int]:
-    """{name: split dimension} of a full state dict by the rules."""
+    """{name: split dimension} of a full state dict by the rules, an int8
+    layer's entries (those beside a `weight_q`) left whole."""
     out = {}
     for name, t in state.items():
+        if name.rsplit(".", 1)[0] + ".weight_q" in state:
+            continue
         dim = shard_dim(name, tuple(t.shape), model)
         if dim is not None:
             out[name] = dim

@@ -57,23 +57,28 @@ def read_msa(path: str) -> Msa:
     return [(d, remove_insertions(s)) for d, s in records]
 
 
-def greedy_select(msa: Msa, num_seqs: int) -> Msa:
+def greedy_select(msa: Msa, num_seqs: int, mode: str = "max") -> Msa:
     """`num_seqs` rows by greedy Hamming diversity: row 0 first, then at
-    each step the row whose mean distance to the picked rows is largest,
-    the first such row on a tie. Returns the picked rows sorted by index;
-    an MSA of at most `num_seqs` rows as it is."""
+    each step the row whose mean distance to the picked rows is largest
+    (`mode` "max": the most diverse set) or smallest ("min": the closest
+    homologs), the first such row on a tie. Returns the picked rows sorted
+    by index; an MSA of at most `num_seqs` rows as it is."""
+    if mode not in ("max", "min"):
+        raise ValueError(f"mode={mode!r}: 'max' or 'min'")
     if len(msa) <= num_seqs:
         return msa
     arr = np.array([list(seq) for _, seq in msa], dtype="S1").view(np.uint8)
     n = arr.shape[0]
+    pick, taken = ((np.argmax, -np.inf) if mode == "max"
+                   else (np.argmin, np.inf))
     selected = [0]
     # running sum of each row's Hamming distances to the picked rows
     dist_sum = np.zeros(n, dtype=np.float64)
     for _ in range(num_seqs - 1):
         dist_sum += (arr != arr[selected[-1]][None, :]).mean(axis=1)
         mean_dist = dist_sum / len(selected)
-        mean_dist[selected] = -np.inf
-        selected.append(int(np.argmax(mean_dist)))
+        mean_dist[selected] = taken
+        selected.append(int(pick(mean_dist)))
     return [msa[i] for i in sorted(selected)]
 
 

@@ -48,15 +48,15 @@ SIGNATURES = {
                               [_VOID_P] * 12 + [_INT] * 4
                               + [ctypes.c_float, _INT, _VOID_P]),
     "flash_attention_fwd": ("oneprot_flash_attention_fwd",
-                            [_VOID_P] * 6 + [_INT] * 5
+                            [_VOID_P] * 7 + [_INT] * 5
                             + [ctypes.c_longlong] * 12
                             + [ctypes.c_float, _INT, _VOID_P]),
     "flash_attention_bwd_dq": ("oneprot_flash_attention_bwd_dq",
-                               [_VOID_P] * 10 + [_INT] * 5
+                               [_VOID_P] * 11 + [_INT] * 5
                                + [ctypes.c_longlong] * 21
                                + [ctypes.c_float] * 2 + [_INT, _VOID_P]),
     "flash_attention_bwd_dkv": ("oneprot_flash_attention_bwd_dkv",
-                                [_VOID_P] * 9 + [_INT] * 5
+                                [_VOID_P] * 10 + [_INT] * 5
                                 + [ctypes.c_longlong] * 18 + [_INT, _VOID_P]),
     "gelu_quant": ("oneprot_gelu_quant",
                    [_VOID_P, _INT, _VOID_P, _VOID_P, ctypes.c_longlong, _INT,

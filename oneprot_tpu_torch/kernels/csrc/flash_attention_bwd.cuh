@@ -25,6 +25,7 @@ struct Params {
   const __nv_bfloat16* dout;  // [B, H, Lq, D]
   const __nv_bfloat16* out;   // [B, H, Lq, D], the forward's output (dq pass)
   const float* bias;          // [B, Lk] contiguous, natural-log units, or null
+  const int* seg;             // [B, L] contiguous segment ids (Lq = Lk = L), or null
   const float* lse;           // [B, H, Lq] contiguous, base 2, from the forward
   float* delta;               // [B, H, Lq] contiguous, rowsum(dout * out): written
                               // by the dq pass, read by dk/dv
@@ -46,6 +47,12 @@ struct Params {
 // 128 near -1.44e9) would get 2^(+-64) in place of the plain version's 1.
 __device__ __forceinline__ float bwd_prob(float s, float bias, float lse) {
   return exp2f(__fmul_rn(s + bias, LOG2E) - lse);
+}
+
+// A logit's bias with the segment mask: SEG_MASK on top where the query's
+// and the key's ids differ (p = 0 there, as in the forward).
+__device__ __forceinline__ float seg_bias(float bias, int id_q, int id_k) {
+  return id_q == id_k ? bias : bias + SEG_MASK;
 }
 
 // 8 bf16 times `mul` in f32, each rounded once to bf16: the TPU kernels'
@@ -86,12 +93,12 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// 4-byte words [row0, row0 + N) of a per-row array; zero past L or when
-// the array is null (a copy that reads nothing still names a valid
-// address: `any`).
-template <int N>
-__device__ __forceinline__ void copy_words(float* dst, const float* src, int row0,
-                                           int L, const void* any) {
+// 4-byte words [row0, row0 + N) of a per-row array (f32, or int32 ids);
+// zero past L or when the array is null (a copy that reads nothing still
+// names a valid address: `any`).
+template <int N, typename T>
+__device__ __forceinline__ void copy_words(T* dst, const T* src, int row0, int L,
+                                           const void* any) {
   for (int i = threadIdx.x; i < N; i += THREADS) {
     const int row = row0 + i;
     const bool ok = src != nullptr && row < L;

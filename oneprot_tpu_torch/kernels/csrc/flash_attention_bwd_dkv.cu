@@ -6,7 +6,9 @@
 // key and query row, s = (q_s k^T + bias) * log2(e) in f32 with q_s =
 // bf16(q * bf16(1/sqrt(D))), and p = exp2(s - lse) from the forward's base-2
 // lse; dv = bf16(p)^T dO; dS = p (dO v^T - delta), rounded to bf16, and dk =
-// dS^T q_s with no further factor (q_s already carries 1/sqrt(D)). q_s and
+// dS^T q_s with no further factor (q_s already carries 1/sqrt(D)); with
+// segment ids (packed rows, Lq = Lk) a pair of unequal ids takes SEG_MASK
+// on top of its bias, as in the forward (flash_attention_fwd.cu). q_s and
 // delta = rowsum(dO * O) come in as the dq pass's prologue wrote them
 // (flash_attention_bwd_dq.cu), so this pass launches after it.
 //
@@ -41,11 +43,17 @@
 // keeps 128 accumulator registers. Query tiles of 32 stream through a
 // two-stage cp.async ring; mma.sync m16n8k16 with ldmatrix fragments.
 //
-// Any Lq, Lk >= 1. dk and dv are written by their own strides, in the
-// [B, L, H, D] order of the projections.
+// Packed rows: the Hopper instance's producer lists the query tiles that
+// share an id range with the CTA's 128 keys (segment_tiles.cuh) and streams
+// only those, each query's id beside its lse and delta; the skipped tiles'
+// p and dS are 0. The sm80 instance masks by the ids and visits every tile.
+//
+// Any Lq, Lk >= 1 (Lq = Lk with segment ids). dk and dv are written by
+// their own strides, in the [B, L, H, D] order of the projections.
 
 #include "flash_attention_bwd.cuh"
 #include "hopper.cuh"
+#include "segment_tiles.cuh"
 
 namespace {
 
@@ -62,6 +70,10 @@ constexpr int KEYS = 128;     // keys per CTA, 64 per consumer warpgroup
 constexpr int BQ = 64;        // queries per streamed tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 compute
+// named barrier 1: the tile list is ready (the producer warp and the
+// consumers)
+constexpr int BAR_LIST = 1;
+constexpr int LISTENERS = 32 + 256;
 
 struct alignas(64) Args {
   CUtensorMap k, v;      // boxes of 64 columns x KEYS rows
@@ -81,11 +93,15 @@ struct Smem {
   static constexpr int DO = QS + STAGES * NH * Q_BLOCK;
   static constexpr int LSE = DO + STAGES * NH * Q_BLOCK;    // f32 [STAGES][BQ]
   static constexpr int DELTA = LSE + STAGES * BQ * 4;       // f32 [STAGES][BQ]
-  static constexpr int BARS = DELTA + STAGES * BQ * 4;  // kv_full, q_full[STAGES], q_empty[STAGES]
-  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  static constexpr int SEG = DELTA + STAGES * BQ * 4;       // int [STAGES][BQ]
+  static constexpr int BARS = SEG + STAGES * BQ * 4;  // kv_full, q_full[STAGES], q_empty[STAGES]
+  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES);  // the list's length
+  static constexpr int LIST = COUNT + 16;                     // int [n_tiles]
+  static int bytes(int n_tiles) { return LIST + 4 * n_tiles + 1024; }  // + alignment slack
 };
 
-// One warp: K and V once, then q_s, dO, lse and delta tile by tile.
+// One warp: K and V once, the list of query tiles to visit, then q_s, dO,
+// lse, delta and the segment ids tile by tile.
 template <int NH>
 __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int k0, int h, int b) {
   using S = Smem<NH>;
@@ -97,6 +113,8 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int k0, int
   const int lane = threadIdx.x % 32;
   const int Lq = a.p.Lq;
   const size_t lrow = ((size_t)b * a.p.H + h) * Lq;
+  const int* seg = a.p.seg == nullptr ? nullptr : a.p.seg + (size_t)b * Lq;
+  int* seg_s = reinterpret_cast<int*>(sm + S::SEG);
   if (lane == 0) {
     mbar_arrive_expect_tx(bars, 2 * NH * S::KEY_BLOCK);
 #pragma unroll
@@ -106,10 +124,14 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int k0, int
     }
   }
   const int n_tiles = (Lq + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int s = qt % STAGES;
-    const int q0 = qt * BQ;
-    mbar_wait(&q_empty[s], ((qt / STAGES) & 1) ^ 1);
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int count = segtiles::build_list<KEYS, BQ>(seg, Lq, k0, n_tiles, list, lane);
+  if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
+  named_bar_arrive(BAR_LIST, LISTENERS);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    const int q0 = list[it] * BQ;
+    mbar_wait(&q_empty[s], ((it / STAGES) & 1) ^ 1);
     // queries past Lq: lse +inf (p = 0) and delta 0
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -117,6 +139,7 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int k0, int
       const bool in = q0 + i < Lq;
       lse_s[s * BQ + i] = in ? a.p.lse[lrow + q0 + i] : INFINITY;
       delta_s[s * BQ + i] = in ? a.p.delta[lrow + q0 + i] : 0.f;
+      if (seg != nullptr) seg_s[s * BQ + i] = seg[min(q0 + i, Lq - 1)];
     }
     if (lane == 0) {
       mbar_arrive_expect_tx(&q_full[s], 2 * NH * S::Q_BLOCK);
@@ -132,7 +155,7 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int k0, int
   }
 }
 
-template <int NH>
+template <int NH, bool SEG>
 __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int k0, int h,
                                          int b) {
   using S = Smem<NH>;
@@ -151,6 +174,12 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   if (key_b < p.Lk) bias_b = bias == nullptr ? 0.f : bias[key_b];
   const float* lse_s = reinterpret_cast<const float*>(sm + S::LSE);
   const float* delta_s = reinterpret_cast<const float*>(sm + S::DELTA);
+  const int* seg_s = reinterpret_cast<const int*>(sm + S::SEG);
+  int seg_a = 0, seg_b = 0;  // this thread's keys' ids
+  if (SEG) {
+    seg_a = p.seg[(size_t)b * p.Lk + min(key_a, p.Lk - 1)];
+    seg_b = p.seg[(size_t)b * p.Lk + min(key_b, p.Lk - 1)];
+  }
   const uint32_t k_addr = smem_u32(sm + S::K + c * 64 * 128);
   const uint32_t v_addr = smem_u32(sm + S::V + c * 64 * 128);
 
@@ -159,10 +188,11 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   for (int i = 0; i < 32 * NH; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(bars, 0);  // K and V landed
 
-  const int n_tiles = (p.Lq + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int s = qt % STAGES;
-    mbar_wait(&q_full[s], (qt / STAGES) & 1);
+  named_bar_sync(BAR_LIST, LISTENERS);
+  const int count = *reinterpret_cast<const int*>(sm + S::COUNT);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&q_full[s], (it / STAGES) & 1);
     const uint32_t qs_addr = smem_u32(sm + S::QS + s * NH * S::Q_BLOCK);
     const uint32_t do_addr = smem_u32(sm + S::DO + s * NH * S::Q_BLOCK);
 
@@ -192,15 +222,25 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
     wgmma_wait<1>();
     fence_regs(st);
 
-    // P^T = exp2((s + bias) * log2 e - lse), then dV += bf16(P^T) dO
+    // P^T = exp2((s + bias) * log2 e - lse) (SEG_MASK across segments),
+    // then dV += bf16(P^T) dO
     const float* ls = lse_s + s * BQ;
+    const int* ss = seg_s + s * BQ;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
-      st[4 * j + 0] = bwd_prob(st[4 * j + 0], bias_a, l.x);
-      st[4 * j + 1] = bwd_prob(st[4 * j + 1], bias_a, l.y);
-      st[4 * j + 2] = bwd_prob(st[4 * j + 2], bias_b, l.x);
-      st[4 * j + 3] = bwd_prob(st[4 * j + 3], bias_b, l.y);
+      float add[4] = {bias_a, bias_a, bias_b, bias_b};
+      if (SEG) {
+        const int2 qq = *reinterpret_cast<const int2*>(ss + 8 * j + 2 * t);
+        add[0] = seg_bias(add[0], qq.x, seg_a);
+        add[1] = seg_bias(add[1], qq.y, seg_a);
+        add[2] = seg_bias(add[2], qq.x, seg_b);
+        add[3] = seg_bias(add[3], qq.y, seg_b);
+      }
+      st[4 * j + 0] = bwd_prob(st[4 * j + 0], add[0], l.x);
+      st[4 * j + 1] = bwd_prob(st[4 * j + 1], add[1], l.y);
+      st[4 * j + 2] = bwd_prob(st[4 * j + 2], add[2], l.x);
+      st[4 * j + 3] = bwd_prob(st[4 * j + 3], add[3], l.y);
     }
     uint32_t pa[4][4];
     a_operand(pa, st);
@@ -245,7 +285,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
                       lane, 1.f);
 }
 
-template <int NH>
+template <int NH, bool SEG>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_dkv_wgmma(const __grid_constant__ Args a) {
   using S = Smem<NH>;
   extern __shared__ uint8_t smem_raw[];
@@ -266,12 +306,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_dkv_wgmma(cons
     if (threadIdx.x < 32) producer<NH>(a, sm, k0, h, b);
   } else {
     setmaxnreg_inc<240>();
-    consumer<NH>(a, sm, threadIdx.x / 128 - 1, k0, h, b);
+    consumer<NH, SEG>(a, sm, threadIdx.x / 128 - 1, k0, h, b);
   }
 }
 
 template <int NH>
 int launch(const Params& p, int B, cudaStream_t stream) {
+  const int smem = Smem<NH>::bytes((p.Lq + BQ - 1) / BQ);
   Args a;
   a.p = p;
   int rc = rows_map(&a.k, p.k, p.D, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, KEYS);
@@ -279,12 +320,13 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   if (rc == 0) rc = rows_map(&a.qs, p.q, p.D, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, BQ);
   if (rc == 0) rc = rows_map(&a.dout, p.dout, p.D, p.Lq, p.H, B, p.do_sl, p.do_sh, p.do_sb, BQ);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_bwd_dkv_wgmma<NH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<NH>::BYTES);
+  auto kernel = p.seg == nullptr ? flash_attention_bwd_dkv_wgmma<NH, false>
+                                 : flash_attention_bwd_dkv_wgmma<NH, true>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Lk + KEYS - 1) / KEYS, p.H, B);
-  kernel<<<grid, THREADS, Smem<NH>::BYTES, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,7 +346,7 @@ struct Cfg {
   static constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
   static constexpr int KV_ELEMS = KROWS * LDS;
   static constexpr int Q_ELEMS = BQ * LDS;
-  static constexpr int STAGE_ELEMS = 2 * Q_ELEMS + 2 * BQ * 2;  // q, dO, f32 lse, delta
+  static constexpr int STAGE_ELEMS = 2 * Q_ELEMS + 3 * BQ * 2;  // q, dO, f32 lse, delta, int32 ids
   // K and V rows, then two stages
   static constexpr size_t SMEM_BYTES = (size_t)(2 * KV_ELEMS + 2 * STAGE_ELEMS) * 2;
 };
@@ -312,14 +354,15 @@ struct Cfg {
 template <typename C, int DP, int BQ>
 __device__ __forceinline__ void start_q_tile(const Params& p, __nv_bfloat16* st,
                                              const __nv_bfloat16* qh,
-                                             const __nv_bfloat16* doh, size_t lrow,
-                                             int qt) {
+                                             const __nv_bfloat16* doh, const int* seg,
+                                             size_t lrow, int qt) {
   const int q0 = qt * BQ;
   copy_rows<DP, C::LDS, BQ>(st, qh, q0, p.Lq, p.q_sl, p.D);
   copy_rows<DP, C::LDS, BQ>(st + C::Q_ELEMS, doh, q0, p.Lq, p.do_sl, p.D);
   float* words = reinterpret_cast<float*>(st + 2 * C::Q_ELEMS);
   copy_words<BQ>(words, p.lse + lrow, q0, p.Lq, qh);
   copy_words<BQ>(words + BQ, p.delta + lrow, q0, p.Lq, qh);
+  copy_words<BQ>(reinterpret_cast<int*>(words + 2 * BQ), seg, q0, p.Lq, qh);
 }
 
 template <int DP, int BQ, int DSPLIT>
@@ -347,11 +390,14 @@ flash_attention_bwd_dkv_mma(const Params p) {
   const int key_a = k0 + kg * 16 + lane / 4;  // this thread's two keys
   const int key_b = key_a + 8;
   const int n_tiles = (p.Lq + BQ - 1) / BQ;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * p.Lk;
+  const int seg_a = seg == nullptr ? 0 : seg[min(key_a, p.Lk - 1)];
+  const int seg_b = seg == nullptr ? 0 : seg[min(key_b, p.Lk - 1)];
 
   // group 0: the K and V rows and query tile 0
   copy_rows<DP, C::LDS, C::KROWS>(Ks, kh, k0, p.Lk, p.k_sl, p.D);
   copy_rows<DP, C::LDS, C::KROWS>(Vs, vh, k0, p.Lk, p.v_sl, p.D);
-  start_q_tile<C, DP, BQ>(p, stages, qh, doh, lrow, 0);
+  start_q_tile<C, DP, BQ>(p, stages, qh, doh, seg, lrow, 0);
   cp_async_commit();
 
   // keys past Lk: bias -inf makes p = 0
@@ -374,9 +420,10 @@ flash_attention_bwd_dkv_mma(const Params p) {
     const __nv_bfloat16* dos = qs + C::Q_ELEMS;
     const float* lse = reinterpret_cast<const float*>(qs + 2 * C::Q_ELEMS);
     const float* delta = lse + BQ;
+    const int* sq = reinterpret_cast<const int*>(delta + BQ);
     __syncthreads();  // every warp is done with the stage the next copy overwrites
     if (qt + 1 < n_tiles) {
-      start_q_tile<C, DP, BQ>(p, stages + ((qt + 1) & 1) * C::STAGE_ELEMS, qh, doh,
+      start_q_tile<C, DP, BQ>(p, stages + ((qt + 1) & 1) * C::STAGE_ELEMS, qh, doh, seg,
                               lrow, qt + 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -396,8 +443,10 @@ flash_attention_bwd_dkv_mma(const Params p) {
         const int qc = j * 8 + 2 * t + e;
         const bool in = q0 + qc < p.Lq;
         const float l = lse[qc];
-        s[j][e] = in ? bwd_prob(s[j][e], bias_a, l) : 0.f;
-        s[j][2 + e] = in ? bwd_prob(s[j][2 + e], bias_b, l) : 0.f;
+        const float ba = seg == nullptr ? bias_a : seg_bias(bias_a, sq[qc], seg_a);
+        const float bb = seg == nullptr ? bias_b : seg_bias(bias_b, sq[qc], seg_b);
+        s[j][e] = in ? bwd_prob(s[j][e], ba, l) : 0.f;
+        s[j][2 + e] = in ? bwd_prob(s[j][2 + e], bb, l) : 0.f;
       }
     }
     mma_s_x<C::DC, C::LDS, BQ>(dv, s, dos + col0, lane);  // dv += p^T dO
@@ -441,14 +490,16 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 // qs (q_s, from the dq pass), k, v, dout, dk, dv: bf16 [B, H, L, D] at the
 // given element strides (batch, head, row; unit stride over D); bias: f32
-// [B, Lk] contiguous or null; lse (base 2) and delta (from the dq pass):
+// [B, Lk] contiguous or null; seg: int32 [B, L] contiguous segment ids (Lq =
+// Lk = L) or null; lse (base 2) and delta (from the dq pass):
 // f32 [B, H, Lq] contiguous. The caller checks D % 8 == 0, 64 <= D <= 256,
 // strides that are multiples of 8 and 16-byte aligned pointers. Returns
 // cudaGetLastError() after the launch, or hopper::ERR_* if a tensor map
 // could not be made. `device`: the card's index.
 extern "C" int oneprot_flash_attention_bwd_dkv(
-    const void* qs, const void* k, const void* v, const void* bias, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H, int Lq, int Lk,
+    const void* qs, const void* k, const void* v, const void* bias, const void* seg,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int Lq, int Lk,
     int D, long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
     long long k_sl, long long v_sb, long long v_sh, long long v_sl, long long do_sb,
     long long do_sh, long long do_sl, long long dk_sb, long long dk_sh, long long dk_sl,
@@ -463,6 +514,7 @@ extern "C" int oneprot_flash_attention_bwd_dkv(
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.bias = static_cast<const float*>(bias);
+  p.seg = static_cast<const int*>(seg);
   p.lse = static_cast<const float*>(lse);
   p.delta = const_cast<float*>(static_cast<const float*>(delta));
   p.dk = static_cast<__nv_bfloat16*>(dk);

@@ -6,7 +6,9 @@
 // multiplied by bf16(1/sqrt(D)) and rounded to bf16; for each query row and
 // key, s = (q k^T + bias) * log2(e) in f32 and p = exp2(s - lse) from the
 // forward's base-2 lse; dS = p (dO v^T - delta), rounded to bf16 as the
-// operand of dS k; dq = (dS k) * (1/sqrt(D) in f32), stored as bf16. The
+// operand of dS k; dq = (dS k) * (1/sqrt(D) in f32), stored as bf16; with
+// segment ids (packed rows, Lq = Lk) a pair of unequal ids takes SEG_MASK
+// on top of its bias, as in the forward (flash_attention_fwd.cu). The
 // prologue, which the TPU package runs outside its kernels: each CTA writes
 // q_s = bf16(q * bf16(1/sqrt(D))) and delta = rowsum(dO * O) (f32) for its
 // own query rows, which it reads anyway; the dk/dv pass
@@ -44,11 +46,18 @@
 // ldmatrix fragments. Its prologue scales q in shared memory once and
 // writes q_s and delta the same way.
 //
-// Any Lq, Lk >= 1. dq and q_s are written by their own (batch, head, row)
-// strides, so they land in the [B, L, H, D] order of the projections.
+// Packed rows: the Hopper instance's producer lists the key tiles that
+// share an id range with the CTA's 128 query rows (segment_tiles.cuh) and
+// streams only those, each key's id beside its bias; the skipped tiles'
+// dS is 0. The sm80 instance masks by the ids and visits every tile.
+//
+// Any Lq, Lk >= 1 (Lq = Lk with segment ids). dq and q_s are written by
+// their own (batch, head, row) strides, so they land in the [B, L, H, D]
+// order of the projections.
 
 #include "flash_attention_bwd.cuh"
 #include "hopper.cuh"
+#include "segment_tiles.cuh"
 
 namespace {
 
@@ -65,6 +74,10 @@ constexpr int ROWS = 128;     // query rows per CTA, 64 per consumer warpgroup
 constexpr int BK = 64;        // keys per streamed tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 compute
+// named barrier 3: the tile list is ready (the producer warp and the
+// consumers; the consumers' own take 1 and 2)
+constexpr int BAR_LIST = 3;
+constexpr int LISTENERS = 32 + 256;
 
 struct alignas(64) Args {
   CUtensorMap q, dout;  // boxes of 64 columns x ROWS rows
@@ -84,12 +97,16 @@ struct Smem {
   static constexpr int K = DO + NH * ROW_BLOCK;              // [STAGES][NH] blocks
   static constexpr int V = K + STAGES * NH * KV_BLOCK;
   static constexpr int BIAS = V + STAGES * NH * KV_BLOCK;    // f32 [STAGES][BK]
-  static constexpr int DELTA = BIAS + STAGES * BK * 4;       // f32 [ROWS]
+  static constexpr int SEG = BIAS + STAGES * BK * 4;         // int [STAGES][BK]
+  static constexpr int DELTA = SEG + STAGES * BK * 4;        // f32 [ROWS]
   static constexpr int BARS = DELTA + ROWS * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
-  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES);  // the list's length
+  static constexpr int LIST = COUNT + 16;                     // int [n_tiles]
+  static int bytes(int n_tiles) { return LIST + 4 * n_tiles + 1024; }  // + alignment slack
 };
 
-// One warp: q and dO once, then K, V and the bias tile by tile.
+// One warp: q and dO once, the list of key tiles to visit, then K, V, the
+// bias and the segment ids tile by tile.
 template <int NH>
 __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int h, int b) {
   using S = Smem<NH>;
@@ -100,6 +117,8 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
   const int lane = threadIdx.x % 32;
   const int Lk = a.p.Lk;
   const float* bias = a.p.bias == nullptr ? nullptr : a.p.bias + (size_t)b * Lk;
+  const int* seg = a.p.seg == nullptr ? nullptr : a.p.seg + (size_t)b * Lk;
+  int* seg_s = reinterpret_cast<int*>(sm + S::SEG);
   if (lane == 0) {
     mbar_arrive_expect_tx(bars, 2 * NH * S::ROW_BLOCK);
 #pragma unroll
@@ -109,16 +128,21 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
     }
   }
   const int n_tiles = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % STAGES;
-    const int k0 = kt * BK;
-    mbar_wait(&kv_empty[s], ((kt / STAGES) & 1) ^ 1);
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int count = segtiles::build_list<ROWS, BK>(seg, Lk, q0, n_tiles, list, lane);
+  if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
+  named_bar_arrive(BAR_LIST, LISTENERS);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    const int k0 = list[it] * BK;
+    mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
     // keys past Lk: bias -inf, so p = 0 there whatever the row's lse
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int key = k0 + 2 * lane + e;
       bias_s[s * BK + 2 * lane + e] =
           key < Lk ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
+      if (seg != nullptr) seg_s[s * BK + 2 * lane + e] = seg[min(key, Lk - 1)];
     }
     if (lane == 0) {
       mbar_arrive_expect_tx(&kv_full[s], 2 * NH * S::KV_BLOCK);
@@ -163,7 +187,7 @@ __device__ __forceinline__ void prologue(const Params& p, uint8_t* sm, int c, in
   }
 }
 
-template <int NH>
+template <int NH, bool SEG>
 __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int q0, int h,
                                          int b) {
   using S = Smem<NH>;
@@ -188,6 +212,12 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   const float* delta_s = reinterpret_cast<const float*>(sm + S::DELTA);
   const float dl_a = delta_s[r_a], dl_b = delta_s[r_a + 8];
   const float* bias_s = reinterpret_cast<const float*>(sm + S::BIAS);
+  const int* seg_s = reinterpret_cast<const int*>(sm + S::SEG);
+  int seg_a = 0, seg_b = 0;  // this thread's rows' ids
+  if (SEG) {
+    seg_a = p.seg[(size_t)b * p.Lk + min(row_a, p.Lk - 1)];
+    seg_b = p.seg[(size_t)b * p.Lk + min(row_b, p.Lk - 1)];
+  }
   const uint32_t q_addr = smem_u32(sm + S::Q + c * 64 * 128);
   const uint32_t do_addr = smem_u32(sm + S::DO + c * 64 * 128);
 
@@ -195,10 +225,11 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
 #pragma unroll
   for (int i = 0; i < 32 * NH; ++i) acc[i] = 0.f;
 
-  const int n_tiles = (p.Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(&kv_full[s], (kt / STAGES) & 1);
+  named_bar_sync(BAR_LIST, LISTENERS);
+  const int count = *reinterpret_cast<const int*>(sm + S::COUNT);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&kv_full[s], (it / STAGES) & 1);
     const uint32_t k_addr = smem_u32(sm + S::K + s * NH * S::KV_BLOCK);
     const uint32_t v_addr = smem_u32(sm + S::V + s * NH * S::KV_BLOCK);
 
@@ -228,15 +259,24 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
     wgmma_wait<1>();
     fence_regs(sc);
 
-    // p = exp2((s + bias) * log2 e - lse)
+    // p = exp2((s + bias) * log2 e - lse), SEG_MASK across segments
     const float* bs = bias_s + s * BK;
+    const int* ss = seg_s + s * BK;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-      sc[4 * j + 0] = bwd_prob(sc[4 * j + 0], bb.x, lse_a);
-      sc[4 * j + 1] = bwd_prob(sc[4 * j + 1], bb.y, lse_a);
-      sc[4 * j + 2] = bwd_prob(sc[4 * j + 2], bb.x, lse_b);
-      sc[4 * j + 3] = bwd_prob(sc[4 * j + 3], bb.y, lse_b);
+      float add[4] = {bb.x, bb.y, bb.x, bb.y};
+      if (SEG) {
+        const int2 kk = *reinterpret_cast<const int2*>(ss + 8 * j + 2 * t);
+        add[0] = seg_bias(add[0], seg_a, kk.x);
+        add[1] = seg_bias(add[1], seg_a, kk.y);
+        add[2] = seg_bias(add[2], seg_b, kk.x);
+        add[3] = seg_bias(add[3], seg_b, kk.y);
+      }
+      sc[4 * j + 0] = bwd_prob(sc[4 * j + 0], add[0], lse_a);
+      sc[4 * j + 1] = bwd_prob(sc[4 * j + 1], add[1], lse_a);
+      sc[4 * j + 2] = bwd_prob(sc[4 * j + 2], add[2], lse_b);
+      sc[4 * j + 3] = bwd_prob(sc[4 * j + 3], add[3], lse_b);
     }
     wgmma_wait<0>();
     fence_regs(dp);
@@ -267,7 +307,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
                       lane, p.scale);
 }
 
-template <int NH>
+template <int NH, bool SEG>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_dq_wgmma(const __grid_constant__ Args a) {
   using S = Smem<NH>;
   extern __shared__ uint8_t smem_raw[];
@@ -288,12 +328,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_dq_wgmma(const
     if (threadIdx.x < 32) producer<NH>(a, sm, q0, h, b);
   } else {
     setmaxnreg_inc<240>();
-    consumer<NH>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
+    consumer<NH, SEG>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
   }
 }
 
 template <int NH>
 int launch(const Params& p, int B, cudaStream_t stream) {
+  const int smem = Smem<NH>::bytes((p.Lk + BK - 1) / BK);
   Args a;
   a.p = p;
   int rc = rows_map(&a.q, p.q, p.D, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, ROWS);
@@ -301,12 +342,13 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   if (rc == 0) rc = rows_map(&a.k, p.k, p.D, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, BK);
   if (rc == 0) rc = rows_map(&a.v, p.v, p.D, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, BK);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_bwd_dq_wgmma<NH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<NH>::BYTES);
+  auto kernel = p.seg == nullptr ? flash_attention_bwd_dq_wgmma<NH, false>
+                                 : flash_attention_bwd_dq_wgmma<NH, true>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Lq + ROWS - 1) / ROWS, p.H, B);
-  kernel<<<grid, THREADS, Smem<NH>::BYTES, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,7 +366,7 @@ struct Cfg {
   static constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
   static constexpr int ROW_ELEMS = ROWS * LDS;
   static constexpr int KV_ELEMS = BK * LDS;
-  static constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 2 * BK;  // K, V, f32 bias
+  static constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 4 * BK;  // K, V, f32 bias, int32 ids
   // q and dO tiles, two stages, then f32 delta of the q rows
   static constexpr size_t SMEM_BYTES = (size_t)(2 * ROW_ELEMS + 2 * STAGE_ELEMS) * 2 + ROWS * 4;
 };
@@ -333,11 +375,13 @@ template <typename C, int DP, int BK>
 __device__ __forceinline__ void start_kv_tile(const Params& p, __nv_bfloat16* st,
                                               const __nv_bfloat16* kh,
                                               const __nv_bfloat16* vh,
-                                              const float* bias, int kt) {
+                                              const float* bias, const int* seg, int kt) {
   const int k0 = kt * BK;
   copy_rows<DP, C::LDS, BK>(st, kh, k0, p.Lk, p.k_sl, p.D);
   copy_rows<DP, C::LDS, BK>(st + C::KV_ELEMS, vh, k0, p.Lk, p.v_sl, p.D);
-  copy_words<BK>(reinterpret_cast<float*>(st + 2 * C::KV_ELEMS), bias, k0, p.Lk, kh);
+  float* words = reinterpret_cast<float*>(st + 2 * C::KV_ELEMS);
+  copy_words<BK>(words, bias, k0, p.Lk, kh);
+  copy_words<BK>(reinterpret_cast<int*>(words + BK), seg, k0, p.Lk, kh);
 }
 
 template <int DP, int BK>
@@ -357,17 +401,20 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma(const Para
   const __nv_bfloat16* vh = p.v + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* doh = p.dout + b * p.do_sb + h * p.do_sh;
   const float* bias = p.bias == nullptr ? nullptr : p.bias + (size_t)b * p.Lk;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * p.Lk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int t = lane % 4;
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two query rows
   const int row_b = row_a + 8;
   const int n_tiles = (p.Lk + BK - 1) / BK;
+  const int seg_a = seg == nullptr ? 0 : seg[min(row_a, p.Lk - 1)];
+  const int seg_b = seg == nullptr ? 0 : seg[min(row_b, p.Lk - 1)];
 
   // group 0: the q and dO tiles and key tile 0
   copy_rows<DP, C::LDS, ROWS>(Qs, qh, q0, p.Lq, p.q_sl, p.D);
   copy_rows<DP, C::LDS, ROWS>(dOs, doh, q0, p.Lq, p.do_sl, p.D);
-  start_kv_tile<C, DP, BK>(p, stages, kh, vh, bias, 0);
+  start_kv_tile<C, DP, BK>(p, stages, kh, vh, bias, seg, 0);
   cp_async_commit();
 
   const size_t lrow = ((size_t)b * p.H + h) * p.Lq;
@@ -406,10 +453,11 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma(const Para
     const __nv_bfloat16* ks = stages + (kt & 1) * C::STAGE_ELEMS;
     const __nv_bfloat16* vs = ks + C::KV_ELEMS;
     const float* bs = reinterpret_cast<const float*>(ks + 2 * C::KV_ELEMS);
+    const int* ss = reinterpret_cast<const int*>(bs + BK);
     __syncthreads();  // every warp is done with the stage the next copy overwrites
     if (kt + 1 < n_tiles) {
       start_kv_tile<C, DP, BK>(p, stages + ((kt + 1) & 1) * C::STAGE_ELEMS, kh, vh,
-                               bias, kt + 1);
+                               bias, seg, kt + 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -418,7 +466,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma(const Para
     __syncthreads();  // tile kt has landed
     const int k0 = kt * BK;
 
-    // p = exp2((q k^T + bias) * log2 e - lse); keys past Lk at 0
+    // p = exp2((q k^T + bias) * log2 e - lse), SEG_MASK across segments;
+    // keys past Lk at 0
     float s[BK / 8][4];
     mma_a_xt<DP, C::LDS, BK / 8>(s, q_warp, ks, lane);
 #pragma unroll
@@ -428,8 +477,10 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma(const Para
         const int kc = j * 8 + 2 * t + e;
         const bool ok = k0 + kc < p.Lk;
         const float bb = bs[kc];
-        s[j][e] = ok ? bwd_prob(s[j][e], bb, lse_a) : 0.f;
-        s[j][2 + e] = ok ? bwd_prob(s[j][2 + e], bb, lse_b) : 0.f;
+        const float ba = seg == nullptr ? bb : seg_bias(bb, seg_a, ss[kc]);
+        const float bb2 = seg == nullptr ? bb : seg_bias(bb, seg_b, ss[kc]);
+        s[j][e] = ok ? bwd_prob(s[j][e], ba, lse_a) : 0.f;
+        s[j][2 + e] = ok ? bwd_prob(s[j][2 + e], bb2, lse_b) : 0.f;
       }
     }
 
@@ -469,15 +520,17 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 // q, k, v, out, dout, dq, qs: bf16 [B, H, L, D] at the given element strides
 // (batch, head, row; unit stride over D); bias: f32 [B, Lk] contiguous or
-// null; lse (base 2): f32 [B, H, Lq] contiguous; delta: f32 [B, H, Lq]
+// null; seg: int32 [B, L] contiguous segment ids (Lq = Lk = L) or null; lse
+// (base 2): f32 [B, H, Lq] contiguous; delta: f32 [B, H, Lq]
 // contiguous, written. qscale = bf16(1/sqrt(D)) as f32, scale = 1/sqrt(D).
 // The caller checks D % 8 == 0, 64 <= D <= 256, strides that are multiples
 // of 8 and 16-byte aligned pointers. Returns cudaGetLastError() after the
 // launch, or hopper::ERR_* if a tensor map could not be made. `device`:
 // the card's index.
 extern "C" int oneprot_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* bias, const void* out,
-    const void* dout, const void* lse, void* dq, void* qs, void* delta, int B, int H, int Lq,
+    const void* q, const void* k, const void* v, const void* bias, const void* seg,
+    const void* out, const void* dout, const void* lse, void* dq, void* qs, void* delta, int B,
+    int H, int Lq,
     int Lk, int D, long long q_sb, long long q_sh, long long q_sl, long long k_sb,
     long long k_sh, long long k_sl, long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl, long long do_sb, long long do_sh,
@@ -494,6 +547,7 @@ extern "C" int oneprot_flash_attention_bwd_dq(
   p.out = static_cast<const __nv_bfloat16*>(out);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.bias = static_cast<const float*>(bias);
+  p.seg = static_cast<const int*>(seg);
   p.lse = static_cast<const float*>(lse);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.qs = static_cast<__nv_bfloat16*>(qs);

@@ -6,7 +6,12 @@
 // plus the f32 key bias are taken to base 2 (times log2(e)) under an online
 // exp2 softmax started at -1e30; P is rounded to bf16 before PV; the row
 // sum is clamped at 1e-30, so a row whose keys are all masked stays finite;
-// out is bf16 and lse = m + log2(l) is f32, base 2.
+// out is bf16 and lse = m + log2(l) is f32, base 2. With segment ids (packed
+// rows, self-attention: several proteins a row, -1 on padding) a logit
+// whose query and key ids differ takes flash::SEG_MASK (-1e30) on top of
+// its bias, the block-diagonal mask the JAX layer builds densely for heads
+// over 64 (oneprot_tpu/models/esm2.py: packed_segment_bias, then XLA
+// attention, since the TPU kernel takes no mask but a key bias).
 //
 // What bounds it on H100: at the ESM2-15B width (D = 128, L up to 1024) the
 // two products are 4*Lk*D flops per query row against 4*D*2 bytes of q/k/v/o
@@ -36,12 +41,20 @@
 // cp.async ring, ldmatrix fragments (transposed for V), q's fragments read
 // from shared memory at each tile.
 //
-// Any Lq, Lk >= 1. Each of q, k, v and out is read or written by its own
-// (batch, head, row) strides with unit stride over D, so heads viewed out of
-// a [B, L, H*D] projection need no copy.
+// Packed rows: the work is in the (query, key) pairs of equal ids, so the
+// Hopper instance visits only the key tiles that share an id range with the
+// CTA's 128 query rows (segment_tiles.cuh: warp 0 lists them before it
+// streams them, with each key's id beside its bias; each consumer thread
+// holds its two rows' ids in registers). The sm80 instance masks by the ids
+// and visits every tile.
+//
+// Any Lq, Lk >= 1 (Lq = Lk with segment ids). Each of q, k, v and out is
+// read or written by its own (batch, head, row) strides with unit stride
+// over D, so heads viewed out of a [B, L, H*D] projection need no copy.
 
 #include "flash_fwd.cuh"
 #include "flash_mha_common.cuh"
+#include "segment_tiles.cuh"
 
 namespace {
 
@@ -52,6 +65,7 @@ struct Params {
   const __nv_bfloat16* k;  // [B, H, Lk, D]
   const __nv_bfloat16* v;
   const float* bias;       // [B, Lk] contiguous, natural-log units, or null
+  const int* seg;          // [B, L] contiguous segment ids (Lq = Lk = L), or null
   __nv_bfloat16* out;      // [B, H, Lq, D]
   float* lse;              // [B, H, Lq] contiguous, base 2
   long long q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh,
@@ -68,6 +82,10 @@ namespace wg {
 using namespace fwd;
 
 constexpr int STAGES = 4;  // the ring's depth: a tile's loads have three tiles' time
+// named barrier 3: the tile list is ready (warp 0 and the consumers; the
+// consumers' own take 1 and 2, their turns 4 and 5)
+constexpr int BAR_LIST = 3;
+constexpr int LISTENERS = 32 + CONSUMERS;
 
 struct alignas(64) Args {
   CUtensorMap q;     // boxes of 64 columns x BQ rows
@@ -84,11 +102,15 @@ struct Smem {
   static constexpr int KV = Hd::bytes(BK);
   static constexpr int STAGE_BYTES = 2 * KV;
   static constexpr int BIAS = STAGE + STAGES * STAGE_BYTES;  // f32 [STAGES][BK]
-  static constexpr int BARS = BIAS + STAGES * BK * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
-  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  static constexpr int SEG = BIAS + STAGES * BK * 4;          // int [STAGES][BK]
+  static constexpr int BARS = SEG + STAGES * BK * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
+  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES);  // the list's length
+  static constexpr int LIST = COUNT + 16;                     // int [n_tiles]
+  static int bytes(int n_tiles) { return LIST + 4 * n_tiles + 1024; }  // + alignment slack
 };
 
-// Warp 0: q once, then K, V and the bias tile by tile.
+// Warp 0: q once, the list of key tiles to visit, then K, V, the bias and
+// the segment ids tile by tile.
 template <int DP, int BK>
 __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int h, int b) {
   using S = Smem<DP, BK>;
@@ -100,6 +122,8 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
   const int lane = threadIdx.x % 32;
   const int Lk = a.p.Lk;
   const float* bias = a.p.bias == nullptr ? nullptr : a.p.bias + (size_t)b * Lk;
+  const int* seg = a.p.seg == nullptr ? nullptr : a.p.seg + (size_t)b * Lk;
+  int* seg_s = reinterpret_cast<int*>(sm + S::SEG);
   if (lane == 0) {
     mbar_arrive_expect_tx(bars, Hd::bytes(BQ));
 #pragma unroll
@@ -107,16 +131,21 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
       tma_load_4d(sm + S::Q + c * BQ * Hd::RB, &a.q, bars, 64 * c, q0, h, b);
   }
   const int n_tiles = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int s = kt % STAGES;
-    const int k0 = kt * BK;
-    mbar_wait_or_trap(&kv_empty[s], ((kt / STAGES) & 1) ^ 1);
+  int* list = reinterpret_cast<int*>(sm + S::LIST);
+  const int count = segtiles::build_list<BQ, BK>(seg, Lk, q0, n_tiles, list, lane);
+  if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
+  named_bar_arrive(BAR_LIST, LISTENERS);
+  for (int it = 0; it < count; ++it) {
+    const int s = it % STAGES;
+    const int k0 = list[it] * BK;
+    mbar_wait_or_trap(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
     // keys past Lk: bias -inf, so p = 0 there
 #pragma unroll
     for (int e = 0; e < BK / 32; ++e) {
       const int key = k0 + lane + 32 * e;
       bias_s[s * BK + lane + 32 * e] =
           key < Lk ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
+      if (seg != nullptr) seg_s[s * BK + lane + 32 * e] = seg[min(key, Lk - 1)];
     }
     if (lane == 0) {
       uint8_t* st = sm + S::STAGE + s * S::STAGE_BYTES;
@@ -133,8 +162,10 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
 }
 
 // Consumer warpgroup c (0 or 1): q * bf16(1/sqrt(D)) in place on its 64
-// rows, the online softmax over every key tile, then out and lse.
-template <int DP, int BK>
+// rows, the online softmax over the listed key tiles, then out and lse.
+// SEG: with segment ids (an instance of its own, so that the registers the
+// mask takes cost the unpacked rows nothing).
+template <int DP, int BK, bool SEG>
 __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int q0, int h,
                                          int b) {
   using S = Smem<DP, BK>;
@@ -167,7 +198,16 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   fence_proxy_async();  // the scaled q, written here, is read by wgmma
   named_bar_sync(1 + c, 128);
 
+  const int row_a = q0 + 64 * c + 16 * warp + lane / 4;  // this thread's rows
+  int seg_r[2] = {0, 0};
+  if (SEG) {
+    seg_r[0] = p.seg[(size_t)b * p.Lk + min(row_a, p.Lk - 1)];
+    seg_r[1] = p.seg[(size_t)b * p.Lk + min(row_a + 8, p.Lk - 1)];
+  }
   const float* bias_s = reinterpret_cast<const float*>(sm + S::BIAS);
+  const int* seg_s = reinterpret_cast<const int*>(sm + S::SEG);
+  named_bar_sync(BAR_LIST, LISTENERS);
+  const int count = *reinterpret_cast<const int*>(sm + S::COUNT);
   Ring ring;
   ring.k_addr = smem_u32(sm + S::STAGE);
   ring.stage_bytes = S::STAGE_BYTES;
@@ -176,26 +216,33 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   ring.empty = bars + 1 + STAGES;
   float o[DP / 2], m[2], l[2];
   attend<DP, BK, STAGES>(
-      o, m, l, smem_u32(sm + S::Q + c * 64 * Hd::RB), ring, (p.Lk + BK - 1) / BK,
+      o, m, l, smem_u32(sm + S::Q + c * 64 * Hd::RB), ring, count,
       [&](float (&sc)[BK / 2], int s) {
         // (s + bias) * log2 e, the product rounded (no fused multiply-add
         // with the softmax's subtraction: on a row whose keys are all
         // masked the logits sit near -1.44e9, where an unrounded product
-        // would weigh keys by 2^(+-64)); keys past Lk at -inf by their bias
+        // would weigh keys by 2^(+-64)); keys past Lk at -inf by their bias;
+        // a key of another segment than the row's takes SEG_MASK on top
         const float* bs = bias_s + s * BK;
+        const int* ss = seg_s + s * BK;
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
           const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-          sc[4 * j + 0] = __fmul_rn(sc[4 * j + 0] + bb.x, LOG2E);
-          sc[4 * j + 1] = __fmul_rn(sc[4 * j + 1] + bb.y, LOG2E);
-          sc[4 * j + 2] = __fmul_rn(sc[4 * j + 2] + bb.x, LOG2E);
-          sc[4 * j + 3] = __fmul_rn(sc[4 * j + 3] + bb.y, LOG2E);
+          float add[4] = {bb.x, bb.y, bb.x, bb.y};
+          if (SEG) {
+            const int2 kk = *reinterpret_cast<const int2*>(ss + 8 * j + 2 * t);
+            add[0] += kk.x == seg_r[0] ? 0.f : flash::SEG_MASK;
+            add[1] += kk.y == seg_r[0] ? 0.f : flash::SEG_MASK;
+            add[2] += kk.x == seg_r[1] ? 0.f : flash::SEG_MASK;
+            add[3] += kk.y == seg_r[1] ? 0.f : flash::SEG_MASK;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * j + e] = __fmul_rn(sc[4 * j + e] + add[e], LOG2E);
         }
       });
 
   float inv[2], lse[2];
   finish(m, l, inv, lse);
-  const int row_a = q0 + 64 * c + 16 * warp + lane / 4;
   __nv_bfloat16* oh = p.out + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
@@ -216,7 +263,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   }
 }
 
-template <int DP, int BK>
+template <int DP, int BK, bool SEG>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_attention_fwd_wgmma(const __grid_constant__ Args a) {
   using S = Smem<DP, BK>;
@@ -238,25 +285,27 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x < 32) producer<DP, BK>(a, sm, q0, h, b);
   } else {
     setmaxnreg_inc<240>();
-    consumer<DP, BK>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
+    consumer<DP, BK, SEG>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
   }
 }
 
 template <int DP, int BK>
 int launch(const Params& p, int B, cudaStream_t stream) {
   using S = Smem<DP, BK>;
+  const int smem = S::bytes((p.Lk + BK - 1) / BK);
   Args a;
   a.p = p;
   int rc = rows_map(&a.q, p.q, p.D, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, BQ);
   if (rc == 0) rc = rows_map(&a.k, p.k, p.D, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, BK);
   if (rc == 0) rc = rows_map(&a.v, p.v, p.D, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, BK);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_fwd_wgmma<DP, BK>;
+  auto kernel = p.seg == nullptr ? flash_attention_fwd_wgmma<DP, BK, false>
+                                 : flash_attention_fwd_wgmma<DP, BK, true>;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, B);
-  kernel<<<grid, THREADS, S::BYTES, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,19 +327,20 @@ constexpr int NT = NWARPS * 32;
 constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
 constexpr int Q_ELEMS = BQ * LDS;
 constexpr int KV_ELEMS = BK * LDS;
-constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 2 * BK;  // K, V, f32 bias
+constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 4 * BK;  // K, V, f32 bias, int32 ids
 constexpr size_t SMEM_BYTES = (size_t)(Q_ELEMS + 2 * STAGE_ELEMS) * 2;
 
 // Start the copies of key tile kt into stage `st`: K and V rows in 16-byte
-// chunks, the bias in 4-byte words; keys past Lk and columns past D are
-// zero-filled.
+// chunks, the bias and the segment ids in 4-byte words; keys past Lk and
+// columns past D are zero-filled.
 __device__ __forceinline__ void issue_tile(const Params& p, __nv_bfloat16* st,
                                            const __nv_bfloat16* kh, const __nv_bfloat16* vh,
-                                           const float* bias, int kt) {
+                                           const float* bias, const int* seg, int kt) {
   const int k0 = kt * BK;
   __nv_bfloat16* ks = st;
   __nv_bfloat16* vs = st + KV_ELEMS;
   float* bs = reinterpret_cast<float*>(st + 2 * KV_ELEMS);
+  int* ss = reinterpret_cast<int*>(bs + BK);
   for (int i = threadIdx.x; i < BK * (DP / 8); i += NT) {
     const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int key = k0 + r;
@@ -304,6 +354,9 @@ __device__ __forceinline__ void issue_tile(const Params& p, __nv_bfloat16* st,
     const bool ok = bias != nullptr && key < p.Lk;
     cp_async4(bs + threadIdx.x,
               ok ? static_cast<const void*>(bias + key) : static_cast<const void*>(kh), ok);
+    const bool has = seg != nullptr && key < p.Lk;
+    cp_async4(ss + threadIdx.x,
+              has ? static_cast<const void*>(seg + key) : static_cast<const void*>(kh), has);
   }
 }
 
@@ -319,6 +372,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p)
   const __nv_bfloat16* kh = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vh = p.v + b * p.v_sb + h * p.v_sh;
   const float* bias = p.bias == nullptr ? nullptr : p.bias + (size_t)b * p.Lk;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * p.Lk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // fragment row group
@@ -326,8 +380,10 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p)
   const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
   const int row_b = row_a + 8;
   const int n_tiles = (p.Lk + BK - 1) / BK;
+  const int seg_a = seg == nullptr ? 0 : seg[min(row_a, p.Lk - 1)];
+  const int seg_b = seg == nullptr ? 0 : seg[min(row_b, p.Lk - 1)];
 
-  issue_tile(p, stages, kh, vh, bias, 0);
+  issue_tile(p, stages, kh, vh, bias, seg, 0);
   cp_async_commit();
 
   // q tile: times bf16(1/sqrt(D)) in f32, rounded once to bf16
@@ -363,9 +419,10 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p)
     const __nv_bfloat16* ks = stages + (kt & 1) * STAGE_ELEMS;
     const __nv_bfloat16* vs = ks + KV_ELEMS;
     const float* bs = reinterpret_cast<const float*>(ks + 2 * KV_ELEMS);
+    const int* ss = reinterpret_cast<const int*>(bs + BK);
     __syncthreads();  // every warp is done with the stage the next copy overwrites
     if (kt + 1 < n_tiles) {
-      issue_tile(p, stages + ((kt + 1) & 1) * STAGE_ELEMS, kh, vh, bias, kt + 1);
+      issue_tile(p, stages + ((kt + 1) & 1) * STAGE_ELEMS, kh, vh, bias, seg, kt + 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -392,7 +449,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p)
       }
     }
 
-    // (logits + bias) * log2 e; keys past Lk at -inf
+    // (logits + bias) * log2 e, SEG_MASK across segments; keys past Lk at -inf
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -401,8 +458,13 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_fwd_mma(const Params p)
         const int kc = j * 8 + 2 * t + e;
         const bool ok = k0 + kc < p.Lk;
         const float bb = bs[kc];
-        s[j][e] = ok ? (s[j][e] + bb) * LOG2E : -INFINITY;
-        s[j][2 + e] = ok ? (s[j][2 + e] + bb) * LOG2E : -INFINITY;
+        float ba = bb, bb2 = bb;
+        if (seg != nullptr) {
+          ba += ss[kc] == seg_a ? 0.f : SEG_MASK;
+          bb2 += ss[kc] == seg_b ? 0.f : SEG_MASK;
+        }
+        s[j][e] = ok ? (s[j][e] + ba) * LOG2E : -INFINITY;
+        s[j][2 + e] = ok ? (s[j][2 + e] + bb2) * LOG2E : -INFINITY;
         mx_a = fmaxf(mx_a, s[j][e]);
         mx_b = fmaxf(mx_b, s[j][2 + e]);
       }
@@ -500,14 +562,15 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 // q, k, v, out: bf16 [B, H, L, D] at the given element strides (batch,
 // head, row; unit stride over D); bias: f32 [B, Lk] contiguous or null;
-// lse: f32 [B, H, Lq] contiguous. scale = bf16(1/sqrt(D)) as f32. The
+// seg: int32 [B, L] contiguous segment ids (-1 on padding; Lq = Lk = L) or
+// null; lse: f32 [B, H, Lq] contiguous. scale = bf16(1/sqrt(D)) as f32. The
 // caller checks D % 8 == 0, 64 <= D <= 256, strides that are multiples of 8
 // and 16-byte aligned pointers. Returns cudaGetLastError() after the launch,
 // or hopper::ERR_* if a tensor map could not be made. `device`: the card's
 // index.
 extern "C" int oneprot_flash_attention_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* out,
-    void* lse, int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sh,
+    const void* q, const void* k, const void* v, const void* bias, const void* seg,
+    void* out, void* lse, int B, int H, int Lq, int Lk, int D, long long q_sb, long long q_sh,
     long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,
     long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,
     float scale, int device, void* stream) {
@@ -520,6 +583,7 @@ extern "C" int oneprot_flash_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.bias = static_cast<const float*>(bias);
+  p.seg = static_cast<const int*>(seg);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb;

@@ -3,8 +3,8 @@
 // rule's list of tiles that share a segment, the rotary rotation of a landed
 // tile in place, and the epilogues that take a gradient from the rotated
 // frame back to the input's. The flash-MHA forward (flash_mha_fwd.cu) takes
-// the skip rule's tile ranges and the rotation from here too, so all three
-// round rot(q), rot(k) and q_r alike.
+// the rotation from here too, so all three round rot(q), rot(k) and q_r
+// alike; the skip rule's tile ranges are segment_tiles.cuh's.
 //
 // Both passes are warp-specialised sm_90a kernels of 160 threads: warpgroup
 // 0 (threads 0-127) computes 64 rows with wgmma, warp 4 (threads 128-159)
@@ -20,6 +20,7 @@
 
 #include "flash_mha_common.cuh"
 #include "hopper.cuh"
+#include "segment_tiles.cuh"
 
 namespace mha_bwd {
 
@@ -75,14 +76,10 @@ int tile_map(CUtensorMap* map, const void* base, int D, int L, int H, int B) {
   return rows_map(map, base, D, L, H, B, hd, D, L * hd, TILE, DP, Tile<DP>::SWIZZLE);
 }
 
-// ---- the skip rule ----------------------------------------------------------
+// ---- the skip rule (segment_tiles.cuh) ----------------------------------------
 
-// Ids of a tile: the least and greatest of its ids other than -1, and
-// whether it holds a -1 (padding). Rows past L count as neither.
-struct Range {
-  int lo, hi;
-  bool pad;
-};
+using segtiles::Range;
+using segtiles::tiles_meet;
 
 // The producer warp's range of tile j (ids at rows j*TILE + lane and + 32).
 __device__ __forceinline__ Range tile_range(int id0, int id1, int j, int L, int lane) {
@@ -94,13 +91,6 @@ __device__ __forceinline__ Range tile_range(int id0, int id1, int j, int L, int 
   t.hi = __reduce_max_sync(0xffffffffu, max(real0 ? id0 : INT_MIN, real1 ? id1 : INT_MIN));
   t.pad = __any_sync(0xffffffffu, (in0 && id0 == -1) || (in1 && id1 == -1));
   return t;
-}
-
-// Two tiles are visited together when both hold padding or their ranges of
-// ids intersect: disjoint ranges share no id, so no pair of equal ids is
-// dropped, whatever their order (flash_mha.segment_tile_hits).
-__device__ __forceinline__ bool tiles_meet(const Range& a, const Range& b) {
-  return (a.pad && b.pad) || (a.lo <= b.hi && b.lo <= a.hi);
 }
 
 // The producer warp writes into `list` the tiles of row `seg` (its L ids,

@@ -40,8 +40,6 @@
 // take 128-byte rows and 128-key tiles. Keys past L get bias -inf (TMA's
 // zero fill is no mask); queries past L are not stored. Any L >= 1.
 
-#include <limits.h>
-
 #include <type_traits>
 
 #include "flash_fwd.cuh"
@@ -124,72 +122,6 @@ __global__ void __launch_bounds__(ROTATE_THREADS)
   *reinterpret_cast<V*>(k_rot + lo + half) = x_hi;
 }
 
-// ---- the skip rule -----------------------------------------------------------
-
-// The ids of rows [r0, r0 + ROWS) of a packed row, ROWS / 32 a lane (rows
-// r0 + lane + 32u): the least and greatest other than -1, and whether one
-// is -1. Rows past L count as neither.
-template <int ROWS>
-__device__ __forceinline__ mha_bwd::Range span(const int (&ids)[ROWS / 32], int r0, int L,
-                                               int lane) {
-  int lo = INT_MAX, hi = INT_MIN;
-  bool pad = false;
-#pragma unroll
-  for (int u = 0; u < ROWS / 32; ++u) {
-    if (r0 + lane + 32 * u >= L) continue;
-    if (ids[u] == -1) {
-      pad = true;
-    } else {
-      lo = min(lo, ids[u]);
-      hi = max(hi, ids[u]);
-    }
-  }
-  mha_bwd::Range t;
-  t.lo = __reduce_min_sync(0xffffffffu, lo);
-  t.hi = __reduce_max_sync(0xffffffffu, hi);
-  t.pad = __any_sync(0xffffffffu, pad);
-  return t;
-}
-
-// Warp 0 writes into `list` the key tiles (BK rows) of row `seg` (its L ids,
-// or null: every tile) that meet the query block of BQ rows at q0
-// (mha_bwd::tiles_meet: both hold padding, or their id ranges intersect;
-// flash_mha.segment_tile_hits), in order, and returns their count (the same
-// in every lane). The ids of 256 / BK tiles are loaded at once.
-template <int BK>
-__device__ __forceinline__ int build_list(const int* seg, int L, int q0, int n_tiles, int* list,
-                                          int lane) {
-  if (seg == nullptr) {
-    for (int j = lane; j < n_tiles; j += 32) list[j] = j;
-    __syncwarp();
-    return n_tiles;
-  }
-  auto id_at = [&](int r) { return r < L ? seg[r] : 0; };
-  int own[BQ / 32];
-#pragma unroll
-  for (int u = 0; u < BQ / 32; ++u) own[u] = id_at(q0 + lane + 32 * u);
-  const mha_bwd::Range mine = span<BQ>(own, q0, L, lane);
-  constexpr int U = 256 / BK;
-  int count = 0;
-  for (int j0 = 0; j0 < n_tiles; j0 += U) {
-    int ids[U][BK / 32];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int e = 0; e < BK / 32; ++e) ids[u][e] = id_at((j0 + u) * BK + lane + 32 * e);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = j0 + u;
-      if (j < n_tiles && mha_bwd::tiles_meet(mine, span<BK>(ids[u], j * BK, L, lane))) {
-        if (lane == 0) list[count] = j;
-        ++count;
-      }
-    }
-  }
-  __syncwarp();
-  return count;
-}
-
 // ---- warpgroup 0 ---------------------------------------------------------------
 
 // Warp 0: q and its rotary rows once, the tile list, then K (rot(k) with
@@ -214,7 +146,7 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
   const int n_tiles = (L + BK - 1) / BK;
   int* list = reinterpret_cast<int*>(sm + S::LIST);
   const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * L;
-  const int count = build_list<BK>(seg, L, q0, n_tiles, list, lane);
+  const int count = segtiles::build_list<BQ, BK>(seg, L, q0, n_tiles, list, lane);
   if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
   named_bar_arrive(BAR_LIST, LISTENERS);
 

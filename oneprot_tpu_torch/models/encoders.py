@@ -245,39 +245,67 @@ class StructGraphEncoder(nn.Module):
 
 
 class MsaEncoder(nn.Module):
-    """The frozen MSA Transformer + head. The tower's output is averaged
-    over every token of every row (in f32: ~10^4 summands) and the head
-    does not pool again. The tower runs without an autograd graph, so its
-    pooled output can be cached (`backbone_is_cacheable`): the trainer then
-    trains the head alone on it (`head_from_pooled`)."""
-
-    backbone_is_cacheable = True  # always frozen, parameter-free pooling
+    """The frozen MSA Transformer + head. With `use_all_msa` (the shipped
+    msa.yaml) the tower's output is averaged over every token of every row
+    (in f32: ~10^4 summands) and the head does not pool again; without it
+    the head pools the query row (row 0) alone over its own tokens with
+    `pooling_type` ('mean', 'cls' or 'attention1d'), as the JAX encoder
+    does. The tower runs without an autograd graph, so where the pooling
+    has no parameters its pooled output can be cached
+    (`backbone_is_cacheable`): the trainer then trains the head alone on
+    it (`head_from_pooled`)."""
 
     def __init__(self, config: MsaTransformerConfig, output_dim: int,
                  proj_type: Optional[str] = "mlp", use_logit_scale: bool = True,
-                 learnable_logit_scale: bool = False, *, tp: TP = (1, 0),
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 learnable_logit_scale: bool = False, *,
+                 pooling_type: str = "mean", use_all_msa: bool = True,
+                 tp: TP = (1, 0), device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if not use_all_msa and pooling_type == "identity":
+            raise ValueError(
+                "MsaEncoder(use_all_msa=False) needs a per-protein "
+                "pooling_type ('mean'/'cls'/'attention1d'); 'identity' would "
+                "emit unpooled [B, L, H] features")
         self.config = config
         self.frozen = True  # always frozen, as in the reference
         self.tp = tp
+        self.use_all_msa = use_all_msa
+        self.pooling_type = "identity" if use_all_msa else pooling_type
         self.transformer = MsaTransformer(config, tp=tp, device=device,
                                           dtype=dtype)
         self.transformer.requires_grad_(False)
         self.head = EncoderHead(
-            config.hidden_size, output_dim, proj_type, "identity",
+            config.hidden_size, output_dim, proj_type, self.pooling_type,
             use_logit_scale, learnable_logit_scale, device=device, dtype=dtype)
 
+    @property
+    def backbone_is_cacheable(self) -> bool:
+        """Always frozen; both all-MSA and query-row mean or cls pooling
+        are parameter-free (attention1d is not)."""
+        return self.use_all_msa or self.pooling_type in ("mean", "cls")
+
+    @property
+    def cache_tag(self) -> Optional[str]:
+        """What a cached pooled row depends on besides the weights and the
+        tokens (`OneProtModule.frozen_digest`): the query row's pooling,
+        or None for the all-MSA mean."""
+        return None if self.use_all_msa else f"query_row_{self.pooling_type}"
+
     def backbone_pooled(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Tokens [B, R, L] -> the all-MSA mean [B, H] in the tower's dtype."""
+        """Tokens [B, R, L] -> the all-MSA mean, or the query row pooled,
+        [B, H] in the tower's dtype."""
         with torch.no_grad():
             reps = self.transformer(tokens)
-        m = (tokens != self.config.pad_token_id)[..., None].float()
+        mask = tokens != self.config.pad_token_id
+        if not self.use_all_msa:
+            return self.head.pool(reps[:, 0], mask[:, 0].long())
+        m = mask[..., None].float()
         total = (reps.float() * m).sum(dim=(1, 2))
         return (total / m.sum(dim=(1, 2)).clamp_min(1.0)).to(reps.dtype)
 
     def head_from_pooled(self, pooled: torch.Tensor) -> torch.Tensor:
-        """The trainable tail on a cached all-MSA mean."""
+        """The trainable tail on a cached pooled row."""
         return self.head.project(pooled)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -335,8 +363,7 @@ def create_sequence_encoder(
     `pretrained_dir` (unless `pretrained` is false), and
     `OneProtModule.load_pretrained` loads them. `tp` (model ranks, rank)
     defaults to the mesh's model group (`mesh.model_world()`); an int8 hub
-    over several raises NotImplementedError (ROADMAP.md Queue 1 item
-    13)."""
+    is held whole on every rank of it (`esm2.Esm2`)."""
     del lora_target_modules  # q/k/v is the only supported target set
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' is supported")
@@ -484,21 +511,21 @@ def create_msa_encoder(
     the all-MSA mean, mlp head, fixed logit scale 1/0.07, bf16 on the card.
     Weights are PyTorch's default init: load a state_dict (see
     `convert.msa_state_dict`) or call `msa_transformer.init_msa_weights_`.
-    `pooling_type` is read only without `use_all_msa`, which is not ported
-    (pooling the query row alone) and raises."""
-    del model_name_or_path, pooling_type  # weights: the checkpoint converter
-    if not use_all_msa:
-        raise NotImplementedError(
-            "MsaEncoder(use_all_msa=False), pooling the query row alone, is "
-            "not ported")
+    `pooling_type` is read only without `use_all_msa` (the query row
+    pooled alone), where 'identity' becomes 'mean', as the JAX factory
+    has it."""
+    del model_name_or_path  # weights: the checkpoint converter
+    if not use_all_msa and pooling_type == "identity":
+        pooling_type = "mean"
     cfg = MsaTransformerConfig(
         num_layers=num_layers, hidden_size=hidden_size, num_heads=num_heads,
         intermediate_size=intermediate_size or 4 * hidden_size)
     return MsaEncoder(
         cfg, output_dim=output_dim, proj_type=proj_type,
         use_logit_scale=use_logit_scale,
-        learnable_logit_scale=learnable_logit_scale, tp=tp or model_world(),
-        device=device, dtype=_dtype(dtype))
+        learnable_logit_scale=learnable_logit_scale,
+        pooling_type=pooling_type, use_all_msa=use_all_msa,
+        tp=tp or model_world(), device=device, dtype=_dtype(dtype))
 
 
 def _route(modality: str) -> str:

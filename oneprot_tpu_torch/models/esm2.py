@@ -40,14 +40,19 @@ row-parallel, a LoRA `lora_B` split with its q/k/v and `lora_A` whole
 the model axis does not divide the heads (the JAX rules split q/k/v
 wherever it divides H, across heads), q, k and v stay whole and o takes
 its block of their whole output: a documented placement difference with
-the same function. An int8 hub is not split (ROADMAP.md Queue 1 item 13:
-its GELU -> int8 rows need the whole row's absmax).
+the same function. An int8 hub is held whole on every model rank, as the
+JAX package places it (its rules split only leaves named `kernel`, so the
+int8 codes and scales stay replicated; they do split the q/k/v and fc1
+biases, which the port keeps whole beside their codes): no layer of it
+runs a model-group collective, and the GELU -> int8 kernel quantizes whole
+fc1 rows.
 
 With `segment_ids` (packed rows: several proteins per row, padding -1), the
 token-dropout rescale is taken per protein and attention is block-diagonal
-per segment. Packed rows with heads wider than 64 run on the CPU only (the
-JAX layer's dense segment mask and plain attention); on the card
-`dot_product_attention` refuses the dense mask.
+per segment. Packed rows with heads wider than 64 take the JAX layer's dense
+segment mask and plain attention on the CPU, and on the card the ids go
+into the FlashAttention-2 kernels (`dot_product_attention(segment_ids=)`),
+which visit only the tiles of equal ids.
 """
 
 from __future__ import annotations
@@ -73,7 +78,6 @@ from oneprot_tpu_torch.kernels.flash_mha import (  # noqa: F401  (re-exported)
     rotate_half,
 )
 from oneprot_tpu_torch.core import collectives
-from oneprot_tpu_torch.core.mesh import INT8_TENSOR_PARALLEL_ITEM
 from oneprot_tpu_torch.kernels.gelu_quant import fused_gelu_quant
 from oneprot_tpu_torch.models.layers import (
     TP,
@@ -403,9 +407,12 @@ class Esm2SelfAttention(nn.Module):
         cos, sin = cos.to(q2d.dtype), sin.to(q2d.dtype)
         q = apply_rotary(heads(q2d), cos, sin)
         k = apply_rotary(heads(k2d), cos, sin)
-        if segment_ids is not None:  # a dense mask: the CPU's path only
-            bias = packed_segment_bias(segment_ids, bias)
-        ctx = dot_product_attention(q, k, heads(v2d), bias=bias)
+        if segment_ids is not None and not q.is_cuda:
+            # the JAX layer's dense mask (-1e9 across segments) on the CPU;
+            # the card's kernels take the ids themselves
+            bias, segment_ids = packed_segment_bias(segment_ids, bias), None
+        ctx = dot_product_attention(q, k, heads(v2d), bias=bias,
+                                    segment_ids=segment_ids)
         return self.o(ctx.transpose(1, 2).reshape(B, L, hd))
 
 
@@ -448,12 +455,8 @@ class Esm2(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if quant_int8 and tp[0] > 1:
-            raise NotImplementedError(
-                f"an int8 hub over {tp[0]} model ranks: the GELU -> int8 "
-                "kernel scales each fc1 row by its whole absmax, which a "
-                "column-parallel fc1 splits; run the int8 hub at "
-                f"trainer.mesh.model=1 ({INT8_TENSOR_PARALLEL_ITEM})")
+        if quant_int8:
+            tp = (1, 0)  # held whole on every model rank (see above)
         check_card_dtype(device, dtype,
                          config.hidden_size // config.num_heads)
         self.config = config
@@ -537,13 +540,20 @@ def init_dense_(mod: nn.Linear, generator: torch.Generator) -> None:
 def init_esm2_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`, made where the parameters live:
     Linear weights lecun-normal and biases zero (`init_dense_`: a shard
-    draws the unsharded model's numbers), embeddings N(0, 0.02),
+    draws the unsharded model's numbers), an Int8Dense's the same float
+    weight quantized (`quantize_int8_kernel`), embeddings N(0, 0.02),
     LayerNorms identity, LoRA factors as LoraDense makes them (A uniform,
     B zero). Used where no checkpoint is available."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 init_dense_(mod, generator)
+            elif isinstance(mod, Int8Dense):
+                w = torch.empty_like(mod.weight_q, dtype=torch.float32)
+                w.normal_(0.0, mod.in_features ** -0.5, generator=generator)
+                mod.weight_q, mod.weight_scale = quantize_int8_kernel(w)
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
             elif isinstance(mod, nn.LayerNorm):

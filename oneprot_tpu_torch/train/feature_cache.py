@@ -19,8 +19,10 @@ are the JAX package's keys. Eviction is LRU under `max_entries`.
 With `persist_dir`, every computed row is also appended to an on-disk
 store in the JAX package's byte format, and RAM misses look there before
 recomputing. The store is guarded by a digest of the frozen weights; the
-port's digest is its own (state-dict names), so a store the JAX package
-fingerprinted is refused, while one it wrote without a fingerprint reads.
+port's digest is its own (state-dict names, and the pooling of an MSA
+encoder that pools the query row alone: `OneProtModule.frozen_digest`),
+so a store the JAX package fingerprinted is refused, while one it wrote
+without a fingerprint reads.
 
 Under a model axis the ranks of a model group compute the pooled rows of
 the same batches together (the hub's forward is a collective of the

@@ -65,12 +65,13 @@ computed on the features gathered over the data group.
 `load_pretrained` puts a local HF directory's weights into each encoder
 that names one (`pretrained_dir`; a shard takes its block), and checks an
 int8 hub loaded so against its float twin (the int8 canary). An int8 hub
-under a model axis is refused where it is built (ROADMAP.md Queue 1
-item 13).
+is held whole on every model rank (`esm2.Esm2`), so each rank runs its
+own canary on a whole twin.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -212,19 +213,33 @@ class OneProtModule:
         every entry's name, shape, dtype and first values), the same at
         any model-axis size: model rank 0 digests its shards under their
         full shapes (their first values are the full tensors') and the
-        model group takes its digest."""
+        model group takes its digest. An MSA encoder that pools the query
+        row alone adds its pooling (`MsaEncoder.cache_tag`), since its
+        cached rows are another function of the same weights: a store
+        written under one pooling is refused under the other (the JAX
+        package's keys ignore the pooling)."""
         from oneprot_tpu_torch.train.feature_cache import params_fingerprint
 
         m, rank = model_world()
         state = self._frozen_state()
+        tags = [f"{name}={enc.cache_tag}" for name, enc in
+                sorted(self.encoders.items())
+                if getattr(enc, "cache_tag", None)]
+
+        def digest_of(shapes=None) -> str:
+            digest = params_fingerprint(state, shapes)
+            if tags:
+                digest = hashlib.sha256(
+                    "|".join([digest, *tags]).encode()).hexdigest()
+            return digest
+
         if m == 1:
-            return params_fingerprint(state)
+            return digest_of()
         layout = partitioning.layout_of(self.model)
         digest = None
         if rank == 0:
-            digest = params_fingerprint(state, {
-                k: _full_shape(v.shape, layout[k], m)
-                for k, v in state.items() if k in layout})
+            digest = digest_of({k: _full_shape(v.shape, layout[k], m)
+                                for k, v in state.items() if k in layout})
         return collectives.broadcast_object(digest, group=model_group())
 
     def _agree_on_weights(self, trainable) -> None:
@@ -340,8 +355,8 @@ class OneProtModule:
         any exception, an error here (a CUDA or kernel error) propagates."""
         from oneprot_tpu_torch.models.esm2 import Esm2
 
-        # an int8 hub is never split (esm2.Esm2 refuses it over a model
-        # axis), so its twin is built whole here
+        # an int8 hub is held whole on every model rank (esm2.Esm2), and so
+        # is its twin: each rank checks its own copy
         log = get_pylogger("int8_canary")
         threshold = float(os.environ.get("ONEPROT_INT8_CANARY_MIN", "0.98"))
         r1_threshold = float(os.environ.get("ONEPROT_INT8_CANARY_R1", "1.0"))

@@ -13,7 +13,15 @@ gradient and Adam, elementwise, steps the block; a replicated parameter
 whose gradient each rank holds a part of (LoRA's `lora_A` beside
 column-parallel q/k/v, `tp_partial_grad`) is summed over the model group
 first, and the global norm counts each shard's block once over the group
-and each replicated gradient once.
+and each replicated gradient once. Every other replicated parameter
+(embeddings, LayerNorms, heads) has its whole gradient computed by each
+model rank on its own, and on the card those computations differ in their
+last bits (the embedding and scatter backwards add with atomics): so the
+model group's first rank broadcasts its gradients of them to the others,
+one flat broadcast, before the data all-reduce and the clip. A model group
+then holds one replica, as GSPMD's one logical gradient does in the JAX
+package; a broadcast, not a mean, keeps one rank's own numbers, and
+without a model axis nothing runs.
 Trainability is `requires_grad`: the JAX package's partition into trainable
 and frozen trees is not needed.
 """
@@ -27,6 +35,7 @@ import torch.nn as nn
 
 from oneprot_tpu_torch.core.collectives import (
     all_reduce_mean_,
+    model_broadcast_,
     model_sum_,
     sum_across,
 )
@@ -83,17 +92,22 @@ class ClippedOptimizer:
                         for p in self.params]
         self.partial = [p for p in self.params
                         if getattr(p, "tp_partial_grad", False)]
+        self.replicated = [p for p, split in zip(self.params, self.sharded)
+                           if not split and not getattr(p, "tp_partial_grad",
+                                                        False)]
 
     def zero_grad(self) -> None:
         self.base.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        """Sum the partial gradients over the model group, average over
-        the data group, clip, then update."""
+        """Sum the partial gradients over the model group, take the model
+        group's first rank's gradients of the replicated parameters,
+        average over the data group, clip, then update."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         model_sum_([p.grad for p in self.partial])
+        model_broadcast_([p.grad for p in self.replicated])
         all_reduce_mean_([p.grad for p in self.params])
         if self.max_norm:
             clip_by_global_norm_([p.grad for p in self.params], self.max_norm,

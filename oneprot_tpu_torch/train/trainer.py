@@ -32,7 +32,8 @@ sidecar's `checkpoint/best_value`, not from the last monitored value.
 `callbacks=peft_checkpoint` writes the hub's LoRA adapter in peft's layout
 on each val/loss improvement (`checkpoint.PeftCheckpoint`).
 `profiler="jax"` writes a torch.profiler trace of `fit` to
-`<run>/profile/trace_rank<r>.json`.
+`<run>/profile/trace_rank<r>.json`. `deterministic=True` runs `fit` and
+`test` under torch's deterministic algorithms, as Lightning's flag does.
 
 Over a process group (`core/mesh.py:init_distributed`, one process per
 card) laid out as `mesh` says (`check_mesh`: `model` ranks a model group,
@@ -48,6 +49,7 @@ model group).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -328,10 +330,35 @@ class Trainer:
             loss, _ = module.train_step(modality, seq_in, mod_in)
         return loss
 
+    @contextlib.contextmanager
+    def _algorithms(self):
+        """torch's deterministic algorithms for the block when
+        `deterministic` is set, as the reference's Lightning trainer sets
+        them (with cuBLAS's reproducible workspace, unless the environment
+        names one); the previous setting after it. The model group's
+        replicas do not depend on it (`optim.ClippedOptimizer`)."""
+        if not self.deterministic:
+            yield
+            return
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
     # ------------------------------------------------------------------
     def fit(self, module, datamodule, ckpt_path: Optional[str] = None,
             callbacks: Optional[Dict] = None, logger=None,
             output_dir: Optional[str] = None):
+        with self._algorithms():
+            return self._fit(module, datamodule, ckpt_path, callbacks, logger,
+                             output_dir)
+
+    def _fit(self, module, datamodule, ckpt_path, callbacks, logger,
+             output_dir):
         self.setup(module, datamodule, callbacks, logger, output_dir)
         self._epoch0 = 0
         resume_best = self._resume(module, ckpt_path) if ckpt_path else None
@@ -510,7 +537,8 @@ class Trainer:
         return metrics
 
     def test(self, module, datamodule) -> Dict[str, float]:
-        metrics = self.validate(module, datamodule, split="test")
+        with self._algorithms():
+            metrics = self.validate(module, datamodule, split="test")
         self.logger.log_metrics(metrics, self.global_step)
         self.metrics_history.update(metrics)
         return metrics

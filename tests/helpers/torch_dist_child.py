@@ -355,6 +355,128 @@ def _tp_layers(inp) -> dict:
     return out
 
 
+def tp_fit(module, dm_kwargs: dict, run_dir: str, deterministic: bool,
+           noise_rank=None) -> dict:
+    """`Trainer.fit` of `module` (1 epoch, TP_FIT_BATCHES batches, one
+    validation batch) with `deterministic`. With `noise_rank`, a gradient
+    hook adds noise drawn from that number to the struct-token tower's
+    embedding table (replicated), as atomics part the ranks' sums on the
+    card. Returns whether deterministic algorithms were on at each forward,
+    and the noisy gradients the hook made."""
+    from oneprot_tpu_torch.data.datamodule import OneProtDataModule
+    from oneprot_tpu_torch.train.trainer import Trainer
+
+    seen, noisy = [], []
+    module.model.register_forward_pre_hook(
+        lambda mod, args: seen.append(torch.are_deterministic_algorithms_enabled()))
+    if noise_rank is not None:
+        gen = torch.Generator().manual_seed(1000 + noise_rank)
+        table = module.encoders["struct_token"].transformer.embed_tokens.weight
+
+        def hook(grad):
+            noisy.append(grad + 1e-3 * torch.randn(grad.shape, generator=gen))
+            return noisy[-1]
+
+        table.register_hook(hook)
+    m = mesh.model_world()[0]
+    trainer = Trainer(max_epochs=1, limit_train_batches=TP_FIT_BATCHES,
+                      limit_val_batches=1, log_every_n_steps=1,
+                      accelerator="cpu", default_root_dir=run_dir,
+                      deterministic=deterministic,
+                      mesh={"data": -1, "model": m} if m > 1 else None)
+    trainer.fit(module, OneProtDataModule(**dm_kwargs))
+    return {"deterministic": seen, "noisy": noisy,
+            "after": torch.are_deterministic_algorithms_enabled()}
+
+
+TP_FIT_BATCHES = 3
+
+
+def int8_tp_module(saved: dict, tp, lr: float = 1e-4):
+    """A frozen int8 hub (the float hub of `saved` quantized; biases drawn
+    so that the bias placement shows) beside the trainable struct-token
+    tower, as model rank tp[1]'s shard of tp[0]: the hub whole, the tower
+    split."""
+    from oneprot_tpu_torch.core import partitioning
+    from oneprot_tpu_torch.models import encoders, esm2
+    from oneprot_tpu_torch.train import optim
+    from oneprot_tpu_torch.train.module import OneProtModule
+
+    cfg = saved["configs"]
+    kw = dict(tp=tuple(tp), device="cpu", dtype=torch.float32)
+    hub = encoders.SequenceEncoder(esm2.Esm2Config(**cfg["sequence"]),
+                                   TP_WIDTH, proj_type="mlp", frozen=True,
+                                   quant_int8=True, **kw)
+    tower = encoders.StructTokenEncoder(
+        esm2.Esm2Config(**cfg["struct_token"]), TP_WIDTH, **kw)
+    module = OneProtModule({"sequence": hub, "struct_token": tower},
+                           optimizer=lambda: optim.adam(lr),
+                           frozen_param_dtype=None)
+    gen = torch.Generator().manual_seed(5)
+    state = saved["state"]
+    full = {k: v for k, v in state.items()
+            if k.startswith("encoders.struct_token.")}
+    for name, t in esm2.quantize_esm2_int8_tree(
+            {k: v for k, v in state.items()
+             if k.startswith("encoders.sequence.")
+             and "lora_" not in k}).items():
+        if name.endswith(".bias") and ".layers." in name:
+            t = torch.randn(t.shape, generator=gen) * 0.02
+        full[name] = t
+    module.model.load_state_dict(partitioning.shard_state_dict(
+        full, tp[1], tp[0], partitioning.layout_of(module.model)))
+    return module
+
+
+def int8_hub_rows() -> torch.Tensor:
+    """The rows the int8 hubs embed: 3 proteins of the hub's alphabet."""
+    rng = np.random.RandomState(17)
+    ids = np.full((3, 24), 1, np.int64)
+    for r, n in enumerate((24, 17, 9)):
+        ids[r, :n] = rng.randint(4, 24, size=n)
+        ids[r, 0], ids[r, n - 1] = 0, 2
+    return torch.from_numpy(ids)
+
+
+def _int8_and_f1(inp, saved, tp) -> dict:
+    """At data 1 x model 2: the int8 hub's pooled features and a checkpoint
+    of its module; then `Trainer.fit` with rank-dependent gradient noise
+    on a replicated table (deterministic algorithms off) and without it
+    (on), each rank's replicated parameters as held after."""
+    from oneprot_tpu_torch.core import partitioning
+    from oneprot_tpu_torch.train import checkpoint as ckpt
+
+    out = {}
+    module = int8_tp_module(saved, tp).init()
+    hub = module.encoders["sequence"].eval()
+    with torch.no_grad():
+        out["int8/pooled"] = hub.backbone_pooled(int8_hub_rows()).numpy()
+    out["int8/hub_bytes"] = np.array(sum(
+        t.numel() * t.element_size() for t in hub.transformer.buffers()))
+    root = str(inp["ckpt_dir"])
+    ckpt.CheckpointManager(os.path.join(root, "int8_tp2")).on_validation_end(
+        module, {"val/loss_best": 1.0})
+    dm = json.loads(str(inp["dm"]))
+    for run, noise in (("noisy", tp[1]), ("clean", None)):
+        module = tp_module(saved, tp)
+        res = tp_fit(module, dm, os.path.join(root, f"f1_{run}"),
+                     deterministic=noise is None, noise_rank=noise)
+        out[f"f1/{run}/deterministic"] = np.array(res["deterministic"])
+        out[f"f1/{run}/after"] = np.array(res["after"])
+        out[f"f1/{run}/step"] = np.array(module.step)
+        if res["noisy"]:
+            out[f"f1/{run}/noisy_grad"] = res["noisy"][0].numpy()
+        layout = partitioning.layout_of(module.model)
+        full = partitioning.gather_state_dict(module.model.state_dict(),
+                                              layout)
+        for name, p in module.model.named_parameters():
+            if p.requires_grad:
+                out[f"f1/{run}/param/{name}"] = full[name].numpy().copy()
+                if name not in layout:
+                    out[f"f1/{run}/held/{name}"] = p.detach().numpy().copy()
+    return out
+
+
 def case_tp(rank: int, world: int, inp) -> dict:
     """A model axis of 2 over `world` ranks (data world / 2): the layers
     (at data 1), the module's steps on this data rank's block, the full
@@ -372,13 +494,14 @@ def case_tp(rank: int, world: int, inp) -> dict:
     tp = mesh.model_world()
     n, dr = mesh.data_world()
     out = {"tp": np.array(tp), "data": np.array((n, dr))}
+    saved = torch.load(str(inp["state"]), weights_only=False)
     if n == 1:
         out.update(_tp_layers(inp))
+        out.update(_int8_and_f1(inp, saved, tp))
     else:
         losses = case_losses(dr, n, {k[len("loss_"):]: v for k, v in
                                      inp.items() if k.startswith("loss_")})
         out.update({f"dloss/{k}": v for k, v in losses.items()})
-    saved = torch.load(str(inp["state"]), weights_only=False)
     module = tp_module(saved, tp).init()
     out["losses"] = np.array(tp_steps(module, inp, dr, n))
     out["seed"] = np.array(next(

@@ -712,13 +712,110 @@ def test_flash_attention_kernel_refuses(card):
         fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x.float(), lse, lse)
     with pytest.raises(ValueError):  # delta of another shape than lse
         fa.flash_attention_bwd_dkv_cuda(x, x, x, None, x, lse, lse[:, :1])
+    seg = torch.zeros(1, 16, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):  # segment ids need self-attention
+        fa.flash_attention_fwd_cuda(x, x[:, :, :8], x[:, :, :8], None, seg)
+    with pytest.raises(ValueError):  # ids of another length than the rows
+        fa.flash_attention_fwd_cuda(x, x, x, None, seg[:, :8])
+
+
+def _fa_segments(B, L, card, seed):
+    """[B, L] int32 ids of packed rows: ragged proteins, then a padded tail
+    (-1); the last row is all padding."""
+    rng = np.random.RandomState(seed)
+    seg = np.full((B, L), -1, np.int32)
+    for b in range(B - 1):
+        end = int(rng.randint(L // 2, L - 5))
+        cuts = np.sort(rng.choice(np.arange(1, end), size=4, replace=False))
+        for i, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, end])):
+            seg[b, lo:hi] = i
+    return torch.from_numpy(seg).to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,L", [(72, 200), (128, 200), (128, 1024),
+                                 (64, 300), (256, 256)])
+def test_flash_attention_kernels_with_segment_ids(card, D, L):
+    """#5, #6 and #7 with segment ids (packed rows; Hopper instances skip
+    the tiles of other segments, heads of 256 mask only) against their
+    plain versions on the same ids: out and lse, then each backward kernel
+    against its own plain version and the whole plain backward; padded
+    rows finite."""
+    B, H = 3, 4
+    q, k, v, _ = _fa_inputs(B, H, L, L, D, card, L + D, "heads")
+    seg = _fa_segments(B, L, card, D + L)
+    bias = ((seg < 0).float() * -1e9)[:, None, None, :]
+    gen = torch.Generator(device=card).manual_seed(D)
+    dout = (torch.randn(B, L, H, D, device=card, generator=gen)
+            * (seg >= 0)[:, :, None, None]).to(torch.bfloat16).transpose(1, 2)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias, seg)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias, seg)
+    dq, qs, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse,
+                                                   dout, seg)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(qs, k, v, bias, dout, lse, delta,
+                                             seg)
+    own_dq, own_qs, own_delta = fa.flash_attention_bwd_dq_plain(
+        q, k, v, bias, out, lse, dout, seg)
+    own_dk, own_dv = fa.flash_attention_bwd_dkv_plain(qs, k, v, bias, dout,
+                                                      lse, delta, seg)
+    whole = fa.flash_attention_bwd_plain(q, k, v, bias, out, lse, dout, seg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    rel = ((out.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"out: max rel err {rel}"
+    real = (seg >= 0)[:, None, :].expand_as(lse)
+    assert (lse - ref_lse).abs()[real].max().item() <= 5e-2
+    assert torch.equal(qs, own_qs)
+    assert (delta - own_delta).abs().max().item() <= 1e-3 * max(
+        own_delta.abs().max().item(), 1.0)
+    for name, got, wants in (("dq", dq, (own_dq, whole[0])),
+                             ("dk", dk, (own_dk, whole[1])),
+                             ("dv", dv, (own_dv, whole[2]))):
+        assert torch.isfinite(got.float()).all(), f"{name}: non-finite"
+        for want in wants:
+            rel = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max().clamp_min(1e-6)).item()
+            assert rel <= FLASH_REL_TOL, f"{name}: max rel err {rel}"
+
+
+@pytest.mark.gpu
+def test_flash_attention_segment_ids_through_autograd(card):
+    """dot_product_attention(segment_ids=) on the card: one launch of each
+    kernel, gradients as the plain backward's on the same ids."""
+    q, k, v, _ = _fa_inputs(2, 4, 300, 300, 128, card, 7, "heads")
+    seg = _fa_segments(2, 300, card, 8)
+    bias = ((seg < 0).float() * -1e9)[:, None, None, :]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    gen = torch.Generator(device=card).manual_seed(9)
+    dout = torch.randn(2, 4, 300, 128, device=card, generator=gen).to(
+        torch.bfloat16)
+    counts = [f.launches for f in (fa.flash_attention_fwd_cuda,
+                                   fa.flash_attention_bwd_dq_cuda,
+                                   fa.flash_attention_bwd_dkv_cuda)]
+    out = dot_product_attention(*leaves, bias, segment_ids=seg)
+    grads = torch.autograd.grad(out, leaves, dout)
+    # the kernel's lse: one more forward launch
+    lse = fa.flash_attention_fwd_cuda(q, k, v, bias, seg)[1]
+    want = fa.flash_attention_bwd_plain(q, k, v, bias, out.detach(), lse, dout,
+                                        seg)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_attention_fwd_cuda,
+                                 fa.flash_attention_bwd_dq_cuda,
+                                 fa.flash_attention_bwd_dkv_cuda)] == [
+        counts[0] + 2, counts[1] + 1, counts[2] + 1]
+    for name, got, w in zip("qkv", grads, want):
+        rel = ((got.float() - w.float()).abs().max()
+               / w.float().abs().max()).item()
+        assert rel <= FLASH_REL_TOL, f"d{name}: max rel err {rel}"
 
 
 @pytest.mark.gpu
 def test_wide_head_esm2_on_the_card(card):
     """An ESM2 with heads of 128 (2 layers of 256) embeds through the
-    FlashAttention-2 kernel, one launch a layer and no flash-MHA launch,
-    and refuses packed rows on the card."""
+    FlashAttention-2 kernel, one launch a layer and no flash-MHA launch;
+    packed rows go through it too, with their segment ids, and agree with
+    the CPU's dense-mask path on the real tokens."""
     cfg = esm2.Esm2Config(hidden_size=256, num_layers=2, num_heads=2,
                           intermediate_size=512)
     enc = encoders.SequenceEncoder(cfg, 32, proj_type="mlp")
@@ -730,9 +827,25 @@ def test_wide_head_esm2_on_the_card(card):
     assert (fa.flash_attention_fwd_cuda.launches,
             flash_mha.flash_mha_cuda.launches) == (counts[0] + 2, counts[1])
     assert feats.shape == (2, 32) and np.isfinite(feats).all()
-    ids = torch.ones(1, 8, dtype=torch.long, device=card)
-    with pytest.raises(ValueError):  # the dense segment mask has no kernel
-        enc.transformer(ids, segment_ids=torch.zeros_like(ids))
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(4, 24, size=(2, 96))).to(card)
+    seg = torch.zeros(2, 96, dtype=torch.int32, device=card)
+    seg[:, 40:] = 1
+    seg[1, 80:] = -1
+    ids[1, 80:] = 1  # padding
+    before = fa.flash_attention_fwd_cuda.launches
+    with torch.no_grad():
+        got = enc.transformer(ids, segment_ids=seg).float()
+        cpu = encoders.SequenceEncoder(cfg, 32, proj_type="mlp",
+                                       device="cpu", dtype=torch.float32)
+        cpu.load_state_dict({k: t.float().cpu()
+                             for k, t in enc.state_dict().items()})
+        want = cpu.transformer(ids.cpu(), segment_ids=seg.cpu())
+    assert fa.flash_attention_fwd_cuda.launches == before + 2
+    real = (seg >= 0).cpu()
+    cos = torch.nn.functional.cosine_similarity(got.cpu()[real], want[real],
+                                                dim=-1)
+    assert cos.min().item() >= 0.999
 
 
 class _MemoryStructTokens(StructTokenDataset):

@@ -577,9 +577,9 @@ def test_collect_embeddings_two_ranks_equal_one(runs, tmp_path):
 
 def test_mesh_model_axis_names_its_item():
     """A model axis that does not divide the world (one process here) is
-    refused, naming how to launch; the int8 hub over a model axis is
-    refused naming ROADMAP item 13 (tests/test_torch_tensor_parallel.py
-    runs the axis on gloo worlds)."""
+    refused, naming how to launch; the int8 hub over a model axis builds,
+    whole on each rank (tests/test_torch_tensor_parallel.py runs the axis
+    on gloo worlds)."""
     from oneprot_tpu_torch.models import encoders
 
     for make in (lambda: Trainer(accelerator="cpu",
@@ -589,10 +589,10 @@ def test_mesh_model_axis_names_its_item():
             make()
     with pytest.raises(ValueError, match="mesh.data=2"):
         mesh_lib.check_mesh({"data": 2})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
-                                         device="cpu", dtype="float32",
-                                         tp=(2, 0))
+    int8 = encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
+                                            device="cpu", dtype="float32",
+                                            tp=(2, 0))
+    assert not int8.transformer.layers[0].attn.heads_split
 
 
 def test_devices_beyond_the_world_say_how_to_launch():

@@ -167,9 +167,12 @@ def test_msa_encoder_cache_methods_match_jax(dtype):
         pm.head_from_pooled(torch.from_numpy(pooled)).detach().numpy(),
         np.asarray(jm.apply({"params": params}, jnp.asarray(pooled),
                             method=jenc.MsaEncoder.head_from_pooled)), *tol)
-    with pytest.raises(NotImplementedError, match="use_all_msa"):
-        encoders.create_msa_encoder(use_all_msa=False, device="cpu",
-                                    **MSA_SMALL)
+    # the query row pooled alone (use_all_msa=False) is ported
+    # (tests/test_torch_msa_options.py): mean pooling caches as in JAX
+    query = encoders.create_msa_encoder(use_all_msa=False, device="cpu",
+                                        **MSA_SMALL)
+    assert query.backbone_is_cacheable == jenc.create_msa_encoder(
+        use_all_msa=False, **MSA_SMALL).backbone_is_cacheable is True
 
 
 def _seq_ids(rng, B, L):

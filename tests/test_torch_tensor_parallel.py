@@ -22,8 +22,15 @@
   it. At data 1: the column- and row-parallel layers and Megatron's f
   and g against an unsharded Dense pair, a checkpoint written at model 2
   restored at model 1 bit for bit and the reverse, and the peft export of
-  a split `lora_B`.
-- The int8 hub over a model axis is refused, naming ROADMAP item 13.
+  a split `lora_B`; an int8 hub at model 2 (held whole) whose pooled
+  features equal one process's bit for bit, with its checkpoint restored
+  at model 1; and `Trainer.fit` at model 2 with rank-dependent noise added
+  to a replicated gradient (standing in for the card's atomics): the model
+  group's replicas stay bit-identical, and without the noise, under
+  `deterministic=True`, the fit equals one process's.
+- The int8 hub over a model axis is held whole on every rank, as the JAX
+  rules place its int8 leaves (they split only `kernel` leaves), and the
+  rule layout leaves its entries whole.
 """
 
 import dataclasses
@@ -50,8 +57,12 @@ from oneprot_tpu_torch.models import bert, encoders, esm2, msa_transformer
 from oneprot_tpu_torch.models.hf_convert import export_peft_lora
 from oneprot_tpu_torch.train import checkpoint as ckpt
 from tests.helpers.torch_dist_child import (
+    TP_FIT_BATCHES,
     TP_LORA,
     TP_WIDTH,
+    int8_hub_rows,
+    int8_tp_module,
+    tp_fit,
     tp_module,
     tp_steps,
 )
@@ -220,13 +231,33 @@ def test_shard_and_gather_round_trip(rule_trees):
 
 
 def test_int8_hub_is_refused_under_a_model_axis():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
-                                         device="cpu", dtype="float32",
-                                         tp=(2, 1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        esm2.Esm2(esm2.ESM2_SIZES["esm2_tiny"], quant_int8=True, tp=(4, 0),
-                  device="cpu", dtype=torch.float32)
+    """No longer refused: under a model axis the int8 hub is built whole
+    on every rank (no split heads, every dense layer an Int8Dense of the
+    full width, no shard), and the rule layout leaves its entries whole,
+    while the JAX rules would split its q/k/v and fc1 biases (the port's
+    documented placement difference)."""
+    enc = encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
+                                           device="cpu", dtype="float32",
+                                           tp=(2, 1))
+    whole = esm2.Esm2(esm2.ESM2_SIZES["esm2_tiny"], quant_int8=True,
+                      tp=(4, 0), device="cpu", dtype=torch.float32)
+    one = esm2.Esm2(esm2.ESM2_SIZES["esm2_tiny"], quant_int8=True,
+                    device="cpu", dtype=torch.float32)
+    for model in (enc.transformer, whole):
+        assert partitioning.layout_of(model) == {}
+        assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
+            k: tuple(v.shape) for k, v in one.state_dict().items()}
+        for layer in model.layers:
+            assert not layer.attn.heads_split
+            assert all(isinstance(m, esm2.Int8Dense) for m in (
+                layer.attn.q, layer.attn.k, layer.attn.v, layer.attn.o,
+                layer.fc1, layer.fc2))
+    state = {f"encoders.sequence.transformer.{k}": v
+             for k, v in one.state_dict().items()}
+    assert partitioning.rule_layout(state, 2) == {}
+    assert partitioning.spec_of(
+        "encoders.sequence.transformer.layers.0.fc1.bias", (64,), 2) == (
+        "model",)
 
 
 # -- the worlds ---------------------------------------------------------------
@@ -336,6 +367,19 @@ def runs(tmp_path_factory):
     again_losses = tp_steps(again, b, 0, 1)
     data = str(root / "fixtures")
     generate_fixtures(data, n_train=16, n_eval=8, modalities=["struct_token"])
+    # one process: the int8 hub's features (one thread, as the ranks run)
+    # and the fit the ranks run without noise
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        int8_one = int8_tp_module(saved, (1, 0)).init()
+        with torch.no_grad():
+            int8_pooled = int8_one.encoders["sequence"].eval().backbone_pooled(
+                int8_hub_rows()).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    fit_one = tp_module(saved, (1, 0))
+    tp_fit(fit_one, dm_kwargs(data), str(root / "fit_one"), True)
     rng = np.random.RandomState(3)
     layers = {"x": rng.randn(2, 5, 8).astype(np.float32),
               "dy": rng.randn(2, 5, 8).astype(np.float32),
@@ -355,7 +399,8 @@ def runs(tmp_path_factory):
     return {"worlds": worlds, "oracle": jax_oracle(jm, b), "batches": b,
             "losses": jax_losses(2, loss_inputs(2)),
             "one": (one_losses, one), "again": (again_losses, again),
-            "root": root, "saved": saved, "layers": layers}
+            "root": root, "saved": saved, "layers": layers,
+            "int8": (int8_one, int8_pooled), "fit_one": fit_one}
 
 
 def _results(runs, world):
@@ -595,3 +640,74 @@ def test_peft_export_of_a_split_lora_b(runs):
     assert sorted(got.files) == sorted(want) and len(want) == 12
     for name, v in want.items():
         np.testing.assert_array_equal(got[name], v, err_msg=name)
+
+
+# -- the int8 hub at model 2, and one replica a model group (F1) --------------
+
+
+def test_int8_hub_at_model_2_equals_one_process(runs):
+    """Each model rank's int8 hub (whole: no split heads, no model-group
+    collective) pools the rows as one process's does, bit for bit, and
+    holds as many bytes."""
+    one, pooled = runs["int8"]
+    hub = one.encoders["sequence"].transformer
+    want_bytes = sum(t.numel() * t.element_size() for t in hub.buffers())
+    for r in _results(runs, 2):
+        np.testing.assert_array_equal(r["int8/pooled"], pooled)
+        assert int(r["int8/hub_bytes"]) == want_bytes
+
+
+def test_int8_checkpoint_at_model_2_restores_at_model_1(runs):
+    """The model-2 ranks' checkpoint of the int8 hub + split tower holds
+    the int8 leaves whole: one process restores it bit for bit."""
+    path = str(runs["root"] / "ckpt" / "int8_tp2" / "last")
+    state = torch.load(os.path.join(path, ckpt.STATE_FILE), weights_only=True)
+    module = int8_tp_module(runs["saved"], (1, 0)).init()
+    want = module.model.state_dict()
+    ckpt.load_state(module, path)
+    got = module.model.state_dict()
+    assert set(got) == set(state["model"]) == set(want)
+    assert any(k.endswith("weight_q") for k in got)
+    for name, t in state["model"].items():
+        assert torch.equal(got[name], t), name
+        assert torch.equal(t, want[name]), name
+
+
+def test_replicas_stay_one_under_rank_noise(runs):
+    """Trainer.fit at model 2 with deterministic algorithms off and noise
+    of each rank's own added to the tower's embedding gradient (a
+    replicated parameter): the raw gradients differ across the ranks, and
+    after the steps every replicated parameter is bit-identical across the
+    model group (the group's first rank's gradient is everyone's)."""
+    r0, r1 = _results(runs, 2)
+    assert not np.array_equal(r0["f1/noisy/noisy_grad"],
+                              r1["f1/noisy/noisy_grad"])
+    held = [k for k in r0 if k.startswith("f1/noisy/held/")]
+    assert any("embed_tokens" in k for k in held) and len(held) > 10
+    for key in held:
+        np.testing.assert_array_equal(r1[key], r0[key], err_msg=key)
+    assert int(r0["f1/noisy/step"]) == TP_FIT_BATCHES
+
+
+def test_fit_at_model_2_equals_one_process(runs):
+    """Without the noise, the model-2 fit's trainable parameters (joined
+    over the group) equal one process's fit at model 1, at the bar the
+    steps above are held to."""
+    want = {n: p.detach().numpy() for n, p in
+            runs["fit_one"].model.named_parameters() if p.requires_grad}
+    for r in _results(runs, 2):
+        assert int(r["f1/clean/step"]) == TP_FIT_BATCHES
+        for name, w in want.items():
+            np.testing.assert_allclose(r[f"f1/clean/param/{name}"], w,
+                                       rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_deterministic_flag_holds_during_the_fit(runs):
+    """trainer.deterministic=True runs every forward of the fit under
+    torch's deterministic algorithms and sets them back after; False
+    leaves them off."""
+    for r in _results(runs, 2):
+        assert r["f1/clean/deterministic"].size > 0
+        assert r["f1/clean/deterministic"].all()
+        assert not r["f1/noisy/deterministic"].any()
+        assert not r["f1/clean/after"] and not r["f1/noisy/after"]

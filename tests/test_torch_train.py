@@ -535,18 +535,18 @@ def test_int8_hub_packed_step_matches_jax():
 def test_module_refuses_what_is_not_ported():
     enc = {"sequence": encoders.create_sequence_encoder(
         "esm2_tiny", device="cpu", dtype="float32")}
-    # SigLIP, the text tower, the graph towers and tensor parallelism are
-    # ported (tests/test_torch_siglip.py, test_torch_text.py,
-    # test_torch_graph.py, test_torch_tensor_parallel.py); a model axis
-    # that does not divide the world is refused, as are the int8 hub over
-    # a model axis and a modality the JAX package does not know
+    # SigLIP, the text tower, the graph towers, tensor parallelism and the
+    # int8 hub over a model axis (held whole) are ported
+    # (tests/test_torch_siglip.py, test_torch_text.py, test_torch_graph.py,
+    # test_torch_tensor_parallel.py); a model axis that does not divide the
+    # world is refused, as is a modality the JAX package does not know
     assert OneProtModule(enc, loss_fn="SIGLIP").loss_name == "SIGLIP"
     with pytest.raises(ValueError, match="does not divide the world"):
         OneProtModule(enc, mesh={"data": -1, "model": 2})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
-                                         device="cpu", dtype="float32",
-                                         tp=(2, 0))
+    int8 = encoders.create_sequence_encoder("esm2_tiny", quantize="int8",
+                                            device="cpu", dtype="float32",
+                                            tp=(2, 0))
+    assert not int8.transformer.layers[0].attn.heads_split
     with pytest.raises(NotImplementedError):
         encoders.OneProtModel({"no_such": torch.nn.Linear(2, 2)})
     with pytest.raises(NotImplementedError):
