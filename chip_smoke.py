@@ -37,10 +37,13 @@ the elapsed seconds:
    step's B=16 L=512 and on the text rows of a packed batch (key bias and
    segment ids), each call launching its kernel exactly once; the f32
    instances of #1-#3 (the debug towers' float32) at the debug hub's
-   packed rows (B=16 L=1024 H=20 D=16, 16 segments a row) and at
-   bert_tiny's heads of 64 (key bias, no rotary), one launch each,
-   against their f32 plain versions (max rel err <= 1e-4, lse within
-   1e-5), timed beside SDPA in f32 and their f32 bound; #8 on heads
+   packed rows (B=16 L=1024 H=20 D=16, 16 segments a row), at
+   bert_tiny's heads of 64 (key bias, no rotary), on ragged packed rows
+   (L=200, tails of padding tiles) and on the segment ids of
+   train_packed's real packed batch, one launch each, against their
+   f32 plain versions (max rel err <= 1e-4, lse within 1e-5), timed
+   beside SDPA in f32 and their f32 bound, and the tiled #1 and #3
+   built without spills at every head dim 8-64 (-Xptxas -v); #8 on heads
    of 16 (the debug MSA tower's, zero-padded to 64 around the launch)
    at the bf16 gate; and #5, #6 and #7 with segment ids on
    train_packed's real packed batch at the ESM2-15B width's heads (B=16
@@ -583,15 +586,33 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
+def entry_name(mangled: str) -> str:
+    """The unqualified name of a kernel from its (Itanium-mangled) symbol:
+    "fwd_tiled" from "_ZN6f32mha9fwd_tiledILi16EEEv..."; an extern "C"
+    kernel's symbol as it is."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    name, i = mangled, m.end()
+    while (n := re.match(r"\d+", mangled[i:])) is not None:
+        i += n.end()
+        name, i = mangled[i:i + int(n.group())], i + int(n.group())
+    return name
+
+
 def ptxas_report(log: str) -> list:
-    """(template arguments, registers and spills) of each kernel instance
-    in nvcc's -Xptxas=-v output, e.g. ("<128,64>", "Used 168 registers,
-    ...; 0 bytes spill stores, 0 bytes spill loads"), and ("note", line)
-    for each of ptxas's C75xx performance notes (wgmma serialised, ...)."""
+    """(kernel and template arguments, registers and spills) of each kernel
+    instance in nvcc's -Xptxas=-v output, e.g. ("fwd_kernel<128,64>",
+    "Used 168 registers, ...; 0 bytes spill stores, 0 bytes spill loads"),
+    and ("note", line) for each of ptxas's C75xx performance notes (wgmma
+    serialised, ...)."""
     out, instance, spills = [], "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            instance = "<" + ",".join(re.findall(r"L[ib](\d+)E", line)) + ">"
+            symbol = re.search(r"'([^']+)'", line)
+            instance = (entry_name(symbol.group(1)) if symbol else "") + "<" + ",".join(
+                re.findall(r"L[ib](\d+)E", line)) + ">"
+            spills = ""
         elif re.search(r"\(C75\d\d\)", line):
             out.append(("note", line.strip()))
         elif "spill" in line:
@@ -4444,21 +4465,30 @@ def text_parity() -> dict:
 # experiments
 
 
-def f32_case(B, L, H, D, gen, rotary, n_seg):
+def f32_case(B, L, H, D, gen, rotary, n_seg, shortest=2):
     """f32 q, k, v [B, L, H*D], the side inputs (a key bias, rotary tables,
-    n_seg contiguous segments a row with padding as its own id) and an
-    upstream gradient zero on padding rows; the valid positions [B, L]."""
+    n_seg contiguous segments a row with padding as its own id, or with
+    n_seg = "real" the segment ids of a real packed batch,
+    `packed_struct_segments`, at B = ROWS and L = ROW_LEN) and an upstream
+    gradient zero on padding rows; the valid positions [B, L]. Rows hold
+    L // shortest to L real tokens (n_seg = "real": the batch's)."""
     dev = "cuda"
     q, k, v = (torch.randn(B, L, H * D, device=dev, generator=gen)
                for _ in range(3))
-    lens = torch.randint(L // 2, L + 1, (B,), device=dev, generator=gen)
+    lens = torch.randint(L // shortest, L + 1, (B,), device=dev, generator=gen)
     valid = torch.arange(L, device=dev)[None, :] < lens[:, None]
+    seg = None
+    if n_seg == "real":
+        seg = torch.from_numpy(packed_struct_segments()).to(dev, torch.int32)
+        valid = seg >= 0
+    elif n_seg:
+        seg = torch.where(valid, (torch.arange(L, device=dev)[None, :] * n_seg
+                                  // L).repeat(B, 1), -1).to(torch.int32)
     side = {"bias": ((1.0 - valid.float()) * -1e9)[:, None, None, :]}
     if rotary:
         side["rope_cos"], side["rope_sin"] = esm2.rotary_cos_sin(L, D, device=dev)
-    if n_seg:
-        seg = (torch.arange(L, device=dev)[None, :] * n_seg // L).repeat(B, 1)
-        side["segment_ids"] = torch.where(valid, seg, -1).to(torch.int32)
+    if seg is not None:
+        side["segment_ids"] = seg
     dout = torch.randn(B, L, H * D, device=dev, generator=gen) * valid[..., None]
     return q, k, v, side, dout, valid
 
@@ -4469,11 +4499,46 @@ def rel_err(got, want) -> float:
 
 
 F32_NAMES = ("flash_mha_fwd_f32", "flash_mha_bwd_dq_f32", "flash_mha_bwd_dkv_f32")
-# (what, B, L, H, D, rotary, segments a row): the debug hubs' packed rows
-# (ESM2-8M: 320 / 20 = heads of 16; train_packed's 16 x 1024) and
-# bert_tiny's heads of 64 (key bias, no rotary) at a text bucket
-F32_CASES = (("debug hub, packed", 16, 1024, 20, 16, True, 16),
-             ("bert_tiny", 16, 512, 2, 64, False, 0))
+# (what, B, L, H, D, rotary, segments a row, rows' shortest fraction): the
+# debug hubs' packed rows (ESM2-8M: 320 / 20 = heads of 16; train_packed's
+# 16 x 1024), bert_tiny's heads of 64 (key bias, no rotary) at a text
+# bucket, ragged packed rows: L=200 off the tiled kernels' 32- and 64-row
+# tiles, rows of 50-200 tokens, so whole tiles at their tails hold padding
+# only, and the segment ids of train_packed's real packed batch (proteins
+# of log-normal lengths, their ends anywhere in a tile)
+F32_CASES = (("debug hub, packed", 16, 1024, 20, 16, True, 16, 2),
+             ("bert_tiny", 16, 512, 2, 64, False, 0, 2),
+             ("ragged packed rows", 8, 200, 20, 16, True, 3, 4),
+             ("debug hub, real packed batch", ROWS, ROW_LEN, 20, 16, True,
+              "real", 2))
+# the tiled f32 kernels (#1, #3) by library: every head-dim instance
+# D=8..64 must build without spilling
+F32_TILED = {"flash_mha_fwd_f32": "fwd_tiled", "flash_mha_bwd_dkv_f32": "dkv_tiled"}
+
+
+def f32_ptxas() -> dict:
+    """Registers and spill bytes of each head-dim instance of the tiled f32
+    kernels, from the build's -Xptxas -v; gated: all eight instances D=8..64
+    of each, none spilling."""
+    found = {}
+    for name, kernel in F32_TILED.items():
+        found[name] = {}
+        for instance, line in ptxas_report(_build.build_log(name)):
+            d = re.fullmatch(kernel + r"<(\d+)>", instance)
+            if d is not None:
+                found[name][int(d.group(1))] = {
+                    "registers": int(re.search(r"Used (\d+) registers",
+                                               line).group(1)),
+                    "spill_bytes": sum(int(n) for n in re.findall(
+                        r"(\d+) bytes spill", line))}
+        print(f"  {name} ({kernel}) ptxas: " + ", ".join(
+            f"D={d} {r['registers']} registers, {r['spill_bytes']} bytes spill"
+            for d, r in sorted(found[name].items())), flush=True)
+        require(sorted(found[name]) == list(range(8, 72, 8)),
+                f"{name}: ptxas instances {sorted(found[name])}")
+        require(not any(r["spill_bytes"] for r in found[name].values()),
+                f"{name} spills: {found[name]}")
+    return found
 
 
 def check_flash_f32(gen) -> list:
@@ -4485,11 +4550,14 @@ def check_flash_f32(gen) -> list:
     forward + backward minus forward) on the same inputs with a dense f32
     mask, and its bound (f32 67 TFLOP/s over the logit pairs of equal
     segment ids, or the bytes at 3.35 TB/s). Returns the three rows; the
-    first case is each row, the second its case."""
+    first case is each row, the others its cases; #1's and #3's rows carry
+    their instances' registers and spills (`f32_ptxas`)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     found = {n: [] for n in F32_NAMES}
-    for what, B, L, H, D, rotary, n_seg in F32_CASES:
-        q, k, v, side, dout, valid = f32_case(B, L, H, D, gen, rotary, n_seg)
+    ptxas = f32_ptxas()
+    for what, B, L, H, D, rotary, n_seg, shortest in F32_CASES:
+        q, k, v, side, dout, valid = f32_case(B, L, H, D, gen, rotary, n_seg,
+                                              shortest)
         seg = side.get("segment_ids")
         before = [LAUNCHERS[n].launches for n in F32_NAMES]
         out, lse = flash_mha.flash_mha_cuda(q, k, v, H, **side)
@@ -4571,7 +4639,8 @@ def check_flash_f32(gen) -> list:
             "flash_mha_bwd_dkv_f32": bound_ms(6 * x + side_bytes + 2 * stat,
                                               8.0 * D * pairs, F32_FLOPS)}
         shape = (f"B={B} L={L} H={H} D={D} f32"
-                 + (f", {n_seg} segments a row" if n_seg else "")
+                 + (", real packed batch" if n_seg == "real" else
+                    f", {n_seg} segments a row" if n_seg else "")
                  + ("" if rotary else ", no rotary"))
         for name in F32_NAMES:
             b_ms, b_by = bounds[name]
@@ -4602,8 +4671,11 @@ def check_flash_f32(gen) -> list:
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape")},
             "cases": cases,
-            "note": "the f32 instance (f32 FMA on the CUDA cores); "
-                    "library_ms: SDPA in f32 with a dense f32 mask"
+            **({"ptxas": ptxas[name]} if name in ptxas else {}),
+            "note": "the f32 instance (f32 FMA on the CUDA cores; "
+                    + ("register-tiled, 64-row tiles" if name in ptxas
+                       else "one thread a row")
+                    + "); library_ms: SDPA in f32 with a dense f32 mask"
                     + ("" if "fwd" in name else ", its backward (both "
                        "passes) for #2 and #3")})
     return out_rows
@@ -5951,7 +6023,7 @@ def main() -> int:
     print(f"  built in {time.time() - t:.1f} s into {_build.BUILD_DIR}", flush=True)
     for name in _build.SIGNATURES:
         for instance, line in ptxas_report(_build.build_log(name)):
-            print(f"  {name}{instance}: {line}", flush=True)
+            print(f"  {name} {instance}: {line}", flush=True)
 
     phase("kernels against their plain versions")
     count_plain_calls()

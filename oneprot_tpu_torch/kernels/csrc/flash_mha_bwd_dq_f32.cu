@@ -3,30 +3,10 @@
 // rowsum(dO * O) for the dk/dv kernel.
 //
 // Replaces, for float32 inputs: oneprot_tpu/kernels/flash_mha.py:
-// _bwd_dq_kernel. The kernel, what bounds it and its design:
+// _bwd_dq_kernel. The kernel, what bounds it, its design and its launch:
 // flash_mha_f32.cuh.
 
 #include "flash_mha_f32.cuh"
-
-namespace {
-
-struct Dq {
-  const float *q, *k, *v, *o, *dout;
-  f32mha::Side sd;
-  const float* lse;
-  float *dq, *q_r, *delta;
-  float q_pre, dq_scale;
-  int B;
-  cudaStream_t stream;
-  template <int D>
-  int operator()() const {
-    f32mha::dq_kernel<D><<<f32mha::grid_of(B, sd.L, sd.H), f32mha::ROWS, 0, stream>>>(
-        q, k, v, o, dout, sd, lse, dq, q_r, delta, q_pre, dq_scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
-
-}  // namespace
 
 extern "C" int oneprot_flash_mha_bwd_dq_f32(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const void* bias,
@@ -36,19 +16,7 @@ extern "C" int oneprot_flash_mha_bwd_dq_f32(const void* q, const void* k, const 
                                             float dq_scale, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dq f{static_cast<const float*>(q),
-             static_cast<const float*>(k),
-             static_cast<const float*>(v),
-             static_cast<const float*>(out),
-             static_cast<const float*>(dout),
-             f32mha::make_side(bias, cos, sin, seg, L, H),
-             static_cast<const float*>(lse),
-             static_cast<float*>(dq),
-             static_cast<float*>(q_r),
-             static_cast<float*>(delta),
-             q_pre,
-             dq_scale,
-             B,
-             static_cast<cudaStream_t>(stream)};
-  return f32mha::dispatch_d(D, f);
+  return f32mha::bwd_dq(f32mha::CudaLaunch{static_cast<cudaStream_t>(stream)}, q, k, v, out,
+                        dout, bias, cos, sin, seg, lse, dq, q_r, delta, B, L, H, D, q_pre,
+                        dq_scale);
 }

@@ -536,12 +536,16 @@ def flash_mha_f32_cuda(q, k, v, num_heads, B, L, D, bias_b, cos, sin, seg):
     lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
+    # q_r and rot(k), written once by the kernel's rotary pass
+    q_rot, k_rot = (None, None) if cos is None else torch.empty(
+        (2,) + tuple(q.shape), dtype=q.dtype, device=dev)
     fn = _build.library("flash_mha_fwd_f32")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_b),
                 _ptr(cos), _ptr(sin), _ptr(seg), out.data_ptr(), lse.data_ptr(),
-                B, L, num_heads, D, bwd_scales(D)[0], dev.index, stream)
+                _ptr(q_rot), _ptr(k_rot), B, L, num_heads, D,
+                bwd_scales(D)[0], dev.index, stream)
     _build.check(rc, "flash_mha_fwd_f32")
     flash_mha_f32_cuda.launches += 1
     return out, lse

@@ -377,11 +377,20 @@ F32_REL_TOL, F32_LSE_TOL = 1e-4, 1e-5
     (2, 200, 4, 24, True, True, True),
     (2, 130, 2, 40, False, False, True),
     (1, 3, 2, 56, True, True, False),       # three tokens
+] + [  # every head dim: ragged L (tails of padding tiles), every side input
+    (2, 200, 3, d, True, True, True) for d in range(8, 72, 8)
+] + [  # every head dim: L off the 32 and 64 grids, the side inputs toggled
+    (2, 77 + 30 * i, 2, d, i % 2 == 0, i % 3 != 0, i % 2 == 1)
+    for i, d in enumerate(range(8, 72, 8))
+] + [  # every head dim, no side input at all
+    (1, 130, 2, d, False, False, False) for d in range(8, 72, 8)
 ])
 def test_f32_kernels_match_plain(card, B, L, nh, d, rotary, bias, segments):
     """The f32 forward, dq and dk/dv kernels (one launch each) against the
     plain versions in f32 on the same inputs: max rel err <= 1e-4, the
-    lse within 1e-5 on the rows that keep digits."""
+    lse within 1e-5 on the rows that keep digits. Head dims 8-64 (every
+    instance of the tiled #1 and #3: 16 x 8 thread grids, second products
+    split over 1, 2 or 4 groups), L on and off their 32- and 64-row tiles."""
     q, k, v, kw = _attention_inputs(B, L, nh, d, card, 3 * L + d, rotary,
                                     bias, segments)
     q, k, v = (t.float().requires_grad_() for t in (q, k, v))
