@@ -42,8 +42,9 @@ the elapsed seconds:
    (L=200, tails of padding tiles) and on the segment ids of
    train_packed's real packed batch, one launch each, against their
    f32 plain versions (max rel err <= 1e-4, lse within 1e-5), timed
-   beside SDPA in f32 and their f32 bound, and the tiled #1 and #3
-   built without spills at every head dim 8-64 (-Xptxas -v); #8 on heads
+   beside SDPA in f32 and their f32 bound (#2 + #3 beside SDPA's f32
+   backward), and the tiled #1-#3 built without spills at every head
+   dim 8-64 (-Xptxas -v); #8 on heads
    of 16 (the debug MSA tower's, zero-padded to 64 around the launch)
    at the bf16 gate; and #5, #6 and #7 with segment ids on
    train_packed's real packed batch at the ESM2-15B width's heads (B=16
@@ -4511,9 +4512,10 @@ F32_CASES = (("debug hub, packed", 16, 1024, 20, 16, True, 16, 2),
              ("ragged packed rows", 8, 200, 20, 16, True, 3, 4),
              ("debug hub, real packed batch", ROWS, ROW_LEN, 20, 16, True,
               "real", 2))
-# the tiled f32 kernels (#1, #3) by library: every head-dim instance
+# the tiled f32 kernels (#1-#3) by library: every head-dim instance
 # D=8..64 must build without spilling
-F32_TILED = {"flash_mha_fwd_f32": "fwd_tiled", "flash_mha_bwd_dkv_f32": "dkv_tiled"}
+F32_TILED = {"flash_mha_fwd_f32": "fwd_tiled", "flash_mha_bwd_dq_f32": "dq_tiled",
+             "flash_mha_bwd_dkv_f32": "dkv_tiled"}
 
 
 def f32_ptxas() -> dict:
@@ -4549,9 +4551,10 @@ def check_flash_f32(gen) -> list:
     beside its plain version, SDPA's f32 forward or backward (both passes:
     forward + backward minus forward) on the same inputs with a dense f32
     mask, and its bound (f32 67 TFLOP/s over the logit pairs of equal
-    segment ids, or the bytes at 3.35 TB/s). Returns the three rows; the
-    first case is each row, the others its cases; #1's and #3's rows carry
-    their instances' registers and spills (`f32_ptxas`)."""
+    segment ids, or the bytes at 3.35 TB/s); #2 + #3 printed beside SDPA's
+    f32 backward on each case. Returns the three rows; the first case is
+    each row, the others its cases; each row carries its instances'
+    registers and spills (`f32_ptxas`)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     found = {n: [] for n in F32_NAMES}
     ptxas = f32_ptxas()
@@ -4622,8 +4625,9 @@ def check_flash_f32(gen) -> list:
         mask = mask.contiguous()
         do_h = heads(dout).contiguous()
         lib_fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            sdpa(*leaves, attn_mask=mask), leaves, do_h)) - lib_fwd
+        lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves, attn_mask=mask), leaves, do_h))
+        lib_bwd = lib_fwd_bwd - lib_fwd
         libs = {"flash_mha_fwd_f32": lib_fwd, "flash_mha_bwd_dq_f32": lib_bwd,
                 "flash_mha_bwd_dkv_f32": lib_bwd}
         pairs = needed_pairs(seg, B, L) * H
@@ -4654,6 +4658,10 @@ def check_flash_f32(gen) -> list:
                   f" kernel {times[name]:.4f} ms, plain {plains[name]:.4f} ms, "
                   f"SDPA f32 {libs[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
+        pair = times["flash_mha_bwd_dq_f32"] + times["flash_mha_bwd_dkv_f32"]
+        print(f"  f32 backward {what}: #2 + #3 {pair:.4f} ms, SDPA f32 backward "
+              f"{lib_bwd:.4f} ms (forward + backward {lib_fwd_bwd:.4f} minus "
+              f"forward {lib_fwd:.4f}), ratio {pair / lib_bwd:.3f}", flush=True)
         del q, k, v, out, lse, dq, q_r, delta, dk, dv, leaves, mask
         torch.cuda.empty_cache()
     sources = {"flash_mha_fwd_f32": ("flash_mha_fwd_f32.cu", 157),
@@ -4671,11 +4679,10 @@ def check_flash_f32(gen) -> list:
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape")},
             "cases": cases,
-            **({"ptxas": ptxas[name]} if name in ptxas else {}),
+            "ptxas": ptxas[name],
             "note": "the f32 instance (f32 FMA on the CUDA cores; "
-                    + ("register-tiled, 64-row tiles" if name in ptxas
-                       else "one thread a row")
-                    + "); library_ms: SDPA in f32 with a dense f32 mask"
+                    "register-tiled, 64-row tiles); library_ms: SDPA in f32 "
+                    "with a dense f32 mask"
                     + ("" if "fwd" in name else ", its backward (both "
                        "passes) for #2 and #3")})
     return out_rows

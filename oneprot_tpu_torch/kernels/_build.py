@@ -42,7 +42,7 @@ SIGNATURES = {
                           [_VOID_P] * 11 + [_INT] * 4 + [ctypes.c_float, _INT,
                                                          _VOID_P]),
     "flash_mha_bwd_dq_f32": ("oneprot_flash_mha_bwd_dq_f32",
-                             [_VOID_P] * 13 + [_INT] * 4
+                             [_VOID_P] * 14 + [_INT] * 4
                              + [ctypes.c_float] * 2 + [_INT, _VOID_P]),
     "flash_mha_bwd_dkv_f32": ("oneprot_flash_mha_bwd_dkv_f32",
                               [_VOID_P] * 12 + [_INT] * 4

@@ -13,47 +13,54 @@
 // What bounds them on H100: wgmma has no f32 operand, and TF32 (or a 3xTF32
 // split) does not keep the digits of the f32 bar (1e-4), so every product is
 // exact f32 FMA on the CUDA cores: 67 TFLOP/s, 128 FMAs a clock on each SM.
-// At heads of 16-64 that is 4 D flops (forward) or 8 D (dk/dv) per logit
-// pair against a few hundred bytes per row: operations bound the work. Shared
-// memory gives each SM 128 bytes a clock, a quarter of a float per FMA, so
-// the FMA units set the pace only where each float loaded from shared memory
-// feeds several FMAs.
+// At heads of 16-64 that is 4 D flops (forward), 6 D (dq) or 8 D (dk/dv)
+// per logit pair against a few hundred bytes per row: operations bound the
+// work. Shared memory gives each SM 128 bytes a clock, a quarter of a float
+// per FMA, so the FMA units set the pace only where each float loaded from
+// shared memory feeds several FMAs.
 //
-// The forward (#1) and dk/dv (#3): register-tiled products, FA-2 style. A
-// block of 128 threads owns a tile of 64 rows: query rows in #1, key rows in
-// #3 (the grid is (ceil(L/64), H, B) for all three kernels).
-//  - The first products are tiles: S = Q K^T in #1; S^T = K q_r^T and
-//    dP^T = V dO^T in #3. Thread (ty, tx) of a 16 x 8 grid holds rows
-//    4ty..4ty+3 against the other side's rows tx + 8c (c < 8; c < 4 for #3's
-//    query tiles of 32 at D > 32), both read as float4 along d from row-major
-//    tiles whose row stride of DP + 4 floats puts a quarter-warp's 8 lanes on
-//    distinct banks: 12 loads of 16 bytes feed 128 FMAs. Each logit is one
-//    fma chain in d order.
+// All three are register-tiled products, FA-2 style. A block of 128 threads
+// owns a tile of 64 rows: query rows in #1 and #2, key rows in #3 (the grid
+// is (ceil(L/64), H, B) for all three kernels).
+//  - The first products are tiles: S = Q K^T in #1; S = q_r K^T and dP = dO
+//    V^T in #2; S^T = K q_r^T and dP^T = V dO^T in #3. Thread (ty, tx) of a
+//    16 x 8 grid holds rows 4ty..4ty+3 against the other side's rows tx + 8c
+//    (c < 8; c < 4 for #3's query tiles of 32 at D > 32), both read as
+//    float4 along d from row-major tiles whose row stride of DP + 4 floats
+//    puts a quarter-warp's 8 lanes on distinct banks: 12 loads of 16 bytes
+//    feed 128 FMAs. Each logit is one fma chain in d order.
 //  - Softmax: the row max is reduced by shuffles among the 8 lanes of a row;
 //    each lane keeps its part of the row sum, added up once at the end;
 //    exp2 is the SFU's (MUFU.EX2) without exp2f's rescaling of results
-//    below 2^-126 around it.
-//  - P (#1), P^T and dS^T (#3) are staged in shared memory as [k][row] (16
-//    KB at 64 x 64) for the second products P V, P^T dO and dS^T q_r. Their
-//    output tile, 64 rows x DP columns (the head dim rounded up to 8, 16, 32
-//    or 64), is spread over the threads at 32 accumulators each (16 at D=8):
-//    below DP=64 the block's warps split the reduction over k into KS groups
-//    whose partial sums meet once, through shared memory, at the end. No
-//    thread keeps a whole D-vector, so no instance from D=8 to 64 spills.
-//  - Staging: the K/V tiles of #1 (with the key bias and the segment ids)
-//    and the q_r/dO/lse/delta tiles of #3 arrive by cp.async into a ring of
-//    2 stages: the next visited tile loads while this one computes. The
-//    block's own rows (Q in #1; K and V in #3) are loaded once, Q while the
-//    block lists its tiles. Shared memory above 48 KB is set with
-//    cudaFuncSetAttribute.
-//  - Rotary: #1 first writes q_r = rot(q) * q_pre and rot(k) once per row
-//    into scratch (`rotate_qk`), and its tiled loop stages those as they
-//    are. Rotating each K tile where it is staged instead repeats the
-//    rotation for every query tile that stages it (16 at L = 1024) and
-//    stages the rotary tables with every tile, which costs more than the
-//    pass (PERF.md), as the bf16 #1's `rotate_k` pass found. #3 rotates its
-//    own K rows once per block as it loads them and takes dk back through
-//    rot^T once, in its epilogue.
+//    below 2^-126 around it. #2 and #3 recompute p = exp2(min(s - lse, 0))
+//    and dS = p (dP - delta) in registers.
+//  - P (#1), dS (#2), P^T and dS^T (#3) are staged in shared memory as
+//    [k][row] (16 KB at 64 x 64) for the second products P V, dS K, P^T dO
+//    and dS^T q_r. Their output tile, 64 rows x DP columns (the head dim
+//    rounded up to 8, 16, 32 or 64), is spread over the threads at 32
+//    accumulators each (16 at D=8): below DP=64 the block's warps split the
+//    reduction over k into KS groups whose partial sums meet once, through
+//    shared memory, at the end. No thread keeps a whole D-vector, so no
+//    instance from D=8 to 64 spills. At DP=64 #2 stages dS where the tile's
+//    V was, once every dP is done (one barrier more a tile), so that two
+//    blocks share an SM.
+//  - Staging: the K/V tiles of #1 and #2 (with the key bias and the segment
+//    ids) and the q_r/dO/lse/delta tiles of #3 arrive by cp.async into a
+//    ring of 2 stages: the next visited tile loads while this one computes.
+//    The block's own rows (Q in #1; q_r and dO in #2; K and V in #3) are
+//    loaded once, while the block lists its tiles; #2's prologue computes
+//    its rows' delta = rowsum(dO * O) meanwhile (8 lanes a row, 3 shuffles)
+//    and writes it, with q_r = q * q_pre, for #3. Shared memory above 48 KB
+//    is set with cudaFuncSetAttribute.
+//  - Rotary: #1 and #2 first write q_r = rot(q) * q_pre and rot(k) once per
+//    row (`rotate_qk`: into scratch for #1; for #2 q_r is its own output),
+//    and their tiled loops stage those as they are. Rotating each K tile
+//    where it is staged instead repeats the rotation for every query tile
+//    that stages it (16 at L = 1024) and stages the rotary tables with every
+//    tile, which costs more than the pass (PERF.md), as the bf16 #1's
+//    `rotate_k` pass found. #3 rotates its own K rows once per block as it
+//    loads them; #2 and #3 take dq and dk back through rot^T once, in their
+//    epilogues.
 //  - The tiles to visit are listed once per block (8 threads a tile, each
 //    loading its share of the ids at once): a tile whose segment range
 //    [min, max] of ids other than -1 meets the block's, or which holds
@@ -63,10 +70,6 @@
 //    L an lse of +inf: both give p = 0.
 //  - Registers: 134-254 a thread, none spilled at any head dim
 //    (`Tiles::*_MIN_BLOCKS`); 2-3 blocks share an SM.
-//
-// The dq kernel (#2) keeps its first design: one thread per query row, 64
-// rows a block, key tiles of 64 in shared memory read as broadcasts; its
-// prologue writes q_r = rot(q) * q_pre and delta = rowsum(dO * O) for #3.
 //
 // The launches of all three (`fwd`, `bwd_dq`, `bwd_dkv`, at the end) take a
 // `launch` callable: the entry points pass <<<>>> on their stream
@@ -93,134 +96,18 @@ struct Side {
   int L, H;
 };
 
-// element d of rot(x) for a row x of D values at position `pos`
-template <int D>
-__device__ __forceinline__ float rot_elem(const float* x, const Side& sd, int pos, int d) {
-  if (sd.cos == nullptr) return x[d];
-  constexpr int h = D / 2;
-  const float pair = d < h ? -x[d + h] : x[d - h];
-  return x[d] * sd.cos[(long)pos * D + d] + pair * sd.sin[(long)pos * D + d];
-}
-
-// g <- R^T g = g cos - rotate_half(g) sin at position `pos` (rotary off: g)
-template <int D>
-__device__ __forceinline__ void rot_t(float (&g)[D], const Side& sd, int pos) {
-  if (sd.cos == nullptr) return;
-  constexpr int h = D / 2;
-  float r[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float c = sd.cos[(long)pos * D + d], s = sd.sin[(long)pos * D + d];
-    r[d] = d < h ? g[d] * c + g[d + h] * s : g[d] * c - g[d - h] * s;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) g[d] = r[d];
-}
-
-// The segment range of `n` staged ids (rows past L excluded by the caller):
-// min and max of the ids other than -1, and whether -1 occurs.
+// The segment range of a tile's ids (rows past L excluded): min and max of
+// the ids other than -1, and whether -1 occurs.
 struct Span {
   int lo = INT_MAX, hi = INT_MIN;
   bool pad = false;
 };
-__device__ __forceinline__ Span span_of(const int* ids, int n) {
-  Span s;
-  for (int r = 0; r < n; ++r) {
-    const int x = ids[r];
-    if (x == -1) {
-      s.pad = true;
-    } else {
-      s.lo = min(s.lo, x);
-      s.hi = max(s.hi, x);
-    }
-  }
-  return s;
-}
 __device__ __forceinline__ bool visits(const Span& a, const Span& b) {
   return (a.pad && b.pad) || (a.lo <= b.hi && b.lo <= a.hi);
 }
 
-template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D], const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-// Backward, dq (with the prologue): q_r = rot(q) * q_pre and delta =
-// rowsum(dO * O) are written for the dk/dv kernel. Grid (ceil(L/64), H, B).
-template <int D>
-__global__ void __launch_bounds__(ROWS)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ o,
-              const float* __restrict__ dout, Side sd, const float* __restrict__ lse,
-              float* __restrict__ dq, float* __restrict__ q_r, float* __restrict__ delta,
-              float q_pre, float dq_scale) {
-  __shared__ float ks[ROWS][D], vs[ROWS][D], bs[ROWS];
-  __shared__ int ss[ROWS], own_ids[ROWS];
-  const int b = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * ROWS, t = threadIdx.x;
-  const int L = sd.L, H = sd.H;
-  const long HD = (long)H * D, base = (long)b * L * HD + (long)hh * D;
-  const int i = q0 + t;
-  const bool live = i < L;
-  const int n_own = min(ROWS, L - q0);
-  const long row = base + (long)i * HD, stat = ((long)b * H + hh) * L + i;
-
-  float qr[D], dov[D], acc[D];
-  float dl = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? rot_elem<D>(q + row, sd, i, d) * q_pre : 0.f;
-    dov[d] = live ? dout[row + d] : 0.f;
-    if (live) dl = fmaf(dov[d], o[row + d], dl);
-    acc[d] = 0.f;
-  }
-  const float lse_i = live ? lse[stat] : 0.f;
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) q_r[row + d] = qr[d];
-    delta[stat] = dl;
-  }
-  const int my_seg = (sd.seg != nullptr && live) ? sd.seg[(long)b * L + i] : 0;
-  own_ids[t] = my_seg;
-  __syncthreads();
-  const Span own = sd.seg != nullptr ? span_of(own_ids, n_own) : Span();
-
-  for (int k0 = 0; k0 < L; k0 += ROWS) {
-    __syncthreads();
-    const int j = k0 + t;
-    ss[t] = (sd.seg != nullptr && j < L) ? sd.seg[(long)b * L + j] : 0;
-    bs[t] = j < L ? (sd.bias != nullptr ? sd.bias[(long)b * L + j] : 0.f) : -INFINITY;
-    __syncthreads();
-    if (sd.seg != nullptr && !visits(own, span_of(ss, min(ROWS, L - k0)))) continue;
-    for (int e = t; e < ROWS * D; e += ROWS) {
-      const int r = e / D, d = e % D, jj = k0 + r;
-      const bool in = jj < L;
-      ks[r][d] = in ? rot_elem<D>(k + base + (long)jj * HD, sd, jj, d) : 0.f;
-      vs[r][d] = in ? v[base + (long)jj * HD + d] : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int jj = 0; jj < ROWS; ++jj) {
-      float s = dot<D>(qr, ks[jj]) + bs[jj];
-      if (sd.seg != nullptr && ss[jj] != my_seg) s += SEG_MASK;
-      const float p = exp2f(fminf(s - lse_i, 0.f));
-      const float ds = p * (dot<D>(dov, vs[jj]) - dl);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[jj][d], acc[d]);
-    }
-  }
-  if (!live) return;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] *= dq_scale;
-  rot_t<D>(acc, sd, i);
-#pragma unroll
-  for (int d = 0; d < D; ++d) dq[row + d] = acc[d];
-}
-
 // ---------------------------------------------------------------------------
-// The tiled forward (#1) and dk/dv (#3)
+// The tiled kernels
 
 constexpr int THREADS = 128;
 constexpr int PSTRIDE = ROWS + 4;  // row stride of a staged P / dS tile [k][row]
@@ -248,9 +135,11 @@ struct Tiles {
   // holds a thread to 168 registers, 2 to 255. Left to itself ptxas aims at
   // 3 (4 at D=8) and spills a few bytes where the tiles need more. #1 at
   // heads of 8-16 fits 168 without spilling, and 3 blocks share an SM
-  // (their shared memory allows it); wider #1 and every #3 take 2
+  // (their shared memory allows it), as does #2 with its rows' lse, delta
+  // and ids kept in shared memory; wider #1 and #2 and every #3 take 2
   // (CUDA 12.9's ptxas; `chip_smoke.py` gates the spills).
   static constexpr int FWD_MIN_BLOCKS = D <= 16 ? 3 : 2;
+  static constexpr int DQ_MIN_BLOCKS = D <= 16 ? 3 : 2;
   static constexpr int DKV_MIN_BLOCKS = 2;
   static_assert(D % 8 == 0 && D <= 64, "head dim: a multiple of 8 up to 64");
   static_assert(RT % 4 == 0 && CG * CT == DP, "tiling");
@@ -371,13 +260,18 @@ __device__ __forceinline__ void load_rotated(float* dst, const float* src, long 
   }
 }
 
-// x * scale in place for the rows this thread staged with `stage_rows`
+// x * scale in place for the rows r0.. this thread staged with
+// `stage_rows`; where out is given (a head's row 0, row stride HD), also
+// written there for the rows below L
 template <int D, int SD>
-__device__ __forceinline__ void scale_own(float* x, float scale) {
+__device__ __forceinline__ void scale_own(float* x, float scale, float* out, long HD, int r0,
+                                          int L) {
   constexpr int C4 = D / 4;
   for_units<ROWS * C4>([&](int e) {
-    const int o = (e / C4) * SD + (e % C4) * 4;
-    st4(x + o, scale4(ld4(x + o), scale));
+    const int r = e / C4, c = (e % C4) * 4;
+    const float4 y = scale4(ld4(x + r * SD + c), scale);
+    st4(x + r * SD + c, y);
+    if (out != nullptr && r0 + r < L) st4(out + (long)(r0 + r) * HD + c, y);
   });
 }
 
@@ -440,7 +334,7 @@ __device__ __forceinline__ int visit_list(int* list, int* spans, const int* ids,
   return spans[0];
 }
 
-// The forward's logits: s += the key's bias, and SEG_MASK where the key's
+// The logits of #1 and #2: s += the key's bias, and SEG_MASK where the key's
 // id is not the row's (segs: the batch has segment ids).
 __device__ __forceinline__ void key_terms(float (&s)[4][8], const float* bs, const int* ss,
                                           const int (&own)[4], int tx, bool segs) {
@@ -567,9 +461,9 @@ __device__ __forceinline__ float4 sum_partials(const float* red, int r, int c) {
   return s;
 }
 
-// #1's rotary pass: q_r = rot(q) * q_pre and rot(k), [B, L, H*D] each,
-// once per row into scratch before the tiled forward, which then stages
-// them as they are. A thread takes 4 columns of one (row, head) and their
+// The rotary pass of #1 and #2: q_r = rot(q) * q_pre and rot(k), [B, L,
+// H*D] each, once per row before the tiled kernel, which then stages them
+// as they are. A thread takes 4 columns of one (row, head) and their
 // rotary pairs, D / 2 on.
 constexpr int ROTATE_THREADS = 256;
 
@@ -668,7 +562,7 @@ __global__ void __launch_bounds__(THREADS, Tiles<D>::FWD_MIN_BLOCKS)
 
   if (n_vis > 0) load_tile(0, tile_of(0));
   cp_wait_all();
-  scale_own<D, SD>(qs, q_pre);  // the loop's first barrier publishes it
+  scale_own<D, SD>(qs, q_pre, nullptr, HD, q0, L);  // the loop's first barrier publishes
 
   const int ty = t >> 3, tx = t & 7;  // the first product's rows 4ty.., keys tx + 8c
   int own_id[4];
@@ -912,6 +806,187 @@ __global__ void __launch_bounds__(THREADS, Tiles<D>::DKV_MIN_BLOCKS)
   }
 }
 
+// Shared memory of dq, in floats: q_r, dO [ROWS][SD] | ds [ROWS][PSTRIDE]
+// ([key][query row]; at DP=64 none: dS takes the place of the tile's V once
+// dP is done, so that two blocks share an SM) | stat: the rows' lse, delta,
+// ids [ROWS] | the ring: 2 stages of {k, v [ROWS][SD], bias, ids [ROWS]},
+// which the epilogue's partial sums [KS][ROWS][SD] reuse | the visited
+// tiles' list, then the tiles' segment ranges [3][n_tiles] (ints).
+template <int D>
+struct DqSmem {
+  using T = Tiles<D>;
+  static constexpr bool DS_IN_V = T::SD == PSTRIDE;
+  static constexpr int DO = ROWS * T::SD, DS = 2 * ROWS * T::SD,
+                       STAT = DS + (DS_IN_V ? 0 : ROWS * PSTRIDE), RING = STAT + 3 * ROWS,
+                       STAGE = 2 * ROWS * T::SD + 2 * ROWS,
+                       LIST = RING + cmax(2 * STAGE, T::KS * ROWS * T::SD);
+  static int bytes(int n_tiles) { return 4 * (LIST + 4 * n_tiles); }
+};
+
+// Backward, dq, with the prologue's delta = rowsum(dO * O), and q_r = q *
+// q_pre written to q_r_out where it is given. q and k as the first product
+// takes them: with rotary, `rotate_qk`'s q_r (q_pre = 1, q_r_out null) and
+// rot(k), while sd's tables take dq back through rot^T. Grid (ceil(L/64),
+// H, B): a block's 64 query rows against the visited key tiles of 64.
+template <int D>
+__global__ void __launch_bounds__(THREADS, Tiles<D>::DQ_MIN_BLOCKS)
+    dq_tiled(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ o,
+             const float* __restrict__ dout, Side sd, const float* __restrict__ lse,
+             float* __restrict__ dq, float* __restrict__ q_r_out, float* __restrict__ delta,
+             float q_pre, float dq_scale) {
+  using T = Tiles<D>;
+  using SM = DqSmem<D>;
+  constexpr int SD = T::SD, KPG = ROWS / T::KS;
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const bool segs = sd.seg != nullptr;
+  float* const qs = sm;
+  float* const dos = sm + SM::DO;
+  float* const stat = sm + SM::STAT;
+  int* const stat_id = reinterpret_cast<int*>(stat + 2 * ROWS);
+  float* const ring = sm + SM::RING;
+  int* const list = reinterpret_cast<int*>(sm + SM::LIST);
+  const int b = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * ROWS, t = threadIdx.x;
+  const int L = sd.L, H = sd.H;
+  const long HD = (long)H * D, base = (long)b * L * HD + (long)hh * D;
+  const long stats = ((long)b * H + hh) * L;
+  const int n_tiles = (L + ROWS - 1) / ROWS;
+  const int* const ids = segs ? sd.seg + (long)b * L : nullptr;
+
+  // the block's q and dO rows by cp.async, landing while the tile list is made
+  stage_rows<D, SD, ROWS>(qs, q + base, HD, q0, L);
+  stage_rows<D, SD, ROWS>(dos, dout + base, HD, q0, L);
+  cp_commit();
+  zero_pad<D, SD, T::DP, ROWS>(ring);  // k of both stages
+  zero_pad<D, SD, T::DP, ROWS>(ring + SM::STAGE);
+  const int n_vis = segs ? visit_list(list, list + n_tiles, ids, L, q0, ROWS, n_tiles) : n_tiles;
+  auto tile_of = [&](int it) { return segs ? list[it] : it; };
+
+  // key tile kt into ring stage s: k, v, bias, ids
+  auto load_tile = [&](int s, int kt) {
+    float* const st = ring + s * SM::STAGE;
+    const int k0 = kt * ROWS;
+    float* const bs = st + 2 * ROWS * SD;
+    int* const ss = reinterpret_cast<int*>(bs + ROWS);
+    stage_rows<D, SD, ROWS>(st, k + base, HD, k0, L);
+    stage_rows<D, SD, ROWS>(st + ROWS * SD, v + base, HD, k0, L);
+    if (t < ROWS) {
+      const int j = k0 + t;
+      if (j < L) {
+        if (sd.bias != nullptr) {
+          cp4(bs + t, sd.bias + (long)b * L + j);
+        } else {
+          bs[t] = 0.f;
+        }
+        if (segs) cp4(ss + t, ids + j);
+      } else {
+        bs[t] = -INFINITY;
+        ss[t] = 0;
+      }
+    }
+    cp_commit();
+  };
+  if (n_vis > 0) load_tile(0, tile_of(0));
+
+  // the first products' rows 4ty.. (keys tx + 8c): their lse, delta and ids
+  // into stat, which the tiles read back (in registers they would cost the
+  // 3 blocks an SM of D <= 16), while the tiles land; each of a row's 8
+  // lanes sums delta's columns tx + 8j, 3 shuffles add them; rows past L
+  // take an lse of +inf, so p = 0
+  const int ty = t >> 3, tx = t & 7;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + 4 * ty + r;
+    const long row = base + (long)i * HD + tx;
+    float x = 0.f;
+    if (i < L) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) x = fmaf(dout[row + 8 * j], o[row + 8 * j], x);
+    }
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+    if (tx == 0) {
+      if (i < L) delta[stats + i] = x;
+      stat[4 * ty + r] = i < L ? lse[stats + i] : INFINITY;
+      stat[ROWS + 4 * ty + r] = x;
+      stat_id[4 * ty + r] = (segs && i < L) ? ids[i] : 0;
+    }
+  }
+  cp_wait_all();
+  scale_own<D, SD>(qs, q_pre, q_r_out == nullptr ? nullptr : q_r_out + base, HD, q0, L);
+
+  const int grp = t / T::G, u = t % T::G, cg = u % T::CG, row0 = (u / T::CG) * T::RT;
+  float acc[T::RT][T::CT];
+#pragma unroll
+  for (int r = 0; r < T::RT; ++r) {
+#pragma unroll
+    for (int c = 0; c < T::CT; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int it = 0; it < n_vis; ++it) {
+    const float* const ks = ring + (it & 1) * SM::STAGE;
+    float* const vs = ring + (it & 1) * SM::STAGE + ROWS * SD;
+    const float* const bs = vs + ROWS * SD;
+    const int* const ss = reinterpret_cast<const int*>(bs + ROWS);
+    float* const dst = SM::DS_IN_V ? vs : sm + SM::DS;
+    cp_wait_all();
+    __syncthreads();  // tile `it` has arrived; the last second product is done
+    if (it + 1 < n_vis) load_tile((it + 1) & 1, tile_of(it + 1));
+    float p[4][8];
+    first_product<D, SD, 8>(p, qs + 4 * ty * SD, ks + tx * SD);
+    {
+      const int own_id[4] = {stat_id[4 * ty], stat_id[4 * ty + 1], stat_id[4 * ty + 2],
+                             stat_id[4 * ty + 3]};
+      key_terms(p, bs, ss, own_id, tx, segs);
+    }
+    const float4 l4 = ld4(stat + 4 * ty);
+    const float lse_i[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) p[r][c] = ex2(fminf(p[r][c] - lse_i[r], 0.f));
+    }
+    float ds[4][8];
+    first_product<D, SD, 8>(ds, dos + 4 * ty * SD, vs + tx * SD);
+    const float4 d4 = ld4(stat + ROWS + 4 * ty);
+    const float dl[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ds[r][c] = p[r][c] * (ds[r][c] - dl[r]);
+    }
+    if constexpr (SM::DS_IN_V) __syncthreads();  // every dP is done: V's place is free
+    stage_t<8>(dst, ds, ty, tx);
+    __syncthreads();
+    second_product<D, KPG>(acc, dst, ks, grp * KPG, row0, cg);
+  }
+
+  // epilogue: the groups' partial sums through the ring, scaled into q's
+  // buffer, then back through rot^T
+  constexpr int C4 = D / 4, HF = D / 2;
+  float* const red = ring;
+  __syncthreads();
+  store_partial<D>(red, acc, grp, row0, cg);
+  __syncthreads();
+  for (int e = t; e < ROWS * C4; e += THREADS) {
+    const int r = e / C4, c = (e % C4) * 4;
+    st4(qs + r * SD + c, scale4(sum_partials<D>(red, r, c), dq_scale));
+  }
+  __syncthreads();
+  for (int e = t; e < ROWS * C4; e += THREADS) {
+    const int r = e / C4, c = (e % C4) * 4, i = q0 + r;
+    if (i >= L) continue;
+    float4 g = ld4(qs + r * SD + c);
+    if (sd.cos != nullptr) {
+      const float4 cs = ldg4(sd.cos + (long)i * D + c), sn = ldg4(sd.sin + (long)i * D + c);
+      g = c < HF ? rot4(g, cs, ld4(qs + r * SD + c + HF), sn)
+                 : rot4(g, cs, neg4(ld4(qs + r * SD + c - HF)), sn);
+    }
+    st4(dq + base + (long)i * HD + c, g);
+  }
+}
+
 inline Side make_side(const void* bias, const void* cos, const void* sin, const void* seg, int L,
                       int H) {
   Side sd;
@@ -952,6 +1027,16 @@ int dispatch_d(int D, F&& f) {
 inline const float* in_f32(const void* p) { return static_cast<const float*>(p); }
 inline float* out_f32(void* p) { return static_cast<float*>(p); }
 
+// `rotate_qk` over [B, L, H*D]: q_r = rot(q) * q_pre and rot(k) into k_rot
+template <int D, class Launch>
+int rotate(const Launch& launch, const void* q, const void* k, const Side& sd, void* q_r,
+           void* k_rot, int B, float q_pre) {
+  const long n = (long)B * sd.L * sd.H * (D / 8);
+  const dim3 blocks((unsigned)((n + ROTATE_THREADS - 1) / ROTATE_THREADS));
+  return launch(rotate_qk<D>, blocks, ROTATE_THREADS, 0, in_f32(q), in_f32(k), sd, out_f32(q_r),
+                out_f32(k_rot), n, q_pre);
+}
+
 // #1: with rotary, `rotate_qk` writes q_r and rot(k) into the scratch
 // q_rot, k_rot, and the tiled forward runs on them with q_pre = 1.
 template <class Launch>
@@ -965,10 +1050,7 @@ int fwd(const Launch& launch, const void* q, const void* k, const void* v, const
     const void *qs = q, *ks = k;
     float pre = q_pre;
     if (sd.cos != nullptr) {
-      const long n = (long)B * L * H * (D / 8);
-      const dim3 blocks((unsigned)((n + ROTATE_THREADS - 1) / ROTATE_THREADS));
-      const int rc = launch(rotate_qk<D>, blocks, ROTATE_THREADS, 0, in_f32(q), in_f32(k), sd,
-                            out_f32(q_rot), out_f32(k_rot), n, q_pre);
+      const int rc = rotate<D>(launch, q, k, sd, q_rot, k_rot, B, q_pre);
       if (rc != 0) return rc;
       tiled.cos = tiled.sin = nullptr;
       qs = q_rot, ks = k_rot, pre = 1.f;
@@ -978,18 +1060,29 @@ int fwd(const Launch& launch, const void* q, const void* k, const void* v, const
   });
 }
 
-// #2 with its prologue
+// #2 with its prologue: with rotary, `rotate_qk` writes q_r (#2's own
+// output, which #3 takes) and rot(k) into the scratch k_rot, and the tiled
+// dq runs on them with q_pre = 1, its tables kept for rot^T; without, the
+// tiled dq writes q_r itself.
 template <class Launch>
 int bwd_dq(const Launch& launch, const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* bias, const void* cos, const void* sin, const void* seg,
-           const void* lse, void* dq, void* q_r, void* delta, int B, int L, int H, int head_dim,
-           float q_pre, float dq_scale) {
+           const void* lse, void* dq, void* q_r, void* delta, void* k_rot, int B, int L, int H,
+           int head_dim, float q_pre, float dq_scale) {
   const Side sd = make_side(bias, cos, sin, seg, L, H);
   return dispatch_d(head_dim, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return launch(dq_kernel<D>, grid_of(B, L, H), ROWS, 0, in_f32(q), in_f32(k), in_f32(v),
-                  in_f32(o), in_f32(dout), sd, in_f32(lse), out_f32(dq), out_f32(q_r),
-                  out_f32(delta), q_pre, dq_scale);
+    const void *qs = q, *ks = k;
+    void* q_out = q_r;
+    float pre = q_pre;
+    if (sd.cos != nullptr) {
+      const int rc = rotate<D>(launch, q, k, sd, q_r, k_rot, B, q_pre);
+      if (rc != 0) return rc;
+      qs = q_r, ks = k_rot, q_out = nullptr, pre = 1.f;
+    }
+    return launch(dq_tiled<D>, grid_of(B, L, H), THREADS, DqSmem<D>::bytes((L + ROWS - 1) / ROWS),
+                  in_f32(qs), in_f32(ks), in_f32(v), in_f32(o), in_f32(dout), sd, in_f32(lse),
+                  out_f32(dq), out_f32(q_out), out_f32(delta), pre, dq_scale);
   });
 }
 

@@ -559,6 +559,8 @@ def flash_mha_bwd_dq_f32_cuda(q, k, v, out, lse, dout, num_heads, B, L, D,
     delta = torch.empty((B, num_heads, L), dtype=torch.float32, device=dev)
     if dq.numel() == 0:
         return dq, q_r, delta
+    # rot(k), written once by the kernel's rotary pass
+    k_rot = None if cos is None else torch.empty_like(k)
     q_pre, dq_scale, _ = bwd_scales(D)
     fn = _build.library("flash_mha_bwd_dq_f32")
     with torch.cuda.device(dev):
@@ -566,7 +568,8 @@ def flash_mha_bwd_dq_f32_cuda(q, k, v, out, lse, dout, num_heads, B, L, D,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), _ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg),
                 lse.data_ptr(), dq.data_ptr(), q_r.data_ptr(), delta.data_ptr(),
-                B, L, num_heads, D, q_pre, dq_scale, dev.index, stream)
+                _ptr(k_rot), B, L, num_heads, D, q_pre, dq_scale, dev.index,
+                stream)
     _build.check(rc, "flash_mha_bwd_dq_f32")
     flash_mha_bwd_dq_f32_cuda.launches += 1
     return dq, q_r, delta

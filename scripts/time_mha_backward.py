@@ -31,7 +31,14 @@ every tile visited (no segment ids, no bias) with and without rotary:
 their dense TFLOP/s (4 B H L^2 D for the forward, 6 and 8 for dq and dk/dv)
 against the 67 of f32 FMA and, with segment ids, the share of the 64 x 64
 tile pairs the kernels visit (the pairs whose segment ranges meet) and, of
-those, the share whose pairs all hold one id. Then the registers and spills
+those, the share whose pairs all hold one id; then, on a line of its own,
+dq + dk/dv beside scaled_dot_product_attention's f32 backward on the same
+inputs (pre-rotated heads, the dense f32 mask of bias and segments, TF32
+off): its forward, its forward + backward, and their difference, the
+backward (both passes of it), each timed by CUDA events around 30 calls
+(the stream's time, which the host's pace sets where launches outrun the
+card) and as device time (the sum of the calls' kernels under
+torch.profiler, over 10 calls). Then the registers and spills
 `-Xptxas -v` reported for each instance in the three libraries (the
 checkout's last build). --experiments then runs the checkout's
 `chip_smoke.f32_experiments_phase` (debug_struct_token, train_packed and
@@ -160,6 +167,46 @@ def f32_inputs(shape, gen, make_packed_batch, rotary_cos_sin):
     return q, k, v, dout * valid[..., None], side
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one fn() call: the sum of the times of the kernels
+    it launches under torch.profiler (the host's pace left out), over
+    `iters` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / iters / 1e3
+
+
+def sdpa_f32_ms(q, k, v, dout, h, side, time_ms, flash_mha) -> tuple:
+    """SDPA in f32 on the inputs of one f32 shape, on rotated heads with
+    the dense f32 mask: (forward ms, forward + backward ms) by CUDA events,
+    then the same two as device time."""
+    b, n, hd = q.shape
+    heads = lambda x: x.view(b, n, h, hd // h).transpose(1, 2)
+    qh, kh = heads(q), heads(k)
+    if "rope_cos" in side:
+        qh, kh = (flash_mha.apply_rotary(x, side["rope_cos"], side["rope_sin"])
+                  for x in (qh, kh))
+    leaves = [x.detach().contiguous().requires_grad_()
+              for x in (qh, kh, heads(v))]
+    mask = side["bias"].expand(b, 1, n, n)
+    if "segment_ids" in side:
+        mask = mask + flash_mha.packed_segment_bias(
+            side["segment_ids"], mask_value=flash_mha.SEG_MASK)
+    mask = mask.contiguous()
+    do_h = heads(dout).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = lambda: sdpa(*leaves, attn_mask=mask)
+    fwd_bwd = lambda: torch.autograd.grad(fwd(), leaves, do_h)
+    return (time_ms(fwd, 30), time_ms(fwd_bwd, 30), device_ms(fwd),
+            device_ms(fwd_bwd))
+
+
 def time_f32(label, smi, make_packed_batch, time_ms, flash_mha,
              rotary_cos_sin) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -188,6 +235,19 @@ def time_f32(label, smi, make_packed_batch, time_ms, flash_mha,
         print(f"{label}: {name} (B={b} L={n} H={h} D={d}): "
               + ", ".join(f"{kern} {ms:.4f} ms" for kern, ms in times.items())
               + f"{extra} ({smi})", flush=True)
+        fwd, fwd_bwd, dev_fwd, dev_fwd_bwd = sdpa_f32_ms(
+            q, k, v, dout, h, side, time_ms, flash_mha)
+        both = times["dq"] + times["dkv"]
+        dev_both = device_ms(lambda: flash_mha.flash_mha_bwd_dq_cuda(
+            q, k, v, out, lse, dout, h, **side)) + device_ms(
+            lambda: flash_mha.flash_mha_bwd_dkv_cuda(q_r, k, v, dout, lse,
+                                                     delta, h, **side))
+        print(f"{label}: {name}: dq + dkv {both:.4f} ms, SDPA f32 backward "
+              f"{fwd_bwd - fwd:.4f} ms (forward + backward {fwd_bwd:.4f} "
+              f"minus forward {fwd:.4f}), ratio {both / (fwd_bwd - fwd):.3f}; "
+              f"device time: dq + dkv {dev_both:.4f} ms, SDPA f32 backward "
+              f"{dev_fwd_bwd - dev_fwd:.4f} ms ({dev_fwd_bwd:.4f} minus "
+              f"{dev_fwd:.4f}) ({smi})", flush=True)
 
 
 def main() -> int:

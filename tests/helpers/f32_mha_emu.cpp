@@ -2,8 +2,7 @@
 // csrc/flash_mha_*_f32.cu's, on host pointers, through the header's own
 // launch plans (f32mha::fwd, bwd_dq, bwd_dkv) with emu_launch in place of
 // <<<>>>. Each returns the largest dynamic shared memory of its launches in
-// bytes (0 for the dq kernel, whose shared arrays are static), or minus the
-// plan's error code. Compiled by test_torch_f32_emulated.py against its
+// bytes, or minus the plan's error code. Compiled by test_torch_f32_emulated.py against its
 // emulation copy of flash_mha_f32.cuh.
 #include "f32_emu.cuh"
 
@@ -42,11 +41,11 @@ extern "C" int emu_flash_mha_bwd_dq_f32(const float* q, const float* k, const fl
                                         const float* o, const float* dout, const float* bias,
                                         const float* cos, const float* sin, const int* seg,
                                         const float* lse, float* dq, float* q_r, float* delta,
-                                        int B, int L, int H, int D, float q_pre,
+                                        float* k_rot, int B, int L, int H, int D, float q_pre,
                                         float dq_scale) {
   return smem_of([&](const EmuLaunch& launch) {
-    return f32mha::bwd_dq(launch, q, k, v, o, dout, bias, cos, sin, seg, lse, dq, q_r, delta, B,
-                          L, H, D, q_pre, dq_scale);
+    return f32mha::bwd_dq(launch, q, k, v, o, dout, bias, cos, sin, seg, lse, dq, q_r, delta,
+                          k_rot, B, L, H, D, q_pre, dq_scale);
   });
 }
 

@@ -1,20 +1,21 @@
 """The f32 flash-MHA kernels' CUDA source, compiled for the CPU and run.
 
-The tiled forward (#1 f32) and dk/dv (#3 f32) kernels and the dq kernel
-(#2 f32) of `csrc/flash_mha_f32.cuh` run on the card only; their speed and
-what the GPU compiler makes of them need it (tests/test_torch_cuda.py).
-Their indexing, tiling, segment-tile lists, ring of stages and epilogues
-do not: here the header is compiled by the host's C++ compiler against
-`tests/helpers/cuda_emu.h` (one std::thread per CUDA thread, barriers for
-__syncthreads and the warp collectives, dynamic shared memory filled with
-NaN), with its inline PTX replaced (cp.async by synchronous copies, the
-SFU's exp2 by exp2f), and run on CPU tensors. Its outputs are held against
-the plain versions at the kernels' bar (max rel err 1e-4, lse within 1e-5)
-at every head dim 8-64, on L on and off the 32- and 64-row tiles, with and
-without rotary, key bias and segment ids (contiguous, shuffled, and tails
-of padding tiles), and the whole f32 chain (forward, dq, dk/dv) against
-the JAX `mha_attention` in Pallas interpret mode and its jax.grad. Skips
-where no C++20 compiler is found.
+The tiled forward (#1 f32), dq (#2 f32) and dk/dv (#3 f32) kernels of
+`csrc/flash_mha_f32.cuh`, and the rotary pass before #1 and #2, run on
+the card only; their speed and what the GPU compiler makes of them need
+it (tests/test_torch_cuda.py). Their indexing, tiling, segment-tile
+lists, ring of stages and epilogues do not: here the header is compiled
+by the host's C++ compiler against `tests/helpers/cuda_emu.h` (one
+std::thread per CUDA thread, barriers for __syncthreads and the warp
+collectives, dynamic shared memory filled with NaN), with its inline PTX
+replaced (cp.async by synchronous copies, the SFU's exp2 by exp2f), and
+run on CPU tensors. Its outputs are held against the plain versions at
+the kernels' bar (max rel err 1e-4; lse within 1e-5, delta within 1e-5
+of its largest) at every head dim 8-64, on L on and off the 32- and
+64-row tiles, with and without rotary, key bias and segment ids
+(contiguous, shuffled, and tails of padding tiles), and the whole f32
+chain (forward, dq, dk/dv) against the JAX `mha_attention` in Pallas
+interpret mode and its jax.grad. Skips where no C++20 compiler is found.
 """
 
 import ctypes
@@ -34,6 +35,7 @@ from oneprot_tpu_torch.kernels import _build, flash_mha
 from oneprot_tpu_torch.models.esm2 import rotary_cos_sin
 
 REL_TOL, LSE_TOL = 1e-4, 1e-5  # the f32 kernels' bar on the card
+DELTA_TOL = 1e-5  # delta = rowsum(dO * O): D products, summed in f32
 HELPERS = Path(__file__).resolve().parent / "helpers"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -82,7 +84,7 @@ def emu(tmp_path_factory):
                    capture_output=True)
     so = ctypes.CDLL(str(lib))
     so.emu_flash_mha_fwd_f32.argtypes = [_P] * 11 + [_I] * 4 + [_F]
-    so.emu_flash_mha_bwd_dq_f32.argtypes = [_P] * 13 + [_I] * 4 + [_F] * 2
+    so.emu_flash_mha_bwd_dq_f32.argtypes = [_P] * 14 + [_I] * 4 + [_F] * 2
     so.emu_flash_mha_bwd_dkv_f32.argtypes = [_P] * 12 + [_I] * 4 + [_F]
     return so
 
@@ -93,9 +95,9 @@ def _ptr(t):
 
 def emulated(so, q, k, v, dout, nh, **side):
     """The three kernels as the launchers drive them (`_kernel_args`' side
-    inputs, `bwd_scales`, the forward's rotary pass into scratch), on CPU
-    tensors: out, lse, dq, q_r, delta, dk, dv, and the forward's and
-    dk/dv's shared memory in bytes."""
+    inputs, `bwd_scales`, the rotary passes of the forward and of dq into
+    scratch), on CPU tensors: out, lse, dq, q_r, delta, dk, dv, and the
+    forward's, dq's and dk/dv's shared memory in bytes."""
     B, L, hd = q.shape
     D = hd // nh
     bias, cos, sin, seg = (side.get(n) for n in ("bias", "rope_cos",
@@ -105,20 +107,21 @@ def emulated(so, q, k, v, dout, nh, **side):
     seg = None if seg is None else seg.to(torch.int32).contiguous()
     q_pre, dq_scale, dk_scale = flash_mha.bwd_scales(D)
     nan = lambda *shape: torch.full(shape, float("nan"))
-    out, dq, q_r, dk, dv, q_rot, k_rot = (nan(B, L, hd) for _ in range(7))
+    out, dq, q_r, dk, dv, q_rot, k_rot, k_rot_dq = (nan(B, L, hd)
+                                                    for _ in range(8))
     lse, delta = nan(B, nh, L), nan(B, nh, L)
     sides = (_ptr(bias_b), _ptr(cos), _ptr(sin), _ptr(seg))
     smem_fwd = so.emu_flash_mha_fwd_f32(_ptr(q), _ptr(k), _ptr(v), *sides,
                                         _ptr(out), _ptr(lse), _ptr(q_rot),
                                         _ptr(k_rot), B, L, nh, D, q_pre)
-    so.emu_flash_mha_bwd_dq_f32(_ptr(q), _ptr(k), _ptr(v), _ptr(out),
-                                _ptr(dout), *sides, _ptr(lse), _ptr(dq),
-                                _ptr(q_r), _ptr(delta), B, L, nh, D, q_pre,
-                                dq_scale)
+    smem_dq = so.emu_flash_mha_bwd_dq_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), *sides, _ptr(lse),
+        _ptr(dq), _ptr(q_r), _ptr(delta), _ptr(k_rot_dq), B, L, nh, D, q_pre,
+        dq_scale)
     smem_dkv = so.emu_flash_mha_bwd_dkv_f32(
         _ptr(q_r), _ptr(k), _ptr(v), _ptr(dout), *sides, _ptr(lse),
         _ptr(delta), _ptr(dk), _ptr(dv), B, L, nh, D, dk_scale)
-    return out, lse, dq, q_r, delta, dk, dv, smem_fwd, smem_dkv
+    return out, lse, dq, q_r, delta, dk, dv, smem_fwd, smem_dq, smem_dkv
 
 
 def _case(B, L, nh, d, seed, rotary, bias, segments, shortest=2,
@@ -172,8 +175,8 @@ def test_emulated_f32_kernels_match_plain(emu, B, L, nh, d, rotary, bias,
     (no NaN from unwritten shared memory)."""
     (q, k, v, dout), side = _case(B, L, nh, d, 7 * L + d, rotary, bias,
                                   segments, shortest, shuffled)
-    out, lse, dq, q_r, delta, dk, dv, _, _ = emulated(emu, q, k, v, dout, nh,
-                                                      **side)
+    out, lse, dq, q_r, delta, dk, dv, *_ = emulated(emu, q, k, v, dout, nh,
+                                                    **side)
     ref, ref_lse = flash_mha.mha_attention_plain(q, k, v, nh, **side)
     ref_dq, ref_qr, ref_delta = flash_mha.flash_mha_bwd_dq_plain(
         q, k, v, out, lse, dout, nh, **side)
@@ -183,9 +186,10 @@ def test_emulated_f32_kernels_match_plain(emu, B, L, nh, d, rotary, bias,
                       ("dv", dv)):
         assert torch.isfinite(got).all(), name
     for name, got, want in (("out", out, ref), ("dq", dq, ref_dq),
-                            ("q_r", q_r, ref_qr), ("delta", delta, ref_delta),
-                            ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+                            ("q_r", q_r, ref_qr), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv)):
         assert _rel(got, want) <= REL_TOL, f"{name}: {_rel(got, want)}"
+    assert _rel(delta, ref_delta) <= DELTA_TOL, _rel(delta, ref_delta)
     rows = ref_lse.abs() < 1e6  # a padding row's lse keeps no digits
     assert (lse - ref_lse).abs()[rows].max().item() <= LSE_TOL
 
@@ -216,7 +220,7 @@ def test_emulated_f32_kernels_match_jax_interpret(emu, nh, d, rotary,
     want = np.asarray(jax_out(j(q), j(k), j(v)))
     want_grads = jax.grad(lambda *a: jnp.sum(jax_out(*a) * j(g)),
                           argnums=(0, 1, 2))(j(q), j(k), j(v))
-    out, _, dq, _, _, dk, dv, _, _ = emulated(emu, q, k, v, g, nh, **side)
+    out, _, dq, _, _, dk, dv, *_ = emulated(emu, q, k, v, g, nh, **side)
     real = side["bias"][:, 0, 0, :].numpy() == 0
     np.testing.assert_allclose(out.numpy()[real], want[real], rtol=1e-4,
                                atol=1e-5)
@@ -225,21 +229,22 @@ def test_emulated_f32_kernels_match_jax_interpret(emu, nh, d, rotary,
                                    atol=1e-5, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("d,rotary,fwd_blocks,dkv_blocks", [
-    (16, True, 3, 3),    # the debug hub's heads
-    (64, False, 2, 2),   # bert_tiny's
-    (64, True, 2, 2),
+@pytest.mark.parametrize("d,rotary,fwd_blocks,dq_blocks,dkv_blocks", [
+    (16, True, 3, 3, 3),    # the debug hub's heads
+    (64, False, 2, 2, 2),   # bert_tiny's
+    (64, True, 2, 2, 2),
 ])
 def test_shared_memory_lets_blocks_share_an_sm(emu, d, rotary, fwd_blocks,
-                                               dkv_blocks):
+                                               dq_blocks, dkv_blocks):
     """The launches' dynamic shared memory (the tile list of L=1024
     included) leaves room for at least that many blocks on an SM of the
     H100: 228 KB an SM, 1 KB of it reserved a block, 227 KB a block."""
     (q, k, v, dout), side = _case(1, 1024, 1, d, 0, rotary, False, False)
-    *_, smem_fwd, smem_dkv = emulated(emu, q, k, v, dout, 1, **side)
+    *_, smem_fwd, smem_dq, smem_dkv = emulated(emu, q, k, v, dout, 1, **side)
     per_sm = lambda smem: 228 * 1024 // (smem + 1024)
-    assert smem_fwd <= 227 * 1024 and smem_dkv <= 227 * 1024
-    assert per_sm(smem_fwd) >= fwd_blocks and per_sm(smem_dkv) >= dkv_blocks
+    for smem, blocks in ((smem_fwd, fwd_blocks), (smem_dq, dq_blocks),
+                         (smem_dkv, dkv_blocks)):
+        assert 0 < smem <= 227 * 1024 and per_sm(smem) >= blocks
 
 
 def test_emulation_source_changes_only_the_inline_ptx():
@@ -251,6 +256,6 @@ def test_emulation_source_changes_only_the_inline_ptx():
     assert header.count("asm") == len(HOST_BODIES) - 1 and "asm" not in src
     for signature in HOST_BODIES:
         assert src.count(signature) == header.count(signature) == 1, signature
-    for name in ("fwd_tiled", "dkv_tiled", "dq_kernel", "__syncthreads",
+    for name in ("fwd_tiled", "dq_tiled", "dkv_tiled", "__syncthreads",
                  "__shfl_xor_sync", "__ballot_sync", "ex2(", "cp16("):
         assert src.count(name) == header.count(name), name
