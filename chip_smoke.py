@@ -9,7 +9,16 @@ the elapsed seconds:
 
 1. device: card name, power limit, torch and CUDA versions;
 2. build: every CUDA kernel of the serving and training paths, from the
-   checkout's sources, one nvcc call per source, all at once;
+   checkout's sources, one nvcc call per source, all at once; then the
+   port's host library (oneprot_tpu_torch/native: tokenize, kNN, greedy
+   MSA selection) built with g++ (seconds printed), each entry point
+   against its plain numpy version on inputs in general position (equal
+   bit for bit), both timed: a 1024-residue chain's kNN (K=24), 32 x 1000
+   residues tokenized, 50 of 1024 MSA rows of 1024 columns picked, with
+   the host CPU's name; the phases that tokenize (the bf16 hub's serving,
+   the trainer, seq<->msa and seqsim), build graphs (the graph tower) or
+   pick MSA rows (MSA-1b serving, seq<->msa) must each reach the
+   library's counters;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it (the flash-MHA forward and backward at the
    35M tower's and the hub's packed shapes, at the tower's unpacked shape
@@ -44,9 +53,11 @@ the elapsed seconds:
    f32 plain versions (max rel err <= 1e-4, lse within 1e-5), timed
    beside SDPA in f32 and their f32 bound (#2 + #3 beside SDPA's f32
    backward), and the tiled #1-#3 built without spills at every head
-   dim 8-64 (-Xptxas -v); #8 on heads
-   of 16 (the debug MSA tower's, zero-padded to 64 around the launch)
-   at the bf16 gate; and #5, #6 and #7 with segment ids on
+   dim 8-64 (-Xptxas -v); #8's instance for heads of 16 (the debug MSA
+   tower's, at its shape and at depth 50 over 1024 columns: one launch,
+   nothing allocated but the output) and heads of 24 (zero-padded to the
+   instance for 32 around the launch), at the bf16 gate, each timed beside
+   SDPA on heads of R*D and its bound; and #5, #6 and #7 with segment ids on
    train_packed's real packed batch at the ESM2-15B width's heads (B=16
    H=40 L=1024 D=128), each against its plain version on the same ids
    (padded rows finite), timed beside it, SDPA with the dense mask, the
@@ -245,8 +256,8 @@ the elapsed seconds:
    `experiment=train_packed` (`data=struct_token_only`, 1 epoch) and
    `experiment=debug_all_modalities` through `cli.train.main`, each to
    its end (train and test), with the f32 instances of #1-#3 launched and
-   no bf16 flash-MHA; debug_all_modalities' MSA tower through #8 on heads
-   of 16;
+   no bf16 flash-MHA; debug_all_modalities' MSA tower through #8's
+   instance for heads of 16;
 24. data-parallel (a): the CLI phase's run (train_packed, bf16, full
    width, 2 epochs) again in three child processes at once, two alone and
    one with `trainer=ddp` in torchrun's environment (a world of one over
@@ -321,6 +332,7 @@ import csv
 import dataclasses
 import json
 import os
+import platform
 import re
 import shutil
 import socket
@@ -352,7 +364,15 @@ from oneprot_tpu_torch.core.config import (
     prepare_run_dir,
     register_target_alias,
 )
-from oneprot_tpu_torch.data import graphs, packing, structure_io, synthetic
+from oneprot_tpu_torch import native
+from oneprot_tpu_torch.data import (
+    graphs,
+    msa_io,
+    packing,
+    structure_io,
+    synthetic,
+    tokenizers,
+)
 from oneprot_tpu_torch.data.common import pick_bucket
 from oneprot_tpu_torch.data.datamodule import OneProtDataModule
 from oneprot_tpu_torch.data.datasets.struct_graph_dataset import StructDataset
@@ -4689,27 +4709,40 @@ def check_flash_f32(gen) -> list:
 
 
 def check_tied_row_narrow(gen) -> list:
-    """#8 on heads of 16 (the debug MSA tower: 64 wide, 4 heads; depth 4
-    at its bucket 128, and the data config's depth 50 at 1024 columns),
-    zero-padded to 64 around the one launch, against the plain version at
-    the bf16 gate; timed beside the plain version, SDPA on heads of R*16
-    and the bound of the unpadded work."""
+    """#8's instance for heads of 16 (the debug MSA tower: 64 wide, 4
+    heads; depth 4 at its bucket 128, and the data config's depth 50 at
+    1024 columns) and heads of 24 (no instance: zero-padded to the one for
+    32 around the launch), each one launch, against the plain version at
+    the bf16 gate; an instance of the heads' own allocates nothing but its
+    output (no padding copy). Each is timed beside the plain version, SDPA
+    on heads of R*D and the bound of the work its columns need (the last
+    element's last third padded)."""
     cases = []
-    for B, R, L, nh, D in ((2, 4, 128, 4, 16), (4, 50, 1024, 4, 16)):
+    for B, R, L, nh, D in ((2, 4, 128, 4, 16), (4, 50, 1024, 4, 16),
+                           (4, 50, 1024, 4, 24)):
         q, k, v = (torch.randn(B, R, L, nh * D, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
         bias = torch.zeros(B, 1, 1, L, device="cuda")
         bias[-1, ..., L - L // 3:] = -1e9
+        width = tra.instance_head_dim(D)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         before = tra.tied_row_attention_cuda.launches
         out = tra.tied_row_attention_cuda(q, k, v, nh, col_bias=bias)
-        ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
         torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
         require(tra.tied_row_attention_cuda.launches == before + 1,
                 "tied-row narrow: one launch")
         rel = rel_err(out, ref)
-        shape = f"B={B} R={R} L={L} H={nh} D={D} bf16 (zero-padded to 64)"
+        shape = (f"B={B} R={R} L={L} H={nh} D={D} bf16"
+                 + ("" if width == D else f" (zero-padded to {width})"))
         require(rel <= FLASH_REL_TOL and torch.isfinite(out.float()).all().item(),
                 f"tied-row {shape}: rel err {rel}")
+        # its own instance: the output and the bias in log2 units, no more
+        require(width != D or extra <= out.nbytes + B * L * 4 + 2**20,
+                f"tied-row {shape}: {extra} bytes allocated by one call")
         kernel = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, nh,
                                                              col_bias=bias))
         plain = time_ms(lambda: tra.tied_row_attention_plain(
@@ -4720,17 +4753,133 @@ def check_tied_row_narrow(gen) -> list:
         library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=bias.to(torch.bfloat16),
             scale=tra.tied_scale(D, R)))
-        row_bytes = R * nh * D * 2
-        b_ms, b_by = bound_ms(4 * B * L * row_bytes + B * L * 4,
-                              4.0 * nh * L * L * B * R * D, BF16_FLOPS)
-        print(f"  tied-row {shape}: max rel err {rel:.3e}; kernel "
-              f"{kernel:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        cases.append({"shape": shape, "max_rel_err": rel,
+        keys, row_bytes = (B - 1) * L + L - L // 3, R * nh * D * 2
+        b_ms, b_by = bound_ms((2 * B * L + 2 * keys) * row_bytes + B * L * 4,
+                              4.0 * nh * L * keys * R * D, BF16_FLOPS)
+        print(f"  tied-row {shape}: max rel err {rel:.3e}; one call allocates "
+              f"{extra} bytes (output {out.nbytes}); kernel {kernel:.4f} ms, "
+              f"plain {plain:.4f} ms, SDPA {library:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        cases.append({"shape": shape, "instance_head_dim": width,
+                      "max_rel_err": rel,
                       "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-                      "ms": kernel, "plain_ms": plain, "library_ms": library,
+                      "call_alloc_bytes": extra, "ms": kernel,
+                      "plain_ms": plain, "library_ms": library,
                       "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, qt, kt, vt, out, ref
+        torch.cuda.empty_cache()
     return cases
+
+
+# the host library's phase: a 1024-residue chain's kNN (K = 24, 10 A), 32
+# sequences of 1000 residues tokenized, 50 of 1024 MSA rows of 1024 columns
+HOST_SEED, HOST_REPS = 29, 5
+HOST_KNN_RESIDUES, HOST_TOKENS, HOST_MSA = 1024, (32, 1000), (1024, 1024, 50)
+# the host library's entry points, each counting the calls that reached it
+NATIVE = {"tokenize_batch": native.tokenize_batch,
+          "knn_neighbors": native.knn_neighbors,
+          "greedy_select_indices": native.greedy_select_indices}
+
+
+def reset_native() -> None:
+    for fn in NATIVE.values():
+        fn.calls = 0
+
+
+def read_native() -> dict:
+    return {name: fn.calls for name, fn in NATIVE.items()}
+
+
+def require_native(calls: dict, names, what: str) -> None:
+    """Each of `names` must have reached the host library in the run."""
+    idle = [name for name in names if calls[name] == 0]
+    require(not idle, f"{what}: no call reached the host library's {idle} "
+                      f"({calls})")
+
+
+def host_cpu() -> str:
+    """The host CPU's name from /proc/cpuinfo (its model name, or its
+    vendor and model numbers where it has none), the machine type and the
+    logical core count."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = next((fields[k] for k in ("model name", "cpu model", "Model",
+                                     "Hardware") if fields.get(k)), None)
+    if name is None:
+        name = ", ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model", "stepping", "CPU implementer",
+            "CPU part") if fields.get(k)) or "no name in /proc/cpuinfo"
+    return f"{name} ({platform.machine()}), {os.cpu_count()} logical cores"
+
+
+def host_ms(fn) -> float:
+    """Median wall ms of HOST_REPS calls of fn() after one warm-up."""
+    fn()
+    walls = []
+    for _ in range(HOST_REPS):
+        t = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(walls))
+
+
+def host_library_phase() -> dict:
+    """The port's host library (oneprot_tpu_torch/native) built with g++ on
+    this host (seconds printed), then each entry point against its plain
+    numpy version on inputs in general position, equal bit for bit, and
+    both timed (median of HOST_REPS, one thread): the kNN of a 1024-residue
+    chain (a Gaussian random walk), 32 x 1000 residues tokenized, 50
+    of 1024 MSA rows of 1024 columns picked."""
+    t = time.time()
+    prebuilt = native._target().is_file()
+    native.library()
+    build_s = time.time() - t
+    rng = np.random.RandomState(HOST_SEED)
+    # steps of random length: a walk of equal steps puts both chain
+    # neighbours of a residue at one distance, a tie the plain version
+    # orders otherwise
+    coords = np.cumsum(rng.randn(HOST_KNN_RESIDUES, 3) * 2.2,
+                       axis=0).astype(np.float32)
+    tok = esm2_tokenizer()
+    n_seq, n_res = HOST_TOKENS
+    seqs = ["".join(rng.choice(list(AAS), n_res)) for _ in range(n_seq)]
+    tok_args = (seqs, tok._lut, tok.cls_token_id, tok.eos_token_id,
+                tok.pad_token_id, n_res + 2, n_res + 2)
+    rows, cols, picks = HOST_MSA
+    msa = (rng.randint(0, 21, (rows, cols)) + ord("A")).astype(np.uint8)
+    cases = {
+        "knn_neighbors": (lambda: native.knn_neighbors(coords, GRAPH_K, 10.0),
+                          lambda: graphs.knn_neighbors_plain(coords, GRAPH_K,
+                                                             10.0),
+                          f"{HOST_KNN_RESIDUES} residues, K={GRAPH_K}"),
+        "tokenize_batch": (lambda: native.tokenize_batch(*tok_args),
+                           lambda: tokenizers.tokenize_batch_plain(*tok_args),
+                           f"{n_seq} x {n_res} residues"),
+        "greedy_select_indices": (
+            lambda: native.greedy_select_indices(msa, picks),
+            lambda: msa_io.greedy_select_indices_plain(msa, picks),
+            f"{picks} of {rows} rows x {cols} columns"),
+    }
+    out = {"cpu": host_cpu(), "build_s": build_s, "prebuilt": prebuilt}
+    print(f"  host library built in {build_s:.2f} s"
+          + (" (loaded as built)" if prebuilt else "") + f"; {out['cpu']}",
+          flush=True)
+    for name, (lib_fn, plain_fn, what) in cases.items():
+        got, want = lib_fn(), plain_fn()
+        same = all(np.array_equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        require(same, f"host library {name} ({what}) differs from its plain "
+                      "version")
+        lib_ms, plain_ms = host_ms(lib_fn), host_ms(plain_fn)
+        out[name] = {"what": what, "ms": lib_ms, "plain_ms": plain_ms}
+        print(f"  {name} ({what}): library {lib_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms ({plain_ms / lib_ms:.1f}x), equal",
+              flush=True)
+    return out
 
 
 # the graph towers at configs/model/components/struct_graph.yaml's and
@@ -5929,7 +6078,7 @@ def f32_experiments_phase(smi: str, launches: dict) -> dict:
     and debug_all_modalities through `cli.train.main` as shipped, f32 on
     the card: each runs to its end (train and test) through the f32
     instances of #1-#3 and no bf16 flash-MHA launch; debug_all_modalities'
-    MSA tower (heads of 16) through #8's zero-padded launch, 2 a forward.
+    MSA tower (heads of 16) through #8's instance for them, 2 a forward.
     Fills launches["f32 <experiment>"]."""
     out = {}
     rng = np.random.RandomState(F32_SEED)
@@ -6032,6 +6181,11 @@ def main() -> int:
         for instance, line in ptxas_report(_build.build_log(name)):
             print(f"  {name} {instance}: {line}", flush=True)
 
+    phase("host library: g++ build, each entry point against its plain "
+          "version, timed")
+    host = host_library_phase()
+    native_calls = host["calls_by_phase"] = {}
+
     phase("kernels against their plain versions")
     count_plain_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6055,8 +6209,11 @@ def main() -> int:
     embedder = OneProtEmbedder(OneProtModel({"sequence": enc}), buckets=BUCKETS)
     launches = {}  # path -> {kernel: launches in that path's run}
     reset_launches()
+    reset_native()
     feats_bf16, secs_bf16 = serve(embedder, requests, "bf16 hub")
     launches["bf16 hub"] = read_launches()
+    native_calls["bf16 hub"] = read_native()
+    require_native(native_calls["bf16 hub"], ["tokenize_batch"], "bf16 hub")
     none = {name: 0 for name in LAUNCHERS}
     require(launches["bf16 hub"] == {**none, "flash_mha_fwd": N_LAYERS * batches},
             f"bf16 hub launches: {launches['bf16 hub']}")
@@ -6120,9 +6277,13 @@ def main() -> int:
               "to 1024 columns")
         # its own numpy stream, so that the training batch below stays the
         # one drawn from `rng` before this path was added
+        reset_native()
         msa, msa_state, msa_requests = serve_msas(
             msa_dir, torch.Generator(device="cuda").manual_seed(2),
             np.random.RandomState(2), smi, launches)
+        native_calls["msa serving"] = read_native()
+        require_native(native_calls["msa serving"], ["greedy_select_indices"],
+                       "MSA serving")
 
         phase("MSA parity: 2 layers at full width, card (bf16, kernel) vs CPU "
               "(f32, plain)")
@@ -6149,8 +6310,11 @@ def main() -> int:
     phase("trainer: Trainer.fit, ESM2-650M hub + ESM2-35M struct-token tower, "
           "packed rows through the feature cache, 2 epochs, then a resume for "
           "a third")
+    reset_native()
     trainer, trainer_initial, records = trainer_phase(
         smi, launches, train["cached"]["median_step_ms"])
+    native_calls["trainer"] = read_native()
+    require_native(native_calls["trainer"], ["tokenize_batch"], "trainer")
     torch.cuda.empty_cache()
 
     phase("trainer parity: 2 + 2 layers at full width, 4 steps, card (bf16, "
@@ -6228,12 +6392,20 @@ def main() -> int:
     phase("graph tower: StructGraphEncoder at struct_graph.yaml's widths "
           "(ProNet 128 x 4, out 1024) on 1024 residues, then pocket.yaml's "
           "on 128, K=24, 3 requests of 16 from PDB text; card vs CPU")
+    reset_native()
     graph = graph_phase(smi, launches)
+    native_calls["graph"] = read_native()
+    require_native(native_calls["graph"], ["knn_neighbors"], "graph")
     torch.cuda.empty_cache()
 
     phase("seq<->msa and seqsim: Trainer.fit, ESM2-650M hub + esm_msa1b "
           "(depth 50), both cached, 2 epochs")
+    reset_native()
     msa_train = msa_seqsim_phase(smi, launches)
+    native_calls["msa_seqsim"] = read_native()
+    require_native(native_calls["msa_seqsim"],
+                   ["tokenize_batch", "greedy_select_indices"], "msa_seqsim")
+    print(f"  host library calls by phase: {native_calls}", flush=True)
     torch.cuda.empty_cache()
 
     hub_root = tempfile.mkdtemp(prefix="chip_smoke_hub_")
@@ -6285,6 +6457,7 @@ def main() -> int:
         "text": text,
         "graph": graph,
         "msa_seqsim_training": msa_train,
+        "host_library": host,
         "pretrained_hub": pretrained,
         "default_train_yaml": default_cli,
         "probes": default_cli.pop("probes"),

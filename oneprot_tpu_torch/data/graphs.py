@@ -1,5 +1,6 @@
 """Host-side residue graphs: structure arrays -> padded dense graph dicts
-(counterpart of oneprot_tpu/data/utils/graphs.py), numpy only.
+(counterpart of oneprot_tpu/data/utils/graphs.py), numpy and the port's
+host library.
 
 Per residue: the backbone and side-chain atom positions, four side-chain
 torsions as [8] sin/cos, phi/psi/omega as [6] cos/sin, and the 21-way
@@ -7,10 +8,12 @@ residue vocabulary. The output is a fixed-shape dict: [N_max] node arrays
 and [N_max, K] kNN-within-radius neighbour lists with masks, so a batch
 is a plain stack and ProNet sees a few shapes only.
 
-`knn_neighbors` is the JAX package's numpy path. The JAX package takes
-its native host library (native/oneprot_host.cc) when that loads; the port
-has no native library, and the two agree wherever no two neighbours of a
-residue lie at the same distance.
+`knn_neighbors` runs in the port's host library (`native.knn_neighbors`,
+as the JAX package takes its own when that loads): neighbours nearest
+first, equal distances to the lower index. `knn_neighbors_plain` is the
+JAX package's numpy path, which orders equal distances as argpartition
+leaves them; the two agree wherever no two neighbours of a residue lie at
+the same distance.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import numpy as np
+
+from oneprot_tpu_torch import native
 
 # 21-way residue vocabulary (reference struct_graph_utils.py:29)
 RES1INT = {
@@ -122,11 +127,21 @@ def knn_neighbors(
     Returns (idx [N, k], mask [N, k]). The reference's ProNet uses a radius
     graph with unbounded degree; capping at k with a distance sort keeps the
     TPU shapes static while retaining the closest (most informative) edges.
+    Runs in the host library; a chain of 0 or 1 residues has no neighbour
+    (an empty chain: e.g. an HDF5 entry with an empty seq1).
     """
     n = coords.shape[0]
+    if n < 2:
+        return np.zeros((n, k), np.int32), np.zeros((n, k), bool)
+    return native.knn_neighbors(coords, k, cutoff)
+
+
+def knn_neighbors_plain(coords: np.ndarray, k: int,
+                        cutoff: float = 10.0) -> tuple:
+    """`knn_neighbors` in numpy (the JAX package's numpy path): equal
+    distances in argpartition's order, not by index."""
+    n = coords.shape[0]
     if n == 0:
-        # empty chain (e.g. an HDF5 entry with an empty seq1): an
-        # all-masked graph, not an argpartition crash in the loader thread
         return (np.zeros((0, k), np.int32), np.zeros((0, k), bool))
     d2 = ((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1)
     np.fill_diagonal(d2, np.inf)

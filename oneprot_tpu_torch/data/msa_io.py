@@ -1,14 +1,15 @@
 """MSA file reading and diversity subsampling (counterpart of
 oneprot_tpu/data/utils/msa_io.py: `remove_insertions`, `read_fasta`,
 `read_msa`, `greedy_select`, `filter_and_create_msa_file_list`), numpy
-only.
+and the port's host library.
 
 a3m/FASTA records are read without BioPython; lowercase insertion states
 and '.'/'*' are dropped, so every row of an aligned MSA has the query's
 length. `greedy_select` keeps the query row and picks rows of greatest
-(or least) mean Hamming distance to those already picked, one at a time;
-the rows come back in file order, query first, as the JAX package returns
-them.
+(or least) mean Hamming distance to those already picked, one at a time,
+in the port's host library (`native.greedy_select_indices`);
+`greedy_select_indices_plain` is the same choice in numpy. The rows come
+back in file order, query first, as the JAX package returns them.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import string
 from typing import List, Tuple
 
 import numpy as np
+
+from oneprot_tpu_torch import native
 
 Msa = List[Tuple[str, str]]  # (description, aligned sequence) per row
 
@@ -62,13 +65,26 @@ def greedy_select(msa: Msa, num_seqs: int, mode: str = "max") -> Msa:
     each step the row whose mean distance to the picked rows is largest
     (`mode` "max": the most diverse set) or smallest ("min": the closest
     homologs), the first such row on a tie. Returns the picked rows sorted
-    by index; an MSA of at most `num_seqs` rows as it is."""
+    by index; an MSA of at most `num_seqs` rows as it is. Raises
+    ValueError for num_seqs < 1."""
     if mode not in ("max", "min"):
         raise ValueError(f"mode={mode!r}: 'max' or 'min'")
+    if num_seqs < 1:
+        raise ValueError(f"num_seqs={num_seqs}: the query row is always kept")
     if len(msa) <= num_seqs:
         return msa
     arr = np.array([list(seq) for _, seq in msa], dtype="S1").view(np.uint8)
+    return [msa[int(i)]
+            for i in native.greedy_select_indices(arr, num_seqs, mode)]
+
+
+def greedy_select_indices_plain(arr: np.ndarray, num_seqs: int,
+                                mode: str = "max") -> np.ndarray:
+    """`native.greedy_select_indices` in numpy: the picked rows of `arr`
+    [rows, cols] uint8, ascending."""
     n = arr.shape[0]
+    if num_seqs >= n:
+        return np.arange(n, dtype=np.int32)
     pick, taken = ((np.argmax, -np.inf) if mode == "max"
                    else (np.argmin, np.inf))
     selected = [0]
@@ -79,7 +95,7 @@ def greedy_select(msa: Msa, num_seqs: int, mode: str = "max") -> Msa:
         mean_dist = dist_sum / len(selected)
         mean_dist[selected] = taken
         selected.append(int(pick(mean_dist)))
-    return [msa[i] for i in sorted(selected)]
+    return np.array(sorted(selected), np.int32)
 
 
 def filter_and_create_msa_file_list(filename: str) -> List[str]:

@@ -19,6 +19,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from oneprot_tpu_torch import native
+
 ESM2_TOKENS: Tuple[str, ...] = (
     "<cls>", "<pad>", "<eos>", "<unk>",
     "L", "A", "G", "V", "S", "E", "R", "T", "I", "D", "P", "K", "Q", "N",
@@ -47,8 +49,9 @@ class EsmTokenizer:
         self.eos_token_id = self.vocab["<eos>"]
         self.unk_token_id = self.vocab["<unk>"]
         self.mask_token_id = self.vocab["<mask>"]
-        # byte -> id table for ASCII sequences (single-character tokens)
-        self._lut = np.full(128, self.unk_token_id, np.int32)
+        # byte -> id table of the host library's batch path (single-
+        # character ASCII tokens; bytes of 128 and above are <unk>)
+        self._lut = np.full(256, self.unk_token_id, np.int32)
         for tok, idx in self.vocab.items():
             if len(tok) == 1 and ord(tok) < 128:
                 self._lut[ord(tok)] = idx
@@ -74,7 +77,11 @@ class EsmTokenizer:
         padding: Union[str, int] = "longest",  # "longest" | "max_length" | bucket
         pad_to_multiple_of: Optional[int] = None,
     ) -> np.ndarray:
-        """Tokenize a batch to a padded int32 array [B, L]."""
+        """Tokenize a batch to a padded int32 array [B, L] through the host
+        library (`native.tokenize_batch`): one id per UTF-8 byte, so a
+        non-ASCII character gives one <unk> per byte, as the JAX package's
+        default path does; <eos> survives truncation. A target length
+        under 2 raises ValueError."""
         if padding == "max_length":
             if max_length is None:
                 raise ValueError("padding='max_length' requires max_length")
@@ -90,18 +97,35 @@ class EsmTokenizer:
             target = -(-target // pad_to_multiple_of) * pad_to_multiple_of
         if max_length is not None and padding == "longest":
             target = min(target, max_length)
-        out = np.full((len(sequences), target), self.pad_token_id,
-                      dtype=np.int32)
-        # the final target is the hard cap, so <eos> survives truncation
-        cap = target if max_length is None else min(max_length, target)
-        for i, seq in enumerate(sequences):
-            ids = self.encode_ids(seq, cap)
-            out[i, :len(ids)] = ids
-        return out
+        return native.tokenize_batch(
+            sequences, self._lut, self.cls_token_id, self.eos_token_id,
+            self.pad_token_id,
+            max_len=max_length if max_length is not None else target,
+            pad_to=target)
 
     def decode(self, ids: Iterable[int]) -> str:
         specials = {self.cls_token_id, self.pad_token_id, self.eos_token_id}
         return "".join(self.tokens[i] for i in ids if i not in specials)
+
+
+def tokenize_batch_plain(sequences: Sequence[str], lut: np.ndarray,
+                         cls_id: int, eos_id: int, pad_id: int, max_len: int,
+                         pad_to: int) -> np.ndarray:
+    """`native.tokenize_batch` in numpy: per sequence <cls>, its UTF-8 bytes
+    (unencodable characters as '?') through the 256-entry `lut`, cut to
+    min(max_len, pad_to) - 2, <eos>, then `pad_id`."""
+    if pad_to < 2:
+        raise ValueError(f"pad_to={pad_to}: a row needs room for <cls> and "
+                         "<eos>")
+    cap = max(min(max_len, pad_to) - 2, 0)
+    out = np.full((len(sequences), pad_to), pad_id, np.int32)
+    for i, seq in enumerate(sequences):
+        body = np.frombuffer(seq.encode("utf-8", errors="replace"),
+                             np.uint8)[:cap]
+        out[i, 0] = cls_id
+        out[i, 1:1 + len(body)] = lut[body]
+        out[i, 1 + len(body)] = eos_id
+    return out
 
 
 def esm2_tokenizer() -> EsmTokenizer:

@@ -62,7 +62,7 @@ SIGNATURES = {
                    [_VOID_P, _INT, _VOID_P, _VOID_P, ctypes.c_longlong, _INT,
                     _VOID_P]),
     "tied_row_attention": ("oneprot_tied_row_attention",
-                           [_VOID_P] * 5 + [_INT] * 4 + [ctypes.c_float, _INT,
+                           [_VOID_P] * 5 + [_INT] * 5 + [ctypes.c_float, _INT,
                                                          _VOID_P]),
 }
 

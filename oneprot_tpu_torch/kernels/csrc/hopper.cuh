@@ -34,6 +34,12 @@
 // 64-byte layout type (desc_sw<64>): K-major, 8-row groups 512 B apart and a
 // 16-column k-step 32 B further on; MN-major, 8-row groups 512 B apart and a
 // 16-row k-step 1024 B further on.
+//
+// 32-byte rows (a 16-column head, tied_row_attention.cu) are written with
+// CU_TENSOR_MAP_SWIZZLE_32B: chunk c of row r lands at chunk c ^ ((r / 4) %
+// 2), the pattern repeating every 256 bytes; desc_sw<32> reads them: K-major,
+// 8-row groups 256 B apart (a row is one k-step); MN-major, 8-row groups 256
+// B apart, the next 16 columns LBO further on, a 16-row k-step 512 B on.
 
 #pragma once
 
@@ -193,15 +199,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// Descriptor of an operand in RB-byte rows (RB = 128: desc_sw128; RB = 64:
-// 64-byte swizzle), lbo and sbo in bytes.
+// Descriptor of an operand in RB-byte rows (RB = 128: desc_sw128; RB = 64
+// or 32: 64- or 32-byte swizzle), lbo and sbo in bytes.
 template <int RB>
 __device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  static_assert(RB == 64 || RB == 128, "64- or 128-byte rows");
+  static_assert(RB == 32 || RB == 64 || RB == 128, "32-, 64- or 128-byte rows");
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(RB == 128 ? 1 : 2) << 62);
+         (static_cast<uint64_t>(RB == 128 ? 1 : RB == 64 ? 2 : 3) << 62);
 }
 
 // D (64 x 64, f32) = A (64 x 16) B (16 x 64) + (scale_d ? D : 0); A and B
@@ -435,7 +441,7 @@ constexpr int ERR_ENCODE = 10000;
 // The tensor map of a bf16 [B, H, L, D] operand at element strides (sb, sh,
 // sl) and unit stride over D, read as boxes of `box_cols` columns x
 // `box_rows` rows of `box_h` consecutive heads of one batch, swizzled by
-// `swizzle` (box_cols 64 with 128 bytes, 32 with 64). Rows past L, columns
+// `swizzle` (box_cols 64 with 128 bytes, 32 with 64, 16 with 32). Rows past L, columns
 // past D and heads past H are zero-filled. A dimension of size 1 takes a
 // stride of 8 elements (its coordinate is always 0, and TMA wants multiples
 // of 16 bytes).

@@ -1,5 +1,7 @@
 // Tied-row attention of the MSA Transformer, forward only, in the
-// [B, R, L, H*64] layout of the q/k/v projections.
+// [B, R, L, H*D] layout of the q/k/v projections, for heads of D = 16, 32
+// or 64 (one instance each; the launcher zero-pads other widths to the next
+// instance).
 //
 // Replaces: oneprot_tpu/kernels/tied_row_attention.py:_kernel (launched by
 // tied_row_attention). Same function: one attention map per (batch, head)
@@ -12,42 +14,48 @@
 // tile, p = bf16(2^(s - m_t)), and the output is rescaled tile by tile and
 // divided by the row sum at the end; the plain version rounds the
 // normalised softmax instead. Both sit well inside the 1.5e-2 gate. No
-// [B, H, L, L] tensor goes to device memory.
+// [B, H, L, L] tensor goes to device memory. (The TPU kernel takes D = 64
+// only; the JAX package runs narrower heads through its einsum path.)
 //
-// What bounds it on H100: 4 * L^2 * R * 64 flops per (batch, head) against
-// 4 * R * L * 64 * 2 bytes of q/k/v/out, so the card's bound is tensor-core
-// operations (0.21 ms at B=4 R=16 L=1024 H=12). In the way of it: the tied
-// sum makes this attention's head R*64 wide (1024 at R=16, 3200 at R=50),
-// so neither q nor the f32 output of a query block stays on chip, and every
-// CTA streams its head's q (once per key tile), k and v through shared
-// memory, ~5 MB at R=16 L=1024, beside a probability strip of up to 128 KB.
-// How many bytes the ring keeps in flight, more than the tensor cores or
-// L2's bandwidth, sets the pace (measured on an H100: with no product at
-// all the kernel keeps ~88% of its time, and halving L2's reads of k and v
-// by TMA multicast between two CTAs gained under 3%).
+// What bounds it on H100: 4 * L^2 * R * D flops per (batch, head) against
+// 4 * R * L * D * 2 bytes of q/k/v/out, so the card's bound is tensor-core
+// operations (0.21 ms at B=4 R=16 L=1024 H=12 D=64). In the way of it: the
+// tied sum makes this attention's head R*D wide (1024 at R=16 D=64, 800 at
+// R=50 D=16), so neither q nor the f32 output of a query block stays on
+// chip, and every CTA streams its head's q (once per key tile), k and v
+// through shared memory, ~5 MB at R=16 L=1024 D=64, beside a probability
+// strip of up to 128 KB. How many bytes the ring keeps in flight, more than
+// the tensor cores or L2's bandwidth, sets the pace (measured on an H100:
+// with no product at all the kernel keeps ~88% of its time, and halving
+// L2's reads of k and v by TMA multicast between two CTAs gained under 3%).
 //
 // Design (sm_90a): one CTA of 160 threads per (block of 64 query columns,
 // head, batch), for L <= 1024 (the model's max_positions). Warp 4 loads
-// with TMA (4-D tensor maps over [B, R, L, H*64], 128-byte swizzle) into a
-// ring of 24 KB stages guarded by mbarriers, as deep as shared memory
-// allows beside the strip (4 stages at L = 1024, 6 at L <= 640);
-// warps 0-3 are one consumer warpgroup that owns the 64 query rows.
+// with TMA (4-D tensor maps over [B, R, L, H*D], boxes of D columns, a
+// swizzle of 2D bytes: 128 at D = 64, 64 at 32, 32 at 16) into a ring of
+// 24 KB stages guarded by mbarriers, as deep as shared memory allows beside
+// the strip (4 stages at L = 1024, 6 at L <= 640); warps 0-3 are one
+// consumer warpgroup that owns the 64 query rows. Every instance moves the
+// same 24 KB an item, so a narrow head takes several MSA rows an item
+// rather than more items of fewer bytes, each with its own barrier round.
 //   1. Logits. For each 128-key tile, S[64, 128] accumulates in registers
-//      over the R MSA rows by SS wgmma (m64n128k16, q_r and k_r both
-//      K-major from the ring, one ring item = q_r's 64 rows and k_r's 128
-//      keys). The tile's online softmax follows (its key bias loaded from
-//      global memory before the tile's products): the running max m, the
-//      running sum l, the tile's rescale factor 2^(m_old - m), and
-//      P = bf16(2^(s - m)) into a [64, L] bf16 strip in shared memory (128
-//      KB at L = 1024, [64][64] blocks swizzled as wgmma reads them; then
-//      fence.proxy.async). Keys past L take -inf by index (TMA's zero fill
-//      is no mask).
-//   2. Output. For each group of G = 3 MSA rows, O[64, 192] accumulates in
-//      registers over the key tiles by SS wgmma (m64n192k16): P from the
-//      strip (K-major), v of the 3 rows from the ring (one TMA box of 64
-//      keys x 64 columns x 3 rows, read MN-major), O scaled by each tile's
-//      factor before its product (skipped where it is 1 on every row of a
-//      warp); then O / l to bf16. The strip is read R / 3 times.
+//      over the R MSA rows by SS wgmma (m64n128k16, D / 16 k-steps a row,
+//      q_r and k_r both K-major from the ring; one ring item = q's 64 rows
+//      and k's 128 keys of RB = 64 / D MSA rows, one TMA box each, rows past
+//      R zero-filled). The tile's online softmax follows (its key bias
+//      loaded from global memory before the tile's products): the running
+//      max m, the running sum l, the tile's rescale factor 2^(m_old - m),
+//      and P = bf16(2^(s - m)) into a [64, L] bf16 strip in shared memory
+//      (128 KB at L = 1024, [64][64] blocks swizzled as wgmma reads them;
+//      then fence.proxy.async). Keys past L take -inf by index (TMA's zero
+//      fill is no mask).
+//   2. Output. For each group of G = 192 / D MSA rows (3 at D = 64, 12 at
+//      16), O[64, 192] accumulates in registers over the key tiles by SS
+//      wgmma (m64n192k16): P from the strip (K-major), v of the G rows from
+//      the ring (one TMA box of 64 keys x D columns x G rows, read
+//      MN-major), O scaled by each tile's factor before its product
+//      (skipped where it is 1 on every row of a warp); then O / l to bf16.
+//      The strip is read R / G times.
 // Key tiles whose every key carries a bias SKIP_GAP (1e6, natural units)
 // or more below the batch element's largest bias are not visited: with
 // |scale * sum_r q . k| below 4e5 their softmax weight is exactly 0 in
@@ -64,18 +72,37 @@ using namespace hopper;
 constexpr int BQ = 64;          // query columns of a CTA: the warpgroup's wgmma rows
 constexpr int BK = 128;         // keys of a logit tile
 constexpr int HK = 64;          // keys of an output item (half a tile)
-constexpr int G = 3;            // MSA rows of an output item: O is [64, G * 64]
+constexpr int ON = 192;         // columns of O: G MSA rows of D
 constexpr int Q_BYTES = BQ * 128;
 constexpr int K_BYTES = BK * 128;
-constexpr int STAGE_BYTES = Q_BYTES + K_BYTES;  // a logit item; an output item is G * HK * 128
+constexpr int STAGE_BYTES = Q_BYTES + K_BYTES;  // a logit item; an output item is ON * HK * 2
 constexpr int P_BLOCK = BQ * 128;     // [64 rows][64 keys] bf16 of the strip
 constexpr int MAX_L = 1024;
 constexpr int CONSUMERS = 128;
 constexpr int THREADS = CONSUMERS + 32;  // warps 0-3 compute, warp 4 loads
 constexpr float ROW_MAX0 = -1e30f;       // the TPU kernel's starting row max
 constexpr float SKIP_GAP = 1e6f * 1.4426950408889634f;  // in log2 units
-static_assert(G * HK * 128 == STAGE_BYTES, "both kinds of item fill a stage");
+static_assert(ON * HK * 2 == STAGE_BYTES, "both kinds of item fill a stage");
 static_assert(MAX_L / BK <= 8, "the quads keep rescale factors of at most 8 tiles");
+
+// The layout of an instance's items for heads of D: rows of SW = 2D bytes
+// (the swizzle span), RB MSA rows of q and k a logit item, G a value item.
+template <int D>
+struct Heads {
+  static_assert(D == 16 || D == 32 || D == 64, "an instance for heads of 16, 32 or 64");
+  static constexpr int SW = 2 * D;
+  static constexpr int RB = 64 / D;    // MSA rows of a logit item
+  static constexpr int KS = D / 16;    // k-steps of one MSA row's q . k
+  static constexpr int G = ON / D;     // MSA rows of an output item
+  static constexpr int Q_ROW = BQ * SW;  // bytes of one MSA row's q box
+  static constexpr int K_ROW = BK * SW;
+  static constexpr int V_ROW = HK * SW;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static_assert(RB * Q_ROW == Q_BYTES && RB * K_ROW == K_BYTES && G * V_ROW == STAGE_BYTES,
+                "every instance's items fill a stage");
+};
 
 // Shared memory from a 1024-aligned base, for n_kt key tiles and ST stages:
 // the ring, the P strip, the barriers.
@@ -93,15 +120,15 @@ static_assert(smem_bytes(stages_for(8), 8) <= 232448 && smem_bytes(stages_for(6)
 
 struct Params {
   const float* bias;   // [B, L] log2 units, or null
-  __nv_bfloat16* out;  // [B, R, L, H*64]
+  __nv_bfloat16* out;  // [B, R, L, H*D]
   int R, L, H;
   float qk_scale;      // scale * log2(e)
 };
 
 struct alignas(64) Args {
-  CUtensorMap q;  // boxes of 64 columns x BQ rows of one MSA row
-  CUtensorMap k;  // 64 columns x BK rows
-  CUtensorMap v;  // 64 columns x HK rows x G MSA rows
+  CUtensorMap q;  // boxes of D columns x BQ rows x RB MSA rows
+  CUtensorMap k;  // D columns x BK rows x RB MSA rows
+  CUtensorMap v;  // D columns x HK rows x G MSA rows
   Params p;
 };
 
@@ -130,11 +157,12 @@ __device__ __forceinline__ uint32_t live_tiles(const float* bias, int L, int n_k
 }
 
 // Warp 4: the ring's items in the consumers' order. Logits: per live tile,
-// per MSA row, q's 64 rows and k's 128 keys. Output: per group of G MSA
+// per RB MSA rows, q's 64 rows and k's 128 keys. Output: per group of G MSA
 // rows, per live tile, v of each 64-key half that starts before L.
-template <int ST>
+template <int D, int ST>
 __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, uint32_t live, int q0,
                                          int h, int b) {
+  using S = Heads<D>;
   const Params& p = a.p;
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + bars_off(ST, (p.L + BK - 1) / BK));
   uint64_t* empty = full + ST;
@@ -151,20 +179,20 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, uint32_t li
   };
   for (uint32_t rest = live; rest != 0; rest &= rest - 1) {
     const int kt = __ffs(rest) - 1;
-    for (int r = 0; r < p.R; ++r, ++item) {
+    for (int r = 0; r < p.R; r += S::RB, ++item) {
       uint8_t* st = acquire(STAGE_BYTES);
       if (lane == 0) {
-        tma_load_4d(st, &a.q, &full[item % ST], 64 * h, q0, r, b);
-        tma_load_4d(st + Q_BYTES, &a.k, &full[item % ST], 64 * h, kt * BK, r, b);
+        tma_load_4d(st, &a.q, &full[item % ST], D * h, q0, r, b);
+        tma_load_4d(st + Q_BYTES, &a.k, &full[item % ST], D * h, kt * BK, r, b);
       }
     }
   }
-  for (int g0 = 0; g0 < p.R; g0 += G) {
+  for (int g0 = 0; g0 < p.R; g0 += S::G) {
     for (uint32_t rest = live; rest != 0; rest &= rest - 1) {
       const int kt = __ffs(rest) - 1;
       for (int k0 = kt * BK; k0 < kt * BK + BK && k0 < p.L; k0 += HK, ++item) {
         uint8_t* st = acquire(STAGE_BYTES);
-        if (lane == 0) tma_load_4d(st, &a.v, &full[item % ST], 64 * h, k0, g0, b);
+        if (lane == 0) tma_load_4d(st, &a.v, &full[item % ST], D * h, k0, g0, b);
       }
     }
   }
@@ -172,9 +200,10 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, uint32_t li
 
 // Warps 0-3: the logits and softmax of every live tile into the P strip,
 // then the output, G MSA rows at a time.
-template <int ST>
+template <int D, int ST>
 __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t live, int q0,
                                          int h, int b) {
+  using S = Heads<D>;
   const Params& p = a.p;
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + bars_off(ST, (p.L + BK - 1) / BK));
   uint64_t* empty = full + ST;
@@ -203,16 +232,21 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
         bb[2 * j + e] = key < p.L ? (bias == nullptr ? 0.f : __ldg(bias + key)) : -INFINITY;
       }
     float sc[BK / 2];
-    for (int r = 0; r < p.R; ++r, ++item) {
+    for (int r = 0; r < p.R; r += S::RB, ++item) {
       const int s = item % ST;
       mbar_wait_or_trap(&full[s], (item / ST) & 1);
       const uint32_t qa = ring + s * STAGE_BYTES;
-      const uint64_t qd = desc_sw<128>(qa, 16, 1024);
-      const uint64_t kd = desc_sw<128>(qa + Q_BYTES, 16, 1024);
+      const uint64_t qd = desc_sw<S::SW>(qa, 16, 8 * S::SW);
+      const uint64_t kd = desc_sw<S::SW>(qa + Q_BYTES, 16, 8 * S::SW);
       fence_regs(sc);
       wgmma_fence();
+      // MSA rows past R are TMA's zero fill: they add 0 to S
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss_m64n128(sc, qd + 2 * kk, kd + 2 * kk, r > 0 || kk > 0);
+      for (int rr = 0; rr < S::RB; ++rr)
+#pragma unroll
+        for (int kk = 0; kk < S::KS; ++kk)
+          wgmma_ss_m64n128(sc, qd + ((rr * S::Q_ROW) >> 4) + 2 * kk,
+                           kd + ((rr * S::K_ROW) >> 4) + 2 * kk, r > 0 || rr > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<1>();  // the previous item's products are done: free its stage
       fence_regs(sc);
@@ -283,10 +317,10 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
   }
 
   // ---- the output, G MSA rows at a time ---------------------------------
-  const size_t HD = (size_t)p.H * 64;
+  const size_t HD = (size_t)p.H * D;
   const int row_a = q0 + 16 * warp + lane / 4;
-  for (int g0 = 0; g0 < p.R; g0 += G) {
-    float o[4 * G * 8];
+  for (int g0 = 0; g0 < p.R; g0 += S::G) {
+    float o[ON / 2];
     int j = 0;  // this group's items
     int i = 0;  // live tile
     for (uint32_t rest = live; rest != 0; rest &= rest - 1, ++i) {
@@ -301,7 +335,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
             wgmma_wait<0>();
             fence_regs(o);
 #pragma unroll
-            for (int n = 0; n < G * 8; ++n) {
+            for (int n = 0; n < ON / 8; ++n) {
               o[4 * n + 0] *= c0;
               o[4 * n + 1] *= c0;
               o[4 * n + 2] *= c1;
@@ -312,12 +346,12 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
         const int s = item % ST;
         mbar_wait_or_trap(&full[s], (item / ST) & 1);
         const uint64_t pd = desc_sw<128>(strip + (2 * i + hh) * P_BLOCK, 16, 1024);
-        const uint64_t vd = desc_sw<128>(ring + s * STAGE_BYTES, HK * 128, 1024);
+        const uint64_t vd = desc_sw<S::SW>(ring + s * STAGE_BYTES, S::V_ROW, 8 * S::SW);
         fence_regs(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HK / 16; ++kk)
-          wgmma_ss_m64n192_tb(o, pd + 2 * kk, vd + 128 * kk, j > 0 || kk > 0);
+          wgmma_ss_m64n192_tb(o, pd + 2 * kk, vd + ((16 * S::SW * kk) >> 4), j > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(o);
@@ -328,13 +362,13 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
     fence_regs(o);
     mbar_arrive(&empty[(item - 1) % ST]);
     // o[4n + e]: row row_a (+ 8 for e >= 2), column 8n + 2t + (e & 1) of the
-    // group's G x 64: MSA row g0 + n / 8, head column 8 (n % 8) + 2t
+    // group's G x D: MSA row g0 + 8n / D, head column (8n) % D + 2t
 #pragma unroll
-    for (int n = 0; n < G * 8; ++n) {
-      const int r = g0 + n / 8;
+    for (int n = 0; n < ON / 8; ++n) {
+      const int r = g0 + 8 * n / D;
       if (r < p.R) {
         __nv_bfloat16* orow =
-            p.out + ((size_t)b * p.R + r) * p.L * HD + 64 * h + 8 * (n % 8) + 2 * t;
+            p.out + ((size_t)b * p.R + r) * p.L * HD + D * h + (8 * n) % D + 2 * t;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = row_a + 8 * hh;
@@ -347,7 +381,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, uint32_t li
   }
 }
 
-template <int ST>
+template <int D, int ST>
 __global__ void __launch_bounds__(THREADS, 1)
     tied_row_attention_kernel(const __grid_constant__ Args a) {
   extern __shared__ uint8_t smem_raw[];
@@ -366,45 +400,33 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t live =
       live_tiles(a.p.bias == nullptr ? nullptr : a.p.bias + (size_t)b * a.p.L, a.p.L, n_kt);
   if (threadIdx.x >= CONSUMERS)
-    producer<ST>(a, sm, live, q0, h, b);
+    producer<D, ST>(a, sm, live, q0, h, b);
   else
-    consumer<ST>(a, sm, live, q0, h, b);
+    consumer<D, ST>(a, sm, live, q0, h, b);
 }
 
-template <int ST>
+template <int D, int ST>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const int smem = smem_bytes(ST, (a.p.L + BK - 1) / BK);
   const cudaError_t err = cudaFuncSetAttribute(
-      tied_row_attention_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tied_row_attention_kernel<D, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.p.L + BQ - 1) / BQ, a.p.H, B);
-  tied_row_attention_kernel<ST><<<grid, THREADS, smem, stream>>>(a);
+  tied_row_attention_kernel<D, ST><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q, k, v, out: contiguous bf16 [B, R, L, H*64], 16-byte aligned; bias: f32
-// [B, L] in log2 units or null; qk_scale = scale * log2(e). The caller
-// checks 1 <= L <= 1024. Returns cudaGetLastError() after the launch, or
-// hopper::ERR_* if a tensor map could not be made. `device`: the card's
-// index.
-extern "C" int oneprot_tied_row_attention(const void* q, const void* k, const void* v,
-                                          const void* bias, void* out, int B, int R,
-                                          int L, int H, float qk_scale, int device,
-                                          void* stream) {
-  if (L < 1 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
-  // cuTensorMapEncodeTiled needs the card's context current on this thread
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+template <int D>
+int run(const void* q, const void* k, const void* v, const void* bias, void* out, int B, int R,
+        int L, int H, float qk_scale, cudaStream_t stream) {
+  using S = Heads<D>;
   Args a;
-  const int HD = H * 64;
+  const int HD = H * D;
   const long long sl = HD, sr = (long long)L * HD, sb = (long long)R * L * HD;
-  // [B, R, L, H*64] read as rows_map's [B, H, L, D] with R in the place of H
-  int rc = rows_map(&a.q, q, HD, L, R, B, sl, sr, sb, BQ);
-  if (rc == 0) rc = rows_map(&a.k, k, HD, L, R, B, sl, sr, sb, BK);
-  if (rc == 0)
-    rc = rows_map(&a.v, v, HD, L, R, B, sl, sr, sb, HK, 64, CU_TENSOR_MAP_SWIZZLE_128B, G);
+  // [B, R, L, H*D] read as rows_map's [B, H, L, D] with R in the place of H
+  int rc = rows_map(&a.q, q, HD, L, R, B, sl, sr, sb, BQ, D, S::SWIZZLE, S::RB);
+  if (rc == 0) rc = rows_map(&a.k, k, HD, L, R, B, sl, sr, sb, BK, D, S::SWIZZLE, S::RB);
+  if (rc == 0) rc = rows_map(&a.v, v, HD, L, R, B, sl, sr, sb, HK, D, S::SWIZZLE, S::G);
   if (rc != 0) return rc;
   a.p.bias = static_cast<const float*>(bias);
   a.p.out = static_cast<__nv_bfloat16*>(out);
@@ -412,10 +434,33 @@ extern "C" int oneprot_tied_row_attention(const void* q, const void* k, const vo
   a.p.L = L;
   a.p.H = H;
   a.p.qk_scale = qk_scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (stages_for((L + BK - 1) / BK)) {
-    case 4: return launch<4>(a, B, s);
-    case 5: return launch<5>(a, B, s);
-    default: return launch<6>(a, B, s);
+    case 4: return launch<D, 4>(a, B, stream);
+    case 5: return launch<D, 5>(a, B, stream);
+    default: return launch<D, 6>(a, B, stream);
+  }
+}
+
+}  // namespace
+
+// q, k, v, out: contiguous bf16 [B, R, L, H*D], 16-byte aligned, D = 16, 32
+// or 64; bias: f32 [B, L] in log2 units or null; qk_scale = scale *
+// log2(e). The caller checks 1 <= L <= 1024. Returns cudaGetLastError()
+// after the launch, or hopper::ERR_* if a tensor map could not be made.
+// `device`: the card's index.
+extern "C" int oneprot_tied_row_attention(const void* q, const void* k, const void* v,
+                                          const void* bias, void* out, int B, int R,
+                                          int L, int H, int D, float qk_scale, int device,
+                                          void* stream) {
+  if (L < 1 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  // cuTensorMapEncodeTiled needs the card's context current on this thread
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return run<16>(q, k, v, bias, out, B, R, L, H, qk_scale, s);
+    case 32: return run<32>(q, k, v, bias, out, B, R, L, H, qk_scale, s);
+    case 64: return run<64>(q, k, v, bias, out, B, R, L, H, qk_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,14 +12,15 @@ with `scale` = D^-0.5 * R^-0.5 by default and an additive column bias
 probabilities are rounded to the input dtype before the PV product.
 
 `tied_row_attention_cuda` launches the hand-written kernel of
-`csrc/tied_row_attention.cu` (bf16, D = 64, 1 <= L <= 1024, any R and H;
-wgmma and TMA, so sm_90a) or raises. Narrower heads (D a multiple of 8
-below 64, as the debug MSA tower's 16) are zero-padded to 64 around the
-launch: zero columns add nothing to q . k summed over rows and D, so the
-logits are the unpadded ones, the scale stays the true D's, and the
-output's padded columns are cut off; `tied_row_attention_plain` is the same
-function in plain PyTorch, for any device, which the CPU path runs. The
-dispatch (and the refusal of a gradient) is
+`csrc/tied_row_attention.cu` (bf16, 1 <= L <= 1024, any R and H; wgmma and
+TMA, so sm_90a) or raises. The kernel has an instance for heads of 16, 32
+and 64 (MSA-1b's 64, the debug MSA tower's 16); other head dims, multiples
+of 8 up to 64, are zero-padded to the next instance around the launch
+(`instance_head_dim`): zero columns add nothing to q . k summed over rows
+and D, so the logits are the unpadded ones, the scale stays the true D's,
+and the output's padded columns are cut off. `tied_row_attention_plain` is
+the same function in plain PyTorch, for any device, which the CPU path
+runs. The dispatch (and the refusal of a gradient) is
 `kernels.attention.fused_tied_row`.
 """
 
@@ -32,7 +33,8 @@ import torch
 
 from oneprot_tpu_torch.kernels import _build
 
-HEAD_DIM = 64       # the kernel's one head dim: MSA-1b's
+HEAD_DIM = 64       # the kernel's widest head dim: MSA-1b's
+INSTANCES = (16, 32, 64)  # head dims with an instance of their own
 MAX_LENGTH = 1024   # the kernel's probability strip holds at most this many keys
 LOG2E = math.log2(math.e)
 
@@ -77,17 +79,25 @@ def tied_row_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return ctx.to(v.dtype).reshape(B, R, L, num_heads * D)
 
 
+def instance_head_dim(head_dim: int) -> int:
+    """The head dim of the kernel instance that heads of `head_dim` launch:
+    their own where it has one, else the next wider one, which they are
+    zero-padded to. Raises for a head dim the kernel does not take."""
+    if head_dim < 8 or head_dim > HEAD_DIM or head_dim % 8:
+        raise ValueError(f"head dim {head_dim} unsupported by the kernel: must "
+                         f"be a multiple of 8 up to {HEAD_DIM}")
+    return next(w for w in INSTANCES if w >= head_dim)
+
+
 def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, num_heads: int,
                             col_bias: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel on contiguous, 16-byte aligned bf16 q, k, v on one
-    card, heads narrower than 64 zero-padded to 64 (`_pad_heads`). Returns
-    [B, R, L, H*D] bf16."""
+    card, heads without an instance of their own zero-padded to the next
+    (`_pad_heads`). Returns [B, R, L, H*D] bf16."""
     B, R, L, D = _check_args(q, k, v, num_heads, col_bias)
-    if D > HEAD_DIM or D % 8:
-        raise ValueError(f"head dim {D} unsupported by the kernel: must be "
-                         f"a multiple of 8 up to {HEAD_DIM}")
+    width = instance_head_dim(D)
     if not 1 <= L <= MAX_LENGTH:
         raise ValueError(f"L={L} unsupported by the kernel: 1 <= L <= "
                          f"{MAX_LENGTH}")
@@ -103,8 +113,8 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              "aligned")
     if scale is None:
         scale = tied_scale(D, R)
-    if D < HEAD_DIM:
-        q, k, v = (_pad_heads(t, num_heads) for t in (q, k, v))
+    if D < width:
+        q, k, v = (_pad_heads(t, num_heads, width) for t in (q, k, v))
     bias_b = (None if col_bias is None else
               (col_bias.reshape(B, L).to(dev, torch.float32) * LOG2E)
               .contiguous())
@@ -116,21 +126,23 @@ def tied_row_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias_b is None else bias_b.data_ptr(), out.data_ptr(),
-                B, R, L, num_heads, scale * LOG2E, dev.index, stream)
+                B, R, L, num_heads, width, scale * LOG2E, dev.index, stream)
     _build.check(rc, "tied_row_attention")
     tied_row_attention_cuda.launches += 1
-    if D < HEAD_DIM:
-        out = out.view(B, R, L, num_heads, HEAD_DIM)[..., :D].reshape(
+    if D < width:
+        out = out.view(B, R, L, num_heads, width)[..., :D].reshape(
             B, R, L, num_heads * D)
     return out
 
 
-def _pad_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, R, L, H*D] -> [B, R, L, H*64], each head's columns past D zero."""
+def _pad_heads(x: torch.Tensor, num_heads: int,
+               width: int = HEAD_DIM) -> torch.Tensor:
+    """[B, R, L, H*D] -> [B, R, L, H*width], each head's columns past D
+    zero."""
     B, R, L, hd = x.shape
     x = x.reshape(B, R, L, num_heads, hd // num_heads)
     return torch.nn.functional.pad(
-        x, (0, HEAD_DIM - x.shape[-1])).reshape(B, R, L, num_heads * HEAD_DIM)
+        x, (0, width - x.shape[-1])).reshape(B, R, L, num_heads * width)
 
 
 tied_row_attention_cuda.launches = 0

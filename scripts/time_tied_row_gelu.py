@@ -12,7 +12,10 @@ scaled_dot_product_attention over the same function (heads of R*64, the
 scale and the column mask); and `gelu_quant_cuda(y)` at M=16384 rows of
 5120 (the 650M hub's fc1 width) and 20480 (the ESM2-15B width's), bf16.
 CUDA events over 30 calls after a warm-up (the checkout's
-`chip_smoke.time_ms`). `--root` lets one call time a parent checkout and
+`chip_smoke.time_ms`); then the tied-row attention on heads of 16 (the
+debug MSA tower's: B=2 R=4 L=128 H=4, and depth 50 at B=4 L=1024 H=4, the
+last element's last third of columns padded), beside SDPA on heads of
+R*16. `--root` lets one call time a parent checkout and
 this one in turns. Prints one line a case with the time, the yardstick's
 and the bound (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
 over the keys that carry weight), and the card's name and power limit.
@@ -70,6 +73,27 @@ def main() -> int:
         print(f"{label}: tied_row_attention_cuda B={B} R={R} L={L} H={H} columns "
               f"{'/'.join(map(str, lens))}: kernel {ms:.4f} ms, SDPA {ref:.4f} ms, "
               f"ratio {ms / ref:.3f}, bound {bound:.4f} ms ({smi})", flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    for B, R, L, H in ((2, 4, 128, 4), (4, 50, 1024, 4)):
+        D = 16
+        q, k, v = (torch.randn(B, R, L, H * D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        bias = torch.zeros(B, 1, 1, L, device="cuda")
+        bias[-1, ..., L - L // 3:] = -1e9
+        ms = time_ms(lambda: tra.tied_row_attention_cuda(q, k, v, H, col_bias=bias), 30)
+        tied = lambda x: x.view(B, R, L, H, D).permute(0, 3, 2, 1, 4).reshape(
+            B, H, L, R * D)
+        qt, kt, vt, mask = tied(q), tied(k), tied(v), bias.to(torch.bfloat16)
+        ref = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=tra.tied_scale(D, R)), 30)
+        keys, row_bytes = (B - 1) * L + L - L // 3, R * H * D * 2
+        bound = max((2 * B * L + 2 * keys) * row_bytes / 3.35e12,
+                    4.0 * H * L * keys * R * D / 989e12) * 1e3
+        print(f"{label}: tied_row_attention_cuda B={B} R={R} L={L} H={H} D={D}: "
+              f"kernel {ms:.4f} ms, SDPA {ref:.4f} ms, ratio {ms / ref:.3f}, "
+              f"bound {bound:.4f} ms ({smi})", flush=True)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 

@@ -296,20 +296,34 @@ def _serving_tails(L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,R,L,nh,masked_tail", [
-    (4, 16, 1024, 12, 0),    # embed_msas: depth 16, the widest bucket
-    (4, 50, 1024, 12, 0),    # the MSA data config's depth
-    (2, 16, 300, 3, 17),     # off the tile grid, odd heads, masked tail
-    (1, 1, 1, 1, 0),         # one row, one column
-    (2, 3, 64, 2, 5),        # the smallest bucket
+@pytest.mark.parametrize("B,R,L,nh,masked_tail,d", [
+    (4, 16, 1024, 12, 0, 64),    # embed_msas: depth 16, the widest bucket
+    (4, 50, 1024, 12, 0, 64),    # the MSA data config's depth
+    (2, 16, 300, 3, 17, 64),     # off the tile grid, odd heads, masked tail
+    (1, 1, 1, 1, 0, 64),         # one row, one column
+    (2, 3, 64, 2, 5, 64),        # the smallest bucket
+    # the instance for heads of 16: the debug MSA tower (4 heads, depth 4
+    # at its bucket 128), depth 50 at 1024 columns, depths off the 4-row
+    # logit items, off the tile grid
+    (2, 4, 128, 4, 0, 16),
+    (4, 50, 1024, 4, 0, 16),
+    (2, 7, 300, 3, 17, 16),
+    (1, 1, 1, 1, 0, 16),
+    (2, 13, 64, 2, 5, 16),
+    # the instance for heads of 32
+    (2, 16, 300, 3, 17, 32),
+    (1, 50, 1024, 12, 0, 32),
+    (1, 1, 1, 1, 0, 32),
 ] + [
     # every serving bucket at depths 1, 16 and 50, each batch element with
     # its own padded tail (key tiles of padding alone are skipped)
-    (4, R, L, 2, _serving_tails(L))
-    for L in (64, 128, 256, 512, 1024) for R in (1, 16, 50)
+    (4, R, L, 2, _serving_tails(L), d)
+    for L in (64, 128, 256, 512, 1024) for R in (1, 16, 50) for d in (64, 16)
 ])
-def test_tied_row_kernel_matches_plain(card, B, R, L, nh, masked_tail):
+def test_tied_row_kernel_matches_plain(card, B, R, L, nh, masked_tail, d):
     q, k, v, bias = _tied_inputs(B, R, L, nh, card, L + R, masked_tail)
+    q, k, v = (t.view(B, R, L, nh, 64)[..., :d].reshape(B, R, L, nh * d)
+               for t in (q, k, v))
     before = tra.tied_row_attention_cuda.launches
     out = fused_tied_row(q, k, v, nh, col_bias=bias)
     ref = tra.tied_row_attention_plain(q, k, v, nh, col_bias=bias)
@@ -340,14 +354,15 @@ def test_tied_row_kernel_refuses(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,R,L,nh,d,masked_tail", [
-    (2, 16, 300, 4, 16, 17),   # the debug MSA tower's heads of 16
-    (2, 3, 64, 2, 8, 5),
-    (1, 50, 1024, 12, 32, 0),
-    (4, 8, 128, 4, 16, _serving_tails(128)),
+    (2, 16, 300, 4, 24, 17),   # to 32
+    (2, 3, 64, 2, 8, 5),       # to 16
+    (1, 50, 1024, 12, 40, 0),  # to 64
+    (4, 8, 128, 4, 56, _serving_tails(128)),
 ])
 def test_tied_row_kernel_pads_narrow_heads(card, B, R, L, nh, d, masked_tail):
-    """Heads narrower than 64 are zero-padded around the one kernel launch,
-    the scale taken from the true head dim."""
+    """Heads without an instance of their own are zero-padded to the next
+    (8 -> 16, 24 -> 32, 40-56 -> 64) around the one kernel launch, the
+    scale taken from the true head dim."""
     q, k, v, bias = _tied_inputs(B, R, L, nh, card, L + R + d, masked_tail)
     q, k, v = (t.view(B, R, L, nh, 64)[..., :d].reshape(B, R, L, nh * d)
                for t in (q, k, v))

@@ -77,7 +77,9 @@ def _port_esm2(cfg, tree, quant_int8):
     dict(pad_to_multiple_of=8),
 ])
 def test_tokenizer_matches_jax(kw):
-    seqs = ["MKTAYIAKQR", "", "ACDEFGHIKLMNPQRSTVWYXBUZO", "mkJ*", "M.-K"]
+    # the non-ASCII row: one <unk> per UTF-8 byte in both host libraries
+    seqs = ["MKTAYIAKQR", "", "ACDEFGHIKLMNPQRSTVWYXBUZO", "mkJ*", "M.-K",
+            "MKÄV"]
     np.testing.assert_array_equal(esm2_tokenizer()(seqs, **kw),
                                   jax_tokenizer()(seqs, **kw))
 

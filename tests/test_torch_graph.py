@@ -4,8 +4,8 @@ Inputs come from numpy seeds and go through both packages: the segment
 ops, `rbf_expand`, `backbone_frames`, `ProNet` and `StructGraphEncoder` in
 eval mode on weights carried over by `convert.struct_graph_state_dict`
 (backbone and allatom levels), the host graph builders (`knn_neighbors`
-on coordinates in general position, where the JAX package's native kNN
-and the port's numpy one agree; `protein_to_padded_graph`,
+in the port's host library against the JAX package's native kNN, also on
+coordinates rounded to a grid, where distances tie; `protein_to_padded_graph`,
 `stack_graphs`; `augment_graph_batch` bit for bit from one RandomState),
 `structure_io` on PDB and mmCIF text written to `tmp_path`, and
 `StructDataset`'s collate (struct_graph and pocket, train split with
@@ -229,6 +229,22 @@ def test_knn_and_padded_graph_match_jax():
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     _check_same(graphs.stack_graphs([got, got]),
                 jgraphs.stack_graphs([want, want]))
+
+
+def test_padded_graph_with_tied_distances_matches_jax():
+    """Coordinates rounded to a 2 A grid: many neighbours of a residue lie
+    at one distance, and both packages' host libraries order them by
+    index, so the padded graphs are equal."""
+    rng = np.random.RandomState(8)
+    for n_res, max_res, k in ((60, 64, 24), (90, 48, 8)):
+        seq, names, ids, xyz = _structure(rng, n_res)
+        record = (seq, names, ids, np.round(xyz / 2.0) * 2.0)
+        got = graphs.protein_to_padded_graph(*record, max_res, k)
+        want = jgraphs.protein_to_padded_graph(*record, max_res, k)
+        _check_same(got, want)
+        ca = got["coords_ca"][:min(n_res, max_res)]
+        d2 = ((ca[:, None] - ca[None]) ** 2).sum(-1)
+        assert len(np.unique(d2)) < d2.size // 4  # ties are common
 
 
 def _check_same(got, want):

@@ -220,6 +220,7 @@ PORT_FILES = sorted((ROOT / "oneprot_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "time_mha_backward.py",
     ROOT / "scripts" / "time_attention_forward.py",
     ROOT / "scripts" / "time_tied_row_gelu.py",
+    ROOT / "scripts" / "time_host_library.py",
     ROOT / "scripts" / "probe_host_cpu.py"]
 
 
