@@ -39,7 +39,9 @@ the elapsed seconds:
    D=128, at D=64 and 256 and at L=300), with its time, the plain
    version's, a library call's where one computes the same function, and
    the card's lower bound; the whole FA-2 backward on the card (dq, then
-   dk/dv) is timed beside scaled_dot_product_attention's backward; and
+   dk/dv) is timed beside scaled_dot_product_attention's backward, at
+   D=128 and at D=256 (B=8 H=16 L=1024: #5 and #7 there are the
+   heads-of-256 instances, #6 its mma.sync one); and
    the flash-MHA kernels without rotary tables, as BERT calls them (heads
    of 64, 12 heads): the forward at embed_texts' B=32 L=512 with rows
    padded 0-75%, the forward and both backward kernels at the LoRA text
@@ -61,8 +63,15 @@ the elapsed seconds:
    train_packed's real packed batch at the ESM2-15B width's heads (B=16
    H=40 L=1024 D=128), each against its plain version on the same ids
    (padded rows finite), timed beside it, SDPA with the dense mask, the
-   share of tiles it visits and its needed-work and dense bounds, and #5
-   at D=256 with ids (its mma.sync instance masks, visits every tile);
+   share of tiles it visits and its needed-work and dense bounds, and #5,
+   #6 and #7 at D=256 with ids on the batch's first 4 rows (16 heads) the
+   same way (#5 and #7 visit the tiles that meet, #6's mma.sync instance
+   masks every tile); then the heads-of-256 path: a 2-layer ESM2-layout
+   hub with 4 heads of 256 (HEADS_256, random weights) on 4 rows of 1024
+   tokens, forward and backward through Esm2SelfAttention, exact launches
+   of #5, #6 and #7 (one each a layer; the path "heads 256") and card
+   (bf16) vs CPU (f32) cosine >= 0.99 of the hidden states and of the
+   parameters' gradients;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -442,6 +451,11 @@ BUCKETS = (256, 384, 512, 768, 1024)
 # tokens (bench.py's 16384-token budget), 16 slots a row
 ROWS, ROW_LEN, SLOTS = 16, 1024, 16
 PACKED_SEG_SEED = 3  # the kernels phase's packed batch (segment ids only)
+# the heads-of-256 path: an ESM2-layout hub of 2 layers of 1024, 4 heads of
+# 256 (the #5-#7 instances for heads in (128, 256]), on 4 rows of 1024
+HEADS_256 = esm2.Esm2Config(hidden_size=1024, num_layers=2, num_heads=4,
+                            intermediate_size=4096)
+HEADS_256_ROWS = (4, 1024)
 STEPS = 6
 PARITY_ROWS = 4
 # the 15B-width parities (serving and the LoRA step) on 2 rows: their CPU
@@ -928,6 +942,71 @@ def check_flash_attention(gen) -> dict:
                     "[B, 1, 1, L] bias as a bf16 mask"}
 
 
+def time_fa_backward(B, H, L, D, q, k, v, bias, dout, out, lse, qs,
+                     delta) -> list:
+    """#6 and #7 timed at one shape, each beside its plain version and its
+    bound, and the whole card backward (#6, then #7) beside SDPA's backward
+    (forward + backward minus forward, the bias as a bf16 mask) and the
+    bound of the backward's five products. Returns the two kernels' rows
+    (without their error fields)."""
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, bias, out, lse, dout))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        qs, k, v, bias, dout, lse, delta))
+    whole_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, bias, out, lse, dout))
+    plain_dq = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+        q, k, v, bias, out, lse, dout), iters=3)
+    plain_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+        qs, k, v, bias, dout, lse, delta), iters=3)
+    leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
+    mask, do_c = bias.to(torch.bfloat16), dout.contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
+    fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, do_c))
+    library = fwd_bwd - fwd
+    per_pair = B * H * L * L * D  # one [L, L] x D product, per head
+    qkvo = B * H * L * D * 2      # one bf16 [B, H, L, D] tensor, in bytes
+    row = B * H * L * 4           # one f32 [B, H, L] tensor (lse, delta)
+    bias_bytes = B * L * 4
+    # #6 reads q, k, v, out, dout, lse, bias and writes dq, q_s, delta; #7
+    # reads q_s, k, v, dout, lse, delta, bias and writes dk, dv; the whole
+    # backward reads what #6 reads and writes dq, dk, dv, and its least work
+    # is five products (q k^T, dO v^T, dS k, dS^T q, p^T dO)
+    whole_bound, whole_by = bound_ms(8 * qkvo + row + bias_bytes,
+                                     10.0 * per_pair, BF16_FLOPS)
+    rows = []
+    for name, ms, plain, gemms, nbytes, line in (
+            ("flash_attention_bwd_dq", dq_ms, plain_dq, 3,
+             7 * qkvo + 2 * row + bias_bytes, 163),
+            ("flash_attention_bwd_dkv", dkv_ms, plain_dkv, 4,
+             6 * qkvo + 2 * row + bias_bytes, 192)):
+        b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * per_pair, BF16_FLOPS)
+        print(f"  {name} timed at B={B} H={H} L={L} D={D}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": f"oneprot_tpu/kernels/flash_attention.py:{line}",
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "shape": f"B={B} H={H} L={L} D={D} bf16",
+            "whole_backward_ms": whole_ms, "whole_backward_bound_ms": whole_bound,
+            "note": "plain_ms: this kernel's plain version (flash_attention_"
+                    "bwd_dq_plain with the prologue, or flash_attention_bwd_"
+                    "dkv_plain); library_ms: scaled_dot_product_attention "
+                    "forward+backward minus its forward with the [B, 1, 1, "
+                    "L] bias as a bf16 mask, one figure for the whole "
+                    "backward; whole_backward_ms: flash_attention_bwd_cuda "
+                    "(#6 with its prologue, then #7)"})
+    print(f"  flash-attention backward at B={B} H={H} L={L} D={D}: whole card "
+          f"backward {whole_ms:.4f} ms (#6 + #7, prologue in #6; bound "
+          f"{whole_bound:.4f} ms, {whole_by}) against SDPA backward "
+          f"{library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd {fwd:.4f}): "
+          f"{whole_ms / library:.3f}x", flush=True)
+    return rows
+
+
 def check_flash_attention_bwd(gen) -> list:
     """The FlashAttention-2 dq kernel (#6, its prologue included: q_s and
     delta) and dk/dv kernel (#7, on #6's q_s and delta) against
@@ -937,14 +1016,12 @@ def check_flash_attention_bwd(gen) -> list:
     against flash_attention_bwd_dq_plain's: at the LoRA-15B step's largest
     shape (a batch of 16 at bucket 1024, 40 heads of 128), at heads of 64
     and 256 and at a ragged L = 300, each with a key-padding bias. Timed at
-    the first: each kernel beside its own plain version and the bound, and
-    the whole card backward (flash_attention_bwd_cuda: #6, then #7) beside
-    scaled_dot_product_attention's backward (forward + backward minus
-    forward) and the bound of the backward's five products."""
+    the first and at heads of 256 (`time_fa_backward`; the rows' `d256`)."""
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "delta": 0.0}
     worst_abs = dict(worst)
     cases = [(LORA_BATCH, 40, 1024, 128), (8, 16, 1024, 64),
              (8, 16, 1024, 256), (4, 40, 300, 128)]
+    timed = []  # the tensors of cases[0] and of heads of 256
     for B, H, L, D in cases:
         q, k, v, bias, valid = fa_inputs(B, H, L, D, gen)
         dout = (torch.randn(B, L, H, D, device="cuda", generator=gen)
@@ -980,102 +1057,43 @@ def check_flash_attention_bwd(gen) -> list:
         print(f"  flash-attention backward B={B} H={H} L={L} D={D}: max rel err "
               + ", ".join(errs), flush=True)
         del dq, dk, dv, ref, ref_qs, ref_delta
-        if (B, H, L, D) == cases[0]:
-            timed = (q, k, v, bias, dout, out, lse, qs, delta)
+        if (B, H, L, D) in (cases[0], cases[2]):
+            timed.append((q, k, v, bias, dout, out, lse, qs, delta))
         del q, k, v, bias, dout, out, lse, qs, delta
         torch.cuda.empty_cache()
 
-    q, k, v, bias, dout, out, lse, qs, delta = timed
-    B, H, L, D = cases[0]
-    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
-        q, k, v, bias, out, lse, dout))
-    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
-        qs, k, v, bias, dout, lse, delta))
-    whole_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
-        q, k, v, bias, out, lse, dout))
-    plain_dq = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
-        q, k, v, bias, out, lse, dout), iters=3)
-    plain_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
-        qs, k, v, bias, dout, lse, delta), iters=3)
-    leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
-    mask, do_c = bias.to(torch.bfloat16), dout.contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
-    fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        sdpa(*leaves, attn_mask=mask), leaves, do_c))
-    library = fwd_bwd - fwd
-    per_pair = B * H * L * L * D  # one [L, L] x D product, per head
-    qkvo = B * H * L * D * 2      # one bf16 [B, H, L, D] tensor, in bytes
-    row = B * H * L * 4           # one f32 [B, H, L] tensor (lse, delta)
-    bias_bytes = B * L * 4
-    # #6 reads q, k, v, out, dout, lse, bias and writes dq, q_s, delta; #7
-    # reads q_s, k, v, dout, lse, delta, bias and writes dk, dv; the whole
-    # backward reads what #6 reads and writes dq, dk, dv, and its least work
-    # is five products (q k^T, dO v^T, dS k, dS^T q, p^T dO)
-    whole_bound, whole_by = bound_ms(8 * qkvo + row + bias_bytes,
-                                     10.0 * per_pair, BF16_FLOPS)
-    rows = []
-    for name, ms, plain, gemms, nbytes, line in (
-            ("flash_attention_bwd_dq", dq_ms, plain_dq, 3,
-             7 * qkvo + 2 * row + bias_bytes, 163),
-            ("flash_attention_bwd_dkv", dkv_ms, plain_dkv, 4,
-             6 * qkvo + 2 * row + bias_bytes, 192)):
-        b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * per_pair, BF16_FLOPS)
-        grads = ("dq", "delta") if gemms == 3 else ("dk", "dv")
-        print(f"  {name} timed at B={B} H={H} L={L} D={D}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"oneprot_tpu_torch/kernels/csrc/{name}.cu",
-            "replaces": f"oneprot_tpu/kernels/flash_attention.py:{line}",
-            "max_abs_err": max(worst_abs[g] for g in grads),
-            "max_rel_err": {g: worst[g] for g in grads},
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library, "shape": f"B={B} H={H} L={L} D={D} bf16",
-            "whole_backward_ms": whole_ms, "whole_backward_bound_ms": whole_bound,
-            "note": "plain_ms: this kernel's plain version (flash_attention_"
-                    "bwd_dq_plain with the prologue, or flash_attention_bwd_"
-                    "dkv_plain); library_ms: scaled_dot_product_attention "
-                    "forward+backward minus its forward with the [B, 1, 1, "
-                    "L] bias as a bf16 mask, one figure for the whole "
-                    "backward; whole_backward_ms: flash_attention_bwd_cuda "
-                    "(#6 with its prologue, then #7)"})
-    print(f"  flash-attention backward: whole card backward {whole_ms:.4f} ms "
-          f"(#6 + #7, prologue in #6; bound {whole_bound:.4f} ms, {whole_by}) "
-          f"against SDPA backward {library:.4f} ms (fwd+bwd {fwd_bwd:.4f} - fwd "
-          f"{fwd:.4f}): {whole_ms / library:.3f}x", flush=True)
+    rows = time_fa_backward(*cases[0], *timed[0])
+    for row, grads in zip(rows, (("dq", "delta"), ("dk", "dv"))):
+        row["max_abs_err"] = max(worst_abs[g] for g in grads)
+        row["max_rel_err"] = {g: worst[g] for g in grads}
+    # heads of 256: #7's wgmma instance (64 keys a CTA), #6's mma.sync one
+    for row, sub in zip(rows, time_fa_backward(*cases[2], *timed[1])):
+        row["d256"] = {k: sub[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "whole_backward_ms", "whole_backward_bound_ms")}
+    timed.clear()
+    torch.cuda.empty_cache()
     return rows
 
 
-def check_flash_attention_segments(gen, rows: list) -> dict:
-    """#5, #6 and #7 with segment ids on train_packed's real packed batch
-    (`make_packed_batch` from PACKED_SEG_SEED: the hub's ids, 16 rows of
-    1024, 16 slots) at the ESM2-15B width's heads (B=16 H=40 L=1024 D=128,
-    bf16, the key-padding bias beside the ids), each against its plain
-    version on the same ids (bf16 rel 1.5e-2; lse 5e-2 on the real rows;
-    the padded rows finite), then timed beside its plain version, the
-    share of tiles it visits (`segment_tile_hits` at its tile shapes), the
-    needed-work bound over the pairs of equal ids and the dense one, and
-    SDPA with the dense mask (the forward; the backward as forward +
-    backward minus forward). And #5 at D = 256 (its mma.sync instance,
-    which masks by the ids and visits every tile) on the batch's first 4
-    rows, 16 heads. Folds the errors into `rows` and returns the numbers,
-    which the rows of #5-#7 carry as `segment_ids`."""
-    B, H, L, D = ROWS, 40, ROW_LEN, 128
-    seg = torch.from_numpy(make_packed_batch(np.random.RandomState(
-        PACKED_SEG_SEED))["seq"]["segment_ids"]).cuda()
+def fa_segment_case(gen, seg, H, D, worse) -> dict:
+    """#5, #6 and #7 with the segment ids `seg` [B, L] (the key-padding
+    bias beside them) at H heads of D: each against its plain version and
+    the backward kernels against the whole plain backward too (bf16 rel
+    1.5e-2; lse 5e-2 on the real rows; the padded rows finite; q_s bit for
+    bit), the errors folded into the kernels' rows by `worse`; then each
+    timed beside its plain version, the share of tiles it visits
+    (`segment_tile_hits` at its tile shapes; #6's mma.sync instance for
+    heads over 128 visits every tile), the needed-work bound over the pairs
+    of equal ids and the dense one, and SDPA with the dense mask (the
+    forward; the backward as forward + backward minus forward)."""
+    B, L = seg.shape
     valid = seg >= 0
     bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
     q, k, v, _, _ = fa_inputs(B, H, L, D, gen)
     dout = (torch.randn(B, L, H, D, device="cuda", generator=gen)
             * valid[:, :, None, None]).to(torch.bfloat16).transpose(1, 2)
-    by_name = {r["name"]: r for r in rows}
-
-    def worse(name, key, value):
-        row = by_name[name]
-        if isinstance(row[key], dict):
-            return
-        row[key] = max(row[key], value)
+    what = f"D={D} with segment ids"
 
     def rel_err(got, want):
         diff = (got.float() - want.float()).abs().max().item()
@@ -1090,22 +1108,20 @@ def check_flash_attention_segments(gen, rows: list) -> dict:
     torch.cuda.synchronize()
     require(torch.isfinite(out.float()).all().item()
             and torch.isfinite(lse).all().item(),
-            "flash-attention with segment ids: non-finite out or lse (the "
-            "padded rows included)")
+            f"#5 {what}: non-finite out or lse (the padded rows included)")
     errs = {}
     errs["out"], abs_out = rel_err(out, ref)
     real = valid[:, None, :].expand_as(lse)
     errs["lse"] = (lse - ref_lse).abs()[real].max().item()
-    require(errs["out"] <= FLASH_REL_TOL, f"#5 with segment ids: rel err "
-            f"{errs['out']}")
-    require(errs["lse"] <= 5e-2, f"#5 with segment ids: lse err {errs['lse']}")
+    require(errs["out"] <= FLASH_REL_TOL, f"#5 {what}: rel err {errs['out']}")
+    require(errs["lse"] <= 5e-2, f"#5 {what}: lse err {errs['lse']}")
     worse("flash_attention_fwd", "max_rel_err", errs["out"])
     worse("flash_attention_fwd", "max_abs_err", abs_out)
     worse("flash_attention_fwd", "lse_max_abs_err", errs["lse"])
     del ref, ref_lse
     own_dq, own_qs, own_delta = fa.flash_attention_bwd_dq_plain(
         q, k, v, bias, out, lse, dout, seg)
-    require(torch.equal(qs, own_qs), "#6 with segment ids: q_s")
+    require(torch.equal(qs, own_qs), f"#6 {what}: q_s")
     errs["delta"] = rel_err(delta, own_delta)[0]
     del own_qs, own_delta
     own_dk, own_dv = fa.flash_attention_bwd_dkv_plain(qs, k, v, bias, dout,
@@ -1117,23 +1133,24 @@ def check_flash_attention_segments(gen, rows: list) -> dict:
             ("dk", dk, (own_dk, whole[1]), "flash_attention_bwd_dkv"),
             ("dv", dv, (own_dv, whole[2]), "flash_attention_bwd_dkv")):
         require(torch.isfinite(got.float()).all().item(),
-                f"{kernel} with segment ids: non-finite {name}")
+                f"{kernel} {what}: non-finite {name}")
         for want in wants:
             rel, diff = rel_err(got, want)
-            require(rel <= FLASH_REL_TOL, f"{kernel} with segment ids: {name} "
-                    f"rel err {rel}")
+            require(rel <= FLASH_REL_TOL, f"{kernel} {what}: {name} rel err "
+                    f"{rel}")
             errs[name] = max(errs.get(name, 0.0), rel)
             worse(kernel, "max_abs_err", diff)
-    require(errs["delta"] <= FLASH_REL_TOL, f"#6 with segment ids: delta rel "
-            f"err {errs['delta']}")
+    require(errs["delta"] <= FLASH_REL_TOL, f"#6 {what}: delta rel err "
+            f"{errs['delta']}")
     del own_dq, own_dk, own_dv, whole, dq, dk, dv
     torch.cuda.empty_cache()
 
-    fwd_ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, bias, seg))
-    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
-        q, k, v, bias, out, lse, dout, seg))
-    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
-        qs, k, v, bias, dout, lse, delta, seg))
+    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd_cuda(
+        q, k, v, bias, seg)),
+        "dq": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, bias, out, lse, dout, seg)),
+        "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            qs, k, v, bias, dout, lse, delta, seg))}
     plain = {"fwd": time_ms(lambda: fa.flash_attention_plain(
         q, k, v, bias, seg), iters=3),
         "dq": time_ms(lambda: fa.flash_attention_bwd_dq_plain(
@@ -1145,86 +1162,80 @@ def check_flash_attention_segments(gen, rows: list) -> dict:
     leaves = [x.detach().contiguous().requires_grad_() for x in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_fwd = time_ms(lambda: sdpa(*leaves, attn_mask=mask))
-    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        sdpa(*leaves, attn_mask=mask), leaves, dout.contiguous()))
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, dout.contiguous())) - sdpa_fwd
     del leaves, mask
-    tiles = {"fwd": flash_mha.segment_tile_hits(
-        seg, fa.fwd_key_tile(D), fa.BLOCK).float().mean().item(),
-        "dq": flash_mha.segment_tile_hits(seg, fa.TILE,
-                                          fa.BLOCK).float().mean().item()}
-    tiles["dkv"] = tiles["dq"]  # the same table read key block first
+    share = lambda tile, block: flash_mha.segment_tile_hits(
+        seg, tile, block).float().mean().item()
+    tiles = {"fwd": share(fa.fwd_key_tile(D), fa.BLOCK),
+             "dq": share(fa.TILE, fa.BLOCK) if D <= 128 else 1.0,
+             "dkv": share(fa.TILE, fa.dkv_key_block(D))}
     pairs = needed_pairs(seg, B, L) * H
     dense = B * H * L * L
     qkvo = B * H * L * D * 2
     row = B * H * L * 4
     side = B * L * 4 * 2  # the bias and the ids
-    out_ = {"shape": f"B={B} H={H} L={L} D={D} bf16, the real packed batch "
-                     f"(PACKED_SEG_SEED), {SLOTS} slots a row",
-            "max_rel_err": errs, "pairs_needed": pairs / dense,
-            "sdpa_forward_ms": sdpa_fwd,
-            "sdpa_backward_ms": sdpa_fwd_bwd - sdpa_fwd, "kernels": {}}
-    for name, ms, gemms, nbytes in (
-            ("flash_attention_fwd", fwd_ms, 2, 4 * qkvo + row + side),
-            ("flash_attention_bwd_dq", dq_ms, 3, 7 * qkvo + 2 * row + side),
-            ("flash_attention_bwd_dkv", dkv_ms, 4, 6 * qkvo + 2 * row + side)):
-        part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
-                "flash_attention_bwd_dkv": "dkv"}[name]
+    res = {"max_rel_err": errs, "pairs_needed": pairs / dense,
+           "sdpa_forward_ms": sdpa_fwd, "sdpa_backward_ms": sdpa_bwd,
+           "kernels": {}}
+    for name, part, gemms, nbytes in (
+            ("flash_attention_fwd", "fwd", 2, 4 * qkvo + row + side),
+            ("flash_attention_bwd_dq", "dq", 3, 7 * qkvo + 2 * row + side),
+            ("flash_attention_bwd_dkv", "dkv", 4, 6 * qkvo + 2 * row + side)):
         b_ms, b_by = bound_ms(nbytes, 2.0 * gemms * pairs * D, BF16_FLOPS)
         dense_ms = bound_ms(nbytes, 2.0 * gemms * dense * D, BF16_FLOPS)[0]
-        out_["kernels"][name] = {
-            "ms": ms, "plain_ms": plain[part], "tiles_visited": tiles[part],
-            "bound_ms": b_ms, "bound_by": b_by, "dense_bound_ms": dense_ms,
-            "library_ms": sdpa_fwd if part == "fwd" else
-            sdpa_fwd_bwd - sdpa_fwd}
-        print(f"  {name} with segment ids, {out_['shape']}: {ms:.4f} ms "
-              f"(plain {plain[part]:.4f} ms); tiles visited "
-              f"{tiles[part]:.3f}, pairs needed {pairs / dense:.3f}; bound "
-              f"(needed / dense) {b_ms:.4f} / {dense_ms:.4f} ms ({b_by}); "
-              f"SDPA with the dense mask "
-              + (f"forward {sdpa_fwd:.4f} ms" if part == "fwd" else
-                 f"backward {sdpa_fwd_bwd - sdpa_fwd:.4f} ms (both passes)"),
-              flush=True)
-    print(f"  FA-2 with segment ids: max rel err " + ", ".join(
+        library = sdpa_fwd if part == "fwd" else sdpa_bwd
+        res["kernels"][name] = {
+            "ms": ms[part], "plain_ms": plain[part],
+            "tiles_visited": tiles[part], "bound_ms": b_ms, "bound_by": b_by,
+            "dense_bound_ms": dense_ms, "library_ms": library}
+        print(f"  {name} {what}, B={B} H={H} L={L}: {ms[part]:.4f} ms (plain "
+              f"{plain[part]:.4f} ms); tiles visited {tiles[part]:.3f}, pairs "
+              f"needed {pairs / dense:.3f}; bound (needed / dense) {b_ms:.4f} "
+              f"/ {dense_ms:.4f} ms ({b_by}); SDPA with the dense mask "
+              + ("forward" if part == "fwd" else "backward (both passes)")
+              + f" {library:.4f} ms", flush=True)
+    print(f"  FA-2 {what}: max rel err " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items()) + "; #6 + #7 "
-        f"{dq_ms + dkv_ms:.4f} ms against SDPA's backward "
-        f"{sdpa_fwd_bwd - sdpa_fwd:.4f} ms", flush=True)
+        f"{ms['dq'] + ms['dkv']:.4f} ms against SDPA's backward "
+        f"{sdpa_bwd:.4f} ms", flush=True)
     del q, k, v, out, lse, qs, delta, dout
     torch.cuda.empty_cache()
+    return res
 
-    # D = 256: the mma.sync instance takes the ids as a mask
-    b4, h4 = 4, 16
-    seg4, bias4 = seg[:b4].contiguous(), bias[:b4].contiguous()
-    q, k, v, _, _ = fa_inputs(b4, h4, L, 256, gen)
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v, bias4, seg4)
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, bias4, seg4)
-    torch.cuda.synchronize()
-    rel, diff = rel_err(out, ref)
-    lse_err = (lse - ref_lse).abs()[valid[:b4, None, :].expand_as(lse)].max(
-    ).item()
-    require(torch.isfinite(out.float()).all().item() and rel <= FLASH_REL_TOL
-            and lse_err <= 5e-2, f"#5 D=256 with segment ids: rel err {rel}, "
-            f"lse err {lse_err}")
-    worse("flash_attention_fwd", "max_rel_err", rel)
-    worse("flash_attention_fwd", "max_abs_err", diff)
-    ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, bias4, seg4))
-    pairs4 = needed_pairs(seg4, b4, L) * h4
-    b_ms, b_by = bound_ms(4 * b4 * h4 * L * 256 * 2 + b4 * h4 * L * 4
-                          + b4 * L * 8, 4.0 * pairs4 * 256, BF16_FLOPS)
-    out_["d256_forward"] = {"shape": f"B={b4} H={h4} L={L} D=256 bf16",
-                            "ms": ms, "max_rel_err": rel,
-                            "lse_max_abs_err": lse_err, "bound_ms": b_ms,
-                            "bound_by": b_by}
-    print(f"  flash_attention_fwd D=256 with segment ids (mma.sync, every "
-          f"tile), B={b4} H={h4} L={L}: max rel err {rel:.3e}, lse {lse_err:.3e};"
-          f" {ms:.4f} ms, needed-work bound {b_ms:.4f} ms ({b_by})", flush=True)
-    del q, k, v, out, lse, ref, ref_lse
-    torch.cuda.empty_cache()
-    common = {k: out_[k] for k in ("shape", "max_rel_err", "pairs_needed")}
-    for name, numbers in out_["kernels"].items():
-        by_name[name]["segment_ids"] = {**common, **numbers}
-    by_name["flash_attention_fwd"]["segment_ids"]["d256"] = out_[
-        "d256_forward"]
-    return out_
+
+def check_flash_attention_segments(gen, rows: list) -> dict:
+    """#5, #6 and #7 with segment ids on train_packed's real packed batch
+    (`make_packed_batch` from PACKED_SEG_SEED: the hub's ids, 16 rows of
+    1024, 16 slots), `fa_segment_case` at the ESM2-15B width's heads (B=16
+    H=40 L=1024 D=128) and at heads of 256 on the batch's first 4 rows (16
+    heads: #5 and #7 skip the tiles of other id ranges, #6's mma.sync
+    instance masks by the ids and visits every tile). Folds the errors into
+    `rows` and returns the numbers, which the rows of #5-#7 carry as
+    `segment_ids` (D = 256 under its `d256`)."""
+    seg = torch.from_numpy(make_packed_batch(np.random.RandomState(
+        PACKED_SEG_SEED))["seq"]["segment_ids"]).cuda()
+    by_name = {r["name"]: r for r in rows}
+
+    def worse(name, key, value):
+        row = by_name[name]
+        if isinstance(row[key], dict):
+            return
+        row[key] = max(row[key], value)
+
+    res = fa_segment_case(gen, seg, 40, 128, worse)
+    res["shape"] = (f"B={ROWS} H=40 L={ROW_LEN} D=128 bf16, the real packed "
+                    f"batch (PACKED_SEG_SEED), {SLOTS} slots a row")
+    d256 = fa_segment_case(gen, seg[:4].contiguous(), 16, 256, worse)
+    d256["shape"] = (f"B=4 H=16 L={ROW_LEN} D=256 bf16, the first 4 rows of "
+                     f"the real packed batch")
+    res["d256"] = d256
+    keys = ("shape", "max_rel_err", "pairs_needed")
+    for name, numbers in res["kernels"].items():
+        by_name[name]["segment_ids"] = {
+            **{k: res[k] for k in keys}, **numbers,
+            "d256": {**{k: d256[k] for k in keys}, **d256["kernels"][name]}}
+    return res
 
 
 def check_flash_packed(out, lse, q, k, v, H, side, valid, fwd_row, what):
@@ -3955,6 +3966,74 @@ def serve_wide_hub(smi: str, launches: dict):
     return result, state2, cfg
 
 
+def heads_256_phase(launches: dict) -> dict:
+    """A 2-layer ESM2-layout hub with 4 heads of 256 (HEADS_256, random
+    weights from a seed) on B=4 rows of L=1024 tokens with ragged padded
+    tails, forward and backward through Esm2SelfAttention (an upstream
+    gradient from numpy, zero on padding): on the card (bf16) each layer
+    launches #5 once forward and #6 and #7 once backward, exactly (the
+    counters set to 0 before the card's pass, read after it, as the path
+    "heads 256"), against the CPU (f32, plain versions) on the same weights:
+    cosine >= 0.99 of the real tokens' hidden states and of the parameters'
+    gradients (all of them as one vector; the worst single tensor's
+    printed)."""
+    t0 = time.time()
+    cfg = HEADS_256
+    B, L = HEADS_256_ROWS
+    rng = np.random.RandomState(25)
+    ids = rng.randint(4, 24, size=(B, L)).astype(np.int64)
+    lens = rng.randint(L // 2, L + 1, size=B)
+    lens[0] = L
+    for b, n in enumerate(lens):
+        ids[b, 0], ids[b, n - 1], ids[b, n:] = 0, 2, 1
+    real = torch.from_numpy(ids != cfg.pad_token_id)
+    upstream = torch.from_numpy(rng.randn(B, L, cfg.hidden_size).astype(
+        np.float32)) * real[..., None]
+    card = esm2.Esm2(cfg)
+    esm2.init_esm2_weights_(card, torch.Generator(device="cuda").manual_seed(25))
+    cpu = esm2.Esm2(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+    outs, grads = [], []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        if dev == "cuda":
+            reset_launches()
+        hidden = model(torch.from_numpy(ids).to(dev))
+        (hidden.float() * upstream.to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches["heads 256"] = read_launches()
+            plain_on_card = {n: c for n, c in PLAIN_CALLS.items() if c}
+        outs.append(hidden.detach().float().cpu()[real])
+        grads.append([p.grad for p in model.parameters()])
+    none = {name: 0 for name in LAUNCHERS}
+    want = {**none, "flash_attention_fwd": cfg.num_layers,
+            "flash_attention_bwd_dq": cfg.num_layers,
+            "flash_attention_bwd_dkv": cfg.num_layers}
+    require(launches["heads 256"] == want,
+            f"heads of 256: launches {launches['heads 256']}, want {want}")
+    require(not plain_on_card,
+            f"heads of 256: plain versions ran on the card: {plain_on_card}")
+    out_cos = cosine(flat(outs[:1]), flat(outs[1:]))
+    grad_cos = cosine(flat(grads[0]), flat(grads[1]))
+    worst = min(cosine(flat([a]), flat([b])) for a, b in zip(*grads)
+                if b.abs().sum() > 0)
+    secs = time.time() - t0
+    print(f"  heads of 256 ({cfg.num_layers} x {cfg.hidden_size}, "
+          f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}), "
+          f"B={B} L={L}: card vs CPU cosine {out_cos:.6f} (hidden states, "
+          f"real tokens), {grad_cos:.6f} (gradients; worst tensor "
+          f"{worst:.6f}), gate >= 0.99; launches {launches['heads 256']}; "
+          f"{secs:.1f} s", flush=True)
+    require(out_cos >= 0.99 and grad_cos >= 0.99,
+            f"heads of 256: cosines {out_cos}, {grad_cos} < 0.99")
+    del card, cpu, outs, grads
+    torch.cuda.empty_cache()
+    return {"config": dataclasses.asdict(cfg), "rows": [B, L],
+            "hidden_cosine": out_cos, "grad_cosine": grad_cos,
+            "worst_tensor_grad_cosine": worst, "launches": launches["heads 256"],
+            "s": secs}
+
+
 def wide_hub_parity(state: dict, cfg) -> dict:
     """The 15B-width hub's first 2 layers and its head, card (bf16, kernels)
     against CPU (f32, plain versions), on WIDE_PARITY_ROWS sequences through
@@ -6180,6 +6259,15 @@ def main() -> int:
     for name in _build.SIGNATURES:
         for instance, line in ptxas_report(_build.build_log(name)):
             print(f"  {name} {instance}: {line}", flush=True)
+            # the heads-of-256 instances of #5 and #7 keep their registers
+            wide = ("flash_attention_fwd_wgmmaILi256E" in line
+                    or "flash_attention_bwd_dkv_wgmmaILi4E" in line
+                    if instance == "note" else
+                    instance.startswith(("flash_attention_fwd_wgmma<256,",
+                                         "flash_attention_bwd_dkv_wgmma<4,")))
+            require(not wide or (instance != "note" and " 0 bytes spill stores"
+                                 in line),
+                    f"{name} {instance}: spills or serialised wgmma: {line}")
 
     phase("host library: g++ build, each entry point against its plain "
           "version, timed")
@@ -6199,6 +6287,11 @@ def main() -> int:
     tied_row = next(r for r in rows if r["name"] == "tied_row_attention")
     tied_row["narrow_heads"] = check_tied_row_narrow(gen)
 
+    phase("heads of 256: a 2-layer ESM2-layout hub, 4 heads of 256, forward "
+          "and backward, card (bf16, kernels) vs CPU (f32, plain)")
+    launches = {}  # path -> {kernel: launches in that path's run}
+    heads_256 = heads_256_phase(launches)
+
     phase("serving: ESM2-650M hub, bf16")
     rng = np.random.RandomState(0)
     requests = [sample_seqs(32, rng) for _ in range(3)]
@@ -6207,7 +6300,6 @@ def main() -> int:
     enc = create_sequence_encoder(proj_type="mlp")
     esm2.init_esm2_weights_(enc, torch.Generator(device="cuda").manual_seed(0))
     embedder = OneProtEmbedder(OneProtModel({"sequence": enc}), buckets=BUCKETS)
-    launches = {}  # path -> {kernel: launches in that path's run}
     reset_launches()
     reset_native()
     feats_bf16, secs_bf16 = serve(embedder, requests, "bf16 hub")
@@ -6447,6 +6539,7 @@ def main() -> int:
                     "parity_mean_cosine": parity,
                     "peak_gib": peak_gb},
         "wide_hub_serving": wide,
+        "heads_256": heads_256,
         "msa_serving": msa,
         "training": {**train, "parity": train_parity},
         "trainer": trainer,

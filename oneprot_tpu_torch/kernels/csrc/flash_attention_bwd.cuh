@@ -1,9 +1,8 @@
 // Device helpers shared by the two FlashAttention-2 backward passes
 // (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): their parameters,
 // the dq pass's prologue arithmetic (q pre-scaled once, delta), and, for
-// their mma.sync instances (heads wider than 128), the cp.async copies of
-// row tiles into shared memory and the two fragment products every pass
-// takes. The mma/ldmatrix primitives and fragment layouts are
+// the dq pass's mma.sync instance (heads wider than 128), the cp.async
+// copies of row tiles into shared memory and its two fragment products. The mma/ldmatrix primitives and fragment layouts are
 // flash_mha_common.cuh's; the wgmma, TMA and mbarrier ones hopper.cuh's.
 
 #pragma once

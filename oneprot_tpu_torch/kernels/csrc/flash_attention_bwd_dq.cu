@@ -39,9 +39,9 @@
 // +inf. Heads narrower than 128 are zero-filled by TMA up to 64 or 128.
 //
 // Heads wider than 128 (`sm80`): the first, mma.sync version, chosen by
-// head width at compile time. At 256 a 64 x 256 f32 dK/dV pair would not
-// fit wgmma's accumulators in the dk/dv pass, so both passes keep it there:
-// one CTA of four warps per 64 query rows, q and dO in shared memory, key
+// head width at compile time (the dk/dv pass has a wgmma instance for them;
+// this one is still to be redesigned): one CTA of four warps per 64 query
+// rows, q and dO in shared memory, key
 // tiles of 32 through a two-stage cp.async ring, mma.sync m16n8k16 with
 // ldmatrix fragments. Its prologue scales q in shared memory once and
 // writes q_s and delta the same way.

@@ -12,10 +12,11 @@
 // Only the fresh P is a register operand: Q stays in shared memory.
 //
 // Head layouts (`Head<DP>`): DP = 32 is one block of 32 columns in 64-byte
-// rows (64-byte swizzle: a head of 24 pads to 32, not 64); DP = 64 and 128
-// are one or two blocks of 64 columns in 128-byte rows (128-byte swizzle);
-// see hopper.cuh. TMA writes them, zero-filling rows past L and columns
-// past the head dim.
+// rows (64-byte swizzle: a head of 24 pads to 32, not 64); DP = 64, 128 and
+// 256 are one, two or four blocks of 64 columns in 128-byte rows (128-byte
+// swizzle); see hopper.cuh. TMA writes them, zero-filling rows past L and
+// columns past the head dim. At DP = 256 the O accumulator is 128 registers
+// a consumer thread and P V one m64n256k16 a key-step.
 
 #pragma once
 
@@ -35,9 +36,10 @@ constexpr float ROW_MAX0 = -1e30f;  // the TPU kernels' starting row max
 
 template <int DP>
 struct Head {
-  static_assert(DP == 32 || DP == 64 || DP == 128, "heads of 32, 64 or 128 columns");
-  static constexpr int RB = DP == 32 ? 64 : 128;  // bytes of a row of a block
-  static constexpr int NB = DP == 128 ? 2 : 1;    // blocks of the head
+  static_assert(DP == 32 || DP == 64 || DP == 128 || DP == 256,
+                "heads of 32, 64, 128 or 256 columns");
+  static constexpr int RB = DP == 32 ? 64 : 128;   // bytes of a row of a block
+  static constexpr int NB = DP == 32 ? 1 : DP / 64;  // blocks of the head
   static constexpr int BOX_COLS = RB / 2;         // columns of a block (a TMA box)
   static constexpr int KPB = RB / 32;             // 16-column k-steps of a block
   static constexpr CUtensorMapSwizzle SWIZZLE =
@@ -86,17 +88,35 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2], const uint32_t (&a)
     wgmma_rs_m64n32_tb(d, a, db, 1);
   else if constexpr (DP == 64)
     wgmma_rs_m64n64_tb(d, a, db, 1);
-  else
+  else if constexpr (DP == 128)
     wgmma_rs_m64n128_tb(d, a, db, 1);
+  else
+    wgmma_rs_m64n256_tb(d, a, db, 1);
+}
+
+// Wait for a phase of the ring: trapping after 10 s at heads up to 128; at
+// DP = 256 without the trap, which would hold the consumers to 168 registers
+// (hopper.cuh: mbar_wait_or_trap) where O alone takes 128.
+template <int DP>
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
+  if constexpr (DP == 256)
+    mbar_wait(bar, parity);
+  else
+    mbar_wait_or_trap(bar, parity);
 }
 
 // The key tiles of a ring of ST stages in shared memory: tile `it` is in
 // stage it % ST, K at `k_addr + s * stage_bytes`, V `v_off` bytes after it.
+// A split ring (`attend`'s SPLIT) guards K and V by barriers of their own:
+// `ready` and `empty` are K's, `v_ready` and `v_empty` V's, so K's half of
+// a stage is refilled as soon as its S and logits are done, a tile before V's.
 struct Ring {
   uint32_t k_addr;
   int stage_bytes, v_off;
   uint64_t* ready;  // [ST]: the stage's tile may be read
   uint64_t* empty;  // [ST]: every consumer thread is done with the stage
+  uint64_t* v_ready;  // [ST], split rings only
+  uint64_t* v_empty;
 };
 
 // Issue S = Q K^T (64 x BK, f32) for the consumer's rows of Q (at q_addr,
@@ -127,8 +147,10 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t q_desc, ui
 // issued behind it, so the tensor cores go from one to the other. The two
 // consumer warpgroups take turns to issue their products (FA-3's
 // ping-pong: a named barrier each, 256 threads, warpgroup 0 first), so one
-// computes its softmax while the other's products run.
-template <int DP, int BK, int ST, typename Logits>
+// computes its softmax while the other's products run. SPLIT (a split
+// Ring): K's half of the stage is released once the tile's logits are
+// read, V's once its P V has completed, and P V waits for V alone.
+template <int DP, int BK, int ST, bool SPLIT = false, typename Logits>
 __device__ __forceinline__ void attend(float (&o)[DP / 2], float (&m)[2], float (&l)[2],
                                        uint32_t q_addr, const Ring& ring, int count,
                                        Logits logits) {
@@ -146,15 +168,21 @@ __device__ __forceinline__ void attend(float (&o)[DP / 2], float (&m)[2], float 
   const uint64_t q_desc = Hd::kmajor(q_addr);
   const int wg = threadIdx.x / 128 - 1;  // this consumer warpgroup, 0 or 1
   if (wg == 1) named_bar_arrive(BAR_TURN, CONSUMERS);
-  mbar_wait_or_trap(&ring.ready[0], 0);
+  ring_wait<DP>(&ring.ready[0], 0);
   issue_s<DP, BK>(sc, q_desc, ring.k_addr);
   for (int it = 0; it < count; ++it) {
     const int s = it % ST;
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(o);
-    if (it > 0) mbar_arrive(&ring.empty[(it - 1) % ST]);
-    logits(sc, s);
+    if constexpr (SPLIT) {
+      if (it > 0) mbar_arrive(&ring.v_empty[(it - 1) % ST]);
+      logits(sc, s);
+      mbar_arrive(&ring.empty[s]);  // K and the tile's bias are read
+    } else {
+      if (it > 0) mbar_arrive(&ring.empty[(it - 1) % ST]);
+      logits(sc, s);
+    }
 
     // online softmax over the tile, in base 2
     float mx[2] = {-INFINITY, -INFINITY};
@@ -198,13 +226,14 @@ __device__ __forceinline__ void attend(float (&o)[DP / 2], float (&m)[2], float 
     fence_regs(pa);
     const uint64_t v_desc =
         Hd::template mnmajor<BK>(ring.k_addr + s * ring.stage_bytes + ring.v_off);
+    if constexpr (SPLIT) ring_wait<DP>(&ring.v_ready[s], (it / ST) & 1);
     named_bar_sync(BAR_TURN + wg, CONSUMERS);  // this warpgroup's turn
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PS; ++kk) wgmma_pv<DP>(o, pa[kk], v_desc + kk * Hd::MN_STEP);
     wgmma_commit();
     if (it + 1 < count) {
-      mbar_wait_or_trap(&ring.ready[(it + 1) % ST], ((it + 1) / ST) & 1);
+      ring_wait<DP>(&ring.ready[(it + 1) % ST], ((it + 1) / ST) & 1);
       issue_s<DP, BK>(sc, q_desc, ring.k_addr + ((it + 1) % ST) * ring.stage_bytes);
     }
     // the other's turn (warpgroup 1's last arrival would find no one waiting)
@@ -212,7 +241,10 @@ __device__ __forceinline__ void attend(float (&o)[DP / 2], float (&m)[2], float 
   }
   wgmma_wait<0>();
   fence_regs(o);
-  mbar_arrive(&ring.empty[(count - 1) % ST]);
+  if constexpr (SPLIT)
+    mbar_arrive(&ring.v_empty[(count - 1) % ST]);
+  else
+    mbar_arrive(&ring.empty[(count - 1) % ST]);
 }
 
 // The end of `attend` for the thread's two rows: the quad's partial sums

@@ -1,5 +1,5 @@
-// Device helpers shared by the mma.sync kernels (the FlashAttention-2
-// instances for heads of 256) and the wgmma kernels:
+// Device helpers shared by the mma.sync kernel (the FlashAttention-2 dq
+// pass's instance for heads over 128) and the wgmma kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads, the mma.sync
 // m16n8k16 bf16 product with f32 accumulation, bf16 packing, dot8 and
 // row_sum.

@@ -40,16 +40,22 @@ from oneprot_tpu_torch.kernels.flash_mha import SEG_MASK
 MIN_HEAD_DIM, MAX_HEAD_DIM = 64, 256
 # the kernels' tiles, for the skip rule (`flash_mha.segment_tile_hits`): a
 # CTA of #5 and #6 holds BLOCK query rows and streams key tiles (of
-# `fwd_key_tile(D)` keys in #5, TILE in #6); a CTA of #7 holds BLOCK keys
-# and streams query tiles of TILE
+# `fwd_key_tile(D)` keys in #5, TILE in #6); a CTA of #7 holds
+# `dkv_key_block(D)` keys and streams query tiles of TILE
 BLOCK, TILE = 128, 64
 
 
 def fwd_key_tile(head_dim: int) -> int:
-    """Keys of a tile of the Hopper forward: 128 for heads up to 64 wide,
-    64 up to 128 (heads of 256 take the mma.sync instance, which visits
-    every tile)."""
+    """Keys of a tile of the forward (#5): 128 for heads up to 64 wide, 64
+    above (up to 128, and the instance for 256)."""
     return 128 if head_dim <= 64 else 64
+
+
+def dkv_key_block(head_dim: int) -> int:
+    """Keys of a CTA of the dk/dv kernel (#7): BLOCK for heads up to 128
+    wide, 64 for the instance for 256 (whose two consumer warpgroups split
+    dK's and dV's columns, not the keys)."""
+    return BLOCK if head_dim <= 128 else 64
 
 
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

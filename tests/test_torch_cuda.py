@@ -548,6 +548,11 @@ def _fa_inputs(B, H, Lq, Lk, D, card, seed, layout):
     (2, 2, 70, 300, 256, "heads", True),        # Lq != Lk at 256
     (2, 3, 1, 1, 64, "contiguous", True),       # L = 1 at 64
     (1, 2, 1, 1, 256, "heads", True),           # L = 1 at 256
+    (2, 2, 300, 300, 256, "heads", True),       # ragged at 256
+    (2, 2, 333, 129, 256, "heads", True),       # Lq > Lk at 256
+    (2, 3, 300, 300, 192, "heads", True),       # 192, zero-filled to 256
+    (2, 3, 200, 333, 136, "contiguous", True),  # 136, zero-filled; Lq < Lk
+    (1, 2, 1, 1, 136, "heads", True),           # L = 1 at 136
 ])
 def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
                                               biased):
@@ -569,7 +574,8 @@ def test_flash_attention_kernel_matches_plain(card, B, H, Lq, Lk, D, layout,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,L", [(64, 300), (128, 1024), (256, 200)])
+@pytest.mark.parametrize("D,L", [(64, 300), (128, 1024), (256, 200),
+                                 (256, 1024), (192, 300)])
 def test_flash_attention_forward_all_keys_masked(card, D, L):
     """A batch element whose keys are all masked (bias -1e9 everywhere):
     the row max starts at -1e30 and the logits sit near -1.44e9, so every
@@ -593,11 +599,17 @@ def test_flash_attention_forward_all_keys_masked(card, D, L):
     (2, 4, 256, 256, 128, "heads", True),       # the 15B head width
     (2, 4, 300, 300, 128, "heads", True),       # ragged: L % 64 != 0
     (2, 4, 1024, 1024, 64, "contiguous", True),
-    (2, 2, 512, 512, 256, "heads", True),       # dk/dv's split-D instance
+    (2, 2, 512, 512, 256, "heads", True),       # heads of 256
     (1, 3, 37, 37, 256, "contiguous", False),   # shorter than one tile
     (2, 3, 130, 77, 96, "contiguous", True),    # Lq != Lk; D between instances
     (1, 1, 1, 5, 128, "heads", False),          # one query (with one key, dq
-])                                              # and dk are 0)
+                                                # and dk are 0)
+    (2, 2, 300, 300, 256, "heads", True),       # ragged at 256
+    (2, 2, 1024, 1024, 256, "heads", True),     # 16 key blocks of 64 at 256
+    (2, 3, 130, 77, 192, "contiguous", True),   # 192, zero-filled; Lq > Lk
+    (2, 2, 200, 333, 136, "heads", True),       # 136, zero-filled; Lq < Lk
+    (1, 2, 1, 5, 256, "heads", False),          # one query at 256
+])
 def test_flash_attention_backward_kernels_match_plain(card, B, H, Lq, Lk, D,
                                                       layout, biased):
     """Gradients through flash_attention on the card (the forward, dq and
@@ -674,7 +686,8 @@ def test_flash_attention_backward_kernels_at_the_lora_buckets(card, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,L", [(128, 300), (64, 256), (256, 200)])
+@pytest.mark.parametrize("D,L", [(128, 300), (64, 256), (256, 200),
+                                 (256, 1024), (136, 300)])
 def test_flash_attention_backward_all_keys_masked(card, D, L):
     """A batch element whose keys are all masked (bias -1e9 everywhere, lse
     near -1.44e9) comes out finite and right: keys past Lk must not take
@@ -758,10 +771,12 @@ def _fa_segments(B, L, card, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,L", [(72, 200), (128, 200), (128, 1024),
-                                 (64, 300), (256, 256)])
+                                 (64, 300), (256, 256), (256, 1024),
+                                 (192, 300), (136, 1024)])
 def test_flash_attention_kernels_with_segment_ids(card, D, L):
-    """#5, #6 and #7 with segment ids (packed rows; Hopper instances skip
-    the tiles of other segments, heads of 256 mask only) against their
+    """#5, #6 and #7 with segment ids (packed rows; the wgmma instances skip
+    the tiles of other segments, #6's mma.sync one for heads over 128 masks
+    only) against their
     plain versions on the same ids: out and lse, then each backward kernel
     against its own plain version and the whole plain backward; padded
     rows finite."""

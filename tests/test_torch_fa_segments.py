@@ -15,8 +15,9 @@ their plain versions build the mask from them at -1e30. Held here:
   plain backward, bit for bit (f32 and bf16);
 - `dot_product_attention(segment_ids=)` and its autograd against JAX's
   `dot_product_attention` on the dense mask;
-- `segment_tile_hits` at the FA kernels' tile shapes (hypothesis): no pair
-  of equal ids is dropped;
+- `segment_tile_hits` at the FA kernels' tile shapes (hypothesis, heads of
+  64, 128 and 256; and the heads-of-256 tiles on fixed rows, with the
+  tables' sizes): no pair of equal ids is dropped;
 - one packed LoRA step of a hub with heads of 128 (a config.json in a
   temporary directory) and the tiny tower, against the JAX module: loss,
   clipped gradients and the update.
@@ -167,14 +168,34 @@ def test_ids_need_self_attention():
 
 # -- the skip rule at the FA kernels' tiles ------------------------------------
 
+def _tile_tables(seg, D):
+    """The skip rule's tables at the kernels' tiles for heads of D: #5
+    (query blocks of BLOCK, key tiles of fwd_key_tile(D)), #6 (blocks of
+    BLOCK, key tiles of TILE) and #7 (key blocks of dkv_key_block(D), query
+    tiles of TILE; the table read key block first)."""
+    ids = torch.from_numpy(seg.astype(np.int32))
+    return (flash_mha.segment_tile_hits(ids, fa.fwd_key_tile(D), fa.BLOCK),
+            flash_mha.segment_tile_hits(ids, fa.TILE, fa.BLOCK),
+            flash_mha.segment_tile_hits(ids, fa.TILE, fa.dkv_key_block(D)))
+
+
+def _assert_pairs_visited(seg, D):
+    fwd, dq, dkv = _tile_tables(seg, D)
+    b, i, j = np.nonzero(seg[:, :, None] == seg[:, None, :])  # query i, key j
+    assert fwd[b, i // fa.BLOCK, j // fa.fwd_key_tile(D)].all()
+    assert dq[b, i // fa.BLOCK, j // fa.TILE].all()
+    assert dkv[b, j // fa.dkv_key_block(D), i // fa.TILE].all()
+
+
 @settings(max_examples=40, deadline=None)
-@given(st.integers(1, 3), st.integers(1, 600), st.sampled_from([64, 128]),
+@given(st.integers(1, 3), st.integers(1, 600), st.sampled_from([64, 128, 256]),
        st.sampled_from(["contiguous", "shuffled", "padding"]),
        st.integers(0, 2**31 - 1))
 def test_fa_tile_shapes_never_drop_a_pair_of_equal_ids(B, L, D, kind, seed):
     """#5 (query blocks of 128, key tiles of fwd_key_tile(D)), #6 (blocks
-    of 128, key tiles of 64) and #7 (key blocks of 128, query tiles of 64):
-    every (query, key) pair of equal ids lies in a visited pair."""
+    of 128, key tiles of 64) and #7 (key blocks of dkv_key_block(D), query
+    tiles of 64): every (query, key) pair of equal ids lies in a visited
+    pair."""
     rng = np.random.RandomState(seed)
     if kind == "padding":
         seg = np.where(rng.rand(B, L) < 0.95, -1, 3)
@@ -186,14 +207,37 @@ def test_fa_tile_shapes_never_drop_a_pair_of_equal_ids(B, L, D, kind, seed):
                 seg[b, lo:hi] = i
             if kind == "shuffled":
                 seg[b] = rng.permutation(seg[b])
-    ids = torch.from_numpy(seg.astype(np.int32))
-    fwd = flash_mha.segment_tile_hits(ids, fa.fwd_key_tile(D), fa.BLOCK)
-    dq = flash_mha.segment_tile_hits(ids, fa.TILE, fa.BLOCK)
-    b, i, j = np.nonzero(seg[:, :, None] == seg[:, None, :])  # query i, key j
-    assert fwd[b, i // fa.BLOCK, j // fa.fwd_key_tile(D)].all()
-    assert dq[b, i // fa.BLOCK, j // fa.TILE].all()
-    # #7: its CTA holds the keys, so the same table read key block first
-    assert dq[b, j // fa.BLOCK, i // fa.TILE].all()
+    _assert_pairs_visited(seg, D)
+
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 300, 1024])
+def test_fa_tile_shapes_at_heads_of_256(L):
+    """The tiles of the heads-of-256 instances: #5 streams key tiles of 64
+    against query blocks of 128, #7 holds 64 keys a CTA against query tiles
+    of 64. The tables list every (block, tile) pair that holds a pair of
+    equal ids, on contiguous packing with a padded tail and on shuffled
+    ids, and no tile past L: ceil(L / rows) of each kind."""
+    assert (fa.fwd_key_tile(256), fa.dkv_key_block(256)) == (64, 64)
+    assert (fa.fwd_key_tile(128), fa.dkv_key_block(128)) == (64, fa.BLOCK)
+    rng = np.random.RandomState(L)
+    seg = np.full((2, L), -1)
+    cuts = np.sort(rng.randint(0, L + 1, size=4))
+    for i, (lo, hi) in enumerate(zip([0, *cuts[:-1]], cuts)):
+        seg[0, lo:hi] = i
+    seg[1] = rng.permutation(seg[0])
+    fwd, dq, dkv = _tile_tables(seg, 256)
+    up = lambda rows: -(-L // rows)
+    assert tuple(fwd.shape) == (2, up(fa.BLOCK), up(64))
+    assert tuple(dq.shape) == (2, up(fa.BLOCK), up(fa.TILE))
+    assert tuple(dkv.shape) == (2, up(64), up(fa.TILE))
+    _assert_pairs_visited(seg, 256)
+    # contiguous packing is tight: a key block and a query tile meet exactly
+    # when they share an id (or both hold padding)
+    for kb in range(up(64)):
+        for qt in range(up(fa.TILE)):
+            keys = set(seg[0, kb * 64:(kb + 1) * 64])
+            queries = set(seg[0, qt * fa.TILE:(qt + 1) * fa.TILE])
+            assert bool(dkv[0, kb, qt]) == bool(keys & queries)
 
 
 # -- the packed LoRA step at heads of 128 --------------------------------------

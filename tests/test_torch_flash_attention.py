@@ -4,11 +4,14 @@ reaches it (heads wider than 64) against the JAX package, on the CPU.
 Kernel level: `flash_attention_plain` against the JAX Pallas kernel in
 interpret mode and against the JAX `reference_attention`; the port's
 `dot_product_attention` against JAX's (which takes its reference path on
-the CPU) at D = 24 (the padded branch), 128 and 256. Model level: a tiny
-ESM2 with heads of 128 (2 layers of 256, 2 heads, FFN 512), written as an
-HF config.json, resolved by both packages, carried over with `convert`,
-through `Esm2`, `SequenceEncoder` and `embed_sequences`. The committed
-ESM2-15B config resolves to its published widths in both packages.
+the CPU) at D = 24 (the padded branch), 128 and 256. Model level: tiny
+ESM2s with 2 heads of 128 (2 layers of 256, FFN 512) and of 256 (2 layers
+of 512, FFN 1024), written as HF config.json files and resolved by both
+packages, on the same weights (drawn with numpy, carried over with
+`convert`): `Esm2`'s forward, unpacked and on packed rows, and every
+parameter's gradient; at heads of 128 also `SequenceEncoder` and
+`embed_sequences`. The committed ESM2-15B config resolves to its
+published widths in both packages.
 """
 
 import dataclasses
@@ -153,13 +156,28 @@ def test_cuda_launcher_refuses_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
-# model level: a tiny ESM2 with heads of 128, from a config.json
+# model level: a tiny ESM2 with heads of 128 or 256, from a config.json
+
+
+def _tiny_hf(head_dim):
+    """TINY_HF at 2 heads of `head_dim` (FFN 4x the width)."""
+    return {**TINY_HF, "hidden_size": 2 * head_dim,
+            "intermediate_size": 4 * head_dim}
 
 
 @pytest.fixture(scope="module")
 def tiny_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("esm2_tiny_d128")
     (root / "config.json").write_text(json.dumps(TINY_HF))
+    return root
+
+
+@pytest.fixture(scope="module", params=[128, 256], ids=lambda d: f"d{d}")
+def esm2_dir(request, tmp_path_factory):
+    """A config.json of 2 layers with 2 heads of 128 (TINY_HF) or 256: the
+    FlashAttention-2 kernels' instances for heads up to 128 and above."""
+    root = tmp_path_factory.mktemp(f"esm2_tiny_d{request.param}")
+    (root / "config.json").write_text(json.dumps(_tiny_hf(request.param)))
     return root
 
 
@@ -174,6 +192,17 @@ def _ids(B=3, L=24, seed=0):
     return ids
 
 
+def _packed_ids():
+    """Two packed rows of 32 tokens: two proteins a row, the second row's
+    second one shorter, then padding (segment id -1)."""
+    ids = np.random.RandomState(4).randint(4, 24, size=(2, 32)).astype(np.int32)
+    seg = np.repeat(np.where(np.arange(32) < 14, 0, 1)[None], 2, 0)
+    ids[:, [0, 14]], ids[:, [13, 31]] = 0, 2  # two proteins a row
+    ids[1, 24], ids[1, 25:], seg[1, 25:] = 2, 1, -1  # a shorter one, padding
+    ids[0, [3, 20]] = 32  # <mask> tokens: per-protein token-dropout rescale
+    return ids, seg.astype(np.int32)
+
+
 def _perturbed(params, seed=1):
     """Every leaf moved off its init, so LayerNorms and biases count."""
     leaves, treedef = jax.tree_util.tree_flatten(params)
@@ -183,15 +212,33 @@ def _perturbed(params, seed=1):
         for x, key in zip(leaves, keys)])
 
 
+def _random_esm2_params(cfg, seed=0):
+    """JAX `Esm2` params drawn with numpy at the shapes `init` gives (no
+    init run): kernels N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.05^2),
+    every other leaf N(0, 0.05^2), so that LayerNorms and biases count."""
+    rng = np.random.RandomState(seed)
+    shapes = jax.eval_shape(lambda: jesm2.Esm2(cfg).init(
+        jax.random.PRNGKey(0), jnp.asarray(_ids())))["params"]
+
+    def draw(path, x):
+        name = jax.tree_util.keystr(path)
+        sd = x.shape[0] ** -0.5 if "kernel" in name else 0.05
+        a = rng.normal(0.0, sd, size=x.shape).astype(np.float32)
+        return jnp.asarray(a + 1.0 if "scale" in name else a)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def _numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def test_config_json_resolves_alike(tiny_dir):
-    ours = esm2.resolve_esm2_config(str(tiny_dir))
-    theirs = jesm2.resolve_esm2_config(str(tiny_dir))
+def test_config_json_resolves_alike(esm2_dir):
+    ours = esm2.resolve_esm2_config(str(esm2_dir))
+    theirs = jesm2.resolve_esm2_config(str(esm2_dir))
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    assert ours.hidden_size // ours.num_heads == 128
+    spec = json.loads((esm2_dir / "config.json").read_text())
+    assert ours.hidden_size // ours.num_heads == spec["hidden_size"] // 2
 
 
 def test_committed_15b_config_resolves_in_both():
@@ -205,39 +252,34 @@ def test_committed_15b_config_resolves_in_both():
 
 
 @pytest.fixture(scope="module")
-def tiny_esm2(tiny_dir):
-    cfg = jesm2.resolve_esm2_config(str(tiny_dir))
-    params = jesm2.Esm2(cfg).init(jax.random.PRNGKey(0),
-                                  jnp.asarray(_ids()))["params"]
-    params = _perturbed(params)
-    model = esm2.Esm2(esm2.resolve_esm2_config(str(tiny_dir)), device="cpu",
+def tiny_esm2(esm2_dir):
+    """(JAX config, params, the port's f32 CPU Esm2 on the same weights, a
+    jitted JAX forward (params, ids, segment ids or None))."""
+    cfg = jesm2.resolve_esm2_config(str(esm2_dir))
+    params = _random_esm2_params(cfg)
+    model = esm2.Esm2(esm2.resolve_esm2_config(str(esm2_dir)), device="cpu",
                       dtype=torch.float32)
     model.load_state_dict(convert.esm2_state_dict(_numpy_tree(params)))
-    return cfg, params, model
+    forward = jax.jit(lambda p, ids, seg: jesm2.Esm2(cfg).apply(
+        {"params": p}, ids, segment_ids=seg))
+    return cfg, params, model, forward
 
 
 def test_esm2_d128_matches_jax(tiny_esm2):
-    cfg, params, model = tiny_esm2
+    cfg, params, model, forward = tiny_esm2
     ids = _ids()
-    ref = np.asarray(jesm2.Esm2(cfg).apply({"params": params},
-                                           jnp.asarray(ids)))
+    ref = np.asarray(forward(params, jnp.asarray(ids), None))
     with torch.no_grad():
         out = model(torch.from_numpy(ids).long()).numpy()
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
 
 
 def test_esm2_d128_packed_rows_match_jax(tiny_esm2):
-    """Packed rows at heads of 128 on the CPU: the dense segment mask and
-    plain attention, as the JAX layer's reference path."""
-    cfg, params, model = tiny_esm2
-    ids = np.random.RandomState(4).randint(4, 24, size=(2, 32)).astype(np.int32)
-    seg = np.repeat(np.where(np.arange(32) < 14, 0, 1)[None], 2, 0)
-    ids[:, [0, 14]], ids[:, [13, 31]] = 0, 2  # two proteins a row
-    ids[1, 24], ids[1, 25:], seg[1, 25:] = 2, 1, -1  # a shorter one, padding
-    ids[0, [3, 20]] = 32  # <mask> tokens: per-protein token-dropout rescale
-    seg = seg.astype(np.int32)
-    ref = np.asarray(jesm2.Esm2(cfg).apply(
-        {"params": params}, jnp.asarray(ids), segment_ids=jnp.asarray(seg)))
+    """Packed rows at heads of 128 and 256 on the CPU: the dense segment
+    mask and plain attention, as the JAX layer's reference path."""
+    cfg, params, model, forward = tiny_esm2
+    ids, seg = _packed_ids()
+    ref = np.asarray(forward(params, jnp.asarray(ids), jnp.asarray(seg)))
     with torch.no_grad():
         out = model(torch.from_numpy(ids).long(),
                     segment_ids=torch.from_numpy(seg)).numpy()
@@ -245,8 +287,50 @@ def test_esm2_d128_packed_rows_match_jax(tiny_esm2):
     np.testing.assert_allclose(out[real], ref[real], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_esm2_gradients_match_jax(tiny_esm2, packed, monkeypatch):
+    """Every parameter's gradient of sum(hidden * g) (g from numpy, zero on
+    padding, scaled to unit norm as a mean loss would be, so the gradients
+    are O(1) and the bar is the f32 one of the forward) against jax.grad of
+    the JAX Esm2 on the same weights. Unpacked
+    rows reach `_FlashAttention` (the kernels' autograd Function; its plain
+    forward and backward on the CPU) once a layer each way; packed rows take
+    the dense segment mask on the CPU, as the JAX layer does."""
+    cfg, params, model, _ = tiny_esm2
+    ids, seg = _packed_ids() if packed else (_ids(), None)
+    real = ids != cfg.pad_token_id if seg is None else seg >= 0
+    g = np.random.RandomState(7).randn(*ids.shape, cfg.hidden_size) * real[..., None]
+    g = (g / np.linalg.norm(g)).astype(np.float32)
+    j_seg = None if seg is None else jnp.asarray(seg)
+    want = jax.jit(jax.grad(lambda p: jnp.sum(jesm2.Esm2(cfg).apply(
+        {"params": p}, jnp.asarray(ids), segment_ids=j_seg) * g)))(params)
+    want = convert.esm2_state_dict(_numpy_tree(want))
+    calls = []
+    for name in ("flash_attention_plain", "flash_attention_bwd_plain"):
+        real_fn = getattr(fa, name)
+
+        def spy(*args, _fn=real_fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(fa, name, spy)
+    model.zero_grad()
+    out = model(torch.from_numpy(ids).long(),
+                segment_ids=None if seg is None else torch.from_numpy(seg))
+    (out * torch.from_numpy(g)).sum().backward()
+    n = 0 if packed else cfg.num_layers
+    assert calls.count("flash_attention_plain") == n
+    assert calls.count("flash_attention_bwd_plain") == n
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    assert set(grads) == set(want)
+    for key, ref in want.items():
+        np.testing.assert_allclose(grads[key].numpy(), ref.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
+
+
 @pytest.mark.parametrize("D,path", [(16, "mha_attention"), (64, "mha_attention"),
-                                    (128, "dot_product_attention")])
+                                    (128, "dot_product_attention"),
+                                    (256, "dot_product_attention")])
 def test_esm2_attention_dispatch_by_head_dim(D, path, monkeypatch):
     """Heads of at most 64 take the fused flash-MHA path (rotary inside the
     kernel); wider heads rotary in the compute dtype, then
@@ -274,7 +358,7 @@ def test_esm2_attention_dispatch_by_head_dim(D, path, monkeypatch):
 def test_d128_rotary_in_compute_dtype(tiny_esm2, monkeypatch):
     """The wide-head path rotates q and k with the tables cast to the
     compute dtype (JAX builds them with dtype=q2d.dtype)."""
-    _, _, model = tiny_esm2
+    cfg, _, model, _ = tiny_esm2
     seen = []
     real = esm2.apply_rotary
 
@@ -286,7 +370,8 @@ def test_d128_rotary_in_compute_dtype(tiny_esm2, monkeypatch):
     bf16 = esm2.Esm2(model.config, device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
         bf16(torch.from_numpy(_ids()).long())
-    assert seen == [(torch.bfloat16,) * 3 + ((24, 128),)] * 4
+    head_dim = cfg.hidden_size // cfg.num_heads
+    assert seen == [(torch.bfloat16,) * 3 + ((24, head_dim),)] * 4
 
 
 @pytest.fixture(scope="module")
