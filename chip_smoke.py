@@ -40,8 +40,8 @@ the elapsed seconds:
    version's, a library call's where one computes the same function, and
    the card's lower bound; the whole FA-2 backward on the card (dq, then
    dk/dv) is timed beside scaled_dot_product_attention's backward, at
-   D=128 and at D=256 (B=8 H=16 L=1024: #5 and #7 there are the
-   heads-of-256 instances, #6 its mma.sync one); and
+   D=128 and at D=256 (B=8 H=16 L=1024: #5, #6 and #7 there are the
+   heads-of-256 instances); and
    the flash-MHA kernels without rotary tables, as BERT calls them (heads
    of 64, 12 heads): the forward at embed_texts' B=32 L=512 with rows
    padded 0-75%, the forward and both backward kernels at the LoRA text
@@ -65,13 +65,12 @@ the elapsed seconds:
    (padded rows finite), timed beside it, SDPA with the dense mask, the
    share of tiles it visits and its needed-work and dense bounds, and #5,
    #6 and #7 at D=256 with ids on the batch's first 4 rows (16 heads) the
-   same way (#5 and #7 visit the tiles that meet, #6's mma.sync instance
-   masks every tile); then the heads-of-256 path: a 2-layer ESM2-layout
-   hub with 4 heads of 256 (HEADS_256, random weights) on 4 rows of 1024
-   tokens, forward and backward through Esm2SelfAttention, exact launches
-   of #5, #6 and #7 (one each a layer; the path "heads 256") and card
-   (bf16) vs CPU (f32) cosine >= 0.99 of the hidden states and of the
-   parameters' gradients;
+   same way (each visits the tiles that meet); then the heads-of-256
+   path: a 2-layer ESM2-layout hub with 4 heads of 256 (HEADS_256, random
+   weights) on 4 rows of 1024 tokens, forward and backward through
+   Esm2SelfAttention, exact launches of #5, #6 and #7 (one each a layer;
+   the path "heads 256") and card (bf16) vs CPU (f32) cosine >= 0.99 of
+   the hidden states and of the parameters' gradients;
 4. serving: the full-width ESM2-650M hub (random weights from a seed) with
    the 1024-wide mlp head answers 3 requests of 32 sequences and one top-10
    retrieval, bf16 hub then int8 hub, each built by `create_sequence_encoder`
@@ -1066,7 +1065,7 @@ def check_flash_attention_bwd(gen) -> list:
     for row, grads in zip(rows, (("dq", "delta"), ("dk", "dv"))):
         row["max_abs_err"] = max(worst_abs[g] for g in grads)
         row["max_rel_err"] = {g: worst[g] for g in grads}
-    # heads of 256: #7's wgmma instance (64 keys a CTA), #6's mma.sync one
+    # heads of 256: #6's instance (a single-stage V), #7's (64 keys a CTA)
     for row, sub in zip(rows, time_fa_backward(*cases[2], *timed[1])):
         row["d256"] = {k: sub[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1083,10 +1082,9 @@ def fa_segment_case(gen, seg, H, D, worse) -> dict:
     1.5e-2; lse 5e-2 on the real rows; the padded rows finite; q_s bit for
     bit), the errors folded into the kernels' rows by `worse`; then each
     timed beside its plain version, the share of tiles it visits
-    (`segment_tile_hits` at its tile shapes; #6's mma.sync instance for
-    heads over 128 visits every tile), the needed-work bound over the pairs
-    of equal ids and the dense one, and SDPA with the dense mask (the
-    forward; the backward as forward + backward minus forward)."""
+    (`segment_tile_hits` at its tile shapes), the needed-work bound over
+    the pairs of equal ids and the dense one, and SDPA with the dense mask
+    (the forward; the backward as forward + backward minus forward)."""
     B, L = seg.shape
     valid = seg >= 0
     bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
@@ -1168,7 +1166,7 @@ def fa_segment_case(gen, seg, H, D, worse) -> dict:
     share = lambda tile, block: flash_mha.segment_tile_hits(
         seg, tile, block).float().mean().item()
     tiles = {"fwd": share(fa.fwd_key_tile(D), fa.BLOCK),
-             "dq": share(fa.TILE, fa.BLOCK) if D <= 128 else 1.0,
+             "dq": share(fa.TILE, fa.BLOCK),
              "dkv": share(fa.TILE, fa.dkv_key_block(D))}
     pairs = needed_pairs(seg, B, L) * H
     dense = B * H * L * L
@@ -1209,8 +1207,7 @@ def check_flash_attention_segments(gen, rows: list) -> dict:
     (`make_packed_batch` from PACKED_SEG_SEED: the hub's ids, 16 rows of
     1024, 16 slots), `fa_segment_case` at the ESM2-15B width's heads (B=16
     H=40 L=1024 D=128) and at heads of 256 on the batch's first 4 rows (16
-    heads: #5 and #7 skip the tiles of other id ranges, #6's mma.sync
-    instance masks by the ids and visits every tile). Folds the errors into
+    heads: each skips the tiles of other id ranges). Folds the errors into
     `rows` and returns the numbers, which the rows of #5-#7 carry as
     `segment_ids` (D = 256 under its `d256`)."""
     seg = torch.from_numpy(make_packed_batch(np.random.RandomState(
@@ -6259,11 +6256,13 @@ def main() -> int:
     for name in _build.SIGNATURES:
         for instance, line in ptxas_report(_build.build_log(name)):
             print(f"  {name} {instance}: {line}", flush=True)
-            # the heads-of-256 instances of #5 and #7 keep their registers
+            # the heads-of-256 instances of #5-#7 keep their registers
             wide = ("flash_attention_fwd_wgmmaILi256E" in line
+                    or "flash_attention_bwd_dq_wgmmaILi4E" in line
                     or "flash_attention_bwd_dkv_wgmmaILi4E" in line
                     if instance == "note" else
                     instance.startswith(("flash_attention_fwd_wgmma<256,",
+                                         "flash_attention_bwd_dq_wgmma<4,",
                                          "flash_attention_bwd_dkv_wgmma<4,")))
             require(not wide or (instance != "note" and " 0 bytes spill stores"
                                  in line),

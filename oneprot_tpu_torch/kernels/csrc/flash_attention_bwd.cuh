@@ -1,9 +1,8 @@
 // Device helpers shared by the two FlashAttention-2 backward passes
 // (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): their parameters,
-// the dq pass's prologue arithmetic (q pre-scaled once, delta), and, for
-// the dq pass's mma.sync instance (heads wider than 128), the cp.async
-// copies of row tiles into shared memory and its two fragment products. The mma/ldmatrix primitives and fragment layouts are
-// flash_mha_common.cuh's; the wgmma, TMA and mbarrier ones hopper.cuh's.
+// the probability and segment-mask arithmetic, the dq pass's prologue (q
+// pre-scaled once, delta) and the store of an accumulator's rows. The
+// wgmma, TMA and mbarrier primitives are hopper.cuh's.
 
 #pragma once
 
@@ -14,7 +13,6 @@ namespace fa_bwd {
 using namespace flash;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int THREADS = 128;  // four warps
 
 struct Params {
   const __nv_bfloat16* q;     // [B, H, Lq, D] by the strides below: q in the dq
@@ -76,83 +74,6 @@ __device__ __forceinline__ float prologue_chunk(const Params& p, int b, int h, i
   *reinterpret_cast<uint4*>(p.qs + b * p.qs_sb + h * p.qs_sh + row * p.qs_sl + d0) = qs8;
   return dot8(do8, *reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh +
                                                     row * p.o_sl + d0));
-}
-
-// Start the copies of rows [row0, row0 + NROWS) of one head (`src`, rows
-// `ld` elements apart, unit stride over D) into a [NROWS][LDS] tile, 16
-// bytes a copy; rows past L and columns past D are zero-filled.
-template <int DP, int LDS, int NROWS>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int L, long long ld, int D) {
-  for (int i = threadIdx.x; i < NROWS * (DP / 8); i += THREADS) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L && c < D;
-    cp_async16(dst + r * LDS + c, ok ? src + row * ld + c : src, ok);
-  }
-}
-
-// 4-byte words [row0, row0 + N) of a per-row array (f32, or int32 ids);
-// zero past L or when the array is null (a copy that reads nothing still
-// names a valid address: `any`).
-template <int N, typename T>
-__device__ __forceinline__ void copy_words(T* dst, const T* src, int row0, int L,
-                                           const void* any) {
-  for (int i = threadIdx.x; i < N; i += THREADS) {
-    const int row = row0 + i;
-    const bool ok = src != nullptr && row < L;
-    cp_async4(dst + i, ok ? static_cast<const void*>(src + row) : any, ok);
-  }
-}
-
-// c[j] = A . X^T for the 8-row blocks j of X: A is the 16 x DP tile whose
-// first row is `a` (of a [*][LDS] tile), X a [NJ * 8][LDS] tile. The
-// product over the head dim (q k^T, dO v^T and their transposes); A's
-// fragments are read from shared memory once per k-step pair.
-template <int DP, int LDS, int NJ>
-__device__ __forceinline__ void mma_a_xt(float (&c)[NJ][4], const __nv_bfloat16* a,
-                                         const __nv_bfloat16* x, int lane) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-  const __nv_bfloat16* a_base =
-      a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4);
-#pragma unroll
-  for (int kp = 0; kp < DP / 32; ++kp) {
-    uint32_t a0[4], a1[4];  // A fragments of k-steps 2kp and 2kp+1
-    ldsm_x4(a0, a_base + kp * 32);
-    ldsm_x4(a1, a_base + kp * 32 + 16);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t b[4];  // b0, b1 of k-steps 2kp and 2kp+1
-      ldsm_x4(b, x + (j * 8 + (lane & 7)) * LDS + kp * 32 + 8 * (lane >> 3));
-      mma16816(c[j], a0, b[0], b[1]);
-      mma16816(c[j], a1, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x NC) += bf16(S) . X, for S the 16 x NK C fragments `s` and X the
-// NK x NC block of a [NK][LDS] tile that starts at `x` (its first column):
-// the product over the streamed rows (dS k, p^T dO, dS^T q).
-template <int NC, int LDS, int NK>
-__device__ __forceinline__ void mma_s_x(float (&acc)[NC / 8][4], const float (&s)[NK / 8][4],
-                                        const __nv_bfloat16* x, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    const int row = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int jp = 0; jp < NC / 16; ++jp) {
-      uint32_t b[4];  // b0, b1 of column blocks 2jp and 2jp+1
-      ldsm_x4_trans(b, x + row * LDS + 8 * (2 * jp + (lane >> 4)));
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // Write a warp's 16 x NC accumulator, times `mul`, as bf16 into rows

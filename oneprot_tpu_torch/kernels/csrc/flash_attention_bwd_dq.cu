@@ -20,36 +20,40 @@
 // row: at the ESM2-15B width (D = 128, L up to 1024) far above the card's
 // ~295 flop/byte ridge, so tensor-core operations, which only wgmma reaches.
 //
-// Design for heads up to 128 wide (`wg`, sm_90a): FA-2's dq pass as a
-// warp-specialised Hopper kernel. A CTA owns 128 query rows of one (batch,
-// head): warpgroup 0 is the producer (one warp issues TMA and loads the
-// bias; setmaxnreg gives its registers to the others), warpgroups 1 and 2
-// each compute 64 rows. The producer TMA-loads the CTA's q and dO rows once
-// (4-D tensor maps over the strided [B, L, H, D] projections, 128-byte
-// swizzle) and streams 64-key tiles of K and V, with the tile's bias, through
-// a two-stage mbarrier ring. The prologue scales q in place in shared
-// memory (then fence.proxy.async, so wgmma sees it). Per tile, S = Q_s K^T
-// and dP = dO V^T are wgmma m64n64k16 from shared memory (K-major), p and dS
-// stay in registers, and dq += dS K is a wgmma with dS as the register A
-// operand and the K tile read MN-major (transpose bit): dS never touches
-// shared memory and dq accumulates in f32 registers, 64 a thread at D = 128.
-// No atomics: dq is deterministic. Masking is explicit, never by TMA's zero
-// fill: keys past Lk get bias -inf (p = 0; a zero-filled key would give p =
-// exp2(-lse), inf on a row whose keys are all masked), queries past Lq lse =
-// +inf. Heads narrower than 128 are zero-filled by TMA up to 64 or 128.
+// Design (`wg`, sm_90a): FA-2's dq pass as a warp-specialised Hopper
+// kernel. A CTA owns 128 query rows of one (batch, head): warpgroup 0 is
+// the producer (one warp issues TMA and loads the bias; setmaxnreg gives
+// its registers to the others), warpgroups 1 and 2 each compute 64 rows.
+// The producer TMA-loads the CTA's q and dO rows once (4-D tensor maps over
+// the strided [B, L, H, D] projections, 128-byte swizzle) and streams
+// 64-key tiles of K and V, with the tile's bias, through a two-stage
+// mbarrier ring. The prologue scales q in place in shared memory (then
+// fence.proxy.async, so wgmma sees it). Per tile, S = Q_s K^T and dP = dO
+// V^T are wgmma m64n64k16 from shared memory (K-major), p and dS stay in
+// registers, and dq += dS K is a wgmma with dS as the register A operand
+// and the K tile read MN-major (transpose bit): dS never touches shared
+// memory and dq accumulates in f32 registers, 64 a thread at D = 128 and
+// 128 at D = 256. No atomics: dq is deterministic. Masking is explicit,
+// never by TMA's zero fill: keys past Lk get bias -inf (p = 0; a
+// zero-filled key would give p = exp2(-lse), inf on a row whose keys are
+// all masked), queries past Lq lse = +inf. Heads are zero-filled by TMA up
+// to the instance's width: 64, 128 or 256.
 //
-// Heads wider than 128 (`sm80`): the first, mma.sync version, chosen by
-// head width at compile time (the dk/dv pass has a wgmma instance for them;
-// this one is still to be redesigned): one CTA of four warps per 64 query
-// rows, q and dO in shared memory, key
-// tiles of 32 through a two-stage cp.async ring, mma.sync m16n8k16 with
-// ldmatrix fragments. Its prologue scales q in shared memory once and
-// writes q_s and delta the same way.
+// Heads of 136-256 (NH = 4): q and dO take 128 KB and a 64-key tile of K
+// or V 32 KB, so K has two stages and V one (224 KB): K with its bias and
+// ids arrives on barriers of its own, S starts before V has landed, and V
+// is refilled once both consumers' dP is done, while they finish the tile.
+// Tiles of 64 keys, not 32: a wgmma m64n32k16 from shared memory took
+// nearly as long as an m64n64k16, so halving S's and dP's width nearly
+// doubled their time. The waits are plain mbar_wait: a trap would hold the
+// consumers to the launch's 168 registers (hopper.cuh), where dq alone
+// takes 128.
 //
-// Packed rows: the Hopper instance's producer lists the key tiles that
-// share an id range with the CTA's 128 query rows (segment_tiles.cuh) and
-// streams only those, each key's id beside its bias; the skipped tiles'
-// dS is 0. The sm80 instance masks by the ids and visits every tile.
+// Packed rows: the producer marks the key tiles that share an id range
+// with the CTA's 128 query rows in a bitmap (segment_tiles.cuh; 1 bit a
+// tile, so a row of 225,280 keys still fits beside the 224 KB at NH = 4)
+// and streams only those, each key's id beside its bias; the skipped
+// tiles' dS is 0.
 //
 // Any Lq, Lk >= 1 (Lq = Lk with segment ids). dq and q_s are written by
 // their own (batch, head, row) strides, so they land in the [B, L, H, D]
@@ -64,7 +68,7 @@ namespace {
 using namespace fa_bwd;
 
 // ---------------------------------------------------------------------------
-// Hopper instance: wgmma + TMA, heads up to 128
+// wgmma + TMA, heads of 64, 128 and 256 (NH = 1, 2, 4 blocks of 64 columns)
 
 namespace wg {
 
@@ -74,8 +78,8 @@ constexpr int ROWS = 128;     // query rows per CTA, 64 per consumer warpgroup
 constexpr int BK = 64;        // keys per streamed tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 compute
-// named barrier 3: the tile list is ready (the producer warp and the
-// consumers; the consumers' own take 1 and 2)
+// named barrier 3: the tile bitmap and count are ready (the producer warp
+// and the consumers; the consumers' own take 1 and 2)
 constexpr int BAR_LIST = 3;
 constexpr int LISTENERS = 32 + 256;
 
@@ -86,26 +90,32 @@ struct alignas(64) Args {
 };
 
 // Shared memory, in bytes from a 1024-aligned base. NH: 64-column blocks of
-// the head (1: D <= 64, 2: D <= 128); every tile is NH blocks of
-// [rows][64] bf16 (see hopper.cuh).
+// the head (1: D <= 64, 2: D <= 128, 4: D <= 256); every tile is NH blocks
+// of [rows][64] bf16 (see hopper.cuh). At NH = 4, q and dO take 128 KB and
+// a K or V tile 32 KB, so V has one stage: K, the bias and the ids are
+// guarded by kv_full and kv_empty, V by v_full and v_empty.
 template <int NH>
 struct Smem {
+  static constexpr int V_STAGES = NH == 4 ? 1 : STAGES;
   static constexpr int ROW_BLOCK = ROWS * 128;
   static constexpr int KV_BLOCK = BK * 128;
   static constexpr int Q = 0;                                // q, then q_s
   static constexpr int DO = Q + NH * ROW_BLOCK;
   static constexpr int K = DO + NH * ROW_BLOCK;              // [STAGES][NH] blocks
-  static constexpr int V = K + STAGES * NH * KV_BLOCK;
-  static constexpr int BIAS = V + STAGES * NH * KV_BLOCK;    // f32 [STAGES][BK]
+  static constexpr int V = K + STAGES * NH * KV_BLOCK;       // [V_STAGES][NH] blocks
+  static constexpr int BIAS = V + V_STAGES * NH * KV_BLOCK;  // f32 [STAGES][BK]
   static constexpr int SEG = BIAS + STAGES * BK * 4;         // int [STAGES][BK]
   static constexpr int DELTA = SEG + STAGES * BK * 4;        // f32 [ROWS]
-  static constexpr int BARS = DELTA + ROWS * 4;  // q_full, kv_full[STAGES], kv_empty[STAGES]
-  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES);  // the list's length
-  static constexpr int LIST = COUNT + 16;                     // int [n_tiles]
-  static int bytes(int n_tiles) { return LIST + 4 * n_tiles + 1024; }  // + alignment slack
+  // q_full, kv_full[STAGES], kv_empty[STAGES], then at NH = 4 v_full, v_empty
+  static constexpr int BARS = DELTA + ROWS * 4;
+  static constexpr int COUNT = BARS + 8 * (1 + 2 * STAGES + (NH == 4 ? 2 : 0));  // tiles visited
+  static constexpr int MASK = COUNT + 16;  // uint32 [ceil(n_tiles / 32)]: the tiles visited
+  // + alignment slack; at NH = 4 (232,008 bytes before the mask) up to
+  // 3,520 key tiles, Lk <= 225,280, beyond which the launch is refused
+  static int bytes(int n_tiles) { return MASK + 4 * ((n_tiles + 31) / 32) + 1024; }
 };
 
-// One warp: q and dO once, the list of key tiles to visit, then K, V, the
+// One warp: q and dO once, the bitmap of key tiles to visit, then K, V, the
 // bias and the segment ids tile by tile.
 template <int NH>
 __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int h, int b) {
@@ -128,31 +138,55 @@ __device__ __forceinline__ void producer(const Args& a, uint8_t* sm, int q0, int
     }
   }
   const int n_tiles = (Lk + BK - 1) / BK;
-  int* list = reinterpret_cast<int*>(sm + S::LIST);
-  const int count = segtiles::build_list<ROWS, BK>(seg, Lk, q0, n_tiles, list, lane);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(sm + S::MASK);
+  const int count = segtiles::build_mask<ROWS, BK>(seg, Lk, q0, n_tiles, mask, lane);
   if (lane == 0) *reinterpret_cast<int*>(sm + S::COUNT) = count;
   named_bar_arrive(BAR_LIST, LISTENERS);
-  for (int it = 0; it < count; ++it) {
-    const int s = it % STAGES;
-    const int k0 = list[it] * BK;
-    mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
-    // keys past Lk: bias -inf, so p = 0 there whatever the row's lse
+  // the visited tiles in order: the set bits of each word of the bitmap
+  int it = 0;
+  for (int w = 0; 32 * w < n_tiles; ++w) {
+    for (uint32_t bits = mask[w]; bits != 0; bits &= bits - 1, ++it) {
+      const int s = it % STAGES;
+      const int k0 = (32 * w + __ffs(bits) - 1) * BK;
+      mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
+      // keys past Lk: bias -inf, so p = 0 there whatever the row's lse
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + 2 * lane + e;
-      bias_s[s * BK + 2 * lane + e] =
-          key < Lk ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
-      if (seg != nullptr) seg_s[s * BK + 2 * lane + e] = seg[min(key, Lk - 1)];
-    }
-    if (lane == 0) {
-      mbar_arrive_expect_tx(&kv_full[s], 2 * NH * S::KV_BLOCK);
-#pragma unroll
-      for (int c = 0; c < NH; ++c) {
-        tma_load_4d(sm + S::K + (s * NH + c) * S::KV_BLOCK, &a.k, &kv_full[s], 64 * c, k0, h, b);
-        tma_load_4d(sm + S::V + (s * NH + c) * S::KV_BLOCK, &a.v, &kv_full[s], 64 * c, k0, h, b);
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 2 * lane + e;
+        bias_s[s * BK + 2 * lane + e] =
+            key < Lk ? (bias == nullptr ? 0.f : bias[key]) : -INFINITY;
+        if (seg != nullptr) seg_s[s * BK + 2 * lane + e] = seg[min(key, Lk - 1)];
       }
-    } else {
-      mbar_arrive(&kv_full[s]);
+      uint8_t* k_st = sm + S::K + s * NH * S::KV_BLOCK;
+      if constexpr (NH == 4) {
+        // K now; V once both consumers are done with the previous tile's
+        uint64_t* v_full = kv_empty + STAGES;
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&kv_full[s], NH * S::KV_BLOCK);
+#pragma unroll
+          for (int c = 0; c < NH; ++c)
+            tma_load_4d(k_st + c * S::KV_BLOCK, &a.k, &kv_full[s], 64 * c, k0, h, b);
+        } else {
+          mbar_arrive(&kv_full[s]);
+        }
+        mbar_wait(v_full + 1, (it & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(v_full, NH * S::KV_BLOCK);
+#pragma unroll
+          for (int c = 0; c < NH; ++c)
+            tma_load_4d(sm + S::V + c * S::KV_BLOCK, &a.v, v_full, 64 * c, k0, h, b);
+        }
+      } else if (lane == 0) {
+        mbar_arrive_expect_tx(&kv_full[s], 2 * NH * S::KV_BLOCK);
+#pragma unroll
+        for (int c = 0; c < NH; ++c) {
+          tma_load_4d(k_st + c * S::KV_BLOCK, &a.k, &kv_full[s], 64 * c, k0, h, b);
+          tma_load_4d(sm + S::V + (s * NH + c) * S::KV_BLOCK, &a.v, &kv_full[s], 64 * c, k0,
+                      h, b);
+        }
+      } else {
+        mbar_arrive(&kv_full[s]);
+      }
     }
   }
 }
@@ -195,6 +229,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::BARS);
   uint64_t* kv_full = bars + 1;
   uint64_t* kv_empty = bars + 1 + STAGES;
+  uint64_t* v_full = bars + 1 + 2 * STAGES;  // and v_empty after it (NH = 4)
   const int tid = threadIdx.x - 128 * (c + 1);
   const int warp = tid / 32, lane = tid % 32, t = lane % 4;
 
@@ -231,7 +266,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
     const int s = it % STAGES;
     mbar_wait(&kv_full[s], (it / STAGES) & 1);
     const uint32_t k_addr = smem_u32(sm + S::K + s * NH * S::KV_BLOCK);
-    const uint32_t v_addr = smem_u32(sm + S::V + s * NH * S::KV_BLOCK);
+    const uint32_t v_addr = smem_u32(sm + S::V + (s % S::V_STAGES) * NH * S::KV_BLOCK);
 
     // S = Q_s K^T and dP = dO V^T, 64 x 64 each, over the head dim
     float sc[32], dp[32];
@@ -248,6 +283,10 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
                       kk);
     }
     wgmma_commit();
+    if constexpr (NH == 4) {
+      mbar_wait(v_full, it & 1);
+      wgmma_fence();  // after the wait, or ptxas adds one (C7519)
+    }
 #pragma unroll
     for (int kk = 0; kk < 4 * NH; ++kk) {
       const uint32_t kq = (kk / 4) * S::ROW_BLOCK + (kk % 4) * 32;
@@ -280,6 +319,7 @@ __device__ __forceinline__ void consumer(const Args& a, uint8_t* sm, int c, int 
     }
     wgmma_wait<0>();
     fence_regs(dp);
+    if constexpr (NH == 4) mbar_arrive(v_full + 1);  // this thread is done with V
 
     // dS = p (dP - delta), then dq += bf16(dS) K
 #pragma unroll
@@ -319,15 +359,27 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_dq_wgmma(const
       mbar_init(bars + 1 + s, 32);            // kv_full: the producer warp
       mbar_init(bars + 1 + STAGES + s, 256);  // kv_empty: every consumer thread
     }
+    if constexpr (NH == 4) {
+      mbar_init(bars + 1 + 2 * STAGES, 1);    // v_full: expect_tx, then TMA's bytes
+      mbar_init(bars + 2 + 2 * STAGES, 256);  // v_empty: every consumer thread
+    }
     fence_barrier_init();
   }
   __syncthreads();
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  // at NH = 4 the producer spills at 24 registers, and the consumers' 232
+  // suffice
   if (threadIdx.x < 128) {
-    setmaxnreg_dec<24>();
+    if constexpr (NH == 4)
+      setmaxnreg_dec<40>();
+    else
+      setmaxnreg_dec<24>();
     if (threadIdx.x < 32) producer<NH>(a, sm, q0, h, b);
   } else {
-    setmaxnreg_inc<240>();
+    if constexpr (NH == 4)
+      setmaxnreg_inc<232>();
+    else
+      setmaxnreg_inc<240>();
     consumer<NH, SEG>(a, sm, threadIdx.x / 128 - 1, q0, h, b);
   }
 }
@@ -353,168 +405,6 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 }  // namespace wg
-
-// ---------------------------------------------------------------------------
-// mma.sync instance: heads wider than 128
-
-namespace sm80 {
-
-constexpr int ROWS = 64;  // query rows per CTA, 16 per warp
-
-template <int DP, int BK>
-struct Cfg {
-  static constexpr int LDS = DP + 8;  // row pitch (bf16): conflict-free ldmatrix
-  static constexpr int ROW_ELEMS = ROWS * LDS;
-  static constexpr int KV_ELEMS = BK * LDS;
-  static constexpr int STAGE_ELEMS = 2 * KV_ELEMS + 4 * BK;  // K, V, f32 bias, int32 ids
-  // q and dO tiles, two stages, then f32 delta of the q rows
-  static constexpr size_t SMEM_BYTES = (size_t)(2 * ROW_ELEMS + 2 * STAGE_ELEMS) * 2 + ROWS * 4;
-};
-
-template <typename C, int DP, int BK>
-__device__ __forceinline__ void start_kv_tile(const Params& p, __nv_bfloat16* st,
-                                              const __nv_bfloat16* kh,
-                                              const __nv_bfloat16* vh,
-                                              const float* bias, const int* seg, int kt) {
-  const int k0 = kt * BK;
-  copy_rows<DP, C::LDS, BK>(st, kh, k0, p.Lk, p.k_sl, p.D);
-  copy_rows<DP, C::LDS, BK>(st + C::KV_ELEMS, vh, k0, p.Lk, p.v_sl, p.D);
-  float* words = reinterpret_cast<float*>(st + 2 * C::KV_ELEMS);
-  copy_words<BK>(words, bias, k0, p.Lk, kh);
-  copy_words<BK>(reinterpret_cast<int*>(words + BK), seg, k0, p.Lk, kh);
-}
-
-template <int DP, int BK>
-__global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_mma(const Params p) {
-  using C = Cfg<DP, BK>;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* Qs = smem;
-  __nv_bfloat16* dOs = Qs + C::ROW_ELEMS;
-  __nv_bfloat16* stages = dOs + C::ROW_ELEMS;
-  float* delta_s = reinterpret_cast<float*>(stages + 2 * C::STAGE_ELEMS);
-
-  const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* qh = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kh = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vh = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* doh = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* bias = p.bias == nullptr ? nullptr : p.bias + (size_t)b * p.Lk;
-  const int* seg = p.seg == nullptr ? nullptr : p.seg + (size_t)b * p.Lk;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t = lane % 4;
-  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's two query rows
-  const int row_b = row_a + 8;
-  const int n_tiles = (p.Lk + BK - 1) / BK;
-  const int seg_a = seg == nullptr ? 0 : seg[min(row_a, p.Lk - 1)];
-  const int seg_b = seg == nullptr ? 0 : seg[min(row_b, p.Lk - 1)];
-
-  // group 0: the q and dO tiles and key tile 0
-  copy_rows<DP, C::LDS, ROWS>(Qs, qh, q0, p.Lq, p.q_sl, p.D);
-  copy_rows<DP, C::LDS, ROWS>(dOs, doh, q0, p.Lq, p.do_sl, p.D);
-  start_kv_tile<C, DP, BK>(p, stages, kh, vh, bias, seg, 0);
-  cp_async_commit();
-
-  const size_t lrow = ((size_t)b * p.H + h) * p.Lq;
-  // rows past Lq: lse = +inf makes p = 0
-  const float lse_a = row_a < p.Lq ? p.lse[lrow + row_a] : INFINITY;
-  const float lse_b = row_b < p.Lq ? p.lse[lrow + row_b] : INFINITY;
-
-  // the prologue, once group 0 has landed: q_s in place and out, delta of
-  // the tile's rows
-  cp_async_wait<0>();
-  __syncthreads();
-  constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4* qp = reinterpret_cast<uint4*>(Qs + r * C::LDS + c);
-    const uint4 qs8 = scale8(*qp, p.qscale);
-    *qp = qs8;
-    const float dot = row_sum<CH>(prologue_chunk(
-        p, b, h, q0 + r, c, qs8, *reinterpret_cast<const uint4*>(dOs + r * C::LDS + c)));
-    if (i % CH == 0) {
-      delta_s[r] = dot;
-      if (q0 + r < p.Lq) p.delta[lrow + q0 + r] = dot;
-    }
-  }
-  __syncthreads();
-  const float dl_a = delta_s[row_a - q0];
-  const float dl_b = delta_s[row_b - q0];
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const __nv_bfloat16* q_warp = Qs + warp * 16 * C::LDS;
-  const __nv_bfloat16* do_warp = dOs + warp * 16 * C::LDS;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const __nv_bfloat16* ks = stages + (kt & 1) * C::STAGE_ELEMS;
-    const __nv_bfloat16* vs = ks + C::KV_ELEMS;
-    const float* bs = reinterpret_cast<const float*>(ks + 2 * C::KV_ELEMS);
-    const int* ss = reinterpret_cast<const int*>(bs + BK);
-    __syncthreads();  // every warp is done with the stage the next copy overwrites
-    if (kt + 1 < n_tiles) {
-      start_kv_tile<C, DP, BK>(p, stages + ((kt + 1) & 1) * C::STAGE_ELEMS, kh, vh,
-                               bias, seg, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kt has landed
-    const int k0 = kt * BK;
-
-    // p = exp2((q k^T + bias) * log2 e - lse), SEG_MASK across segments;
-    // keys past Lk at 0
-    float s[BK / 8][4];
-    mma_a_xt<DP, C::LDS, BK / 8>(s, q_warp, ks, lane);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = j * 8 + 2 * t + e;
-        const bool ok = k0 + kc < p.Lk;
-        const float bb = bs[kc];
-        const float ba = seg == nullptr ? bb : seg_bias(bb, seg_a, ss[kc]);
-        const float bb2 = seg == nullptr ? bb : seg_bias(bb, seg_b, ss[kc]);
-        s[j][e] = ok ? bwd_prob(s[j][e], ba, lse_a) : 0.f;
-        s[j][2 + e] = ok ? bwd_prob(s[j][2 + e], bb2, lse_b) : 0.f;
-      }
-    }
-
-    // dS = p (dO v^T - delta), then dq += dS k
-    float dp[BK / 8][4];
-    mma_a_xt<DP, C::LDS, BK / 8>(dp, do_warp, vs, lane);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      dp[j][0] = s[j][0] * (dp[j][0] - dl_a);
-      dp[j][1] = s[j][1] * (dp[j][1] - dl_a);
-      dp[j][2] = s[j][2] * (dp[j][2] - dl_b);
-      dp[j][3] = s[j][3] * (dp[j][3] - dl_b);
-    }
-    mma_s_x<DP, C::LDS, BK>(acc, dp, ks, lane);
-  }
-
-  store_rows<DP>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sl, acc, row_a, 0, p.Lq,
-                 p.D, lane, p.scale);
-}
-
-template <int DP, int BK>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<DP, BK>;
-  auto kernel = flash_attention_bwd_dq_mma<DP, BK>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Lq + ROWS - 1) / ROWS, p.H, B);
-  kernel<<<grid, THREADS, C::SMEM_BYTES, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace sm80
 
 }  // namespace
 
@@ -582,5 +472,5 @@ extern "C" int oneprot_flash_attention_bwd_dq(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64) return wg::launch<1>(p, B, s);
   if (D <= 128) return wg::launch<2>(p, B, s);
-  return sm80::launch<256, 32>(p, B, s);
+  return wg::launch<4>(p, B, s);
 }

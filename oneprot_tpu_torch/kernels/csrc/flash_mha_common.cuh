@@ -1,16 +1,7 @@
-// Device helpers shared by the mma.sync kernel (the FlashAttention-2 dq
-// pass's instance for heads over 128) and the wgmma kernels:
-// cp.async copies into shared memory, ldmatrix fragment loads, the mma.sync
-// m16n8k16 bf16 product with f32 accumulation, bf16 packing, dot8 and
-// row_sum.
-//
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16 row-major: a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g,
-//     cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
-//   B 16x8: b0 (k rows 2t, 2t+1, col g), b1 (k rows 2t+8, 2t+9, col g);
-//   C 16x8: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
-// So a C tile of two adjacent 8-column blocks, packed to bf16, is the A
-// fragment of the next product, and probabilities never leave registers.
+// Device helpers shared by the attention kernels (the FlashAttention-2
+// forward and backward, the flash-MHA forward and backward): the segment
+// mask, bf16 packing, dot8 and row_sum. The wgmma, TMA and mbarrier
+// primitives and the accumulator's fragment layout are hopper.cuh's.
 
 #pragma once
 
@@ -22,48 +13,6 @@
 namespace flash {
 
 constexpr float SEG_MASK = -1e30f;  // cross-segment logit, as the TPU kernel
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared; with valid = false the destination is
-// zero-filled and the source is not read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

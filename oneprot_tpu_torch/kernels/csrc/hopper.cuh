@@ -443,14 +443,16 @@ __device__ __forceinline__ void wgmma_rs_m64n256_tb(float (&d)[128], const uint3
 
 
 // D (64 x 64 NH, f32) += A (64 x 16) B (16 x 64 NH): A from registers, B
-// from shared memory, MN-major; NH 64-column blocks (1 or 2).
+// from shared memory, MN-major; NH 64-column blocks (1, 2 or 4).
 template <int NH>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32 * NH], const uint32_t (&a)[4],
                                             uint64_t db) {
   if constexpr (NH == 1)
     wgmma_rs_m64n64_tb(d, a, db, 1);
-  else
+  else if constexpr (NH == 2)
     wgmma_rs_m64n128_tb(d, a, db, 1);
+  else
+    wgmma_rs_m64n256_tb(d, a, db, 1);
 }
 
 // Columns 16kk..16kk+15 of a 64 x 16KS accumulator, packed to bf16

@@ -6,11 +6,14 @@
 // of rows are visited together when both hold padding (id -1) or when the
 // ranges [min, max] of their other ids intersect: disjoint ranges share no
 // id, so no pair of equal ids is dropped, whatever the order of the ids
-// (flash_mha.segment_tile_hits states the same rule in PyTorch).
+// (flash_mha.segment_tile_hits states the same rule in PyTorch). The
+// visited tiles come as a list (build_list) or, where shared memory is
+// short (the dq pass at heads of 256), a bitmap (build_mask).
 
 #pragma once
 
 #include <limits.h>
+#include <stdint.h>
 
 namespace segtiles {
 
@@ -48,18 +51,13 @@ __device__ __forceinline__ Range span(const int (&ids)[ROWS / 32], int r0, int L
   return t;
 }
 
-// One warp writes into `list` the tiles of BK rows of row `seg` (its L ids,
-// or null: every tile) that meet the block of OWN rows at `own0`, in order,
-// and returns their count (the same in every lane). The ids of 256 / BK
-// tiles are loaded at once.
-template <int OWN, int BK>
-__device__ __forceinline__ int build_list(const int* seg, int L, int own0, int n_tiles,
-                                          int* list, int lane) {
-  if (seg == nullptr) {
-    for (int j = lane; j < n_tiles; j += 32) list[j] = j;
-    __syncwarp();
-    return n_tiles;
-  }
+// One warp calls hit(j, n) for each tile j of BK rows of row `seg` (its L
+// ids) that meets the block of OWN rows at `own0`, in order (n: how many
+// met before it), in every lane, and returns their count. The ids of 256 /
+// BK tiles are loaded at once.
+template <int OWN, int BK, typename Hit>
+__device__ __forceinline__ int scan_tiles(const int* seg, int L, int own0, int n_tiles,
+                                          int lane, Hit hit) {
   auto id_at = [&](int r) { return r < L ? seg[r] : 0; };
   int own[OWN / 32];
 #pragma unroll
@@ -77,11 +75,46 @@ __device__ __forceinline__ int build_list(const int* seg, int L, int own0, int n
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u;
       if (j < n_tiles && tiles_meet(mine, span<BK>(ids[u], j * BK, L, lane))) {
-        if (lane == 0) list[count] = j;
+        hit(j, count);
         ++count;
       }
     }
   }
+  return count;
+}
+
+// One warp writes into `list` the tiles of BK rows of row `seg` (its L ids,
+// or null: every tile) that meet the block of OWN rows at `own0`, in order,
+// and returns their count (the same in every lane).
+template <int OWN, int BK>
+__device__ __forceinline__ int build_list(const int* seg, int L, int own0, int n_tiles,
+                                          int* list, int lane) {
+  if (seg == nullptr) {
+    for (int j = lane; j < n_tiles; j += 32) list[j] = j;
+    __syncwarp();
+    return n_tiles;
+  }
+  const int count = scan_tiles<OWN, BK>(seg, L, own0, n_tiles, lane, [&](int j, int n) {
+    if (lane == 0) list[n] = j;
+  });
+  __syncwarp();
+  return count;
+}
+
+// The same tiles as a bitmap, 1 bit a tile where `list` takes 4 bytes: bit
+// j % 32 of mask[j / 32] is set for each tile j that is visited.
+template <int OWN, int BK>
+__device__ __forceinline__ int build_mask(const int* seg, int L, int own0, int n_tiles,
+                                          uint32_t* mask, int lane) {
+  for (int w = lane; 32 * w < n_tiles; w += 32) {
+    const int n = min(n_tiles - 32 * w, 32);  // the tiles of word w
+    mask[w] = seg != nullptr ? 0u : n == 32 ? ~0u : (1u << n) - 1u;
+  }
+  __syncwarp();
+  if (seg == nullptr) return n_tiles;
+  const int count = scan_tiles<OWN, BK>(seg, L, own0, n_tiles, lane, [&](int j, int) {
+    if (lane == 0) mask[j / 32] |= 1u << (j % 32);
+  });
   __syncwarp();
   return count;
 }

@@ -40,8 +40,8 @@ from oneprot_tpu_torch.kernels.flash_mha import SEG_MASK
 MIN_HEAD_DIM, MAX_HEAD_DIM = 64, 256
 # the kernels' tiles, for the skip rule (`flash_mha.segment_tile_hits`): a
 # CTA of #5 and #6 holds BLOCK query rows and streams key tiles (of
-# `fwd_key_tile(D)` keys in #5, TILE in #6); a CTA of #7 holds
-# `dkv_key_block(D)` keys and streams query tiles of TILE
+# `fwd_key_tile(D)` keys in #5, TILE in #6 at every head width); a CTA of
+# #7 holds `dkv_key_block(D)` keys and streams query tiles of TILE
 BLOCK, TILE = 128, 64
 
 

@@ -339,14 +339,15 @@ def segment_tile_hits(segment_ids: torch.Tensor, tile: int = SKIP_TILE,
     the flash-MHA backward's square tiles; its forward takes FWD_Q_TILE and
     `fwd_key_tile`). The FlashAttention-2 kernels (`flash_attention`) take
     the same rule at their own shapes: #5 `(seg, fwd_key_tile(D), BLOCK)`,
-    #6 `(seg, TILE, BLOCK)`, #7 the transpose of #6's (its CTA holds BLOCK
-    keys and streams query tiles of TILE); `csrc/segment_tiles.cuh` is the
-    rule on the card. A block and a tile of a row are visited together
-    when both hold padding (id -1) or when the ranges [min, max] of their
-    other ids intersect. Disjoint ranges share no id, so a pair of equal
-    ids always lies in a visited pair, whatever the order of the ids; with
-    contiguous packing the rule is also tight. Rows past L count as
-    neither (the int32 sentinels are the kernels')."""
+    #6 `(seg, TILE, BLOCK)`, #7 `(seg, TILE, dkv_key_block(D))` read key
+    block first (its CTA holds the keys and streams query tiles of TILE);
+    `csrc/segment_tiles.cuh` is the rule on the card. A block and a tile
+    of a row are visited together when both hold padding (id -1) or when
+    the ranges [min, max] of their other ids intersect. Disjoint ranges
+    share no id, so a pair of equal ids always lies in a visited pair,
+    whatever the order of the ids; with contiguous packing the rule is
+    also tight. Rows past L count as neither (the int32 sentinels are the
+    kernels')."""
     seg = segment_ids.to(torch.int32)
     B, L = seg.shape
     real = seg != -1

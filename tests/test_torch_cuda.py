@@ -609,6 +609,9 @@ def test_flash_attention_forward_all_keys_masked(card, D, L):
     (2, 3, 130, 77, 192, "contiguous", True),   # 192, zero-filled; Lq > Lk
     (2, 2, 200, 333, 136, "heads", True),       # 136, zero-filled; Lq < Lk
     (1, 2, 1, 5, 256, "heads", False),          # one query at 256
+    (1, 2, 1, 33, 256, "heads", False),         # a last key tile of 1 at 256
+    (2, 2, 65, 65, 256, "heads", False),        # one query row past 64 at 256
+    (2, 2, 300, 300, 256, "heads", False),      # ragged at 256, no bias
 ])
 def test_flash_attention_backward_kernels_match_plain(card, B, H, Lq, Lk, D,
                                                       layout, biased):
@@ -756,6 +759,32 @@ def test_flash_attention_kernel_refuses(card):
         fa.flash_attention_fwd_cuda(x, x, x, None, seg[:, :8])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lk,fits", [(225_280, True), (225_281, False)])
+def test_flash_attention_dq_at_its_longest_rows(card, Lk, fits):
+    """At heads of 256 the dq kernel's shared memory holds q, dO, two K
+    stages, one V stage and a bitmap of the key tiles it visits: one query
+    row against 225,280 keys (3,520 tiles of 64) still fits and is right;
+    one key more is refused at launch, not answered wrong."""
+    q, k, v, bias = _fa_inputs(1, 1, 1, Lk, 256, card, 7, "contiguous")
+    gen = torch.Generator(device=card).manual_seed(8)
+    dout = torch.randn(1, 1, 1, 256, device=card, generator=gen).to(
+        torch.bfloat16)
+    out, lse = fa.flash_attention_plain(q, k, v, bias)
+    if not fits:
+        with pytest.raises(RuntimeError):
+            fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse, dout)
+        return
+    dq, _, _ = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, out, lse, dout)
+    want, _, _ = fa.flash_attention_bwd_dq_plain(q, k, v, bias, out, lse,
+                                                 dout)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq.float()).all()
+    rel = ((dq.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel <= FLASH_REL_TOL, f"dq: max rel err {rel}"
+
+
 def _fa_segments(B, L, card, seed):
     """[B, L] int32 ids of packed rows: ragged proteins, then a padded tail
     (-1); the last row is all padding."""
@@ -771,15 +800,13 @@ def _fa_segments(B, L, card, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,L", [(72, 200), (128, 200), (128, 1024),
-                                 (64, 300), (256, 256), (256, 1024),
+                                 (64, 300), (256, 65), (256, 256), (256, 1024),
                                  (192, 300), (136, 1024)])
 def test_flash_attention_kernels_with_segment_ids(card, D, L):
-    """#5, #6 and #7 with segment ids (packed rows; the wgmma instances skip
-    the tiles of other segments, #6's mma.sync one for heads over 128 masks
-    only) against their
-    plain versions on the same ids: out and lse, then each backward kernel
-    against its own plain version and the whole plain backward; padded
-    rows finite."""
+    """#5, #6 and #7 with segment ids (packed rows; every instance skips the
+    tiles of other segments) against their plain versions on the same ids:
+    out and lse, then each backward kernel against its own plain version
+    and the whole plain backward; padded rows finite."""
     B, H = 3, 4
     q, k, v, _ = _fa_inputs(B, H, L, L, D, card, L + D, "heads")
     seg = _fa_segments(B, L, card, D + L)

@@ -17,7 +17,8 @@ their plain versions build the mask from them at -1e30. Held here:
   `dot_product_attention` on the dense mask;
 - `segment_tile_hits` at the FA kernels' tile shapes (hypothesis, heads of
   64, 128 and 256; and the heads-of-256 tiles on fixed rows, with the
-  tables' sizes): no pair of equal ids is dropped;
+  tables' sizes): no pair of equal ids is dropped, and on contiguous
+  packing #6's and #7's tables are tight;
 - one packed LoRA step of a hub with heads of 128 (a config.json in a
   temporary directory) and the tiny tower, against the JAX module: loss,
   clipped gradients and the update.
@@ -171,8 +172,9 @@ def test_ids_need_self_attention():
 def _tile_tables(seg, D):
     """The skip rule's tables at the kernels' tiles for heads of D: #5
     (query blocks of BLOCK, key tiles of fwd_key_tile(D)), #6 (blocks of
-    BLOCK, key tiles of TILE) and #7 (key blocks of dkv_key_block(D), query
-    tiles of TILE; the table read key block first)."""
+    BLOCK, key tiles of TILE at every width) and #7 (key blocks of
+    dkv_key_block(D), query tiles of TILE; the table read key block
+    first)."""
     ids = torch.from_numpy(seg.astype(np.int32))
     return (flash_mha.segment_tile_hits(ids, fa.fwd_key_tile(D), fa.BLOCK),
             flash_mha.segment_tile_hits(ids, fa.TILE, fa.BLOCK),
@@ -210,13 +212,14 @@ def test_fa_tile_shapes_never_drop_a_pair_of_equal_ids(B, L, D, kind, seed):
     _assert_pairs_visited(seg, D)
 
 
-@pytest.mark.parametrize("L", [1, 63, 64, 65, 300, 1024])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 300, 1024])
 def test_fa_tile_shapes_at_heads_of_256(L):
-    """The tiles of the heads-of-256 instances: #5 streams key tiles of 64
-    against query blocks of 128, #7 holds 64 keys a CTA against query tiles
-    of 64. The tables list every (block, tile) pair that holds a pair of
-    equal ids, on contiguous packing with a padded tail and on shuffled
-    ids, and no tile past L: ceil(L / rows) of each kind."""
+    """The tiles of the heads-of-256 instances: #5 and #6 stream key tiles
+    of 64 against query blocks of 128, #7 holds 64 keys a CTA against query
+    tiles of 64. The tables list every (block, tile) pair that holds a pair
+    of equal ids, on contiguous packing with a padded tail and on shuffled
+    ids, and no tile past L: ceil(L / rows) of each kind. On contiguous
+    packing #6's and #7's tables are tight."""
     assert (fa.fwd_key_tile(256), fa.dkv_key_block(256)) == (64, 64)
     assert (fa.fwd_key_tile(128), fa.dkv_key_block(128)) == (64, fa.BLOCK)
     rng = np.random.RandomState(L)
@@ -231,13 +234,18 @@ def test_fa_tile_shapes_at_heads_of_256(L):
     assert tuple(dq.shape) == (2, up(fa.BLOCK), up(fa.TILE))
     assert tuple(dkv.shape) == (2, up(64), up(fa.TILE))
     _assert_pairs_visited(seg, 256)
-    # contiguous packing is tight: a key block and a query tile meet exactly
-    # when they share an id (or both hold padding)
+    # contiguous packing is tight: a block and a tile meet exactly when they
+    # share an id (or both hold padding)
     for kb in range(up(64)):
         for qt in range(up(fa.TILE)):
             keys = set(seg[0, kb * 64:(kb + 1) * 64])
             queries = set(seg[0, qt * fa.TILE:(qt + 1) * fa.TILE])
             assert bool(dkv[0, kb, qt]) == bool(keys & queries)
+    for qb in range(up(fa.BLOCK)):
+        for kt in range(up(fa.TILE)):
+            queries = set(seg[0, qb * fa.BLOCK:(qb + 1) * fa.BLOCK])
+            keys = set(seg[0, kt * fa.TILE:(kt + 1) * fa.TILE])
+            assert bool(dq[0, qb, kt]) == bool(keys & queries)
 
 
 # -- the packed LoRA step at heads of 128 --------------------------------------
